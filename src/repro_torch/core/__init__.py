@@ -1,0 +1,7 @@
+"""The port's own copies of the host I/O modules the serve driver reaches.
+
+``metrics``, ``transport``, ``fabric``, ``storage``, ``arena``,
+``credentials``, ``hints``, ``ratelimit`` and ``backend`` are copies of
+their ``repro.core`` namesakes (jax-free Python), trimmed only of code
+the serve path cannot reach. Every constant keeps the reference's value.
+"""

@@ -1,0 +1,204 @@
+"""Decoder-only LM assembly, dense family.
+
+The counterpart of ``repro.models.lm`` for ``family == "dense"``. Params
+keep the reference's tree: leaf names and a stacked leading layer axis
+(``params["layers"][name][i]`` is layer i), so the codec writes the same
+bytes in the same order. The reference's ``jax.lax.scan`` over layers is
+a Python loop here. Prefill and decode run under
+``torch.inference_mode()``; `decode_step` updates the cache's ``k``,
+``v`` and ``slot_pos`` IN PLACE and returns a dict that shares them
+(the reference returns a new cache). ``plain=True`` runs the attention
+kernels' plain versions instead of the kernels, on any device.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import kv_cache as kvc
+from repro_torch.models import layers as L
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def check_supported(cfg) -> None:
+    """Raise for the parts of the reference the port does not have yet."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    missing = [f for f in ("attn_bias", "qk_norm", "uniform_decode",
+                           "embed_input", "is_encoder_decoder")
+               if getattr(cfg, f)]
+    if missing:
+        raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} not "
+                                  f"ported yet")
+
+
+# ------------------------------------------------------------------- params
+
+def init_layer_params(generator, cfg, dtype, device=None):
+    ones = dict(dtype=dtype, device=device if device is not None
+                else generator.device)
+    return {
+        "ln1": torch.ones((cfg.d_model,), **ones),
+        "attn": L.init_attention(generator, cfg, dtype, device),
+        "ln2": torch.ones((cfg.d_model,), **ones),
+        "mlp": L.init_mlp(generator, cfg.d_model, cfg.d_ff, dtype, device),
+    }
+
+
+def _stack_into(stacked, layer, i):
+    for name, leaf in layer.items():
+        if isinstance(leaf, dict):
+            _stack_into(stacked[name], leaf, i)
+        else:
+            stacked[name][i].copy_(leaf)
+
+
+def _empty_stacked(layer, n):
+    return {name: (_empty_stacked(leaf, n) if isinstance(leaf, dict)
+                   else leaf.new_empty((n,) + tuple(leaf.shape)))
+            for name, leaf in layer.items()}
+
+
+def init_params(generator, cfg, device=None):
+    """Seeded init from ``generator`` on its device.
+
+    Layers are drawn one at a time into the stacked tree, so peak memory
+    is the params plus one layer. On the meta device (``generator=None,
+    device="meta"``) it returns the tree of structs.
+    """
+    check_supported(cfg)
+    dtype = DTYPES[cfg.param_dtype]
+    device = generator.device if device is None else torch.device(device)
+    embed = L.dense_init(generator, (cfg.vocab_size, cfg.d_model), 1, dtype,
+                         device)
+    stacked = None
+    for i in range(cfg.num_layers):
+        layer = init_layer_params(generator, cfg, dtype, device)
+        if stacked is None:
+            stacked = _empty_stacked(layer, cfg.num_layers)
+        if device.type != "meta":
+            _stack_into(stacked, layer, i)
+    params = {
+        "embed": embed,
+        "layers": stacked,
+        "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.dense_init(
+            generator, (cfg.d_model, cfg.vocab_size), 0, dtype, device)
+    return params
+
+
+def param_structs(cfg):
+    """The params tree as meta tensors: shapes and dtypes, no data."""
+    return init_params(None, cfg, device="meta")
+
+
+def layer_params(layers, i):
+    """Layer i of the stacked tree."""
+    return {name: (layer_params(leaf, i) if isinstance(leaf, dict)
+                   else leaf[i])
+            for name, leaf in layers.items()}
+
+
+# ----------------------------------------------------------------- sublayers
+
+def _seq_sublayers(cfg, lp, x, plain=False):
+    """One dense layer over a full sequence. Returns (x, (k, v))."""
+    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    attn_out, kv = L.attention_layer(lp["attn"], cfg, h, plain=plain)
+    x = x + attn_out
+    h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + L.mlp_layer(lp["mlp"], h2), kv
+
+
+def _ring_kv(cache_k, cache_v, k, v):
+    """Write one layer's prefill K/V into its (ring) cache slice."""
+    kvc.write_prefill_entries(cache_k, k)
+    kvc.write_prefill_entries(cache_v, v)
+
+
+def _decode_sublayers(cfg, lp, x, k_cache, v_cache, slot_pos, pos,
+                      plain=False):
+    """One dense layer, one token; writes its K/V into the cache."""
+    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    attn_out, _ = L.attention_decode_layer(
+        lp["attn"], cfg, h, k_cache, v_cache, slot_pos, pos, plain=plain)
+    x = x + attn_out
+    h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + L.mlp_layer(lp["mlp"], h2)
+
+
+# ------------------------------------------------------------------- stacks
+
+def run_stack(cfg, params, x, cache_k, cache_v, plain=False):
+    """Run the layer stack over a full sequence, filling the cache's
+    per-layer slices. Returns the final-normed hidden states."""
+    for i in range(cfg.num_layers):
+        x, (k, v) = _seq_sublayers(cfg, layer_params(params["layers"], i), x,
+                                   plain=plain)
+        _ring_kv(cache_k[i], cache_v[i], k, v)
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def run_stack_decode(cfg, params, x, cache, pos, plain=False):
+    """Run the stack for one decode token; cache leaves have leading L.
+
+    ``slot_pos`` gets this token's position in slot ``pos % W`` first
+    (every layer writes the same slot), all in place on the device.
+    """
+    slot_pos = cache["slot_pos"]
+    W = slot_pos.shape[1]
+    b_idx = torch.arange(slot_pos.shape[0], device=slot_pos.device)
+    slot_pos[b_idx, (pos % W).long()] = pos
+    for i in range(cfg.num_layers):
+        x = _decode_sublayers(cfg, layer_params(params["layers"], i), x,
+                              cache["k"][i], cache["v"][i], slot_pos, pos,
+                              plain=plain)
+    new_cache = dict(cache)
+    new_cache["pos"] = pos + 1
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps), new_cache
+
+
+# ------------------------------------------------------------------ top-level
+
+def _lm_head(cfg, params):
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def embed_tokens(cfg, params, tokens):
+    return params["embed"][tokens]
+
+
+@torch.inference_mode()
+def prefill(cfg, params, batch, cache_len=None, plain=False):
+    """Process the prompt; returns (last-token logits, decode cache).
+
+    Without ``cache_len`` the cache is exactly S wide, as in the
+    reference, so the first decode step overwrites slot 0 (position 0).
+    """
+    check_supported(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = embed_tokens(cfg, params, tokens)
+    W = kvc.cache_width(cfg, max(cache_len or S, S))
+    cache = kvc.init_attn_cache(cfg, B, W, dtype=x.dtype, device=x.device)
+    hidden = run_stack(cfg, params, x, cache["k"], cache["v"], plain=plain)
+    logits = (hidden[:, -1:] @ _lm_head(cfg, params)).float()
+    cache["pos"] = torch.full((B,), S, dtype=torch.int32, device=x.device)
+    cache["slot_pos"] = kvc.prefill_slot_pos(S, W, B, device=x.device)
+    return logits, cache
+
+
+@torch.inference_mode()
+def decode_step(cfg, params, cache, token, plain=False):
+    """One token: (B, 1) int32 -> (logits (B, 1, V) f32, cache).
+
+    The cache is updated in place; see the module docstring.
+    """
+    check_supported(cfg)
+    x = embed_tokens(cfg, params, token)
+    hidden, new_cache = run_stack_decode(cfg, params, x, cache, cache["pos"],
+                                         plain=plain)
+    logits = (hidden @ _lm_head(cfg, params)).float()
+    return logits, new_cache
