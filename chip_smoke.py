@@ -6,19 +6,25 @@ Phases, each of which fails the run (exit 1) if it fails:
 
 1. print the card's name and power limit; build the CUDA kernels from
    the sources in this checkout (one nvcc per source, in parallel);
-2. hold each kernel against its plain PyTorch version on the card at
-   Llama-3-8B widths, bf16 (atol = rtol = 2e-2) and fp32 (2e-5);
-3. the whole model at full llama3-8b width, 2 layers: kernel path
-   against plain path, prefill and one decode step (atol 0.3, rtol 0.05);
-4. the serve driver (``repro_torch.launch.serve.main``) at full
-   llama3-8b, 32 layers, prompt 2048, 8 requests x 16 tokens, 2 replicas:
-   durable completions, prefetches, exact kernel launch counts, and the
-   first request replayed through the plain path;
-5. one replica traced with torch.profiler: host wall time of prefill
-   and of a decode step, device time, device idle share, top device ops;
+2. hold each kernel against its plain PyTorch version on the card:
+   the attention kernels at Llama-3-8B and Hymba-1.5B widths, bf16
+   (atol = rtol = 2e-2) and fp32 (2e-5); the selective scan at
+   Falcon-Mamba-7B and Hymba-1.5B widths, fp32 (1e-4);
+3. each served model at full width, 2 layers: kernel path against plain
+   path, prefill and one decode step (atol 0.3, rtol 0.05);
+4. the serve driver (``repro_torch.launch.serve.main``) for each ported
+   arch at full published width (llama3-8b 32 layers, falcon-mamba-7b
+   64, hymba-1.5b 32), prompt 2048, 8 requests x 16 tokens, 2 replicas:
+   durable completions, prefetches, exact kernel launch counts (every
+   count set to 0 just before the path and read just after), the first
+   request replayed through the plain path, peak device memory; each
+   server is freed before the next path starts;
+5. one replica of each served arch traced with torch.profiler: host
+   wall time of prefill and of a decode step, device time, device idle
+   share, top device ops;
 6. each kernel timed with CUDA events at the serve shapes, beside its
-   bound, its plain version and one PyTorch library call (a yardstick
-   only; the port never calls it).
+   bound, its plain version and, where there is one, one PyTorch library
+   call (a yardstick only; the port never calls it).
 
 Prints a JSON line of the kernels, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -27,6 +33,7 @@ no result. Imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -39,11 +46,11 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
-ARCH = "llama3-8b"
-SERVE_ARGS = ["--arch", ARCH, "--prompt-len", "2048", "--requests", "8",
-              "--gen", "16", "--replicas", "2"]
+F32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+ARCHS = ("llama3-8b", "falcon-mamba-7b", "hymba-1.5b")
 PROMPT, REQUESTS, GEN, REPLICAS = 2048, 8, 16, 2
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+SCAN_TOL = 1e-4                 # f32, as tests/test_kernels.py::TestSsmScan
 
 FLASH = {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -53,6 +60,10 @@ DECODE = {"name": "flash_decode", "route": "cuda",
           "source": "src/repro_torch/kernels/decode_attention/csrc/"
                     "decode_attention.cu",
           "replaces": "src/repro/kernels/decode_attention/kernel.py:72"}
+SCAN = {"name": "ssm_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan/kernel.py:67"}
+KERNELS = (FLASH, DECODE, SCAN)
 
 
 def nvidia_smi() -> str:
@@ -66,10 +77,10 @@ class Smoke:
     def __init__(self, torch):
         self.torch = torch
         self.dev = torch.device("cuda")
-        self.err = {FLASH["name"]: 0.0, DECODE["name"]: 0.0}
-        self.launches = {}
+        self.err = {meta["name"]: 0.0 for meta in KERNELS}
+        self.launches = {}              # arch -> kernel -> launches
         self.timing = {}
-        self.server = None
+        self.also = {}                  # kernel -> timings at other shapes
 
     # ------------------------------------------------------------ helpers
     def gen(self, seed):
@@ -124,44 +135,105 @@ class Smoke:
               f"{time.monotonic() - t0:.1f}s")
 
     def phase_kernels(self):
+        self.check_attention()
+        self.check_scan()
+
+    def check_attention(self):
         torch = self.torch
         from repro_torch.kernels.decode_attention import (decode_mha,
                                                           decode_mha_ref)
         from repro_torch.kernels.flash_attention import mha, mha_ref
-        H, K, hd = 32, 8, 128
+        llama, hymba = (32, 8, 128, ""), (25, 5, 64, " hymba H25/K5/hd64")
         for dname, tol in TOL.items():
             dtype = getattr(torch, dname)
             g = self.gen(1)
-            for B, S, causal, window, what in [
-                    (1, 2048, True, 0, "causal S=2048"),
-                    (1, 1000, True, 0, "ragged causal S=1000"),
-                    (1, 2048, True, 96, "causal window=96 S=2048"),
-                    (1, 1024, False, 0, "bidirectional S=1024")]:
+            for (H, K, hd, arch), B, S, causal, window, what in [
+                    (llama, 1, 2048, True, 0, "causal S=2048"),
+                    (llama, 1, 1000, True, 0, "ragged causal S=1000"),
+                    (llama, 1, 2048, True, 96, "causal window=96 S=2048"),
+                    (llama, 1, 1024, False, 0, "bidirectional S=1024"),
+                    (hymba, 1, 2048, True, 2048, "window=2048 S=2048"),
+                    (hymba, 1, 3000, True, 2048, "window=2048 S=3000")]:
                 q = self.randn(g, (B, S, H, hd), dtype)
                 k, v = (self.randn(g, (B, S, K, hd), dtype) for _ in "kv")
                 out = mha(q, k, v, causal=causal, window=window)
                 ref = mha_ref(q, k, v, causal=causal, window=window)
-                self.compare(FLASH["name"], f"{dname} B={B} {what}", out,
-                             ref, tol)
-            for B, W, fill, pos, window, what in [
-                    (8, 2048, 2048, 2048, 0, "full W=2048"),
-                    (8, 2048, 700, 700, 0, "partial fill 700/2048"),
-                    (8, 2048, 5000, 5000, 1024, "wrapped ring window=1024"),
-                    (1, 2048, 2049, 2048, 0, "serve first wrap W=2048")]:
+                self.compare(FLASH["name"], f"{dname} B={B} {what}{arch}",
+                             out, ref, tol)
+            for (H, K, hd, arch), B, W, fill, pos, window, what in [
+                    (llama, 8, 2048, 2048, 2048, 0, "full W=2048"),
+                    (llama, 8, 2048, 700, 700, 0, "partial fill 700/2048"),
+                    (llama, 8, 2048, 5000, 5000, 1024,
+                     "wrapped ring window=1024"),
+                    (llama, 1, 2048, 2049, 2048, 0, "serve first wrap W=2048"),
+                    (hymba, 1, 2048, 2049, 2048, 2048,
+                     "serve first wrap W=2048"),
+                    (hymba, 8, 2048, 900, 900, 2048, "partial fill 900/2048")]:
                 q = self.randn(g, (B, 1, H, hd), dtype)
                 kc, vc = (self.randn(g, (B, W, K, hd), dtype) for _ in "kv")
                 sp = self.ring_slot_pos(W, fill, B)
                 p = torch.full((B,), pos, dtype=torch.int32, device=self.dev)
                 out = decode_mha(q, kc, vc, sp, p, window=window)
                 ref = decode_mha_ref(q, kc, vc, sp, p, window=window)
-                self.compare(DECODE["name"], f"{dname} B={B} {what}", out,
-                             ref, tol)
+                self.compare(DECODE["name"], f"{dname} B={B} {what}{arch}",
+                             out, ref, tol)
+
+    def scan_inputs(self, g, B, S, di, N=16, xdtype=None, h0_scale=0.0,
+                    proj_rank=0):
+        """dt, xr, B, C, A, h0 as the model path gives them: dt from a
+        softplus, A negative; with ``proj_rank`` B and C are column slices
+        of one (B, S, R + 2N) projection, as in `mamba_layer`."""
+        torch = self.torch
+        f32 = torch.float32
+        dt = torch.nn.functional.softplus(self.randn(g, (B, S, di), f32)) * 0.1
+        xr = self.randn(g, (B, S, di), xdtype or f32)
+        proj = self.randn(g, (B, S, proj_rank + 2 * N), f32)
+        Bm, Cm = proj[..., proj_rank:proj_rank + N], proj[..., proj_rank + N:]
+        A = -torch.exp(self.randn(g, (di, N), f32) * 0.5)
+        h0 = self.randn(g, (B, di, N), f32) * h0_scale
+        return dt, xr, Bm, Cm, A, h0
+
+    def check_scan(self):
+        torch = self.torch
+        from repro_torch.kernels.ssm_scan import selective_scan, ssm_scan_ref
+        name = SCAN["name"]
+        g = self.gen(4)
+        for B, S, di, xdtype, h0_scale, rank, what in [
+                (1, 2048, 8192, None, 0.0, 0, "falcon-mamba B=1 S=2048 di=8192"),
+                (1, 1000, 8192, None, 0.0, 0, "ragged S=1000 di=8192"),
+                (2, 512, 8192, None, 0.5, 0, "B=2 nonzero h0 di=8192"),
+                (1, 2048, 8192, torch.bfloat16, 0.0, 256,
+                 "xr bf16, B/C slices of proj di=8192"),
+                (1, 2048, 3200, None, 0.0, 0, "hymba B=1 S=2048 di=3200"),
+                (1, 2048, 3200, torch.bfloat16, 0.1, 200,
+                 "hymba xr bf16, B/C slices di=3200")]:
+            ins = self.scan_inputs(g, B, S, di, xdtype=xdtype,
+                                   h0_scale=h0_scale, proj_rank=rank)
+            y, h = selective_scan(*ins)
+            y_ref, h_ref = ssm_scan_ref(*ins)
+            self.compare(name, f"y {what}", y, y_ref, SCAN_TOL)
+            self.compare(name, f"h_final {what}", h, h_ref, SCAN_TOL)
+        # state continuation: two halves with the carried state = the whole
+        dt, xr, Bm, Cm, A, h0 = self.scan_inputs(g, 1, 2048, 8192,
+                                                 h0_scale=0.1)
+        y, h = selective_scan(dt, xr, Bm, Cm, A, h0)
+        y1, h1 = selective_scan(dt[:, :1000], xr[:, :1000], Bm[:, :1000],
+                                Cm[:, :1000], A, h0)
+        y2, h2 = selective_scan(dt[:, 1000:], xr[:, 1000:], Bm[:, 1000:],
+                                Cm[:, 1000:], A, h1)
+        self.compare(name, "y halves 1000 + 1048 vs whole",
+                     torch.cat([y1, y2], dim=1), y, SCAN_TOL)
+        self.compare(name, "h_final halves vs whole", h2, h, SCAN_TOL)
 
     def phase_model(self):
+        for arch in ARCHS:
+            self.check_model(arch)
+
+    def check_model(self, arch):
         torch = self.torch
         from repro_torch.configs import registry
         from repro_torch.models import Model
-        cfg = registry.get(ARCH).replace(num_layers=2)
+        cfg = registry.get(arch).replace(num_layers=2)
         model = Model(cfg)
         params = model.init_params(self.gen(0))
         toks = torch.randint(0, cfg.vocab_size, (1, PROMPT), dtype=torch.int32,
@@ -181,34 +253,50 @@ class Smoke:
                   f"max_abs_err={err:.3e} (atol 0.3, rtol 0.05) "
                   f"{'ok' if ok else 'FAIL'}")
             if not (ok and torch.isfinite(a).all()):
-                raise AssertionError(f"{what}: kernel path disagrees")
+                raise AssertionError(f"{arch} {what}: kernel path disagrees")
 
-    def phase_serve(self):
-        torch = self.torch
+    def counters(self):
         from repro_torch.kernels.decode_attention import ops as decode_ops
         from repro_torch.kernels.flash_attention import ops as flash_ops
+        from repro_torch.kernels.ssm_scan import ops as scan_ops
+        return {FLASH["name"]: flash_ops, DECODE["name"]: decode_ops,
+                SCAN["name"]: scan_ops}
+
+    def serve_path(self, arch):
+        """Serve ``arch`` at full width, check the run, trace one replica,
+        and free the server before the next path."""
+        torch = self.torch
+        from repro_torch.configs import registry
         from repro_torch.launch import serve
         torch.cuda.reset_peak_memory_stats()
-        flash_ops.launches = 0
-        decode_ops.launches = 0
-        result = serve.main(SERVE_ARGS)
-        self.launches = {FLASH["name"]: flash_ops.launches,
-                         DECODE["name"]: decode_ops.launches}
+        counters = self.counters()
+        for mod in counters.values():
+            mod.launches = 0
+        result = serve.main(["--arch", arch, "--prompt-len", str(PROMPT),
+                             "--requests", str(REQUESTS), "--gen", str(GEN),
+                             "--replicas", str(REPLICAS)])
+        launches = {name: mod.launches for name, mod in counters.items()}
+        self.launches[arch] = launches
         peak = torch.cuda.max_memory_allocated()
         server, outs = result["server"], result["outputs"]
         cfg = server.cfg
-        print(f"  serve p50={result['p50_s'] * 1e3:.1f}ms "
+        print(f"  {arch} serve p50={result['p50_s'] * 1e3:.1f}ms "
               f"p99={result['p99_s'] * 1e3:.1f}ms "
               f"tok/s={REQUESTS * GEN / result['wall_s']:.2f} "
               f"wall={result['wall_s']:.3f}s "
               f"max_memory_allocated={peak / 2**30:.2f}GiB "
-              f"launches={self.launches}")
-        want = {FLASH["name"]: cfg.num_layers * (REQUESTS + REPLICAS),
-                DECODE["name"]: cfg.num_layers * (REQUESTS * GEN + REPLICAS)}
-        if self.launches != want:
-            raise AssertionError(f"launch counts {self.launches} != {want}")
-        if cfg.num_layers != 32 or cfg.d_model != 4096:
-            raise AssertionError("the serve run was not full llama3-8b")
+              f"launches={launches}")
+        if cfg != registry.get(arch):
+            raise AssertionError(f"the serve run was not full {arch}")
+        L = cfg.num_layers
+        attn = cfg.family in ("dense", "hybrid")
+        ssm = cfg.family in ("ssm", "hybrid")
+        want = {FLASH["name"]: L * (REQUESTS + REPLICAS) if attn else 0,
+                DECODE["name"]: (L * (REQUESTS * GEN + REPLICAS) if attn
+                                 else 0),
+                SCAN["name"]: L * (REQUESTS + REPLICAS) if ssm else 0}
+        if launches != want:
+            raise AssertionError(f"{arch} launch counts {launches} != {want}")
         for i, o in enumerate(outs):
             body = server.store.get("out", f"req-{i}-completion")
             if len(body) != 4 * GEN or body != o.tobytes():
@@ -218,7 +306,10 @@ class Smoke:
         if server.backend.stats["prefetches"] < REQUESTS:
             raise AssertionError("prompts were not prefetched")
         self.replay_plain(server, outs[0])
-        self.server = server
+        self.trace(server)
+        del server, outs, result
+        gc.collect()
+        torch.cuda.empty_cache()
 
     def replay_plain(self, server, completion):
         """Request 0 through the plain path: its greedy tokens agree with
@@ -249,14 +340,13 @@ class Smoke:
         print(f"  req-0 replayed on the plain path: {compared}/{len(completion)}"
               f" tokens past the 0.3 margin, all equal")
 
-    def phase_trace(self):
+    def trace(self, server):
         """Where a request's time goes on one replica: host wall time of
         prefill and of a decode step (synchronised), and the kernel time
         torch.profiler sees in each; the rest of the wall time the
         device sits idle, waiting on the host."""
         torch = self.torch
         import numpy as np
-        server, self.server = self.server, None
         inst = server.instances[0]
         prompt = np.frombuffer(server.store.get("prompts", "req-0"), np.int32)
         toks = torch.from_numpy(prompt.copy())[None].to(self.dev)
@@ -286,8 +376,8 @@ class Smoke:
             prefill()
             dev_ms, launches, top = self.profile(fn)
             dev_ms, launches = dev_ms / n, launches / n
-            print(f"  one replica, prompt {PROMPT}, {what}: wall "
-                  f"{wall_ms:.2f} ms, kernel time {dev_ms:.2f} ms in "
+            print(f"  {server.cfg.name}, one replica, prompt {PROMPT}, "
+                  f"{what}: wall {wall_ms:.2f} ms, kernel time {dev_ms:.2f} ms in "
                   f"{launches:.0f} kernels, device idle share "
                   f"{1 - dev_ms / wall_ms:.3f}")
             for e in top[:8]:
@@ -315,84 +405,153 @@ class Smoke:
                 sum(e.count for e in rows), rows)
 
     def phase_timing(self):
+        """Each kernel at its serve shape (the row of the kernels line),
+        and the attention kernels and the scan at Hymba's shapes too."""
+        llama, hymba = (32, 8, 128), (25, 5, 64)
+        self.timing[FLASH["name"]] = self.time_flash(*llama, 0, "llama3-8b")
+        self.also[FLASH["name"]] = {
+            "hymba-1.5b": self.time_flash(*hymba, 2048, "hymba-1.5b")}
+        self.timing[DECODE["name"]] = self.time_decode(1, *llama, 0,
+                                                       "llama3-8b")
+        self.also[DECODE["name"]] = {
+            "llama3-8b B=8": self.time_decode(8, *llama, 0, "llama3-8b"),
+            "hymba-1.5b": self.time_decode(1, *hymba, 2048, "hymba-1.5b")}
+        self.timing[SCAN["name"]] = self.time_scan(8192, 256, "falcon-mamba-7b")
+        self.also[SCAN["name"]] = {
+            "hymba-1.5b": self.time_scan(3200, 100, "hymba-1.5b")}
+
+    @staticmethod
+    def bound(nbytes, flops, peak=BF16_FLOPS_PER_S):
+        """The least time (ms) for the work, and what sets it."""
+        tb, tf = nbytes / HBM_BYTES_PER_S, flops / peak
+        return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
+
+    def time_flash(self, H, K, hd, window, arch):
+        """Prefill at the serve shape: B=1, S=2048, causal, bf16."""
         torch = self.torch
         import torch.nn.functional as F
-        from repro_torch.kernels.decode_attention import (decode_mha,
-                                                          decode_mha_ref)
         from repro_torch.kernels.flash_attention import mha, mha_ref
-        dt, H, K, hd = torch.bfloat16, 32, 8, 128
+        dt, B, S = torch.bfloat16, 1, PROMPT
         g = self.gen(3)
-
-        def bound(nbytes, flops):
-            tb, tf = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
-            return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
-
-        # prefill at the serve shape: B=1, S=2048, causal
-        B, S = 1, PROMPT
         sets = []
         for _ in range(4):
             q = self.randn(g, (B, S, H, hd), dt)
             sets.append((q, *(self.randn(g, (B, S, K, hd), dt) for _ in "kv")))
         lib_sets = [tuple(t.transpose(1, 2).contiguous() for t in s)
                     for s in sets]
+        # visited (query, key) pairs: causal, within the window
+        pairs = sum(min(i + 1, window or S) for i in range(S))
         nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * K * hd)
-        flops = 4 * B * H * hd * S * (S + 1) // 2
-        bms, by = bound(nbytes, flops)
+        bms, by = self.bound(nbytes, 4 * B * H * hd * pairs)
+        lib_mask = None
+        if window and window < S:
+            i = torch.arange(S, device=self.dev)
+            lib_mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :]
+                                                     < window)
         row = {
-            "ms": self.time_ms(lambda s: mha(*s, causal=True), sets, 20),
-            "plain_ms": self.time_ms(lambda s: mha_ref(*s, causal=True),
-                                     sets, 5),
+            "ms": self.time_ms(lambda s: mha(*s, causal=True, window=window),
+                               sets, 20),
+            "plain_ms": self.time_ms(
+                lambda s: mha_ref(*s, causal=True, window=window), sets, 5),
             "library_ms": self.time_ms(
                 lambda s: F.scaled_dot_product_attention(
-                    *s, is_causal=True, enable_gqa=True), lib_sets, 20),
+                    *s, attn_mask=lib_mask, is_causal=lib_mask is None,
+                    enable_gqa=True), lib_sets, 20),
             "bound_ms": bms, "bound_by": by}
-        self.timing[FLASH["name"]] = row
-        self.report("flash_attention bf16 B=1 S=2048 causal", row)
+        self.report(f"flash_attention bf16 B=1 S=2048 causal H={H} K={K} "
+                    f"hd={hd} window={window} ({arch})", row)
+        return row
 
-        # decode at the serve shape (B=1) and the calibrated one (B=8)
-        for B, n in ((1, 16), (8, 3)):
-            W, pos = PROMPT, PROMPT
-            sets, lib_sets = [], []
-            sp = self.ring_slot_pos(W, W + 1, B)
-            p = torch.full((B,), pos, dtype=torch.int32, device=self.dev)
-            valid = (sp >= 0) & (sp <= p[:, None])
-            for _ in range(n):
-                q = self.randn(g, (B, 1, H, hd), dt)
-                kc, vc = (self.randn(g, (B, W, K, hd), dt) for _ in "kv")
-                sets.append((q, kc, vc, sp, p))
-                lib_sets.append((q.transpose(1, 2).contiguous(),
-                                 kc.transpose(1, 2).contiguous(),
-                                 vc.transpose(1, 2).contiguous(),
-                                 valid[:, None, None, :]))
-            nbytes = (2 * (2 * B * H * hd + 2 * B * W * K * hd)
-                      + 4 * (B * W + B))
-            flops = 4 * H * hd * int(valid.sum())
-            bms, by = bound(nbytes, flops)
-            row = {
-                "ms": self.time_ms(lambda s: decode_mha(*s), sets, 200),
-                "plain_ms": self.time_ms(lambda s: decode_mha_ref(*s),
-                                         sets, 50),
-                "library_ms": self.time_ms(
-                    lambda s: F.scaled_dot_product_attention(
-                        s[0], s[1], s[2], attn_mask=s[3], enable_gqa=True),
-                    lib_sets, 200),
-                "bound_ms": bms, "bound_by": by}
-            if B == 1:
-                self.timing[DECODE["name"]] = row
-            self.report(f"flash_decode bf16 B={B} W=2048", row)
+    def time_decode(self, B, H, K, hd, window, arch):
+        """Decode at the serve shape: W=2048 after the ring's first wrap,
+        bf16."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.kernels.decode_attention import (decode_mha,
+                                                          decode_mha_ref)
+        dt, W, pos = torch.bfloat16, PROMPT, PROMPT
+        n = max(3, 16 // B)
+        g = self.gen(5)
+        sets, lib_sets = [], []
+        sp = self.ring_slot_pos(W, W + 1, B)
+        p = torch.full((B,), pos, dtype=torch.int32, device=self.dev)
+        valid = (sp >= 0) & (sp <= p[:, None])
+        if window:
+            valid &= (p[:, None] - sp) < window
+        for _ in range(n):
+            q = self.randn(g, (B, 1, H, hd), dt)
+            kc, vc = (self.randn(g, (B, W, K, hd), dt) for _ in "kv")
+            sets.append((q, kc, vc, sp, p))
+            lib_sets.append((q.transpose(1, 2).contiguous(),
+                             kc.transpose(1, 2).contiguous(),
+                             vc.transpose(1, 2).contiguous(),
+                             valid[:, None, None, :]))
+        nbytes = 2 * (2 * B * H * hd + 2 * B * W * K * hd) + 4 * (B * W + B)
+        bms, by = self.bound(nbytes, 4 * H * hd * int(valid.sum()))
+        row = {
+            "ms": self.time_ms(lambda s: decode_mha(*s, window=window), sets,
+                               200),
+            "plain_ms": self.time_ms(
+                lambda s: decode_mha_ref(*s, window=window), sets, 50),
+            "library_ms": self.time_ms(
+                lambda s: F.scaled_dot_product_attention(
+                    s[0], s[1], s[2], attn_mask=s[3], enable_gqa=True),
+                lib_sets, 200),
+            "bound_ms": bms, "bound_by": by}
+        self.report(f"flash_decode bf16 B={B} W=2048 H={H} K={K} hd={hd} "
+                    f"window={window} ({arch})", row)
+        return row
+
+    def time_scan(self, di, rank, arch):
+        """The scan at the serve shape: B=1, S=2048, N=16, xr in bf16,
+        B and C column slices of the projection, as `mamba_layer` calls
+        it. No PyTorch call computes a selective scan: library none."""
+        torch = self.torch
+        from repro_torch.kernels.ssm_scan import selective_scan, ssm_scan_ref
+        from repro_torch.models.mamba import ssm_scan_chunked
+        B, S, N = 1, PROMPT, 16
+        g = self.gen(6)
+        sets = [self.scan_inputs(g, B, S, di, N, xdtype=torch.bfloat16,
+                                 proj_rank=rank) for _ in range(3)]
+        # each input read once, each output written once
+        nbytes = (B * S * di * (4 + 2 + 4) + 2 * 4 * B * S * N
+                  + 4 * di * N + 2 * 4 * B * di * N)
+        # per state and step: dt*A, exp, *B, fma (2), *C, the sum over n
+        bms, by = self.bound(nbytes, 7 * B * S * di * N, F32_FLOPS_PER_S)
+        row = {
+            "ms": self.time_ms(lambda s: selective_scan(*s), sets, 40),
+            "plain_ms": self.time_ms(lambda s: ssm_scan_ref(*s), sets, 3),
+            "library_ms": None,
+            "bound_ms": bms, "bound_by": by,
+            "chunked_ms": self.time_ms(lambda s: ssm_scan_chunked(*s), sets,
+                                       3)}
+        self.report(f"ssm_scan B=1 S=2048 di={di} N=16 xr bf16 ({arch}; "
+                    f"{nbytes / 1e6:.1f} MB, "
+                    f"{7 * B * S * di * N / 1e9:.2f} GFLOP)", row)
+        print(f"    model plain path ssm_scan_chunked "
+              f"{row['chunked_ms']:.4f} ms")
+        return row
 
     def report(self, label, row):
+        lib = row["library_ms"]
         print(f"  {label}: kernel {row['ms']:.4f} ms, bound "
               f"{row['bound_ms']:.4f} ms ({row['bound_by']}), share of bound "
               f"{row['bound_ms'] / row['ms']:.3f}, plain {row['plain_ms']:.4f}"
-              f" ms, library {row['library_ms']:.4f} ms")
+              f" ms, library {'none' if lib is None else f'{lib:.4f} ms'}")
 
     def kernels_line(self):
+        """One row per kernel: launches summed over the serve paths (each
+        path's count beside it), the largest error of phase 2, and the
+        times at the serve shape (other shapes under ``also``)."""
         rows = []
-        for meta in (FLASH, DECODE):
+        for meta in KERNELS:
             name = meta["name"]
-            rows.append({**meta, "launches": self.launches[name],
-                         "max_abs_err": self.err[name], **self.timing[name]})
+            by_path = {arch: counts[name]
+                       for arch, counts in self.launches.items()}
+            rows.append({**meta, "launches": sum(by_path.values()),
+                         "launches_by_path": by_path,
+                         "max_abs_err": self.err[name], **self.timing[name],
+                         "also": self.also[name]})
         return json.dumps({"kernels": rows})
 
 
@@ -415,12 +574,14 @@ def main() -> int:
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     smoke = Smoke(torch)
     failed = []
-    for name, fn in (("build", smoke.phase_build),
-                     ("kernels vs plain", smoke.phase_kernels),
-                     ("model kernel vs plain", smoke.phase_model),
-                     ("serve llama3-8b", smoke.phase_serve),
-                     ("trace one replica", smoke.phase_trace),
-                     ("timing", smoke.phase_timing)):
+    phases = [("build", smoke.phase_build),
+              ("kernels vs plain", smoke.phase_kernels),
+              ("model kernel vs plain", smoke.phase_model)]
+    for arch in ARCHS:
+        phases.append((f"serve and trace {arch}",
+                       lambda arch=arch: smoke.serve_path(arch)))
+    phases.append(("timing", smoke.phase_timing))
+    for name, fn in phases:
         print(f"== {name}", flush=True)
         t0 = time.monotonic()
         try:

@@ -99,6 +99,8 @@ class ModelConfig:
 #: the architectures the port runs so far
 ARCH_IDS = [
     "llama3-8b",
+    "falcon-mamba-7b",
+    "hymba-1.5b",
 ]
 
 

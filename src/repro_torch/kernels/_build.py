@@ -23,7 +23,7 @@ from pathlib import Path
 
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
-NAMES = ("flash_attention", "decode_attention")
+NAMES = ("flash_attention", "decode_attention", "ssm_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

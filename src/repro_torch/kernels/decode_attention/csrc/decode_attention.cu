@@ -166,6 +166,7 @@ int dispatch_g(int G, const Args& a, int B, int K, cudaStream_t st) {
     case 1: return launch<T, HD, 1>(a, B, K, st);
     case 2: return launch<T, HD, 2>(a, B, K, st);
     case 4: return launch<T, HD, 4>(a, B, K, st);
+    case 5: return launch<T, HD, 5>(a, B, K, st);
     case 8: return launch<T, HD, 8>(a, B, K, st);
     default: return -1;
   }

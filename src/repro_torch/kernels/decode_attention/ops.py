@@ -19,7 +19,7 @@ from repro_torch.kernels.decode_attention.ref import decode_mha_ref
 
 NAME = "flash_decode"
 SOURCE = "decode_attention"
-GROUPS = (1, 2, 4, 8)
+GROUPS = (1, 2, 4, 5, 8)
 launches = 0
 _count_lock = threading.Lock()
 

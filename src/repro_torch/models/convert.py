@@ -10,7 +10,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-CACHE_KEYS = ("k", "v", "slot_pos", "pos")
+#: the keys of a decode cache, by family
+CACHE_KEYS = {
+    "dense": ("k", "v", "slot_pos", "pos"),
+    "ssm": ("pos", "conv", "ssm"),
+    "hybrid": ("k", "v", "slot_pos", "pos", "conv", "ssm"),
+}
 
 
 def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
@@ -31,8 +36,10 @@ def params_from_numpy(tree, device="cpu"):
 
 
 def cache_from_numpy(cache: dict, device="cpu") -> dict:
-    """A dense decode cache (k, v, slot_pos, pos) as torch tensors."""
-    if set(cache) != set(CACHE_KEYS):
-        raise ValueError(f"a dense decode cache has keys {CACHE_KEYS}, "
-                         f"got {sorted(cache)}")
-    return {k: tensor_from_numpy(cache[k], device) for k in CACHE_KEYS}
+    """A decode cache as torch tensors: dense (k, v, slot_pos, pos), ssm
+    (pos, conv, ssm) or hybrid (all six)."""
+    for keys in CACHE_KEYS.values():
+        if set(cache) == set(keys):
+            return {k: tensor_from_numpy(cache[k], device) for k in keys}
+    raise ValueError(f"a decode cache has the keys of one of "
+                     f"{list(CACHE_KEYS.values())}, got {sorted(cache)}")

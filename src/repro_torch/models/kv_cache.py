@@ -1,15 +1,17 @@
-"""KV cache containers for the attention families.
+"""KV and SSM cache containers.
 
 The counterpart of ``repro.models.kv_cache``: plain dicts of tensors with
 a leading layer axis. ``slot_pos`` holds the absolute position stored in
 each ring slot (-1 = empty), which makes masking exact for full and ring
-caches alike.
+caches alike. The SSM families keep a conv tail and an f32 state per
+layer; the ssm family has no ``slot_pos``.
 """
 from __future__ import annotations
 
 import torch
 
-ATTN_FAMILIES = ("dense", "vlm", "moe", "audio")
+ATTN_FAMILIES = ("dense", "vlm", "moe", "audio", "hybrid")
+SSM_FAMILIES = ("ssm", "hybrid")
 
 
 def cache_width(cfg, seq_len: int) -> int:
@@ -30,16 +32,30 @@ def init_attn_cache(cfg, batch, seq_len, dtype=torch.bfloat16,
     }
 
 
+def init_ssm_cache(cfg, batch, dtype=torch.bfloat16, device="cpu"):
+    L = cfg.num_layers
+    di, N, c = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    return {
+        "conv": torch.zeros((L, batch, c - 1, di), dtype=dtype, device=device),
+        "ssm": torch.zeros((L, batch, di, N), dtype=torch.float32,
+                           device=device),
+    }
+
+
 def init_cache(cfg, batch, seq_len, dtype=torch.bfloat16, device="cpu"):
-    """Full decode cache for one model instance (attention families)."""
-    if cfg.family not in ATTN_FAMILIES or cfg.is_encoder_decoder:
+    """Full decode cache for one model instance."""
+    if (cfg.family not in ATTN_FAMILIES + SSM_FAMILIES
+            or cfg.is_encoder_decoder):
         raise NotImplementedError(f"{cfg.family} caches are not ported yet")
     cache = {"pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
-    cache.update(init_attn_cache(cfg, batch, seq_len, dtype=dtype,
-                                 device=device))
-    W = cache_width(cfg, seq_len)
-    cache["slot_pos"] = torch.full((batch, W), -1, dtype=torch.int32,
-                                   device=device)
+    if cfg.family in ATTN_FAMILIES:
+        cache.update(init_attn_cache(cfg, batch, seq_len, dtype=dtype,
+                                     device=device))
+        W = cache_width(cfg, seq_len)
+        cache["slot_pos"] = torch.full((batch, W), -1, dtype=torch.int32,
+                                       device=device)
+    if cfg.family in SSM_FAMILIES:
+        cache.update(init_ssm_cache(cfg, batch, dtype=dtype, device=device))
     return cache
 
 

@@ -1,14 +1,16 @@
-"""Decoder-only LM assembly, dense family.
+"""Decoder-only LM assembly: the dense, ssm and hybrid families.
 
-The counterpart of ``repro.models.lm`` for ``family == "dense"``. Params
-keep the reference's tree: leaf names and a stacked leading layer axis
+The counterpart of ``repro.models.lm`` for those families. Params keep
+the reference's tree: leaf names and a stacked leading layer axis
 (``params["layers"][name][i]`` is layer i), so the codec writes the same
 bytes in the same order. The reference's ``jax.lax.scan`` over layers is
 a Python loop here. Prefill and decode run under
-``torch.inference_mode()``; `decode_step` updates the cache's ``k``,
-``v`` and ``slot_pos`` IN PLACE and returns a dict that shares them
-(the reference returns a new cache). ``plain=True`` runs the attention
-kernels' plain versions instead of the kernels, on any device.
+``torch.inference_mode()``; prefill writes each layer's cache slice into
+a preallocated cache, and `decode_step` updates the cache's leaves
+(``k``, ``v``, ``slot_pos``, ``conv``, ``ssm``) IN PLACE and returns a
+dict that shares them (the reference returns a new cache).
+``plain=True`` runs the kernels' plain versions instead of the kernels
+(attention and the selective scan), on any device.
 """
 from __future__ import annotations
 
@@ -16,13 +18,15 @@ import torch
 
 from repro_torch.models import kv_cache as kvc
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def check_supported(cfg) -> None:
     """Raise for the parts of the reference the port does not have yet."""
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     missing = [f for f in ("attn_bias", "qk_norm", "uniform_decode",
                            "embed_input", "is_encoder_decoder")
@@ -35,14 +39,20 @@ def check_supported(cfg) -> None:
 # ------------------------------------------------------------------- params
 
 def init_layer_params(generator, cfg, dtype, device=None):
+    fam = cfg.family
     ones = dict(dtype=dtype, device=device if device is not None
                 else generator.device)
-    return {
-        "ln1": torch.ones((cfg.d_model,), **ones),
-        "attn": L.init_attention(generator, cfg, dtype, device),
-        "ln2": torch.ones((cfg.d_model,), **ones),
-        "mlp": L.init_mlp(generator, cfg.d_model, cfg.d_ff, dtype, device),
-    }
+    p = {"ln1": torch.ones((cfg.d_model,), **ones)}
+    if fam in ("dense", "hybrid"):
+        p["attn"] = L.init_attention(generator, cfg, dtype, device)
+        p["ln2"] = torch.ones((cfg.d_model,), **ones)
+        p["mlp"] = L.init_mlp(generator, cfg.d_model, cfg.d_ff, dtype, device)
+    if fam in ("ssm", "hybrid"):
+        p["mamba"] = M.init_mamba(generator, cfg, dtype, device)
+    if fam == "hybrid":
+        p["bn_attn"] = torch.ones((cfg.d_model,), **ones)
+        p["bn_mamba"] = torch.ones((cfg.d_model,), **ones)
+    return p
 
 
 def _stack_into(stacked, layer, i):
@@ -103,58 +113,90 @@ def layer_params(layers, i):
 
 # ----------------------------------------------------------------- sublayers
 
+def _fuse(cfg, lp, attn_out, m_out):
+    """Hymba's head fusion: the mean of the two normed branches."""
+    return 0.5 * (L.rms_norm(attn_out, lp["bn_attn"], cfg.norm_eps)
+                  + L.rms_norm(m_out, lp["bn_mamba"], cfg.norm_eps))
+
+
 def _seq_sublayers(cfg, lp, x, plain=False):
-    """One dense layer over a full sequence. Returns (x, (k, v))."""
+    """One layer over a full sequence. Returns (x, cache_out) with the
+    layer's ``k``/``v`` and/or ``conv``/``ssm``."""
+    fam = cfg.family
+    cache_out = {}
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-    attn_out, kv = L.attention_layer(lp["attn"], cfg, h, plain=plain)
-    x = x + attn_out
+    if fam == "dense":
+        attn_out, (cache_out["k"], cache_out["v"]) = L.attention_layer(
+            lp["attn"], cfg, h, plain=plain)
+        x = x + attn_out
+    elif fam == "ssm":
+        m_out, st = M.mamba_layer(lp["mamba"], cfg, h, plain=plain)
+        cache_out.update(st)
+        return x + m_out, cache_out                # mamba block has no MLP
+    else:                                          # hybrid
+        attn_out, (cache_out["k"], cache_out["v"]) = L.attention_layer(
+            lp["attn"], cfg, h, plain=plain)
+        m_out, st = M.mamba_layer(lp["mamba"], cfg, h, plain=plain)
+        cache_out.update(st)
+        x = x + _fuse(cfg, lp, attn_out, m_out)
     h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + L.mlp_layer(lp["mlp"], h2), kv
+    return x + L.mlp_layer(lp["mlp"], h2), cache_out
 
 
-def _ring_kv(cache_k, cache_v, k, v):
-    """Write one layer's prefill K/V into its (ring) cache slice."""
-    kvc.write_prefill_entries(cache_k, k)
-    kvc.write_prefill_entries(cache_v, v)
-
-
-def _decode_sublayers(cfg, lp, x, k_cache, v_cache, slot_pos, pos,
-                      plain=False):
-    """One dense layer, one token; writes its K/V into the cache."""
+def _decode_sublayers(cfg, lp, x, cache, i, slot_pos, pos, plain=False):
+    """One layer, one token; writes its K/V and SSM state into layer i of
+    the cache, in place."""
+    fam = cfg.family
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-    attn_out, _ = L.attention_decode_layer(
-        lp["attn"], cfg, h, k_cache, v_cache, slot_pos, pos, plain=plain)
-    x = x + attn_out
+    if fam in ("dense", "hybrid"):
+        attn_out, _ = L.attention_decode_layer(
+            lp["attn"], cfg, h, cache["k"][i], cache["v"][i], slot_pos, pos,
+            plain=plain)
+    if fam in ("ssm", "hybrid"):
+        m_out, st = M.mamba_decode_step(
+            lp["mamba"], cfg, h, {"conv": cache["conv"][i],
+                                  "ssm": cache["ssm"][i]})
+        cache["conv"][i].copy_(st["conv"])
+        cache["ssm"][i].copy_(st["ssm"])
+    if fam == "ssm":
+        return x + m_out
+    x = x + (attn_out if fam == "dense" else _fuse(cfg, lp, attn_out, m_out))
     h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
     return x + L.mlp_layer(lp["mlp"], h2)
 
 
 # ------------------------------------------------------------------- stacks
 
-def run_stack(cfg, params, x, cache_k, cache_v, plain=False):
-    """Run the layer stack over a full sequence, filling the cache's
-    per-layer slices. Returns the final-normed hidden states."""
+def run_stack(cfg, params, x, cache, plain=False):
+    """Run the layer stack over a full sequence, writing each layer's
+    slice of ``cache``. Returns the final-normed hidden states."""
     for i in range(cfg.num_layers):
-        x, (k, v) = _seq_sublayers(cfg, layer_params(params["layers"], i), x,
-                                   plain=plain)
-        _ring_kv(cache_k[i], cache_v[i], k, v)
+        x, out = _seq_sublayers(cfg, layer_params(params["layers"], i), x,
+                                plain=plain)
+        if "k" in out:                    # into the (ring) cache slice
+            kvc.write_prefill_entries(cache["k"][i], out["k"])
+            kvc.write_prefill_entries(cache["v"][i], out["v"])
+        if "ssm" in out:
+            cache["conv"][i].copy_(out["conv"])
+            cache["ssm"][i].copy_(out["ssm"])
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
 def run_stack_decode(cfg, params, x, cache, pos, plain=False):
     """Run the stack for one decode token; cache leaves have leading L.
 
-    ``slot_pos`` gets this token's position in slot ``pos % W`` first
-    (every layer writes the same slot), all in place on the device.
+    Where the cache has ``slot_pos``, it gets this token's position in
+    slot ``pos % W`` first (every layer writes the same slot), all in
+    place on the device.
     """
-    slot_pos = cache["slot_pos"]
-    W = slot_pos.shape[1]
-    b_idx = torch.arange(slot_pos.shape[0], device=slot_pos.device)
-    slot_pos[b_idx, (pos % W).long()] = pos
+    slot_pos = cache.get("slot_pos")
+    if slot_pos is not None:
+        W = slot_pos.shape[1]
+        b_idx = torch.arange(slot_pos.shape[0], device=slot_pos.device)
+        slot_pos[b_idx, (pos % W).long()] = pos
     for i in range(cfg.num_layers):
         x = _decode_sublayers(cfg, layer_params(params["layers"], i), x,
-                              cache["k"][i], cache["v"][i], slot_pos, pos,
-                              plain=plain)
+                              cache, i, slot_pos, pos, plain=plain)
     new_cache = dict(cache)
     new_cache["pos"] = pos + 1
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), new_cache
@@ -182,11 +224,12 @@ def prefill(cfg, params, batch, cache_len=None, plain=False):
     B, S = tokens.shape
     x = embed_tokens(cfg, params, tokens)
     W = kvc.cache_width(cfg, max(cache_len or S, S))
-    cache = kvc.init_attn_cache(cfg, B, W, dtype=x.dtype, device=x.device)
-    hidden = run_stack(cfg, params, x, cache["k"], cache["v"], plain=plain)
+    cache = kvc.init_cache(cfg, B, W, dtype=x.dtype, device=x.device)
+    hidden = run_stack(cfg, params, x, cache, plain=plain)
     logits = (hidden[:, -1:] @ _lm_head(cfg, params)).float()
-    cache["pos"] = torch.full((B,), S, dtype=torch.int32, device=x.device)
-    cache["slot_pos"] = kvc.prefill_slot_pos(S, W, B, device=x.device)
+    cache["pos"].fill_(S)
+    if "slot_pos" in cache:
+        cache["slot_pos"] = kvc.prefill_slot_pos(S, W, B, device=x.device)
     return logits, cache
 
 

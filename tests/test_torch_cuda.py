@@ -17,6 +17,8 @@ from repro_torch.kernels.decode_attention import decode_mha, decode_mha_ref
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import mha, mha_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.ssm_scan import selective_scan, ssm_scan_ref
+from repro_torch.kernels.ssm_scan import ops as scan_ops
 from repro_torch.models import Model
 
 pytestmark = pytest.mark.cuda
@@ -58,6 +60,7 @@ def ring_slot_pos(W, fill, B, device):
     (2, 256, 8, 2, 128, True, 96),
     (1, 200, 2, 1, 64, True, 0),
     (1, 192, 6, 3, 32, True, 64),
+    (1, 300, 25, 5, 64, True, 128),         # hymba's heads, G = 5
 ])
 def test_flash_attention_matches_plain(card, dtype, B, S, H, K, hd, causal,
                                        window):
@@ -78,6 +81,8 @@ def test_flash_attention_matches_plain(card, dtype, B, S, H, K, hd, causal,
     (1, 8, 4, 384, 128, 128, 500),
     (3, 2, 1, 100, 64, 0, 77),
     (2, 32, 8, 256, 128, 0, 257),
+    (1, 25, 5, 512, 64, 512, 513),          # hymba's heads, G = 5
+    (2, 10, 2, 300, 64, 0, 250),            # G = 5, partial fill
 ])
 def test_flash_decode_matches_plain(card, dtype, B, H, K, W, hd, window,
                                     fill):
@@ -93,8 +98,48 @@ def test_flash_decode_matches_plain(card, dtype, B, H, K, W, hd, window,
     _close(out, decode_mha_ref(q, kc, vc, sp, pos, window=window), dtype)
 
 
-def test_model_kernel_path_matches_plain_path(card):
-    cfg = registry.get_smoke("llama3-8b")
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,di,N,strided", [
+    (2, 256, 128, 16, False),
+    (1, 100, 256, 16, False),               # ragged S
+    (2, 128, 64, 8, False),
+    (1, 1000, 512, 16, True),               # B, C as slices of one projection
+    (3, 70, 200, 16, True),                 # di not a multiple of a block
+])
+def test_ssm_scan_matches_plain(card, xdtype, B, S, di, N, strided):
+    gen = torch.Generator(device=card).manual_seed(2)
+    dt = torch.nn.functional.softplus(_randn(gen, (B, S, di),
+                                             torch.float32)) * 0.1
+    xr = _randn(gen, (B, S, di), xdtype)
+    if strided:
+        proj = _randn(gen, (B, S, 8 + 2 * N), torch.float32)
+        Bm, Cm = proj[..., 8:8 + N], proj[..., 8 + N:]
+    else:
+        Bm, Cm = (_randn(gen, (B, S, N), torch.float32) for _ in range(2))
+    A = -torch.exp(_randn(gen, (di, N), torch.float32) * 0.5)
+    h0 = _randn(gen, (B, di, N), torch.float32) * 0.1
+    before = scan_ops.launches
+    y, h = selective_scan(dt, xr, Bm, Cm, A, h0)
+    torch.cuda.synchronize()
+    assert scan_ops.launches == before + 1
+    y_ref, h_ref = ssm_scan_ref(dt, xr, Bm, Cm, A, h0)
+    torch.testing.assert_close(y, y_ref, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(h, h_ref, atol=1e-4, rtol=1e-4)
+    # state continuation: two halves with the carried state
+    half = S // 2
+    y1, h1 = selective_scan(dt[:, :half], xr[:, :half], Bm[:, :half],
+                            Cm[:, :half], A, h0)
+    y2, h2 = selective_scan(dt[:, half:], xr[:, half:], Bm[:, half:],
+                            Cm[:, half:], A, h1)
+    torch.testing.assert_close(torch.cat([y1, y2], dim=1), y, atol=1e-4,
+                               rtol=1e-4)
+    torch.testing.assert_close(h2, h, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "falcon-mamba-7b",
+                                  "hymba-1.5b"])
+def test_model_kernel_path_matches_plain_path(card, arch):
+    cfg = registry.get_smoke(arch)
     model = Model(cfg)
     params = model.init_params(torch.Generator(device=card).manual_seed(0))
     toks = torch.randint(0, cfg.vocab_size, (2, 48), dtype=torch.int32,

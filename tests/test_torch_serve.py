@@ -8,6 +8,7 @@ import dataclasses
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from repro.configs import registry as ref_registry
@@ -23,11 +24,13 @@ from repro_torch.launch.serve import NexusModelServer
 from repro_torch.models.convert import params_from_numpy
 
 MARGIN = 0.3        # compare tokens only where the top-2 margin exceeds this
+ARCHS = ["llama3-8b", "falcon-mamba-7b", "hymba-1.5b"]
 
 
 class TestServingDriver:
-    def test_batched_requests_end_to_end(self):
-        cfg = registry.get_smoke("llama3-8b")
+    @pytest.mark.parametrize("arch", ARCHS)
+    def test_batched_requests_end_to_end(self, arch):
+        cfg = registry.get_smoke(arch)
         server = NexusModelServer(cfg, transport="rdma", replicas=2,
                                   prompt_len=32, device="cpu")
         rng = np.random.default_rng(0)
@@ -59,12 +62,13 @@ def _serve(server, n, gen):
     return prompts, outs
 
 
-def test_completions_match_reference_where_margin_allows():
-    cfg = ref_registry.get_smoke("llama3-8b")
+@pytest.mark.parametrize("arch", ARCHS)
+def test_completions_match_reference_where_margin_allows(arch):
+    cfg = ref_registry.get_smoke(arch)
     ref = RefServer(cfg, replicas=1, prompt_len=32)
     params = params_from_numpy(jax.tree.map(np.asarray,
                                             ref.instances[0].params))
-    port = NexusModelServer(registry.get_smoke("llama3-8b"), replicas=1,
+    port = NexusModelServer(registry.get_smoke(arch), replicas=1,
                             prompt_len=32, device="cpu", params=params)
     prompts, ref_outs = _serve(ref, 3, 6)
     port_prompts, port_outs = _serve(port, 3, 6)
@@ -95,10 +99,13 @@ def test_completions_match_reference_where_margin_allows():
     assert compared >= len(prompts)
 
 
-def test_main_runs_on_cpu(capsys):
-    result = serve.main(["--smoke", "--device", "cpu", "--requests", "2",
-                         "--gen", "3", "--prompt-len", "16"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_main_runs_on_cpu(capsys, arch):
+    result = serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                         "--requests", "2", "--gen", "3", "--prompt-len",
+                         "16"])
     assert [o.size for o in result["outputs"]] == [3, 3]
+    assert result["server"].cfg.name == f"{arch}-smoke"
     assert "2 requests x 3 tokens" in capsys.readouterr().out
 
 
