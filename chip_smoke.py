@@ -5,11 +5,15 @@
 Phases, each of which fails the run (exit 1) if it fails:
 
 1. print the card's name and power limit; build the CUDA kernels from
-   the sources in this checkout (one nvcc per source, in parallel);
+   the sources in this checkout (one nvcc per source, in parallel) and
+   print the build time;
 2. hold each kernel against its plain PyTorch version on the card:
    the attention kernels at Llama-3-8B and Hymba-1.5B widths, bf16
-   (atol = rtol = 2e-2) and fp32 (2e-5); the selective scan at
-   Falcon-Mamba-7B and Hymba-1.5B widths, fp32 (1e-4);
+   (atol = rtol = 2e-2) and fp32 (2e-5), each check naming the body
+   that ran (prefill: wgmma or SIMT; decode: mma or SIMT, and its
+   cluster size), q/k/v as views of a fused projection, and a misaligned
+   view that must raise; the selective scan at Falcon-Mamba-7B and
+   Hymba-1.5B widths, fp32 (1e-4);
 3. each served model at full width, 2 layers: kernel path against plain
    path, prefill and one decode step (atol 0.3, rtol 0.05);
 4. the serve driver (``repro_torch.launch.serve.main``) for each ported
@@ -22,9 +26,14 @@ Phases, each of which fails the run (exit 1) if it fails:
 5. one replica of each served arch traced with torch.profiler: host
    wall time of prefill and of a decode step, device time, device idle
    share, top device ops;
-6. each kernel timed with CUDA events at the serve shapes, beside its
-   bound, its plain version and, where there is one, one PyTorch library
-   call (a yardstick only; the port never calls it).
+6. each kernel timed at the serve shapes, beside its bound, its plain
+   version and, where there is one, one PyTorch library call (a
+   yardstick only; the port never calls it). Kernel and library times
+   are device times: CUDA events around the replay of a CUDA graph of
+   many calls, so the host's launch overhead (tens of microseconds per
+   call from Python, more than a decode kernel takes) does not stand in
+   for the kernel's time; the eager times are printed beside them. The
+   plain versions are timed eagerly.
 
 Prints a JSON line of the kernels, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -109,21 +118,52 @@ class Smoke:
             raise AssertionError(f"{kernel} {label} disagrees with its plain "
                                  f"version")
 
-    def time_ms(self, fn, sets, iters):
-        """Mean device time of one call, cycling over input sets larger
-        than the L2 cache, after a warmup."""
+    def time_ms(self, fn, sets, iters, graph=False):
+        """Mean time of one call, cycling over input sets larger than the
+        L2 cache, after a warmup: between CUDA events around eager calls,
+        or with ``graph`` around the replay of a CUDA graph of the calls
+        (device time, without the host's launch gaps)."""
         torch = self.torch
-        for s in sets:
-            fn(s)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for s in sets:
+                fn(s)
+        torch.cuda.current_stream().wait_stream(side)
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for i in range(iters):
-            fn(sets[i % len(sets)])
-        end.record()
+        if graph:
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                for i in range(iters):
+                    fn(sets[i % len(sets)])
+            g.replay()
+            torch.cuda.synchronize()
+            start.record()
+            g.replay()
+            end.record()
+        else:
+            start.record()
+            for i in range(iters):
+                fn(sets[i % len(sets)])
+            end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / iters
+
+    def time_row(self, kernel, plain, library, sets, lib_sets, iters,
+                 plain_iters):
+        """The kernel's and the library call's device times (graph
+        replay) and eager times, and the plain version's eager time."""
+        row = {"ms": self.time_ms(kernel, sets, iters, graph=True),
+               "plain_ms": self.time_ms(plain, sets, plain_iters),
+               "library_ms": None,
+               "eager_ms": self.time_ms(kernel, sets, iters)}
+        if library is not None:
+            row["library_ms"] = self.time_ms(library, lib_sets, iters,
+                                             graph=True)
+            row["library_eager_ms"] = self.time_ms(library, lib_sets, iters)
+        return row
 
     # ------------------------------------------------------------- phases
     def phase_build(self):
@@ -131,8 +171,8 @@ class Smoke:
         t0 = time.monotonic()
         libs = _build.build()
         print(f"built {', '.join(p.name for p in libs.values())} with "
-              f"{_build.nvcc()} {' '.join(_build.NVCC_FLAGS)} in "
-              f"{time.monotonic() - t0:.1f}s")
+              f"{_build.nvcc()} {' '.join(_build.NVCC_FLAGS)}; kernel build "
+              f"time {time.monotonic() - t0:.1f}s")
 
     def phase_kernels(self):
         self.check_attention()
@@ -142,8 +182,11 @@ class Smoke:
         torch = self.torch
         from repro_torch.kernels.decode_attention import (decode_mha,
                                                           decode_mha_ref)
+        from repro_torch.kernels.decode_attention import ops as decode_ops
         from repro_torch.kernels.flash_attention import mha, mha_ref
+        from repro_torch.kernels.flash_attention import ops as flash_ops
         llama, hymba = (32, 8, 128, ""), (25, 5, 64, " hymba H25/K5/hd64")
+        small = (8, 4, 32, " H8/K4/hd32")
         for dname, tol in TOL.items():
             dtype = getattr(torch, dname)
             g = self.gen(1)
@@ -153,30 +196,56 @@ class Smoke:
                     (llama, 1, 2048, True, 96, "causal window=96 S=2048"),
                     (llama, 1, 1024, False, 0, "bidirectional S=1024"),
                     (hymba, 1, 2048, True, 2048, "window=2048 S=2048"),
-                    (hymba, 1, 3000, True, 2048, "window=2048 S=3000")]:
+                    (hymba, 1, 3000, True, 2048, "window=2048 S=3000"),
+                    (small, 2, 512, True, 0, "causal S=512")]:
                 q = self.randn(g, (B, S, H, hd), dtype)
                 k, v = (self.randn(g, (B, S, K, hd), dtype) for _ in "kv")
                 out = mha(q, k, v, causal=causal, window=window)
                 ref = mha_ref(q, k, v, causal=causal, window=window)
-                self.compare(FLASH["name"], f"{dname} B={B} {what}{arch}",
-                             out, ref, tol)
+                self.compare(FLASH["name"], f"{dname} B={B} {what}{arch} "
+                             f"[{flash_ops.body(dtype, hd)}]", out, ref, tol)
+            # q, k, v as head slices of one fused (B, S, H + 2K, hd) tensor
+            H, K, hd, _ = llama
+            qkv = self.randn(g, (1, 1000, H + 2 * K, hd), dtype)
+            q, k, v = qkv[:, :, :H], qkv[:, :, H:H + K], qkv[:, :, H + K:]
+            self.compare(FLASH["name"], f"{dname} B=1 views of a fused qkv "
+                         f"S=1000 [{flash_ops.body(dtype, hd)}]",
+                         mha(q, k, v), mha_ref(q, k, v), tol)
             for (H, K, hd, arch), B, W, fill, pos, window, what in [
                     (llama, 8, 2048, 2048, 2048, 0, "full W=2048"),
                     (llama, 8, 2048, 700, 700, 0, "partial fill 700/2048"),
+                    (llama, 1, 2048, 100, 100, 0,
+                     "fill 100/2048, whole splits empty"),
                     (llama, 8, 2048, 5000, 5000, 1024,
                      "wrapped ring window=1024"),
                     (llama, 1, 2048, 2049, 2048, 0, "serve first wrap W=2048"),
+                    (llama, 2, 2048, 0, 0, 0, "no valid slot: mean of V"),
                     (hymba, 1, 2048, 2049, 2048, 2048,
                      "serve first wrap W=2048"),
-                    (hymba, 8, 2048, 900, 900, 2048, "partial fill 900/2048")]:
+                    (hymba, 8, 2048, 900, 900, 2048, "partial fill 900/2048"),
+                    (hymba, 1, 1000, 1000, 1000, 0,
+                     "W=1000, not a multiple of C")]:
                 q = self.randn(g, (B, 1, H, hd), dtype)
                 kc, vc = (self.randn(g, (B, W, K, hd), dtype) for _ in "kv")
                 sp = self.ring_slot_pos(W, fill, B)
                 p = torch.full((B,), pos, dtype=torch.int32, device=self.dev)
                 out = decode_mha(q, kc, vc, sp, p, window=window)
                 ref = decode_mha_ref(q, kc, vc, sp, p, window=window)
-                self.compare(DECODE["name"], f"{dname} B={B} {what}{arch}",
-                             out, ref, tol)
+                self.compare(DECODE["name"], f"{dname} B={B} {what}{arch} "
+                             f"[{decode_ops.body(dtype)}, cluster "
+                             f"{decode_ops.cluster_size(W, B, K)}]", out,
+                             ref, tol)
+        # what TMA cannot describe raises, and nothing is launched
+        wide = self.randn(self.gen(7), (1, 256, 4, 72), torch.bfloat16)
+        before = flash_ops.launches
+        try:
+            mha(wide[..., 1:65], wide[..., 1:65], wide[..., 1:65])
+        except ValueError as e:
+            print(f"  {FLASH['name']:15s} misaligned bf16 view raises: {e}")
+        else:
+            raise AssertionError("a misaligned view did not raise")
+        if flash_ops.launches != before:
+            raise AssertionError("a refused call counted a launch")
 
     def scan_inputs(self, g, B, S, di, N=16, xdtype=None, h0_scale=0.0,
                     proj_rank=0):
@@ -448,16 +517,13 @@ class Smoke:
             i = torch.arange(S, device=self.dev)
             lib_mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :]
                                                      < window)
-        row = {
-            "ms": self.time_ms(lambda s: mha(*s, causal=True, window=window),
-                               sets, 20),
-            "plain_ms": self.time_ms(
-                lambda s: mha_ref(*s, causal=True, window=window), sets, 5),
-            "library_ms": self.time_ms(
-                lambda s: F.scaled_dot_product_attention(
-                    *s, attn_mask=lib_mask, is_causal=lib_mask is None,
-                    enable_gqa=True), lib_sets, 20),
-            "bound_ms": bms, "bound_by": by}
+        row = self.time_row(
+            lambda s: mha(*s, causal=True, window=window),
+            lambda s: mha_ref(*s, causal=True, window=window),
+            lambda s: F.scaled_dot_product_attention(
+                *s, attn_mask=lib_mask, is_causal=lib_mask is None,
+                enable_gqa=True), sets, lib_sets, 20, 5)
+        row.update(bound_ms=bms, bound_by=by)
         self.report(f"flash_attention bf16 B=1 S=2048 causal H={H} K={K} "
                     f"hd={hd} window={window} ({arch})", row)
         return row
@@ -488,16 +554,13 @@ class Smoke:
                              valid[:, None, None, :]))
         nbytes = 2 * (2 * B * H * hd + 2 * B * W * K * hd) + 4 * (B * W + B)
         bms, by = self.bound(nbytes, 4 * H * hd * int(valid.sum()))
-        row = {
-            "ms": self.time_ms(lambda s: decode_mha(*s, window=window), sets,
-                               200),
-            "plain_ms": self.time_ms(
-                lambda s: decode_mha_ref(*s, window=window), sets, 50),
-            "library_ms": self.time_ms(
-                lambda s: F.scaled_dot_product_attention(
-                    s[0], s[1], s[2], attn_mask=s[3], enable_gqa=True),
-                lib_sets, 200),
-            "bound_ms": bms, "bound_by": by}
+        row = self.time_row(
+            lambda s: decode_mha(*s, window=window),
+            lambda s: decode_mha_ref(*s, window=window),
+            lambda s: F.scaled_dot_product_attention(
+                s[0], s[1], s[2], attn_mask=s[3], enable_gqa=True),
+            sets, lib_sets, 200, 50)
+        row.update(bound_ms=bms, bound_by=by)
         self.report(f"flash_decode bf16 B={B} W=2048 H={H} K={K} hd={hd} "
                     f"window={window} ({arch})", row)
         return row
@@ -518,13 +581,12 @@ class Smoke:
                   + 4 * di * N + 2 * 4 * B * di * N)
         # per state and step: dt*A, exp, *B, fma (2), *C, the sum over n
         bms, by = self.bound(nbytes, 7 * B * S * di * N, F32_FLOPS_PER_S)
-        row = {
-            "ms": self.time_ms(lambda s: selective_scan(*s), sets, 40),
-            "plain_ms": self.time_ms(lambda s: ssm_scan_ref(*s), sets, 3),
-            "library_ms": None,
-            "bound_ms": bms, "bound_by": by,
-            "chunked_ms": self.time_ms(lambda s: ssm_scan_chunked(*s), sets,
-                                       3)}
+        row = self.time_row(lambda s: selective_scan(*s),
+                            lambda s: ssm_scan_ref(*s), None, sets, None, 40,
+                            3)
+        row.update(bound_ms=bms, bound_by=by,
+                   chunked_ms=self.time_ms(lambda s: ssm_scan_chunked(*s),
+                                           sets, 3))
         self.report(f"ssm_scan B=1 S=2048 di={di} N=16 xr bf16 ({arch}; "
                     f"{nbytes / 1e6:.1f} MB, "
                     f"{7 * B * S * di * N / 1e9:.2f} GFLOP)", row)
@@ -538,6 +600,10 @@ class Smoke:
               f"{row['bound_ms']:.4f} ms ({row['bound_by']}), share of bound "
               f"{row['bound_ms'] / row['ms']:.3f}, plain {row['plain_ms']:.4f}"
               f" ms, library {'none' if lib is None else f'{lib:.4f} ms'}")
+        print(f"    eager (host launch gaps included): kernel "
+              f"{row['eager_ms']:.4f} ms"
+              + ("" if lib is None
+                 else f", library {row['library_eager_ms']:.4f} ms"))
 
     def kernels_line(self):
         """One row per kernel: launches summed over the serve paths (each

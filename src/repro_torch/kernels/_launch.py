@@ -31,12 +31,40 @@ def check_float(name: str, *tensors) -> torch.device:
     return dev
 
 
+#: bytes: TMA and 16-byte vector loads need base addresses and strides
+#: that are multiples of this
+ALIGN = 16
+
+
+def check_aligned(name: str, what: str, *tensors) -> None:
+    """Raise unless each tensor's base address, and the byte stride of
+    every dimension but the innermost, are multiples of ALIGN bytes, as
+    ``what`` needs."""
+    for t in tensors:
+        if t.data_ptr() % ALIGN:
+            raise ValueError(f"{name}: base address {t.data_ptr():#x} is not "
+                             f"{ALIGN}-byte aligned, which {what} needs")
+        for st in t.stride()[:-1]:
+            if (st * t.element_size()) % ALIGN:
+                raise ValueError(f"{name}: a stride of {st * t.element_size()}"
+                                 f" bytes is not a multiple of {ALIGN}, which "
+                                 f"{what} needs")
+
+
 def stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+#: a C entry point returns this plus a CUresult when a TMA tensor map
+#: cannot be built
+TMAP_ERROR = 2000
 
 
 def raise_on(name: str, rc: int) -> None:
     if rc == -1:
         raise ValueError(f"{name}: the kernel does not take these arguments")
+    if rc >= TMAP_ERROR:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed with "
+                           f"CUresult {rc - TMAP_ERROR}")
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")

@@ -4,8 +4,14 @@ On CUDA tensors `decode_mha` launches the hand-written kernel
 (``csrc/decode_attention.cu``) or raises; on CPU tensors it runs the
 plain version in ``ref.py``. The kernel reads the cache in the model's
 layout through strides (the reference wrapper transposes the whole cache
-first), and reads ``slot_pos`` and ``pos`` on the device. ``launches``
-counts kernel launches.
+first), and reads ``slot_pos`` and ``pos`` on the device. One launch
+splits each (kv head, batch)'s cache across the blocks of a thread-block
+cluster (`cluster_size` of them) that combine their partial softmax
+states in distributed shared memory. bf16 caches run their products on
+the tensor cores and read cache rows in 16-byte pieces, so for them the
+wrapper checks that the caches' base addresses and strides are multiples
+of 16 bytes and raises otherwise; f32 caches run the SIMT loop.
+``launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -34,6 +40,21 @@ def _lib():
     return fn
 
 
+def body(dtype: torch.dtype) -> str:
+    """The loop that serves caches of this dtype: "mma" (tensor cores) for
+    bf16, "simt" for f32."""
+    return "mma" if dtype == torch.bfloat16 else "simt"
+
+
+def cluster_size(W: int, B: int, K: int) -> int:
+    """The blocks of the cluster that split a cache of W slots of each of
+    B * K (batch, kv head) pairs, as the kernel chooses them on this card
+    (needs the built kernel)."""
+    fn = _build.load(SOURCE).flash_decode_cluster_size
+    fn.restype, fn.argtypes = X.i32, [X.i32] * 3
+    return fn(W, B, K)
+
+
 def decode_mha(q, k_cache, v_cache, slot_pos, pos, *, window: int = 0):
     """q: (B, 1, H, hd); caches: (B, W, K, hd); slot_pos: (B, W) int32;
     pos: (B,) int32. Returns (B, 1, H, hd) in q.dtype."""
@@ -60,6 +81,8 @@ def decode_mha(q, k_cache, v_cache, slot_pos, pos, *, window: int = 0):
         raise ValueError(f"{NAME}: device {dev} not supported")
     if hd not in X.HEAD_DIMS or H // K not in GROUPS:
         raise ValueError(f"{NAME}: head_dim {hd} / group {H // K} not supported")
+    if body(q.dtype) == "mma":
+        X.check_aligned(NAME, "16-byte cache loads", k_cache, v_cache)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     rc = _lib()(X.DTYPE_CODES[q.dtype], q.data_ptr(), k_cache.data_ptr(),
                 v_cache.data_ptr(), slot_pos.data_ptr(), pos.data_ptr(),

@@ -5,6 +5,13 @@ On a CUDA tensor `mha` launches the hand-written kernel
 plain version in ``ref.py``. The kernel reads the model's layout through
 strides, so nothing is transposed or copied. ``launches`` counts kernel
 launches.
+
+The source has two bodies, picked from the dtype and head dim alone
+(`body`): bf16 at hd 64 or 128 runs on the tensor cores (wgmma, tiles
+loaded by TMA); f32 and bf16 at hd 32 run the SIMT body. TMA describes a
+tensor only when its base address and every stride but the innermost
+are multiples of 16 bytes: for the tensor-core body the wrapper checks
+that and raises, it never falls back.
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ from repro_torch.kernels import _launch as X
 from repro_torch.kernels.flash_attention.ref import mha_ref
 
 NAME = "flash_attention"
+WGMMA_HEAD_DIMS = (64, 128)
 launches = 0
 _count_lock = threading.Lock()
 
@@ -29,6 +37,13 @@ def _lib():
         fn.argtypes = ([X.i32] + [X.ptr] * 4 + [X.i32] * 6 + [X.i64] * 12
                        + [X.i32, X.i32, X.ptr])
     return fn
+
+
+def body(dtype: torch.dtype, hd: int) -> str:
+    """The kernel body that serves this dtype and head dim: "wgmma"
+    (tensor cores, TMA) or "simt"."""
+    return "wgmma" if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS \
+        else "simt"
 
 
 def mha(q, k, v, *, causal: bool = True, window: int = 0):
@@ -47,6 +62,8 @@ def mha(q, k, v, *, causal: bool = True, window: int = 0):
         raise ValueError(f"{NAME}: device {dev} not supported")
     if hd not in X.HEAD_DIMS:
         raise ValueError(f"{NAME}: head_dim {hd} not in {X.HEAD_DIMS}")
+    if body(q.dtype, hd) == "wgmma":
+        X.check_aligned(NAME, "TMA", q, k, v)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     strides = []
     for t in (q, k, v, out):              # (batch, head, seq) strides

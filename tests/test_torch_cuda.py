@@ -74,6 +74,117 @@ def test_flash_attention_matches_plain(card, dtype, B, S, H, K, hd, causal,
     _close(out, mha_ref(q, k, v, causal=causal, window=window), dtype)
 
 
+@pytest.mark.parametrize("B,S,H,K,hd,window", [
+    (1, 2048, 32, 8, 128, 0),               # llama3-8b serve shape
+    (1, 2048, 25, 5, 64, 2048),             # hymba-1.5b serve shape
+    (1, 3000, 25, 5, 64, 2048),             # hymba, window shorter than S
+    (1, 1000, 32, 8, 128, 0),               # ragged S
+])
+def test_flash_attention_tensor_core_body_at_serve_shapes(card, B, S, H, K,
+                                                          hd, window):
+    assert flash_ops.body(torch.bfloat16, hd) == "wgmma"
+    gen = torch.Generator(device=card).manual_seed(3)
+    q = _randn(gen, (B, S, H, hd), torch.bfloat16)
+    k, v = (_randn(gen, (B, S, K, hd), torch.bfloat16) for _ in range(2))
+    before = flash_ops.launches
+    out = mha(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert flash_ops.launches == before + 1
+    _close(out, mha_ref(q, k, v, causal=True, window=window), torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 128),
+                                      (torch.bfloat16, 64),
+                                      (torch.float32, 64)])
+def test_flash_attention_reads_views_of_a_fused_projection(card, dtype, hd):
+    """q, k and v as head slices of one (B, S, H + 2K, hd) tensor: the
+    kernel reads them through their strides, nothing is copied."""
+    B, S, H, K = 2, 700, 8, 2
+    gen = torch.Generator(device=card).manual_seed(4)
+    qkv = _randn(gen, (B, S, H + 2 * K, hd), dtype)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + K], qkv[:, :, H + K:]
+    assert not q.is_contiguous()
+    before = flash_ops.launches
+    out = mha(q, k, v, causal=True, window=0)
+    torch.cuda.synchronize()
+    assert flash_ops.launches == before + 1
+    _close(out, mha_ref(q, k, v, causal=True, window=0), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Sk,causal", [(300, 1000, False),
+                                          (1000, 300, True),
+                                          (77, 77, True),     # under one tile
+                                          (50, 90, False)])
+def test_flash_attention_queries_and_keys_of_different_lengths(card, dtype,
+                                                               Sq, Sk,
+                                                               causal):
+    gen = torch.Generator(device=card).manual_seed(8)
+    q = _randn(gen, (2, Sq, 8, 128), dtype)
+    k, v = (_randn(gen, (2, Sk, 2, 128), dtype) for _ in range(2))
+    before = flash_ops.launches
+    out = mha(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_ops.launches == before + 1
+    _close(out, mha_ref(q, k, v, causal=causal), dtype)
+
+
+def test_flash_attention_tensor_core_body_rejects_misaligned_views(card):
+    gen = torch.Generator(device=card).manual_seed(5)
+    wide = _randn(gen, (1, 256, 4, 72), torch.bfloat16)
+    k = _randn(gen, (1, 256, 2, 64), torch.bfloat16)
+    before = flash_ops.launches
+    with pytest.raises(ValueError, match="aligned"):
+        mha(wide[..., 1:65], k, k)              # base 2 bytes off
+    with pytest.raises(ValueError, match="multiple of 16"):
+        odd = _randn(gen, (1, 256, 4, 65), torch.bfloat16)
+        mha(odd[..., :64], k, k)                # head stride 130 bytes
+    assert flash_ops.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,K,W,hd,window,fill,pos", [
+    (1, 32, 8, 2048, 128, 0, 2049, 2048),   # llama serve shape, B = 1
+    (8, 32, 8, 2048, 128, 0, 2049, 2048),   # llama serve shape, B = 8
+    (1, 32, 8, 2048, 128, 0, 100, 100),     # whole splits empty
+    (2, 25, 5, 2048, 64, 2048, 700, 700),   # hymba, partial fill
+    (1, 25, 5, 1000, 64, 0, 1000, 1000),    # W not a multiple of C
+    (2, 8, 2, 512, 64, 0, 0, 0),            # no valid slot: mean of V
+    (2, 10, 2, 100, 64, 0, 77, 77),         # one block, no cluster split
+])
+def test_flash_decode_cluster_split(card, dtype, B, H, K, W, hd, window, fill,
+                                    pos):
+    gen = torch.Generator(device=card).manual_seed(6)
+    q = _randn(gen, (B, 1, H, hd), dtype)
+    kc, vc = (_randn(gen, (B, W, K, hd), dtype) for _ in range(2))
+    sp = ring_slot_pos(W, fill, B, card)
+    p = torch.full((B,), pos, dtype=torch.int32, device=card)
+    C = decode_ops.cluster_size(W, B, K)
+    assert C in (1, 2, 4, 8) and (C == 1 or C * 128 <= W)
+    before = decode_ops.launches
+    out = decode_mha(q, kc, vc, sp, p, window=window)
+    torch.cuda.synchronize()
+    assert decode_ops.launches == before + 1
+    ref = decode_mha_ref(q, kc, vc, sp, p, window=window)
+    _close(out, ref, dtype)
+    if fill == 0:
+        torch.testing.assert_close(
+            out.float(), vc.float().mean(dim=1, keepdim=True).repeat_interleave(
+                H // K, dim=2), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def test_flash_decode_bf16_rejects_misaligned_caches(card):
+    gen = torch.Generator(device=card).manual_seed(7)
+    q = _randn(gen, (1, 1, 8, 64), torch.bfloat16)
+    wide = _randn(gen, (1, 256, 2, 72), torch.bfloat16)
+    sp = ring_slot_pos(256, 256, 1, card)
+    pos = torch.full((1,), 256, dtype=torch.int32, device=card)
+    before = decode_ops.launches
+    with pytest.raises(ValueError, match="aligned"):
+        decode_mha(q, wide[..., 4:68], wide[..., 4:68], sp, pos)
+    assert decode_ops.launches == before
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,K,W,hd,window,fill", [
     (2, 4, 2, 512, 64, 0, 512),
