@@ -13,7 +13,10 @@ Phases, each of which fails the run (exit 1) if it fails:
    that ran (prefill: wgmma or SIMT; decode: mma or SIMT, and its
    cluster size), q/k/v as views of a fused projection, and a misaligned
    view that must raise; the selective scan at Falcon-Mamba-7B and
-   Hymba-1.5B widths, fp32 (1e-4);
+   Hymba-1.5B widths, fp32 (1e-4), with the model's long-memory dt and
+   A, every states-per-thread R forced, N = 8, layouts that are not
+   16-byte aligned and S = 0, 1 and 5, each check naming the R that ran
+   (``[R r]``);
 3. each served model at full width, 2 layers: kernel path against plain
    path, prefill and one decode step (atol 0.3, rtol 0.05);
 4. the serve driver (``repro_torch.launch.serve.main``) for each ported
@@ -33,7 +36,8 @@ Phases, each of which fails the run (exit 1) if it fails:
    many calls, so the host's launch overhead (tens of microseconds per
    call from Python, more than a decode kernel takes) does not stand in
    for the kernel's time; the eager times are printed beside them. The
-   plain versions are timed eagerly.
+   plain versions are timed eagerly. The scan is also timed at every R
+   of ``SCAN_SWEEP`` beside the R its rule picks.
 
 Prints a JSON line of the kernels, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -60,6 +64,7 @@ ARCHS = ("llama3-8b", "falcon-mamba-7b", "hymba-1.5b")
 PROMPT, REQUESTS, GEN, REPLICAS = 2048, 8, 16, 2
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 SCAN_TOL = 1e-4                 # f32, as tests/test_kernels.py::TestSsmScan
+SCAN_SWEEP = (2, 4, 8)          # states per thread timed in phase 6
 
 FLASH = {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -109,7 +114,7 @@ class Smoke:
     def compare(self, kernel, label, out, ref, tol):
         self.torch.cuda.synchronize()
         diff = (out.float() - ref.float()).abs()
-        err = diff.max().item()
+        err = diff.max().item() if diff.numel() else 0.0
         bad = (diff > tol + tol * ref.float().abs()).sum().item()
         self.err[kernel] = max(self.err[kernel], err)
         print(f"  {kernel:15s} {label:48s} max_abs_err={err:.3e} "
@@ -248,25 +253,50 @@ class Smoke:
             raise AssertionError("a refused call counted a launch")
 
     def scan_inputs(self, g, B, S, di, N=16, xdtype=None, h0_scale=0.0,
-                    proj_rank=0):
+                    proj_rank=0, long_memory=False):
         """dt, xr, B, C, A, h0 as the model path gives them: dt from a
-        softplus, A negative; with ``proj_rank`` B and C are column slices
-        of one (B, S, R + 2N) projection, as in `mamba_layer`."""
+        softplus, A negative; with ``long_memory`` the model's own ranges,
+        dt = softplus(z - 4.6) ~ 0.01 and A = -(1..N) (`init_mamba`), so
+        the state carries over hundreds of steps; with ``proj_rank`` B and
+        C are column slices of one (B, S, R + 2N) projection, as in
+        `mamba_layer`."""
         torch = self.torch
         f32 = torch.float32
-        dt = torch.nn.functional.softplus(self.randn(g, (B, S, di), f32)) * 0.1
+        z = self.randn(g, (B, S, di), f32)
+        if long_memory:
+            dt = torch.nn.functional.softplus(z - 4.6)
+        else:
+            dt = torch.nn.functional.softplus(z) * 0.1
         xr = self.randn(g, (B, S, di), xdtype or f32)
         proj = self.randn(g, (B, S, proj_rank + 2 * N), f32)
         Bm, Cm = proj[..., proj_rank:proj_rank + N], proj[..., proj_rank + N:]
-        A = -torch.exp(self.randn(g, (di, N), f32) * 0.5)
+        if long_memory:
+            A = -torch.arange(1, N + 1, device=self.dev, dtype=f32).expand(
+                di, N).contiguous()
+        else:
+            A = -torch.exp(self.randn(g, (di, N), f32) * 0.5)
         h0 = self.randn(g, (B, di, N), f32) * h0_scale
         return dt, xr, Bm, Cm, A, h0
 
     def check_scan(self):
+        """Each check names the states per thread R that ran: "[R r]" for
+        the kernel's own choice, "[R r forced]" where the check sets it."""
         torch = self.torch
-        from repro_torch.kernels.ssm_scan import selective_scan, ssm_scan_ref
+        from repro_torch.kernels.ssm_scan import ops as scan_ops
+        from repro_torch.kernels.ssm_scan import ssm_scan_ref
         name = SCAN["name"]
         g = self.gen(4)
+
+        def check(what, ins, R=0):
+            B, _, di = ins[0].shape
+            tag = (f"[R {R} forced]" if R else
+                   f"[R {scan_ops.states_per_thread(B, di, ins[4].shape[1])}]")
+            y, h = scan_ops.selective_scan_at(*ins, R=R)
+            y_ref, h_ref = ssm_scan_ref(*ins)
+            self.compare(name, f"y {what} {tag}", y, y_ref, SCAN_TOL)
+            self.compare(name, f"h_final {what} {tag}", h, h_ref, SCAN_TOL)
+            return y, h
+
         for B, S, di, xdtype, h0_scale, rank, what in [
                 (1, 2048, 8192, None, 0.0, 0, "falcon-mamba B=1 S=2048 di=8192"),
                 (1, 1000, 8192, None, 0.0, 0, "ragged S=1000 di=8192"),
@@ -276,20 +306,43 @@ class Smoke:
                 (1, 2048, 3200, None, 0.0, 0, "hymba B=1 S=2048 di=3200"),
                 (1, 2048, 3200, torch.bfloat16, 0.1, 200,
                  "hymba xr bf16, B/C slices di=3200")]:
-            ins = self.scan_inputs(g, B, S, di, xdtype=xdtype,
-                                   h0_scale=h0_scale, proj_rank=rank)
-            y, h = selective_scan(*ins)
-            y_ref, h_ref = ssm_scan_ref(*ins)
-            self.compare(name, f"y {what}", y, y_ref, SCAN_TOL)
-            self.compare(name, f"h_final {what}", h, h_ref, SCAN_TOL)
+            check(what, self.scan_inputs(g, B, S, di, xdtype=xdtype,
+                                         h0_scale=h0_scale, proj_rank=rank))
+        # the model's long memory (dt ~ 0.01, A = -(1..16)) at both serve
+        # widths, and with every R forced at Hymba's
+        for di, rank, arch in ((8192, 256, "falcon-mamba"), (3200, 100, "hymba")):
+            ins = self.scan_inputs(g, 1, 2048, di, xdtype=torch.bfloat16,
+                                   h0_scale=1.0, proj_rank=rank,
+                                   long_memory=True)
+            check(f"{arch} long memory di={di}", ins)
+        for R in scan_ops.PER_THREAD:
+            check("hymba long memory di=3200", ins, R=R)
+        check("N=8 B=2 S=1000 di=512", self.scan_inputs(
+            g, 2, 1000, 512, N=8, xdtype=torch.bfloat16, h0_scale=1.0,
+            proj_rank=8, long_memory=True))
+        # layouts that are not 16-byte aligned take plain loads: an odd di,
+        # and xr a view at an odd offset
+        check("odd di=3201 xr bf16", self.scan_inputs(
+            g, 1, 2048, 3201, xdtype=torch.bfloat16, h0_scale=1.0,
+            long_memory=True))
+        dt, _, Bm, Cm, A, h0 = self.scan_inputs(g, 1, 2048, 3200, h0_scale=1.0,
+                                                long_memory=True)
+        for xdtype in (torch.float32, torch.bfloat16):
+            xr = self.randn(g, (1, 2048, 3201), xdtype)[..., 1:]
+            check(f"xr {str(xdtype)[6:]} view at offset 1 di=3200",
+                  (dt, xr, Bm, Cm, A, h0))
+        for S in (0, 1, 5):
+            check(f"S={S} di=3200", self.scan_inputs(
+                g, 1, S, 3200, xdtype=torch.bfloat16, h0_scale=1.0,
+                long_memory=True))
         # state continuation: two halves with the carried state = the whole
-        dt, xr, Bm, Cm, A, h0 = self.scan_inputs(g, 1, 2048, 8192,
-                                                 h0_scale=0.1)
-        y, h = selective_scan(dt, xr, Bm, Cm, A, h0)
-        y1, h1 = selective_scan(dt[:, :1000], xr[:, :1000], Bm[:, :1000],
-                                Cm[:, :1000], A, h0)
-        y2, h2 = selective_scan(dt[:, 1000:], xr[:, 1000:], Bm[:, 1000:],
-                                Cm[:, 1000:], A, h1)
+        ins = self.scan_inputs(g, 1, 2048, 8192, h0_scale=0.1)
+        y, h = scan_ops.selective_scan(*ins)
+        dt, xr, Bm, Cm, A, h0 = ins
+        y1, h1 = scan_ops.selective_scan(dt[:, :1000], xr[:, :1000],
+                                         Bm[:, :1000], Cm[:, :1000], A, h0)
+        y2, h2 = scan_ops.selective_scan(dt[:, 1000:], xr[:, 1000:],
+                                         Bm[:, 1000:], Cm[:, 1000:], A, h1)
         self.compare(name, "y halves 1000 + 1048 vs whole",
                      torch.cat([y1, y2], dim=1), y, SCAN_TOL)
         self.compare(name, "h_final halves vs whole", h2, h, SCAN_TOL)
@@ -568,8 +621,11 @@ class Smoke:
     def time_scan(self, di, rank, arch):
         """The scan at the serve shape: B=1, S=2048, N=16, xr in bf16,
         B and C column slices of the projection, as `mamba_layer` calls
-        it. No PyTorch call computes a selective scan: library none."""
+        it, with the kernel's own states per thread R; then every R of the
+        sweep by graph replay, beside the rule's pick. No PyTorch call
+        computes a selective scan: library none."""
         torch = self.torch
+        from repro_torch.kernels.ssm_scan import ops as scan_ops
         from repro_torch.kernels.ssm_scan import selective_scan, ssm_scan_ref
         from repro_torch.models.mamba import ssm_scan_chunked
         B, S, N = 1, PROMPT, 16
@@ -584,14 +640,24 @@ class Smoke:
         row = self.time_row(lambda s: selective_scan(*s),
                             lambda s: ssm_scan_ref(*s), None, sets, None, 40,
                             3)
-        row.update(bound_ms=bms, bound_by=by,
+        R = scan_ops.states_per_thread(B, di, N)
+        row.update(bound_ms=bms, bound_by=by, states_per_thread=R,
                    chunked_ms=self.time_ms(lambda s: ssm_scan_chunked(*s),
                                            sets, 3))
-        self.report(f"ssm_scan B=1 S=2048 di={di} N=16 xr bf16 ({arch}; "
-                    f"{nbytes / 1e6:.1f} MB, "
+        self.report(f"ssm_scan B=1 S=2048 di={di} N=16 xr bf16 [R {R}] "
+                    f"({arch}; {nbytes / 1e6:.1f} MB, "
                     f"{7 * B * S * di * N / 1e9:.2f} GFLOP)", row)
         print(f"    model plain path ssm_scan_chunked "
               f"{row['chunked_ms']:.4f} ms")
+        row["ms_by_states_per_thread"] = {
+            r: self.time_ms(lambda s, r=r: scan_ops.selective_scan_at(*s, R=r),
+                            sets, 40, graph=True) for r in SCAN_SWEEP}
+        fastest = min(row["ms_by_states_per_thread"].items(),
+                      key=lambda kv: kv[1])[0]
+        print("    sweep (graph replay): " + ", ".join(
+            f"R {r} {ms:.4f} ms" for r, ms in
+            row["ms_by_states_per_thread"].items())
+              + f"; the rule picks R {R}, the fastest is R {fastest}")
         return row
 
     def report(self, label, row):

@@ -247,6 +247,80 @@ def test_ssm_scan_matches_plain(card, xdtype, B, S, di, N, strided):
     torch.testing.assert_close(h2, h, atol=1e-4, rtol=1e-4)
 
 
+def _long_memory_scan_inputs(gen, B, S, di, N, rank=8):
+    """The scan's inputs as `mamba_layer` gives them, with the model's
+    long-memory dt = softplus(z - 4.6) ~ 0.01 and A = -(1..N)
+    (`init_mamba`): xr bf16, B and C column slices of one projection, a
+    nonzero h0."""
+    f32 = torch.float32
+    dt = torch.nn.functional.softplus(_randn(gen, (B, S, di), f32) - 4.6)
+    xr = _randn(gen, (B, S, di), torch.bfloat16)
+    proj = _randn(gen, (B, S, rank + 2 * N), f32)
+    A = -torch.arange(1, N + 1, device=gen.device, dtype=f32).expand(
+        di, N).contiguous()
+    h0 = _randn(gen, (B, di, N), f32)
+    return dt, xr, proj[..., rank:rank + N], proj[..., rank + N:], A, h0
+
+
+def _scan_close(ins, R=0):
+    before = scan_ops.launches
+    y, h = scan_ops.selective_scan_at(*ins, R=R)
+    torch.cuda.synchronize()
+    assert scan_ops.launches == before + 1
+    y_ref, h_ref = ssm_scan_ref(*ins)
+    torch.testing.assert_close(y, y_ref, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(h, h_ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("di", [8192, 3200])     # falcon-mamba-7b, hymba-1.5b
+def test_ssm_scan_long_memory_at_serve_shapes(card, di):
+    """The serve shapes (B = 1, S = 2048, N = 16) with the kernel's own R,
+    on the model's long-memory inputs."""
+    gen = torch.Generator(device=card).manual_seed(3)
+    _scan_close(_long_memory_scan_inputs(gen, 1, 2048, di, 16))
+
+
+@pytest.mark.parametrize("R,N", [(2, 16), (4, 16), (8, 16), (16, 16),
+                                 (2, 8), (4, 8), (8, 8)])
+def test_ssm_scan_every_states_per_thread(card, R, N):
+    """Every R forced, on long-memory inputs with a ragged S and di and
+    B = 2."""
+    gen = torch.Generator(device=card).manual_seed(4)
+    _scan_close(_long_memory_scan_inputs(gen, 2, 777, 300, N), R=R)
+
+
+@pytest.mark.parametrize("S", [0, 1, 5])
+def test_ssm_scan_short_sequences(card, S):
+    """Fewer steps than a chunk, and none: h_final is h0 carried S steps."""
+    gen = torch.Generator(device=card).manual_seed(5)
+    _scan_close(_long_memory_scan_inputs(gen, 1, S, 3200, 16))
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("di,offset", [(301, 0), (300, 1)])
+def test_ssm_scan_unaligned_layouts(card, xdtype, di, offset):
+    """An odd di, or xr a view at an odd offset: rows are not 16-byte
+    aligned, and the kernel takes plain loads and stores."""
+    gen = torch.Generator(device=card).manual_seed(6)
+    dt, _, Bm, Cm, A, h0 = _long_memory_scan_inputs(gen, 2, 300, di, 16)
+    xr = _randn(gen, (2, 300, di + offset), xdtype)[..., offset:]
+    _scan_close((dt, xr, Bm, Cm, A, h0))
+
+
+def test_ssm_scan_states_per_thread_rule(card):
+    """R = 4 where that still gives every SM a block (128 * 4 / N channels
+    a block), else 2: on an H100 (132 SMs) 4 at di 8192 and 2 at di 3200."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for B, di, N in [(1, 8192, 16), (1, 3200, 16), (4, 3200, 16),
+                     (1, 512, 16), (1, 8192, 8), (2, 2048, 8)]:
+        blocks_at_4 = B * -(-di // (128 * 4 // N))
+        want = 4 if blocks_at_4 >= sms else 2
+        assert scan_ops.states_per_thread(B, di, N) == want
+    if sms == 132:
+        assert scan_ops.states_per_thread(1, 8192, 16) == 4
+        assert scan_ops.states_per_thread(1, 3200, 16) == 2
+
+
 @pytest.mark.parametrize("arch", ["llama3-8b", "falcon-mamba-7b",
                                   "hymba-1.5b"])
 def test_model_kernel_path_matches_plain_path(card, arch):
