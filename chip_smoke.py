@@ -8,29 +8,36 @@ Phases, each of which fails the run (exit 1) if it fails:
    the sources in this checkout (one nvcc per source, in parallel) and
    print the build time;
 2. hold each kernel against its plain PyTorch version on the card:
-   the attention kernels at Llama-3-8B and Hymba-1.5B widths, bf16
-   (atol = rtol = 2e-2) and fp32 (2e-5), each check naming the body
-   that ran (prefill: wgmma or SIMT; decode: mma or SIMT, and its
-   cluster size), q/k/v as views of a fused projection, and a misaligned
-   view that must raise; the selective scan at Falcon-Mamba-7B and
-   Hymba-1.5B widths, fp32 (1e-4), with the model's long-memory dt and
-   A, every states-per-thread R forced, N = 8, layouts that are not
-   16-byte aligned and S = 0, 1 and 5, each check naming the R that ran
-   (``[R r]``);
+   the attention kernels at Llama-3-8B, Hymba-1.5B and Qwen3-30B-A3B
+   widths (qwen3: 32 q heads over 4 kv heads, G 8, hd 128; prefill B 1
+   S 2048 causal, decode B 1 and 8 after the ring's first wrap and at a
+   partial fill), bf16 (atol = rtol = 2e-2) and fp32 (2e-5), each check
+   naming the body that ran (prefill: wgmma or SIMT; decode: mma or
+   SIMT, and its cluster size), q/k/v as views of a fused projection, and
+   a misaligned view that must raise; the selective scan at
+   Falcon-Mamba-7B and Hymba-1.5B widths, fp32 (1e-4), with the model's
+   long-memory dt and A, every states-per-thread R forced, N = 8, layouts
+   that are not 16-byte aligned and S = 0, 1 and 5, each check naming the
+   R that ran (``[R r]``);
 3. each served model at full width, 2 layers: kernel path against plain
    path, prefill and one decode step (atol 0.3, rtol 0.05);
 4. the serve driver (``repro_torch.launch.serve.main``) for each ported
    arch at full published width (llama3-8b 32 layers, falcon-mamba-7b
-   64, hymba-1.5b 32), prompt 2048, 8 requests x 16 tokens, 2 replicas:
-   durable completions, prefetches, exact kernel launch counts (every
-   count set to 0 just before the path and read just after), the first
-   request replayed through the plain path, peak device memory; each
-   server is freed before the next path starts;
+   64, hymba-1.5b 32, qwen3-moe-30b-a3b 48 with 128 experts top-8,
+   30.53e9 parameters), prompt 2048, 8 requests x 16 tokens, 2 replicas
+   sharing one params copy: durable completions, prefetches, exact
+   kernel launch counts (every count set to 0 just before the path and
+   read just after), the first request replayed through the plain path,
+   peak device memory under 1.5x the params (one copy); for the MoE, one
+   decode token through ``moe_dense`` allocating less than an eighth of
+   one (E, D, F) expert weight leaf (the weights are read in place,
+   never copied); each server is freed before the next path starts;
 5. one replica of each served arch traced with torch.profiler: host
    wall time of prefill and of a decode step, device time, device idle
    share, top device ops;
-6. each kernel timed at the serve shapes, beside its bound, its plain
-   version and, where there is one, one PyTorch library call (a
+6. each kernel timed at the serve shapes (the attention kernels at
+   llama3-8b's, hymba-1.5b's and qwen3-moe-30b-a3b's), beside its bound,
+   its plain version and, where there is one, one PyTorch library call (a
    yardstick only; the port never calls it). Kernel and library times
    are device times: CUDA events around the replay of a CUDA graph of
    many calls, so the host's launch overhead (tens of microseconds per
@@ -60,7 +67,7 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
-ARCHS = ("llama3-8b", "falcon-mamba-7b", "hymba-1.5b")
+ARCHS = ("llama3-8b", "falcon-mamba-7b", "hymba-1.5b", "qwen3-moe-30b-a3b")
 PROMPT, REQUESTS, GEN, REPLICAS = 2048, 8, 16, 2
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 SCAN_TOL = 1e-4                 # f32, as tests/test_kernels.py::TestSsmScan
@@ -191,6 +198,7 @@ class Smoke:
         from repro_torch.kernels.flash_attention import mha, mha_ref
         from repro_torch.kernels.flash_attention import ops as flash_ops
         llama, hymba = (32, 8, 128, ""), (25, 5, 64, " hymba H25/K5/hd64")
+        qwen3 = (32, 4, 128, " qwen3 H32/K4/hd128")
         small = (8, 4, 32, " H8/K4/hd32")
         for dname, tol in TOL.items():
             dtype = getattr(torch, dname)
@@ -202,6 +210,7 @@ class Smoke:
                     (llama, 1, 1024, False, 0, "bidirectional S=1024"),
                     (hymba, 1, 2048, True, 2048, "window=2048 S=2048"),
                     (hymba, 1, 3000, True, 2048, "window=2048 S=3000"),
+                    (qwen3, 1, 2048, True, 0, "causal S=2048"),
                     (small, 2, 512, True, 0, "causal S=512")]:
                 q = self.randn(g, (B, S, H, hd), dtype)
                 k, v = (self.randn(g, (B, S, K, hd), dtype) for _ in "kv")
@@ -229,7 +238,10 @@ class Smoke:
                      "serve first wrap W=2048"),
                     (hymba, 8, 2048, 900, 900, 2048, "partial fill 900/2048"),
                     (hymba, 1, 1000, 1000, 1000, 0,
-                     "W=1000, not a multiple of C")]:
+                     "W=1000, not a multiple of C"),
+                    (qwen3, 1, 2048, 2049, 2048, 0, "serve first wrap W=2048"),
+                    (qwen3, 8, 2048, 2049, 2048, 0, "serve first wrap W=2048"),
+                    (qwen3, 8, 2048, 900, 900, 0, "partial fill 900/2048")]:
                 q = self.randn(g, (B, 1, H, hd), dtype)
                 kc, vc = (self.randn(g, (B, W, K, hd), dtype) for _ in "kv")
                 sp = self.ring_slot_pos(W, fill, B)
@@ -390,6 +402,11 @@ class Smoke:
         torch = self.torch
         from repro_torch.configs import registry
         from repro_torch.launch import serve
+        from repro_torch.models import serialize
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  before {arch}: {torch.cuda.memory_allocated() / 2**30:.2f}"
+              f" GiB allocated on the card")
         torch.cuda.reset_peak_memory_stats()
         counters = self.counters()
         for mod in counters.values():
@@ -410,8 +427,25 @@ class Smoke:
               f"launches={launches}")
         if cfg != registry.get(arch):
             raise AssertionError(f"the serve run was not full {arch}")
+        params = server.instances[0].params
+        if any(inst.params is not params for inst in server.instances):
+            raise AssertionError("the replicas do not share one params copy")
+        leaves = serialize.leaves(params)
+        n_params = sum(x.numel() for x in leaves)
+        param_bytes = serialize.tree_nbytes(params)
+        print(f"  {arch}: {cfg.num_layers} layers, {n_params} parameters "
+              f"({param_bytes / 1e9:.2f} GB) on {leaves[0].device}; peak "
+              f"{peak / 1e9:.2f} GB ({nvidia_smi()})")
+        if n_params != cfg.param_count() or leaves[0].device.type != "cuda":
+            raise AssertionError(f"{arch}: the params on the card are not "
+                                 f"the full model")
+        if peak > 1.5 * param_bytes:
+            raise AssertionError(f"{arch}: peak {peak} bytes for "
+                                 f"{param_bytes} bytes of params: more than "
+                                 f"one params copy?")
+        del params, leaves
         L = cfg.num_layers
-        attn = cfg.family in ("dense", "hybrid")
+        attn = cfg.family in ("dense", "moe", "hybrid")
         ssm = cfg.family in ("ssm", "hybrid")
         want = {FLASH["name"]: L * (REQUESTS + REPLICAS) if attn else 0,
                 DECODE["name"]: (L * (REQUESTS * GEN + REPLICAS) if attn
@@ -428,10 +462,35 @@ class Smoke:
         if server.backend.stats["prefetches"] < REQUESTS:
             raise AssertionError("prompts were not prefetched")
         self.replay_plain(server, outs[0])
+        if cfg.family == "moe":
+            self.check_moe_decode_in_place(server)
         self.trace(server)
         del server, outs, result
         gc.collect()
         torch.cuda.empty_cache()
+
+    def check_moe_decode_in_place(self, server):
+        """One decode token through layer 0's `moe_dense` allocates far
+        less than one (E, D, F) expert weight leaf: the expert products
+        read the weights in place, no copy per step."""
+        torch = self.torch
+        from repro_torch.models import lm, moe
+        cfg = server.cfg
+        p = lm.layer_params(server.instances[0].params["layers"], 0)["moe"]
+        x = torch.randn((1, 1, cfg.d_model), generator=self.gen(8),
+                        device=self.dev).to(p["w_gate"].dtype)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        moe.moe_dense(p, cfg, x)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        weight = p["w_gate"].numel() * p["w_gate"].element_size()
+        print(f"  moe_dense, one token, layer 0: {extra / 1e6:.3f} MB "
+              f"allocated at its peak; its (E, D, F) w_gate is "
+              f"{weight / 1e6:.1f} MB")
+        if extra >= weight / 8:
+            raise AssertionError("moe_dense copies the expert weights")
 
     def replay_plain(self, server, completion):
         """Request 0 through the plain path: its greedy tokens agree with
@@ -502,7 +561,7 @@ class Smoke:
                   f"{what}: wall {wall_ms:.2f} ms, kernel time {dev_ms:.2f} ms in "
                   f"{launches:.0f} kernels, device idle share "
                   f"{1 - dev_ms / wall_ms:.3f}")
-            for e in top[:8]:
+            for e in top[:12]:
                 print(f"    {e.self_device_time_total / 1e3 / n:8.3f} ms "
                       f"{e.count / n:6.0f}x  {e.key[:80]}")
 
@@ -529,15 +588,21 @@ class Smoke:
     def phase_timing(self):
         """Each kernel at its serve shape (the row of the kernels line),
         and the attention kernels and the scan at Hymba's shapes too."""
-        llama, hymba = (32, 8, 128), (25, 5, 64)
+        llama, hymba, qwen3 = (32, 8, 128), (25, 5, 64), (32, 4, 128)
         self.timing[FLASH["name"]] = self.time_flash(*llama, 0, "llama3-8b")
         self.also[FLASH["name"]] = {
-            "hymba-1.5b": self.time_flash(*hymba, 2048, "hymba-1.5b")}
+            "hymba-1.5b": self.time_flash(*hymba, 2048, "hymba-1.5b"),
+            "qwen3-moe-30b-a3b": self.time_flash(*qwen3, 0,
+                                                 "qwen3-moe-30b-a3b")}
         self.timing[DECODE["name"]] = self.time_decode(1, *llama, 0,
                                                        "llama3-8b")
         self.also[DECODE["name"]] = {
             "llama3-8b B=8": self.time_decode(8, *llama, 0, "llama3-8b"),
-            "hymba-1.5b": self.time_decode(1, *hymba, 2048, "hymba-1.5b")}
+            "hymba-1.5b": self.time_decode(1, *hymba, 2048, "hymba-1.5b"),
+            "qwen3-moe-30b-a3b": self.time_decode(1, *qwen3, 0,
+                                                  "qwen3-moe-30b-a3b"),
+            "qwen3-moe-30b-a3b B=8": self.time_decode(8, *qwen3, 0,
+                                                      "qwen3-moe-30b-a3b")}
         self.timing[SCAN["name"]] = self.time_scan(8192, 256, "falcon-mamba-7b")
         self.also[SCAN["name"]] = {
             "hymba-1.5b": self.time_scan(3200, 100, "hymba-1.5b")}

@@ -41,7 +41,7 @@ class ModelConfig:
     num_experts_per_tok: int = 0
     capacity_factor: float = 1.25
     router_aux_loss: float = 0.001  # load-balance loss weight
-    moe_impl: str = "sorted"        # sorted | dense
+    moe_impl: str = "sorted"        # sorted | dense | local
 
     # SSM (Mamba-1)
     ssm_state: int = 0
@@ -101,6 +101,7 @@ ARCH_IDS = [
     "llama3-8b",
     "falcon-mamba-7b",
     "hymba-1.5b",
+    "qwen3-moe-30b-a3b",
 ]
 
 

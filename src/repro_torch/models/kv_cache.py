@@ -3,8 +3,8 @@
 The counterpart of ``repro.models.kv_cache``: plain dicts of tensors with
 a leading layer axis. ``slot_pos`` holds the absolute position stored in
 each ring slot (-1 = empty), which makes masking exact for full and ring
-caches alike. The SSM families keep a conv tail and an f32 state per
-layer; the ssm family has no ``slot_pos``.
+caches alike. The SSM families keep a bf16 conv tail and an f32 state
+per layer; the ssm family has no ``slot_pos``.
 """
 from __future__ import annotations
 
@@ -32,11 +32,15 @@ def init_attn_cache(cfg, batch, seq_len, dtype=torch.bfloat16,
     }
 
 
-def init_ssm_cache(cfg, batch, dtype=torch.bfloat16, device="cpu"):
+def init_ssm_cache(cfg, batch, device="cpu"):
+    """The conv tail in bf16 whatever the model's dtype, as the
+    reference's `mamba_layer` and `mamba_decode_step` return it; the state
+    in f32."""
     L = cfg.num_layers
     di, N, c = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
     return {
-        "conv": torch.zeros((L, batch, c - 1, di), dtype=dtype, device=device),
+        "conv": torch.zeros((L, batch, c - 1, di), dtype=torch.bfloat16,
+                            device=device),
         "ssm": torch.zeros((L, batch, di, N), dtype=torch.float32,
                            device=device),
     }
@@ -55,7 +59,7 @@ def init_cache(cfg, batch, seq_len, dtype=torch.bfloat16, device="cpu"):
         cache["slot_pos"] = torch.full((batch, W), -1, dtype=torch.int32,
                                        device=device)
     if cfg.family in SSM_FAMILIES:
-        cache.update(init_ssm_cache(cfg, batch, dtype=dtype, device=device))
+        cache.update(init_ssm_cache(cfg, batch, device=device))
     return cache
 
 

@@ -118,20 +118,30 @@ def decode_attention(q, k_cache, v_cache, slot_pos, pos, *, window=0):
 
 def init_attention(generator, cfg, dtype, device=None):
     D, H, K, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    return {
+    p = {
         "wq": dense_init(generator, (D, H * hd), 0, dtype, device),
         "wk": dense_init(generator, (D, K * hd), 0, dtype, device),
         "wv": dense_init(generator, (D, K * hd), 0, dtype, device),
         "wo": dense_init(generator, (H * hd, D), 0, dtype, device),
     }
+    if cfg.qk_norm:
+        device = generator.device if device is None else device
+        p["q_norm"] = torch.ones((hd,), dtype=dtype, device=device)
+        p["k_norm"] = torch.ones((hd,), dtype=dtype, device=device)
+    return p
 
 
 def _project_qkv(p, cfg, x):
+    """q (B, S, H, hd), k and v (B, S, K, hd); with ``qk_norm`` q and k
+    are RMS-normed over hd per head (Qwen3), before RoPE."""
     B, S, _ = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = (x @ p["wq"]).reshape(B, S, H, hd)
     k = (x @ p["wk"]).reshape(B, S, K, hd)
     v = (x @ p["wv"]).reshape(B, S, K, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     return q, k, v
 
 

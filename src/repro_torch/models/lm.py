@@ -1,4 +1,4 @@
-"""Decoder-only LM assembly: the dense, ssm and hybrid families.
+"""Decoder-only LM assembly: the dense, moe, ssm and hybrid families.
 
 The counterpart of ``repro.models.lm`` for those families. Params keep
 the reference's tree: leaf names and a stacked leading layer axis
@@ -10,7 +10,9 @@ a preallocated cache, and `decode_step` updates the cache's leaves
 (``k``, ``v``, ``slot_pos``, ``conv``, ``ssm``) IN PLACE and returns a
 dict that shares them (the reference returns a new cache).
 ``plain=True`` runs the kernels' plain versions instead of the kernels
-(attention and the selective scan), on any device.
+(attention and the selective scan), on any device. The moe family's
+prefill layers dispatch by ``cfg.moe_impl`` and its decode layers always
+run the dropless `moe_dense`, as the reference's do.
 """
 from __future__ import annotations
 
@@ -19,16 +21,17 @@ import torch
 from repro_torch.models import kv_cache as kvc
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
+from repro_torch.models import moe as MOE
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def check_supported(cfg) -> None:
     """Raise for the parts of the reference the port does not have yet."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-    missing = [f for f in ("attn_bias", "qk_norm", "uniform_decode",
+    missing = [f for f in ("attn_bias", "uniform_decode",
                            "embed_input", "is_encoder_decoder")
                if getattr(cfg, f)]
     if missing:
@@ -43,10 +46,13 @@ def init_layer_params(generator, cfg, dtype, device=None):
     ones = dict(dtype=dtype, device=device if device is not None
                 else generator.device)
     p = {"ln1": torch.ones((cfg.d_model,), **ones)}
-    if fam in ("dense", "hybrid"):
+    if fam in ("dense", "moe", "hybrid"):
         p["attn"] = L.init_attention(generator, cfg, dtype, device)
         p["ln2"] = torch.ones((cfg.d_model,), **ones)
+    if fam in ("dense", "hybrid"):
         p["mlp"] = L.init_mlp(generator, cfg.d_model, cfg.d_ff, dtype, device)
+    if fam == "moe":
+        p["moe"] = MOE.init_moe(generator, cfg, dtype, device)
     if fam in ("ssm", "hybrid"):
         p["mamba"] = M.init_mamba(generator, cfg, dtype, device)
     if fam == "hybrid":
@@ -125,7 +131,7 @@ def _seq_sublayers(cfg, lp, x, plain=False):
     fam = cfg.family
     cache_out = {}
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-    if fam == "dense":
+    if fam in ("dense", "moe"):
         attn_out, (cache_out["k"], cache_out["v"]) = L.attention_layer(
             lp["attn"], cfg, h, plain=plain)
         x = x + attn_out
@@ -140,6 +146,8 @@ def _seq_sublayers(cfg, lp, x, plain=False):
         cache_out.update(st)
         x = x + _fuse(cfg, lp, attn_out, m_out)
     h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    if fam == "moe":
+        return x + MOE.moe_layer(lp["moe"], cfg, h2)[0], cache_out
     return x + L.mlp_layer(lp["mlp"], h2), cache_out
 
 
@@ -148,7 +156,7 @@ def _decode_sublayers(cfg, lp, x, cache, i, slot_pos, pos, plain=False):
     the cache, in place."""
     fam = cfg.family
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-    if fam in ("dense", "hybrid"):
+    if fam in ("dense", "moe", "hybrid"):
         attn_out, _ = L.attention_decode_layer(
             lp["attn"], cfg, h, cache["k"][i], cache["v"][i], slot_pos, pos,
             plain=plain)
@@ -160,8 +168,12 @@ def _decode_sublayers(cfg, lp, x, cache, i, slot_pos, pos, plain=False):
         cache["ssm"][i].copy_(st["ssm"])
     if fam == "ssm":
         return x + m_out
-    x = x + (attn_out if fam == "dense" else _fuse(cfg, lp, attn_out, m_out))
+    x = x + (_fuse(cfg, lp, attn_out, m_out) if fam == "hybrid"
+             else attn_out)
     h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    if fam == "moe":
+        # T = B tokens: the dropless dense dispatch, whatever moe_impl says
+        return x + MOE.moe_dense(lp["moe"], cfg, h2)[0]
     return x + L.mlp_layer(lp["mlp"], h2)
 
 

@@ -22,9 +22,10 @@ from repro_torch.models import lm, serialize
 from repro_torch.models.convert import cache_from_numpy, params_from_numpy
 
 ARCH = "llama3-8b"
-ARCHS = ["llama3-8b", "falcon-mamba-7b", "hymba-1.5b"]
+ARCHS = ["llama3-8b", "falcon-mamba-7b", "hymba-1.5b", "qwen3-moe-30b-a3b"]
 PROMPT = 32
 CACHE_KEYS = {"dense": {"k", "v", "slot_pos", "pos"},
+              "moe": {"k", "v", "slot_pos", "pos"},
               "ssm": {"pos", "conv", "ssm"},
               "hybrid": {"k", "v", "slot_pos", "pos", "conv", "ssm"}}
 
@@ -69,6 +70,13 @@ def test_falcon_mamba_has_its_published_size():
     """7.27e9 parameters at full width: 105.3 M per layer x 64, plus the
     embedding and the head (266 M each)."""
     assert registry.get("falcon-mamba-7b").param_count() == 7_272_665_088
+
+
+def test_qwen3_moe_has_its_published_size():
+    """30.53e9 parameters at full width: 48 layers of 128 experts
+    (3 x 2048 x 768 each), attention with q/k-norm and an f32 router,
+    plus the embedding and the head (311 M each)."""
+    assert registry.get("qwen3-moe-30b-a3b").param_count() == 30_532_122_624
 
 
 def test_unported_arch_raises():

@@ -321,6 +321,66 @@ def test_ssm_scan_states_per_thread_rule(card):
         assert scan_ops.states_per_thread(1, 3200, 16) == 2
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S", [(1, 2048), (8, 256)])
+def test_flash_attention_at_qwen3_moe_heads(card, dtype, B, S):
+    """qwen3-moe-30b-a3b's heads: 32 q heads over 4 kv heads (G 8), hd
+    128, causal."""
+    gen = torch.Generator(device=card).manual_seed(9)
+    q = _randn(gen, (B, S, 32, 128), dtype)
+    k, v = (_randn(gen, (B, S, 4, 128), dtype) for _ in range(2))
+    before = flash_ops.launches
+    out = mha(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_ops.launches == before + 1
+    _close(out, mha_ref(q, k, v, causal=True), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,fill,pos", [(1, 2049, 2048),   # serve: first wrap
+                                        (8, 2049, 2048),
+                                        (1, 700, 700),     # partial fill
+                                        (8, 1500, 1500)])
+def test_flash_decode_at_qwen3_moe_heads(card, dtype, B, fill, pos):
+    """G 8 at hd 128 against a W 2048 ring cache."""
+    H, K, W, hd = 32, 4, 2048, 128
+    gen = torch.Generator(device=card).manual_seed(10)
+    q = _randn(gen, (B, 1, H, hd), dtype)
+    kc, vc = (_randn(gen, (B, W, K, hd), dtype) for _ in range(2))
+    sp = ring_slot_pos(W, fill, B, card)
+    p = torch.full((B,), pos, dtype=torch.int32, device=card)
+    before = decode_ops.launches
+    out = decode_mha(q, kc, vc, sp, p)
+    torch.cuda.synchronize()
+    assert decode_ops.launches == before + 1
+    _close(out, decode_mha_ref(q, kc, vc, sp, p), dtype)
+
+
+def test_qwen3_moe_full_width_kernel_path_matches_plain_path(card):
+    """qwen3-moe-30b-a3b at full width, 2 layers, B 1, S 512: prefill and
+    one decode step through the kernels against the plain path (the
+    smoke config's hd 16 is not a head dim the kernels take)."""
+    cfg = registry.get("qwen3-moe-30b-a3b").replace(num_layers=2)
+    model = Model(cfg)
+    params = model.init_params(torch.Generator(device=card).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (1, 512), dtype=torch.int32,
+                         device=card,
+                         generator=torch.Generator(device=card).manual_seed(1))
+    out = {}
+    for plain in (False, True):
+        before = (flash_ops.launches, decode_ops.launches)
+        logits, cache = model.prefill(params, {"tokens": toks}, plain=plain)
+        step, _ = model.decode_step(params, cache, toks[:, :1], plain=plain)
+        torch.cuda.synchronize()
+        launched = (flash_ops.launches - before[0],
+                    decode_ops.launches - before[1])
+        assert launched == ((0, 0) if plain else (2, 2))
+        out[plain] = (logits, step)
+    for a, b in zip(out[False], out[True]):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, atol=0.3, rtol=0.05)
+
+
 @pytest.mark.parametrize("arch", ["llama3-8b", "falcon-mamba-7b",
                                   "hymba-1.5b"])
 def test_model_kernel_path_matches_plain_path(card, arch):

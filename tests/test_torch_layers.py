@@ -4,6 +4,7 @@ Inputs are drawn with numpy from a seed and handed to both packages; bf16
 inputs are rounded from the same f32 draws on both sides. Tolerances as
 in tests/test_kernels.py: fp32 2e-5, bf16 2e-2.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -142,6 +143,71 @@ def test_attention_decode_layer(dtype):
     out, (k, v) = layers.attention_decode_layer(
         tp, cfg, tx, tk, tv, torch.from_numpy(sp), torch.from_numpy(pos))
     assert k is tk and v is tv                  # written in place
+    for r, o in ((ref_out, out), (rk, k), (rv, v)):
+        _close(r, o, dtype)
+
+
+def _qk_norm_params(rng, cfg):
+    """Attention params with q/k-norm scales near 1 (Qwen3)."""
+    tree = _attn_params(rng, cfg)
+    for name in ("q_norm", "k_norm"):
+        tree[name] = (1 + 0.1 * rng.standard_normal(cfg.head_dim)).astype(
+            np.float32)
+    return tree
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_init_attention_with_qk_norm_matches_reference(dtype):
+    cfg = ref_registry.get_smoke("qwen3-moe-30b-a3b")
+    jd, td, _ = DTYPES[dtype]
+    ref = ref_layers.init_attention(jax.random.PRNGKey(0), cfg, jd)
+    out = layers.init_attention(torch.Generator().manual_seed(0), cfg, td)
+    assert list(out) == list(ref)
+    for name, leaf in ref.items():
+        assert tuple(out[name].shape) == leaf.shape, name
+        assert out[name].dtype == td, name
+    for name in ("q_norm", "k_norm"):
+        assert torch.equal(out[name], torch.ones(cfg.head_dim, dtype=td))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_project_qkv_with_qk_norm(dtype):
+    """q and k RMS-normed over hd per head after the reshape, v not."""
+    cfg = ref_registry.get_smoke("qwen3-moe-30b-a3b")
+    rng = np.random.default_rng(8)
+    jp, tp = _split(_qk_norm_params(rng, cfg), dtype)
+    jx, tx = _pair(rng.standard_normal((2, 12, cfg.d_model)), dtype)
+    for r, o in zip(ref_layers._project_qkv(jp, cfg, jx),
+                    layers._project_qkv(tp, cfg, tx)):
+        _close(r, o, dtype)
+    q = layers._project_qkv(tp, cfg, tx)[0].float()
+    rms = q.div(tp["q_norm"].float()).square().mean(-1).sqrt()
+    torch.testing.assert_close(rms, torch.ones_like(rms),
+                               atol=DTYPES[dtype][2], rtol=0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_attention_layers_with_qk_norm(dtype):
+    """Prefill and one decode step of a q/k-normed layer (qwen3-moe smoke,
+    hd 16, rope theta 1e6) against the reference."""
+    cfg = ref_registry.get_smoke("qwen3-moe-30b-a3b")
+    rng = np.random.default_rng(9)
+    jp, tp = _split(_qk_norm_params(rng, cfg), dtype)
+    jx, tx = _pair(rng.standard_normal((2, 20, cfg.d_model)), dtype)
+    ref_out, (rk, rv) = ref_layers.attention_layer(jp, cfg, jx)
+    out, (k, v) = layers.attention_layer(tp, cfg, tx)
+    for r, o in ((ref_out, out), (rk, k), (rv, v)):
+        _close(r, o, dtype)
+    B, W, K, hd = 2, 24, cfg.num_kv_heads, cfg.head_dim
+    jx1, tx1 = _pair(rng.standard_normal((B, 1, cfg.d_model)), dtype)
+    jk, tk = _pair(rng.standard_normal((B, W, K, hd)), dtype)
+    jv, tv = _pair(rng.standard_normal((B, W, K, hd)), dtype)
+    pos = np.array([20, 30], np.int32)
+    sp = np.stack([ring_slot_pos(W, 21, 1)[0], ring_slot_pos(W, 31, 1)[0]])
+    ref_out, (rk, rv) = ref_layers.attention_decode_layer(
+        jp, cfg, jx1, jk, jv, jnp.asarray(sp), jnp.asarray(pos))
+    out, (k, v) = layers.attention_decode_layer(
+        tp, cfg, tx1, tk, tv, torch.from_numpy(sp), torch.from_numpy(pos))
     for r, o in ((ref_out, out), (rk, k), (rv, v)):
         _close(r, o, dtype)
 
