@@ -11,7 +11,8 @@ Phases, each of which fails the run (exit 1) if it fails:
    the attention kernels at Llama-3-8B, Hymba-1.5B and Qwen3-30B-A3B
    widths (qwen3: 32 q heads over 4 kv heads, G 8, hd 128; prefill B 1
    S 2048 causal, decode B 1 and 8 after the ring's first wrap and at a
-   partial fill), bf16 (atol = rtol = 2e-2) and fp32 (2e-5), each check
+   partial fill; prefill also at the MLServe shapes, llama's heads at B 8
+   x S 2048 and B 32 x S 512), bf16 (atol = rtol = 2e-2) and fp32 (2e-5), each check
    naming the body that ran (prefill: wgmma or SIMT; decode: mma or
    SIMT, and its cluster size), q/k/v as views of a fused projection, and
    a misaligned view that must raise; the selective scan at
@@ -35,8 +36,24 @@ Phases, each of which fails the run (exit 1) if it fails:
 5. one replica of each served arch traced with torch.profiler: host
    wall time of prefill and of a decode step, device time, device idle
    share, top device ops;
+   then the MLServe serving cores (``repro_torch.models.serving``): the
+   scenarios LLM-COLD, LLM-PREFILL and LLM-DECODE (llama3-8b) and EMB
+   (granite-8b), from seed payloads built once per role,
+   through the kernels and then ``plain=True`` on the same bytes: at tiny
+   scale (the SMOKE configs, hd 32) with every payload and output length
+   equal to ``calibration.json``, and at full published width (llama3-8b
+   32 layers, 16.06 GB of params in one payload or 4 shards, a 2.15 GB
+   decode state of 8 x 2048 slots; granite-8b 36 layers, tied head, B 32
+   x S 512) with every length equal to ``role_sizes(cfg, 1)``; kernel
+   against plain (logits and float cache leaves atol 0.3, rtol 0.05,
+   integer leaves exactly, greedy tokens wherever the top-2 margin
+   exceeds 0.3), exact launch counts, and per scenario the payload bytes,
+   the wall time of decoding the payloads onto the card, of the forward
+   and of encoding the output, peak device memory and peak host RSS;
 6. each kernel timed at the serve shapes (the attention kernels at
-   llama3-8b's, hymba-1.5b's and qwen3-moe-30b-a3b's), beside its bound,
+   llama3-8b's, hymba-1.5b's and qwen3-moe-30b-a3b's, prefill also at
+   the MLServe shapes B 8 x S 2048 and granite-8b's B 32 x S 512),
+   beside its bound,
    its plain version and, where there is one, one PyTorch library call (a
    yardstick only; the port never calls it). Kernel and library times
    are device times: CUDA events around the replay of a CUDA graph of
@@ -55,6 +72,7 @@ from __future__ import annotations
 
 import gc
 import json
+import resource
 import subprocess
 import sys
 import time
@@ -72,6 +90,12 @@ PROMPT, REQUESTS, GEN, REPLICAS = 2048, 8, 16, 2
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 SCAN_TOL = 1e-4                 # f32, as tests/test_kernels.py::TestSsmScan
 SCAN_SWEEP = (2, 4, 8)          # states per thread timed in phase 6
+#: the MLServe scenarios driven on the card, by role
+MLSERVE = {"llm": ("LLM-COLD", "LLM-PREFILL", "LLM-DECODE"), "emb": ("EMB",)}
+MLSERVE_SCALES = ("tiny", "full")
+#: a scenario's durable output, as its key in role_sizes / calibration
+MLSERVE_OUT = {"LLM-COLD": "cold_out_bytes", "LLM-PREFILL": "kv_prefill_bytes",
+               "LLM-DECODE": "kv_out_bytes", "EMB": "emb_bytes"}
 
 FLASH = {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -211,7 +235,11 @@ class Smoke:
                     (hymba, 1, 2048, True, 2048, "window=2048 S=2048"),
                     (hymba, 1, 3000, True, 2048, "window=2048 S=3000"),
                     (qwen3, 1, 2048, True, 0, "causal S=2048"),
-                    (small, 2, 512, True, 0, "causal S=512")]:
+                    (small, 2, 512, True, 0, "causal S=512"),
+                    # the MLServe prefills: the LLM-DECODE seed (B 8), and
+                    # EMB (granite-8b has llama's heads)
+                    (llama, 8, 2048, True, 0, "causal S=2048 (decode seed)"),
+                    (llama, 32, 512, True, 0, "causal S=512 (granite EMB)")]:
                 q = self.randn(g, (B, S, H, hd), dtype)
                 k, v = (self.randn(g, (B, S, K, hd), dtype) for _ in "kv")
                 out = mha(q, k, v, causal=causal, window=window)
@@ -585,6 +613,234 @@ class Smoke:
         return (sum(e.self_device_time_total for e in rows) / 1e3,
                 sum(e.count for e in rows), rows)
 
+    def phase_mlserve(self):
+        """The MLServe cores at tiny scale, then at full width: each role's
+        scenarios from their seed payloads, kernel path against plain path
+        on the same bytes."""
+        torch = self.torch
+        from repro_torch.core import calibrate
+        from repro_torch.models import serving
+        for scale in MLSERVE_SCALES:
+            for role, scenarios in MLSERVE.items():
+                serving._bundle.cache_clear()
+                gc.collect()
+                torch.cuda.empty_cache()
+                cfg = serving._bundle(role, scale)["cfg"]
+                sizes = serving.role_sizes(cfg, devices=1)
+                if scale == "tiny":
+                    entry = calibrate.model_entry("tiny", role)
+                    if sizes != {k: entry[k] for k in sizes}:
+                        raise AssertionError(f"tiny {role}: role_sizes is not "
+                                             f"calibration.json's entry")
+                print(f"  before {scale} {role} ({cfg.name}, {cfg.num_layers} "
+                      f"layers): {torch.cuda.memory_allocated() / 2**30:.2f} "
+                      f"GiB allocated on the card")
+                counters = self.counters()
+                for mod in counters.values():
+                    mod.launches = 0
+                t0 = time.perf_counter()
+                seeded = serving.seed_role(role, scenarios, scale=scale)
+                print(f"  {scale} {role}: seed payloads of "
+                      f"{', '.join(scenarios)} built in "
+                      f"{time.perf_counter() - t0:.1f}s")
+                if "LLM-DECODE" in scenarios:    # the decode state's prefill
+                    self.launches[f"mlserve {scale} LLM-DECODE seed"] = {
+                        name: mod.launches for name, mod in counters.items()}
+                for scenario in scenarios:
+                    self.mlserve_scenario(scenario, scale, cfg, sizes,
+                                          seeded.pop(scenario))
+                    gc.collect()
+        serving._bundle.cache_clear()
+
+    def mlserve_scenario(self, scenario, scale, cfg, sizes, payloads):
+        """Run one scenario's core through the kernels and through the
+        plain path on the same seed payloads, check the lengths, the
+        launches and the agreement, and print where the time went."""
+        from repro_torch.core.calibrate import SERVING_SHAPES, shard_bytes
+        from repro_torch.models import serving
+        kinds = serving.SCENARIO_INPUTS[scenario][1]
+        path = f"mlserve {scale} {scenario}"
+        shards = iter(shard_bytes(sizes["params_bytes"],
+                                  kinds.count("weights") or 1))
+        want = {"params": sizes["params_bytes"],
+                "prompt": sizes["prompt_bytes"], "kv": sizes["kv_in_bytes"],
+                "enc_tokens": sizes["enc_tokens_bytes"]}
+        got = [len(p) for p in payloads]
+        need = [next(shards) if k == "weights" else want[k] for k in kinds]
+        if got != need:
+            raise AssertionError(f"{path}: payloads of {got} bytes, "
+                                 f"{need} expected")
+        runs = {plain: self.run_core(scenario, payloads, scale, plain)
+                for plain in (False, True)}
+        L = cfg.num_layers
+        expect = {FLASH["name"]: L if scenario != "LLM-DECODE" else 0,
+                  DECODE["name"]: L if scenario in ("LLM-COLD", "LLM-DECODE")
+                  else 0, SCAN["name"]: 0}
+        self.launches[path] = runs[False]["launches"]
+        if runs[False]["launches"] != expect:
+            raise AssertionError(f"{path}: launches {runs[False]['launches']}"
+                                 f" != {expect}")
+        if any(runs[True]["launches"].values()):
+            raise AssertionError(f"{path}: the plain path launched a kernel")
+        for plain, run in runs.items():
+            if len(run["body"]) != sizes[MLSERVE_OUT[scenario]]:
+                raise AssertionError(f"{path}: output of {len(run['body'])} "
+                                     f"bytes, {sizes[MLSERVE_OUT[scenario]]} "
+                                     f"expected")
+            t = run["timings"]
+            total = sum(t.values())
+            print(f"  {path} {'plain ' if plain else 'kernel'}: "
+                  f"{sum(got)} B in, {len(run['body'])} B out; decode "
+                  f"{t['decode'] * 1e3:.1f} ms, forward "
+                  f"{t['forward'] * 1e3:.1f} ms, encode "
+                  f"{t['encode'] * 1e3:.1f} ms (payload handling "
+                  f"{(t['decode'] + t['encode']) / total:.3f} of "
+                  f"{total * 1e3:.1f} ms); launches {run['launches']}; peak "
+                  f"device {run['peak'] / 2**30:.2f} GiB, peak host RSS "
+                  f"{run['rss'] / 2**30:.2f} GiB")
+        # LLM-COLD steps its own prefill's cache, LLM-DECODE the seed's
+        step = SERVING_SHAPES[scale]["prefill" if scenario == "LLM-COLD"
+                                     else "decode"]
+        bodies = ([f"prefill body [{self.flash_body(cfg)}]"]
+                  if expect[FLASH["name"]] else []) + (
+            [f"decode body [{self.decode_body(cfg, *step)}]"]
+            if expect[DECODE["name"]] else [])
+        print(f"  {path}: {', '.join(bodies)}")
+        self.compare_core(path, scenario, scale, runs)
+        if scenario == "LLM-DECODE" and scale == "full":
+            self.codec_split(payloads[1], serving._bundle("llm", scale))
+
+    def codec_split(self, kv, bundle):
+        """Where the codec's time goes, on the 2.15 GB decode state: decode
+        = the host copy of each leaf (``loads`` onto the CPU) + the copy
+        onto the card; encode = the copy back + the host's bytes
+        (``dumps`` of the tree on the CPU)."""
+        torch = self.torch
+        from repro_torch.models import serialize
+        st = bundle["structs"]
+        shapes = (st["decode_cache"], st["step_token"])
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        host, t_copy = timed(lambda: serialize.loads(shapes, kv, "cpu"))
+        leaves = serialize.leaves(host)
+        card, t_h2d = timed(lambda: [x.to(self.dev) for x in leaves])
+        back, t_d2h = timed(lambda: [x.to("cpu") for x in card])
+        body, t_bytes = timed(lambda: serialize.dumps(back))
+        if body != kv:
+            raise AssertionError("the decode state does not round-trip")
+        gb = len(kv) / 1e9
+        print(f"  codec on the {gb:.2f} GB decode state: decode = host copy "
+              f"{t_copy * 1e3:.1f} ms ({gb / t_copy:.2f} GB/s) + onto the "
+              f"card {t_h2d * 1e3:.1f} ms ({gb / t_h2d:.2f} GB/s); encode = "
+              f"off the card {t_d2h * 1e3:.1f} ms ({gb / t_d2h:.2f} GB/s) + "
+              f"host bytes {t_bytes * 1e3:.1f} ms ({gb / t_bytes:.2f} GB/s)")
+
+    def flash_body(self, cfg):
+        from repro_torch.kernels.flash_attention import ops as flash_ops
+        return flash_ops.body(getattr(self.torch, cfg.dtype), cfg.head_dim)
+
+    def decode_body(self, cfg, B, S):
+        """The decode body and cluster split of a step at batch B over the
+        cache a prefill of S tokens built."""
+        from repro_torch.kernels.decode_attention import ops as decode_ops
+        from repro_torch.models.kv_cache import cache_width
+        W = cache_width(cfg, S)
+        return (f"{decode_ops.body(getattr(self.torch, cfg.dtype))}, cluster "
+                f"{decode_ops.cluster_size(W, B, cfg.num_kv_heads)} at "
+                f"B {B}, W {W}")
+
+    def run_core(self, scenario, payloads, scale, plain):
+        """One core call: its output bytes (and token), the logits and
+        token of each `_next_token` it took, its step times, launches and
+        peaks."""
+        torch = self.torch
+        from repro_torch.models import serving
+        counters = self.counters()
+        for mod in counters.values():
+            mod.launches = 0
+        seen, timings = [], {}
+        orig = serving._next_token
+
+        def spy(logits):
+            tok = orig(logits)
+            seen.append((logits[:, -1].float(), tok))
+            return tok
+
+        serving._next_token = spy
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            out = serving.run_scenario(scenario, payloads, scale=scale,
+                                       plain=plain, timings=timings)
+        finally:
+            serving._next_token = orig
+        token = None
+        if scenario == "LLM-DECODE":
+            out, token = out
+        return {"body": out, "token": token, "seen": seen,
+                "timings": timings,
+                "launches": {n: m.launches for n, m in counters.items()},
+                "peak": torch.cuda.max_memory_allocated(),
+                "rss": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+                * 1024}
+
+    def compare_core(self, path, scenario, scale, runs):
+        """Kernel output against plain output, decoded onto the card:
+        logits and float cache leaves at atol 0.3 / rtol 0.05, integer
+        leaves exactly; greedy tokens equal wherever the plain path's top-2
+        margin exceeds 0.3 (a flip under it excuses what it reaches)."""
+        torch = self.torch
+        from repro_torch.models import serving
+        flipped = False
+        for (kl, kt), (pl, pt) in zip(runs[False]["seen"],
+                                      runs[True]["seen"]):
+            top2 = pl.topk(2, dim=-1).values
+            margin = top2[:, 0] - top2[:, 1]
+            for b in torch.nonzero((kt != pt).ravel()).ravel().tolist():
+                if float(margin[b]) > 0.3:
+                    raise AssertionError(f"{path}: row {b} token {int(kt[b])} "
+                                         f"(kernel) vs {int(pt[b])} (plain) at "
+                                         f"a top-2 margin of {float(margin[b])}")
+                flipped = True
+            print(f"  {path}: greedy tokens kernel {kt.ravel().tolist()}, "
+                  f"plain {pt.ravel().tolist()}, plain top-2 margins "
+                  f"{[round(float(m), 4) for m in margin]}")
+            self.close(path, "next-token logits", kl, pl)
+        kernel, plain = (serving.load_output(scenario, runs[p]["body"],
+                                             scale=scale, device=self.dev)
+                         for p in (False, True))
+        if isinstance(kernel, dict):
+            for key in sorted(kernel):
+                if kernel[key].dtype == torch.int32:
+                    if not torch.equal(kernel[key], plain[key]):
+                        raise AssertionError(f"{path}: {key} differs")
+                    print(f"  {path}: {key} equal")
+                else:
+                    self.close(path, key, kernel[key], plain[key])
+        elif flipped and not torch.allclose(kernel, plain, atol=0.3,
+                                            rtol=0.05):
+            print(f"  {path}: output logits excused, the step took another "
+                  f"token")
+        else:
+            self.close(path, "output logits", kernel, plain)
+
+    def close(self, path, what, a, b):
+        torch = self.torch
+        a, b = a.float(), b.float()
+        err = (a - b).abs().max().item()
+        ok = bool(torch.allclose(a, b, atol=0.3, rtol=0.05)
+                  and torch.isfinite(a).all())
+        print(f"  {path}: {what} kernel vs plain max_abs_err={err:.3e} "
+              f"(atol 0.3, rtol 0.05) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{path}: {what}: kernel path disagrees")
+
     def phase_timing(self):
         """Each kernel at its serve shape (the row of the kernels line),
         and the attention kernels and the scan at Hymba's shapes too."""
@@ -593,7 +849,13 @@ class Smoke:
         self.also[FLASH["name"]] = {
             "hymba-1.5b": self.time_flash(*hymba, 2048, "hymba-1.5b"),
             "qwen3-moe-30b-a3b": self.time_flash(*qwen3, 0,
-                                                 "qwen3-moe-30b-a3b")}
+                                                 "qwen3-moe-30b-a3b"),
+            # the MLServe prefills: the LLM-DECODE seed, and EMB (granite-8b
+            # has llama's heads)
+            "llama3-8b B=8": self.time_flash(*llama, 0, "llama3-8b MLServe "
+                                             "decode seed", B=8),
+            "granite-8b B=32 S=512": self.time_flash(
+                *llama, 0, "granite-8b MLServe EMB", B=32, S=512)}
         self.timing[DECODE["name"]] = self.time_decode(1, *llama, 0,
                                                        "llama3-8b")
         self.also[DECODE["name"]] = {
@@ -613,15 +875,16 @@ class Smoke:
         tb, tf = nbytes / HBM_BYTES_PER_S, flops / peak
         return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
-    def time_flash(self, H, K, hd, window, arch):
-        """Prefill at the serve shape: B=1, S=2048, causal, bf16."""
+    def time_flash(self, H, K, hd, window, arch, B=1, S=PROMPT):
+        """Prefill at the serve shape (B=1, S=2048 unless given), causal,
+        bf16."""
         torch = self.torch
         import torch.nn.functional as F
         from repro_torch.kernels.flash_attention import mha, mha_ref
-        dt, B, S = torch.bfloat16, 1, PROMPT
+        dt = torch.bfloat16
         g = self.gen(3)
         sets = []
-        for _ in range(4):
+        for _ in range(4 if B * S <= PROMPT else 2):
             q = self.randn(g, (B, S, H, hd), dt)
             sets.append((q, *(self.randn(g, (B, S, K, hd), dt) for _ in "kv")))
         lib_sets = [tuple(t.transpose(1, 2).contiguous() for t in s)
@@ -642,7 +905,7 @@ class Smoke:
                 *s, attn_mask=lib_mask, is_causal=lib_mask is None,
                 enable_gqa=True), sets, lib_sets, 20, 5)
         row.update(bound_ms=bms, bound_by=by)
-        self.report(f"flash_attention bf16 B=1 S=2048 causal H={H} K={K} "
+        self.report(f"flash_attention bf16 B={B} S={S} causal H={H} K={K} "
                     f"hd={hd} window={window} ({arch})", row)
         return row
 
@@ -777,6 +1040,7 @@ def main() -> int:
     for arch in ARCHS:
         phases.append((f"serve and trace {arch}",
                        lambda arch=arch: smoke.serve_path(arch)))
+    phases.append(("mlserve cores", smoke.phase_mlserve))
     phases.append(("timing", smoke.phase_timing))
     for name, fn in phases:
         print(f"== {name}", flush=True)

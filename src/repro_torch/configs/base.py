@@ -102,6 +102,7 @@ ARCH_IDS = [
     "falcon-mamba-7b",
     "hymba-1.5b",
     "qwen3-moe-30b-a3b",
+    "granite-8b",
 ]
 
 

@@ -22,7 +22,8 @@ the claimed savings directly.
 
 A copy of ``repro.core.fabric`` holding the parts the port's backend
 charges: the SDK cost table and the invocation-RPC ingress cost, plus
-the backend's memory constants. Every kept constant has the reference's
+the backend's memory constants and the testbed clock the calibration's
+Mcycles are counted in. Every kept constant has the reference's
 value.
 """
 from __future__ import annotations
@@ -32,6 +33,9 @@ from dataclasses import dataclass
 from repro_torch.core import metrics as M
 
 MB = 1024 * 1024
+
+#: the paper's testbed clock (2.1 GHz Xeon): Mcycles per second per core.
+GHZ_MCYC_PER_S = 2100.0
 
 # ------------------------------------------------------- cycle calibration
 #

@@ -22,7 +22,8 @@ from repro_torch.models import lm, serialize
 from repro_torch.models.convert import cache_from_numpy, params_from_numpy
 
 ARCH = "llama3-8b"
-ARCHS = ["llama3-8b", "falcon-mamba-7b", "hymba-1.5b", "qwen3-moe-30b-a3b"]
+ARCHS = ["llama3-8b", "falcon-mamba-7b", "hymba-1.5b", "qwen3-moe-30b-a3b",
+         "granite-8b"]
 PROMPT = 32
 CACHE_KEYS = {"dense": {"k", "v", "slot_pos", "pos"},
               "moe": {"k", "v", "slot_pos", "pos"},

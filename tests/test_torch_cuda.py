@@ -19,7 +19,7 @@ from repro_torch.kernels.flash_attention import mha, mha_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.ssm_scan import selective_scan, ssm_scan_ref
 from repro_torch.kernels.ssm_scan import ops as scan_ops
-from repro_torch.models import Model
+from repro_torch.models import Model, serving
 
 pytestmark = pytest.mark.cuda
 
@@ -396,3 +396,65 @@ def test_model_kernel_path_matches_plain_path(card, arch):
         out[plain] = (logits, step)
     for a, b in zip(out[False], out[True]):
         torch.testing.assert_close(a, b, atol=0.3, rtol=0.05)
+
+
+@pytest.mark.parametrize("scenario", ["LLM-COLD", "LLM-PREFILL",
+                                      "LLM-DECODE", "EMB"])
+def test_serving_core_kernel_path_matches_plain_path(card, scenario,
+                                                     monkeypatch):
+    """A tiny MLServe core through the kernels (hd 32: the SIMT prefill
+    body, the G 2 cluster decode) against ``plain=True`` on the same
+    payload bytes: logits and float cache leaves at atol 0.3, rtol 0.05,
+    integer leaves exactly, greedy tokens equal wherever the plain path's
+    top-2 margin exceeds 0.3 (a flip under it excuses what it reaches)."""
+    payloads = serving.seed_payloads(scenario)
+    seen = {False: [], True: []}
+    out = {}
+    cfg = serving._bundle(serving.SCENARIO_INPUTS[scenario][0])["cfg"]
+    for plain in (False, True):
+        orig = serving._next_token
+
+        def spy(logits, orig=orig, plain=plain):
+            tok = orig(logits)
+            seen[plain].append((logits[:, -1].float(), tok))
+            return tok
+
+        monkeypatch.setattr(serving, "_next_token", spy)
+        before = (flash_ops.launches, decode_ops.launches)
+        res = serving.run_scenario(scenario, payloads, plain=plain)
+        torch.cuda.synchronize()
+        monkeypatch.setattr(serving, "_next_token", orig)
+        launched = (flash_ops.launches - before[0],
+                    decode_ops.launches - before[1])
+        L = cfg.num_layers
+        want = {"LLM-COLD": (L, L), "LLM-PREFILL": (L, 0),
+                "LLM-DECODE": (0, L), "EMB": (L, 0)}[scenario]
+        assert launched == ((0, 0) if plain else want)
+        out[plain] = res
+    flipped = False
+    for (kl, kt), (pl, pt) in zip(seen[False], seen[True]):
+        torch.testing.assert_close(kl, pl, atol=0.3, rtol=0.05)
+        top2 = pl.topk(2, dim=-1).values
+        for b in torch.nonzero((kt != pt).ravel()).ravel().tolist():
+            assert float(top2[b, 0] - top2[b, 1]) <= 0.3
+            flipped = True
+    if scenario == "LLM-DECODE":
+        (k_body, k_tok), (p_body, p_tok) = out[False], out[True]
+        assert k_tok == p_tok or flipped
+        out = {False: k_body, True: p_body}
+    assert len(out[False]) == len(out[True])
+    kernel, plain = (serving.load_output(scenario, out[p]) for p in (False,
+                                                                     True))
+    if isinstance(kernel, dict):
+        for key in kernel:
+            if kernel[key].dtype == torch.int32:
+                assert torch.equal(kernel[key], plain[key]), key
+            else:
+                torch.testing.assert_close(kernel[key], plain[key], atol=0.3,
+                                           rtol=0.05)
+    else:
+        assert torch.isfinite(kernel).all()
+        # a flipped first token feeds LLM-COLD's step another token
+        if not (flipped and not torch.allclose(kernel, plain, atol=0.3,
+                                               rtol=0.05)):
+            torch.testing.assert_close(kernel, plain, atol=0.3, rtol=0.05)

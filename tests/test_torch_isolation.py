@@ -10,7 +10,7 @@ import torch
 from repro_torch.configs import registry
 from repro_torch.launch import serve
 from repro_torch.launch.serve import NexusModelServer
-from repro_torch.models import Model, get_model
+from repro_torch.models import Model, get_model, serving
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -58,6 +58,20 @@ def test_model_default_device_raises_without_card(no_card):
 def test_main_default_device_raises_without_card(no_card):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--smoke", "--requests", "1", "--gen", "1"])
+
+
+@pytest.mark.parametrize("call", [
+    lambda: serving.seed_payloads("LLM-PREFILL"),
+    lambda: serving.llm_cold([b""], b""),
+    lambda: serving.llm_prefill(b"", b""),
+    lambda: serving.llm_decode(b"", b""),
+    lambda: serving.emb_encode(b"", b""),
+    lambda: serving.moe_infer([b""]),
+], ids=["seed_payloads", "llm_cold", "llm_prefill", "llm_decode",
+        "emb_encode", "moe_infer"])
+def test_serving_cores_default_device_raises_without_card(no_card, call):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
 
 
 def test_cpu_is_used_only_when_asked(no_card):

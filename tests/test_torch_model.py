@@ -48,7 +48,8 @@ SSM_F32_DECODE_TOL = dict(atol=1e-3, rtol=1e-3)
 #: of the qwen3-moe smoke model on), and 1e-4 in f32
 ROUTE_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 ARCH = "llama3-8b"
-ARCHS = ["llama3-8b", "falcon-mamba-7b", "hymba-1.5b", "qwen3-moe-30b-a3b"]
+ARCHS = ["llama3-8b", "falcon-mamba-7b", "hymba-1.5b", "qwen3-moe-30b-a3b",
+         "granite-8b"]
 INT_LEAVES = ("pos", "slot_pos")
 
 

@@ -24,7 +24,8 @@ from repro_torch.launch.serve import NexusModelServer
 from repro_torch.models.convert import params_from_numpy
 
 MARGIN = 0.3        # compare tokens only where the top-2 margin exceeds this
-ARCHS = ["llama3-8b", "falcon-mamba-7b", "hymba-1.5b", "qwen3-moe-30b-a3b"]
+ARCHS = ["llama3-8b", "falcon-mamba-7b", "hymba-1.5b", "qwen3-moe-30b-a3b",
+         "granite-8b"]
 
 
 class TestServingDriver:
