@@ -50,6 +50,19 @@ Phases, each of which fails the run (exit 1) if it fails:
    exceeds 0.3), exact launch counts, and per scenario the payload bytes,
    the wall time of decoding the payloads onto the card, of the forward
    and of encoding the output, peak device memory and peak host RSS;
+   then the worker node (``repro_torch.core.runtime.WorkerNode``) running
+   the MLServe handlers: LLM-COLD, LLM-PREFILL, LLM-DECODE and EMB at tiny
+   scale under all 7 system variants, a cold then a warm invocation each,
+   every durable output byte-identical across variants and invocations
+   and equal to the kernel-path core called directly on the same bytes,
+   with exact launch counts per invocation (MOE stays off the card: its
+   tiny config has head_dim 16, which neither attention kernel takes);
+   then llama3-8b LLM-PREFILL at full width under ``nexus``: one cold
+   invocation of the full-scale workload on 16.06 GB of params, its
+   durable 268 MB KV cache byte-equal to the kernel-path core's on the
+   same bytes, with the breakdown, the modeled sleeps (transfer, SDK,
+   token bucket) beside the handler's measured decode / forward /
+   encode, and peak device memory and peak host RSS;
 6. each kernel timed at the serve shapes (the attention kernels at
    llama3-8b's, hymba-1.5b's and qwen3-moe-30b-a3b's, prefill also at
    the MLServe shapes B 8 x S 2048 and granite-8b's B 32 x S 512),
@@ -93,6 +106,8 @@ SCAN_SWEEP = (2, 4, 8)          # states per thread timed in phase 6
 #: the MLServe scenarios driven on the card, by role
 MLSERVE = {"llm": ("LLM-COLD", "LLM-PREFILL", "LLM-DECODE"), "emb": ("EMB",)}
 MLSERVE_SCALES = ("tiny", "full")
+#: the deadline of one worker-node invocation's future (phase 5)
+NODE_TIMEOUT_S = 900
 #: a scenario's durable output, as its key in role_sizes / calibration
 MLSERVE_OUT = {"LLM-COLD": "cold_out_bytes", "LLM-PREFILL": "kv_prefill_bytes",
                "LLM-DECODE": "kv_out_bytes", "EMB": "emb_bytes"}
@@ -109,6 +124,34 @@ SCAN = {"name": "ssm_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan/kernel.py:67"}
 KERNELS = (FLASH, DECODE, SCAN)
+
+
+class RssSampler:
+    """The resident set of this process when the block starts and its
+    peak while the block runs, sampled from /proc every 50 ms
+    (``ru_maxrss`` keeps the peak of the whole run, which earlier phases
+    set)."""
+
+    def __enter__(self):
+        import threading
+        self.start = self.peak = self.now()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._poll, daemon=True)
+        self._thread.start()
+        return self
+
+    @staticmethod
+    def now():
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * resource.getpagesize()
+
+    def _poll(self):
+        while not self._stop.wait(0.05):
+            self.peak = max(self.peak, self.now())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
 
 
 def nvidia_smi() -> str:
@@ -776,8 +819,8 @@ class Smoke:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         try:
-            out = serving.run_scenario(scenario, payloads, scale=scale,
-                                       plain=plain, timings=timings)
+            out = serving.run_scenario(scenario, payloads, plain=plain,
+                                       timings=timings)
         finally:
             serving._next_token = orig
         token = None
@@ -840,6 +883,203 @@ class Smoke:
               f"(atol 0.3, rtol 0.05) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{path}: {what}: kernel path disagrees")
+
+    def phase_node(self):
+        """The worker-node runtime (`repro_torch.core.runtime.WorkerNode`)
+        running the MLServe handlers on the card: every scenario the card
+        takes, under all 7 variants, at tiny scale; then llama3-8b
+        LLM-PREFILL at full width under ``nexus``."""
+        print("  MOE stays off the card: the moe role's tiny config "
+              "(qwen3-moe-30b-a3b smoke) has head_dim 16, and both "
+              "attention kernels take head_dim 32, 64 or 128 only; its "
+              "node runs are held against the reference on the CPU "
+              "(tests/test_torch_runtime.py)")
+        from repro_torch.models import serving
+        for role, scenarios in MLSERVE.items():
+            serving._bundle.cache_clear()
+            seeded = serving.seed_role(role, scenarios, scale="tiny")
+            for scenario in scenarios:
+                self.node_tiny(scenario, seeded.pop(scenario))
+        serving._bundle.cache_clear()
+        gc.collect()
+        self.torch.cuda.empty_cache()
+        self.node_full()
+
+    def node_invoke(self, node, name, path):
+        """One invocation with every launch count set to 0 just before it
+        and read just after; returns the result and its durable output."""
+        counters = self.counters()
+        for mod in counters.values():
+            mod.launches = 0
+        res = node.invoke(name).result(timeout=NODE_TIMEOUT_S)
+        self.launches[path] = {n: m.launches for n, m in counters.items()}
+        return res, node.store.get("out", f"{res.invocation_id}-out")
+
+    def node_tiny(self, scenario, payloads):
+        """One scenario under every variant, a cold then a warm invocation
+        each: outputs byte-identical across variants and invocations and
+        equal to the kernel-path core called directly on the same bytes,
+        with the core's kernel launches on every run."""
+        from repro_torch.core.plan import SYSTEMS
+        from repro_torch.core.runtime import WorkerNode
+        from repro_torch.core.workloads import ml_suite
+        from repro_torch.models import serving
+        w = ml_suite("tiny")[scenario]
+        direct = serving.run_scenario(scenario, payloads)
+        body, token = direct if scenario == "LLM-DECODE" else (direct, None)
+        L = serving._bundle(serving.SCENARIO_INPUTS[scenario][0],
+                            "tiny")["cfg"].num_layers
+        expect = {FLASH["name"]: L if scenario != "LLM-DECODE" else 0,
+                  DECODE["name"]: L if scenario in ("LLM-COLD", "LLM-DECODE")
+                  else 0, SCAN["name"]: 0}
+        for system in SYSTEMS:
+            node = WorkerNode(system, byte_scale=1.0)
+            try:
+                node.deploy(w)
+                node.seed_input(scenario, payloads=payloads)
+                for want_cold in (True, False):
+                    run = "cold" if want_cold else "warm"
+                    path = f"node tiny {scenario} {system} {run}"
+                    res, out = self.node_invoke(node, scenario, path)
+                    groups = ", ".join(f"{g} {t * 1e3:.2f}"
+                                       for g, t in res.breakdown.items())
+                    print(f"  {path}: {res.latency_s * 1e3:.2f} ms; groups "
+                          f"(ms) {groups}; launches {self.launches[path]}")
+                    if res.cold != want_cold:
+                        raise AssertionError(f"{path}: cold={res.cold}")
+                    if out != body or res.response.get("token") != token:
+                        raise AssertionError(f"{path}: the durable output "
+                                             f"is not the core's")
+                    if self.launches[path] != expect:
+                        raise AssertionError(f"{path}: launches "
+                                             f"{self.launches[path]} != "
+                                             f"{expect}")
+            finally:
+                node.shutdown()
+        print(f"  node tiny {scenario}: {len(body)} B out, byte-identical "
+              f"across {len(SYSTEMS)} variants x cold/warm and equal to the "
+              f"kernel-path core")
+
+    def node_full(self):
+        """llama3-8b LLM-PREFILL at full width under ``nexus``: one cold
+        invocation of the full-scale workload, its 16.06 GB params GET
+        prefetched into the tenant arena and its 268 MB KV PUT written
+        back asynchronously; the durable output against the kernel-path
+        core called directly on the same payload bytes."""
+        torch = self.torch
+        from repro_torch.core import fabric
+        from repro_torch.core.plan import SYSTEMS
+        from repro_torch.core.ratelimit import DEFAULT_MAX_DEBT_S
+        from repro_torch.core.runtime import WorkerNode
+        from repro_torch.core.storage import ObjectStore
+        from repro_torch.core.transport import TRANSPORTS
+        from repro_torch.core.workloads import ml_suite
+        from repro_torch.models import serving
+        name, system = "LLM-PREFILL", "nexus"
+        w = ml_suite("full")[name]
+        cfg = serving._bundle("llm", "full")["cfg"]
+        sizes = serving.role_sizes(cfg)
+        t0 = time.perf_counter()
+        payloads = serving.seed_role("llm", [name], scale="full")[name]
+        print(f"  node full {name}: payloads built in "
+              f"{time.perf_counter() - t0:.1f}s")
+        real_in = [len(p) for p in payloads]
+        real_out = sizes["kv_prefill_bytes"]
+        print(f"  node full {name}: the profile declares GETs of "
+              f"{[g.size_bytes for g in w.profile.gets]} B and a PUT of "
+              f"{[p.size_bytes for p in w.profile.puts]} B (per device of "
+              f"the reference's 8-device slice); the real payloads are "
+              f"{real_in} B in and {real_out} B out, and the node's fetch "
+              f"and write costs follow the real bytes")
+
+        # the modeled sleeps of the GET and the PUT, from the port's own
+        # cost model, which size the node's deadlines (twice each)
+        tr = TRANSPORTS[SYSTEMS[system].transport]
+
+        def modeled(n):
+            return {"transfer": tr.transfer_latency(n),
+                    "sdk": fabric.fabric_op_mcycles("aws", "go", n)
+                    / fabric.GHZ_MCYC_PER_S,
+                    "token bucket at most": DEFAULT_MAX_DEBT_S}
+
+        get_s, put_s = modeled(real_in[0]), modeled(real_out)
+        for what, m in (("params GET", get_s), ("KV PUT", put_s)):
+            print(f"  node full {name}: modeled {what} sleeps "
+                  + ", ".join(f"{k} {v:.2f} s" for k, v in m.items()))
+        for other in ("baseline", "wasm"):
+            spec = SYSTEMS[other]
+            cost = (fabric.in_guest_op_cost if spec.virtualized
+                    else fabric.in_process_op_cost)(spec.sdk, spec.guest_lang,
+                                                    real_in[0])
+            print(f"  node full {name}: under {other} (not run) the params "
+                  f"GET would sleep {cost.total() / fabric.GHZ_MCYC_PER_S:.2f}"
+                  f" s of modeled in-guest fabric, plus a "
+                  f"{TRANSPORTS[spec.transport].transfer_latency(real_in[0]):.2f}"
+                  f" s transfer")
+        arena_mb = (sum(real_in) + real_out) / 2**20 + 1.0
+        node = WorkerNode(
+            system, store=ObjectStore(), byte_scale=1.0, arena_mb=arena_mb,
+            connect_timeout_s=2 * sum(get_s.values()),
+            writeback_ack_timeout_s=2 * sum(put_s.values()),
+            plan_stall_timeout_s=2 * (sum(get_s.values())
+                                      + sum(put_s.values())) + 300.0)
+        rss = RssSampler()
+        timings, orig = {}, serving.llm_prefill
+        serving.llm_prefill = (lambda *a, **k:
+                               orig(*a, timings=timings, **k))
+        try:
+            node.deploy(w)
+            node.seed_input(name, payloads=payloads)
+            bucket = node.backend.limiter.bucket("s3")
+            waits, throttle = [], bucket.throttle
+
+            def spy(nbytes, sleep=time.sleep):
+                waits.append((nbytes, throttle(nbytes, sleep)))
+                return waits[-1][1]
+
+            bucket.throttle = spy
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with rss:
+                res, out = self.node_invoke(node, name,
+                                            f"node full {name} {system}")
+            peak = torch.cuda.max_memory_allocated()
+            stats = dict(node.backend.stats)
+        finally:
+            serving.llm_prefill = orig
+            node.shutdown()
+        del node
+        gc.collect()
+        path = f"node full {name} {system}"
+        groups = ", ".join(f"{g} {t:.3f}" for g, t in res.breakdown.items())
+        print(f"  {path}: latency {res.latency_s:.3f} s, cold {res.cold}; "
+              f"groups (s) {groups}")
+        print(f"  {path}: token-bucket waits (bytes, s) {waits}; handler "
+              f"measured decode {timings['decode'] * 1e3:.1f} ms, forward "
+              f"{timings['forward'] * 1e3:.1f} ms, encode "
+              f"{timings['encode'] * 1e3:.1f} ms beside compute[0] "
+              f"{res.breakdown['compute[0]'] * 1e3:.1f} ms; backend "
+              f"{stats}")
+        print(f"  {path}: peak device {peak / 2**30:.2f} GiB; host RSS "
+              f"{rss.start / 2**30:.2f} GiB at the invocation's start (the "
+              f"payloads, the store and the arena), peak "
+              f"{rss.peak / 2**30:.2f} GiB during it; launches "
+              f"{self.launches[path]}")
+        want = {FLASH["name"]: cfg.num_layers, DECODE["name"]: 0,
+                SCAN["name"]: 0}
+        if self.launches[path] != want:
+            raise AssertionError(f"{path}: launches {self.launches[path]} "
+                                 f"!= {want}")
+        if not res.cold or stats["prefetches"] != 1 or len(out) != real_out:
+            raise AssertionError(f"{path}: not one cold prefetched run with "
+                                 f"a {real_out} B output")
+        direct = serving.llm_prefill(*payloads)
+        print(f"  {path}: durable output {len(out)} B "
+              f"{'==' if out == direct else '!='} the kernel-path core's on "
+              f"the same payload bytes")
+        if out != direct:
+            raise AssertionError(f"{path}: the durable output is not the "
+                                 f"core's")
 
     def phase_timing(self):
         """Each kernel at its serve shape (the row of the kernels line),
@@ -1041,6 +1281,7 @@ def main() -> int:
         phases.append((f"serve and trace {arch}",
                        lambda arch=arch: smoke.serve_path(arch)))
     phases.append(("mlserve cores", smoke.phase_mlserve))
+    phases.append(("worker node", smoke.phase_node))
     phases.append(("timing", smoke.phase_timing))
     for name, fn in phases:
         print(f"== {name}", flush=True)

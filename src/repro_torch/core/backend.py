@@ -5,6 +5,7 @@ One backend process multiplexes I/O for every co-resident instance:
 * terminates the invocation RPC natively (host Go server, §4.2.1);
 * prefetches hinted inputs into exactly-sized arena slots, overlapped
   with instance restore (§4.2.2);
+* streams opaque payloads through bounded circular buffers (§4.2.3);
 * executes SDK GET/PUT on behalf of guests over TCP or RDMA (§4.3.2);
 * drives asynchronous output writes, releasing the VM early while
   withholding the caller's response until the write is acked (§4.2.5);
@@ -13,9 +14,8 @@ One backend process multiplexes I/O for every co-resident instance:
 * is stateless + crash-only: a supervisor restarts it, frontends retry,
   and PUT idempotency keys preserve at-least-once semantics (§5).
 
-A copy of ``repro.core.backend`` for the port's serve driver, trimmed
-of what that driver cannot reach: the SharedCache plane, the streaming
-fallback (circular buffers) and the fault-injection hooks.
+A copy of ``repro.core.backend`` without the SharedCache plane, which the
+port has not copied yet: every GET takes the remote path.
 """
 from __future__ import annotations
 
@@ -31,6 +31,7 @@ from repro_torch.core.credentials import TokenManager
 from repro_torch.core.hints import InputHint, OutputHint
 from repro_torch.core.ratelimit import ClientLimiter
 from repro_torch.core.storage import RemoteStorage
+from repro_torch.core.streaming import CircularBuffer
 
 MB = 1024 * 1024
 
@@ -87,10 +88,14 @@ class NexusBackend:
                  transport_name: str = "tcp",
                  arenas: ArenaRegistry | None = None,
                  tokens: TokenManager | None = None,
+                 fault_hooks=None,
                  alloc_timeout_s: float = 10.0):
         self.remote = remote
         self.acct = acct
         self.transport_name = transport_name
+        # FaultPlane taps (faults.FaultHooks), read at call time so the
+        # injector stays armed across supervisor restarts
+        self.fault_hooks = fault_hooks
         self.alloc_timeout_s = alloc_timeout_s
         # Arenas are file-backed host memory and tokens belong to the
         # cluster orchestrator — both survive a backend crash (§5); the
@@ -107,7 +112,7 @@ class NexusBackend:
         # write re-executes — idempotent PUTs keep at-least-once intact.
         self._completed_puts: dict[str, int] = {}
         self.stats = {"prefetches": 0, "sync_gets": 0, "puts": 0,
-                      "dedup_hits": 0}
+                      "stream_gets": 0, "dedup_hits": 0, "acks_dropped": 0}
         self._conn_established: set[str] = set()
 
     # ----------------------------------------------------------- liveness
@@ -220,6 +225,27 @@ class NexusBackend:
         slot.write(data)
         return slot
 
+    def fetch_stream(self, tenant: str, cred: str, bucket: str, key: str,
+                     buf: CircularBuffer, chunk: int = 256 * 1024) -> None:
+        """Streaming fallback: pump the object through a bounded ring
+        (§4.2.3). Runs on a backend worker; the frontend consumes."""
+        self._check_alive()
+        self.stats["stream_gets"] += 1
+
+        def _run():
+            try:
+                data = self._authorized_get(cred, bucket, key)
+                for off in range(0, len(data), chunk):
+                    buf.write(memoryview(data)[off:off + chunk])
+            except BaseException as e:      # noqa: BLE001 — propagated
+                # a failed pump must surface at the consumer, never
+                # read as a clean (truncated) EOF
+                buf.fail(e)
+            else:
+                buf.close()
+
+        self._pool.submit(_run)
+
     # -------------------------------------------------------------- writes
 
     def submit_put(self, tenant: str, cred: str, out: OutputHint,
@@ -255,6 +281,14 @@ class NexusBackend:
                 with self._lock:
                     self._completed_puts[dedup_key] = meta.etag
                 slot.release()
+                # FaultPlane ack-drop tap: the write IS durable and the
+                # idempotency record exists — only the ack is lost. The
+                # frontend's timed-out wait redrives and dedup resolves.
+                hooks = self.fault_hooks
+                if (hooks is not None and hooks.ack_drop is not None
+                        and hooks.ack_drop(dedup_key)):
+                    self.stats["acks_dropped"] += 1
+                    return
                 ticket.future.set_result(meta.etag)
             except BaseException as e:      # noqa: BLE001
                 # the attempt failed BEFORE the release above: free the

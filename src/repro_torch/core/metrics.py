@@ -10,14 +10,13 @@ boundary crossing, per DESIGN.md). The real threaded runtime and the
 discrete-event density simulator share this one accounting type, so
 every benchmark reports from the same books.
 
-A copy of ``repro.core.metrics`` holding what the port's backend and
-serve driver use: the cycle domains, the crossing kinds a fabric cost
-charges, `CycleAccount` and `LatencyTrace`.
+A copy of ``repro.core.metrics``, whole.
 """
 from __future__ import annotations
 
 import threading
 from collections import defaultdict
+from dataclasses import dataclass, field
 
 # Cycle domains (paper Fig. 2a / Fig. 8 notation).
 GUEST_USER = "guest_user"      # Gu — user handler + in-guest fabric
@@ -29,6 +28,9 @@ DOMAINS = (GUEST_USER, GUEST_KERNEL, HOST_USER, HOST_KERNEL)
 # Crossing kinds (KVM-activity analogues, paper Fig. 9).
 VM_EXIT = "vm_exit"            # guest->host trap (virtio kick, MMIO, ...)
 VCPU_WAKEUP = "vcpu_wakeup"    # host wakes a blocked vCPU
+CTRL_MSG = "ctrl_msg"          # vsock control-plane message (Nexus path)
+RETRY = "retry"                # FaultPlane recovery redrive (§5)
+SHED = "shed"                  # GuardRails typed rejection (overload plane)
 
 
 class CycleAccount:
@@ -52,6 +54,13 @@ class CycleAccount:
         with self._lock:
             self.crossings[kind] += n
 
+    def merge(self, other: "CycleAccount") -> None:
+        with self._lock:
+            for d, c in other.cycles.items():
+                self.cycles[d] += c
+            for k, n in other.crossings.items():
+                self.crossings[k] += n
+
     def total(self) -> float:
         with self._lock:
             return sum(self.cycles.values())
@@ -63,6 +72,36 @@ class CycleAccount:
                 "crossings": dict(self.crossings),
                 "total": sum(self.cycles.values()),
             }
+
+    def reset(self) -> None:
+        with self._lock:
+            self.cycles.clear()
+            self.crossings.clear()
+
+
+@dataclass
+class MemoryAccount:
+    """Per-component resident-set bookkeeping (paper Fig. 3/10/11).
+
+    Components are free-form labels ("guest_os", "rpc_lib", "cloud_sdk",
+    "workload", "frontend_stub", "arena", "backend", ...). Values in MB.
+    """
+
+    components: dict[str, float] = field(default_factory=dict)
+
+    def add(self, component: str, mb: float) -> None:
+        self.components[component] = self.components.get(component, 0.0) + mb
+
+    def remove(self, component: str) -> None:
+        self.components.pop(component, None)
+
+    def total(self) -> float:
+        return sum(self.components.values())
+
+    def share(self, *components: str) -> float:
+        """Fraction of total held by the named components."""
+        t = self.total()
+        return sum(self.components.get(c, 0.0) for c in components) / t if t else 0.0
 
 
 class LatencyTrace:
@@ -83,3 +122,16 @@ class LatencyTrace:
             return float("nan")
         i = min(int(q / 100.0 * len(xs)), len(xs) - 1)
         return xs[i]
+
+    def mean(self, label: str) -> float:
+        with self._lock:
+            xs = self._samples.get(label, [])
+            return sum(xs) / len(xs) if xs else float("nan")
+
+    def count(self, label: str) -> int:
+        with self._lock:
+            return len(self._samples.get(label, []))
+
+    def labels(self) -> list[str]:
+        with self._lock:
+            return list(self._samples)

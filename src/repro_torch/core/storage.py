@@ -10,8 +10,8 @@ plus optional hedged reads for straggler mitigation — a second request
 is issued if the first exceeds the hedge threshold, first response wins
 (framework-scale fault-tolerance feature; off in paper-faithful runs).
 
-A copy of ``repro.core.storage`` for the port's serve driver, without
-the fault-injection plan (``FaultPlan``), which that driver never arms.
+A copy of ``repro.core.storage``, whole: the worker node always
+passes its ``faults=`` plan through to `RemoteStorage`.
 """
 from __future__ import annotations
 
@@ -101,12 +101,46 @@ class ObjectStore:
                     for k, v in self._data.items() if k.startswith(prefix)}
 
 
+@dataclass
+class FaultPlan:
+    """Deterministic fault injection for resilience tests/benchmarks.
+
+    Two modes, composable:
+
+    * counter-based (`slow_every` / `fail_every`): every Nth op is a
+      straggler / transient error — load-independent, the historical
+      hedged-read test harness;
+    * window-based (`slow_windows` / `fail_windows` + `clock`): the
+      `faults.FaultSchedule` storage windows, evaluated against the
+      shared fault clock — what `faults.FaultInjector` arms. A window
+      is ``(start_s, end_s, factor)``; ops started inside a slow
+      window stretch by ``factor``, ops inside a fail window raise a
+      transient `ConnectionError` (frontends retry).
+    """
+
+    slow_every: int = 0            # every Nth op is a straggler
+    slow_factor: float = 8.0
+    fail_every: int = 0            # every Nth op raises (transient)
+    slow_windows: tuple = ()       # (start_s, end_s, factor) on `clock`
+    fail_windows: tuple = ()       # (start_s, end_s, _) on `clock`
+    clock: object = None           # callable -> seconds on the fault clock
+
+    def slow_factor_at(self, t: float) -> float:
+        for s, e, f in self.slow_windows:
+            if s <= t < e:
+                return f
+        return 1.0
+
+    def failing_at(self, t: float) -> bool:
+        return any(s <= t < e for s, e, _f in self.fail_windows)
+
+
 class RemoteStorage:
     """Worker-side access path to the store over a modeled transport."""
 
     def __init__(self, store: ObjectStore, transport: TransportSpec | str,
                  acct: M.CycleAccount, *, hedge_after_s: float | None = None,
-                 sleep=time.sleep,
+                 faults: FaultPlan | None = None, sleep=time.sleep,
                  cost_scale: float = 1.0):
         self.store = store
         self.transport = (TRANSPORTS[transport]
@@ -117,11 +151,36 @@ class RemoteStorage:
         # latency/cycle/crossing model so the physics stay full-size.
         self.cost_scale = cost_scale
         self.hedge_after_s = hedge_after_s
+        self.faults = faults or FaultPlan()
         self._sleep = sleep
+        self._op_counter = 0
+        self._lock = threading.Lock()
         self.hedges_fired = 0
+        self.transient_failures = 0
 
-    def _service_time(self, nbytes: int) -> float:
-        return self.transport.transfer_latency(int(nbytes * self.cost_scale))
+    def _next_op(self) -> int:
+        with self._lock:
+            self._op_counter += 1
+            return self._op_counter
+
+    def _service_time(self, nbytes: int, op_no: int) -> float:
+        t = self.transport.transfer_latency(int(nbytes * self.cost_scale))
+        f = self.faults
+        if f.slow_every and op_no % f.slow_every == 0:
+            t *= f.slow_factor
+        if f.slow_windows and f.clock is not None:
+            t *= f.slow_factor_at(f.clock())
+        return t
+
+    def _maybe_fail(self, op_no: int) -> None:
+        f = self.faults
+        if f.fail_every and op_no % f.fail_every == 0:
+            self.transient_failures += 1
+            raise ConnectionError(f"transient storage failure (op {op_no})")
+        if f.fail_windows and f.clock is not None and f.failing_at(f.clock()):
+            self.transient_failures += 1
+            raise ConnectionError(
+                f"transient storage failure (fault window, op {op_no})")
 
     def get(self, bucket: str, key: str) -> bytes:
         return self.get_with_meta(bucket, key)[0]
@@ -131,8 +190,10 @@ class RemoteStorage:
         the etag a cache fill may bind to these bytes. The snapshot is
         taken before the modeled transfer sleep, so a PUT committing
         mid-transfer cannot pair its etag with our older payload."""
+        op = self._next_op()
+        self._maybe_fail(op)
         data, meta = self.store.get_with_meta(bucket, key)
-        t = self._service_time(len(data))
+        t = self._service_time(len(data), op)
         if self.hedge_after_s is not None and t > self.hedge_after_s:
             # hedged read: fire a duplicate request; it completes at the
             # un-slowed service time, and the first response wins.
@@ -146,8 +207,10 @@ class RemoteStorage:
         return data, meta
 
     def put(self, bucket: str, key: str, data) -> ObjectMeta:
+        op = self._next_op()
+        self._maybe_fail(op)
         nbytes = len(data)
-        self._sleep(self._service_time(nbytes))
+        self._sleep(self._service_time(nbytes, op))
         self.transport.charge_transfer(self.acct,
                                        int(nbytes * self.cost_scale))
         return self.store.put(bucket, key, bytes(data))

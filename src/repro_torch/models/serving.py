@@ -8,19 +8,22 @@ of its durable output, encoded with the byte-identical codec of
 `repro_torch.models.serialize`.
 
 The positional arguments and the return values are the reference's.
-Each core, and `seed_payloads` (`seed_role`: several scenarios of one
-role from one params blob), also takes keyword-only arguments:
+Two scales share the code: ``"tiny"`` (the SMOKE configs, as the
+reference's cores always run) and ``"full"`` (the published configs, at
+the full-scale serving shapes of the calibration, on one device). A core
+finds its scale from its params payload: the length of the params blob,
+or of its first weight shard, is the tiny or the full config's
+(`_scale_of`), and any other length raises. So one handler runs both,
+and no event or workload field names the scale. `seed_payloads`
+(`seed_role`: several scenarios of one role from one params blob) takes
+the scale as a keyword. Each core also takes keyword-only arguments:
 
-* ``scale`` — ``"tiny"`` (the SMOKE configs, as the reference's cores
-  always run) or ``"full"`` (the published configs, at the full-scale
-  serving shapes of the calibration, on one device);
 * ``device`` — where the tensors live: the card by default, raising
-  without one; ``"cpu"`` only when asked;
-* ``plain`` (cores only) — run the kernels' plain versions instead of the
-  kernels;
-* ``timings`` (cores only) — a dict the core fills with the wall seconds
-  of its three steps: ``decode`` (payloads to tensors on the device),
-  ``forward`` (synchronised) and ``encode`` (outputs to bytes).
+  without one; ``"cpu"`` only when asked (also for `seed_payloads`);
+* ``plain`` — run the kernels' plain versions instead of the kernels;
+* ``timings`` — a dict the core fills with the wall seconds of its three
+  steps: ``decode`` (payloads to tensors on the device), ``forward``
+  (synchronised) and ``encode`` (outputs to bytes).
 
 Shape structs come from a meta-device run with ``plain=True`` (the
 counterpart of ``jax.eval_shape``: the kernels' wrappers refuse meta
@@ -273,16 +276,30 @@ class _Steps:
         self.t = now
 
 
+def _scale_of(role: str, first_len: int, shards: int = 1) -> str:
+    """The scale whose params payload is ``first_len`` bytes long — or,
+    for params in ``shards`` weight shards, whose first shard is."""
+    for scale in ("tiny", "full"):
+        params = _bundle(role, scale)["structs"]["params"]
+        total = serialize.tree_nbytes(params)
+        if first_len == shard_bytes(total, shards)[0]:
+            return scale
+    raise ValueError(
+        f"a {role} params payload of {first_len} B (the first of {shards}) "
+        f"is neither the tiny nor the full config's")
+
+
 def _load_params(role: str, blob, scale: str = "tiny", device="cpu"):
     b = _bundle(role, scale)
     return serialize.loads(b["structs"]["params"], blob, device)
 
 
-def llm_cold(shard_bodies, prompt_body, *, scale="tiny", device=None,
-             plain=False, timings=None) -> bytes:
+def llm_cold(shard_bodies, prompt_body, *, device=None, plain=False,
+             timings=None) -> bytes:
     """Assemble weights from shards, prefill the prompt, take one decode
     step; the durable output is the step's logits."""
     dev = resolve_device(device)
+    scale = _scale_of("llm", len(shard_bodies[0]), len(shard_bodies))
     steps = _Steps(timings, dev)
     b = _bundle("llm", scale)
     params = _load_params("llm", b"".join(shard_bodies),
@@ -299,11 +316,12 @@ def llm_cold(shard_bodies, prompt_body, *, scale="tiny", device=None,
     return out
 
 
-def llm_prefill(params_body, prompt_body, *, scale="tiny", device=None,
-                plain=False, timings=None) -> bytes:
+def llm_prefill(params_body, prompt_body, *, device=None, plain=False,
+                timings=None) -> bytes:
     """Prefill: the durable output is the serialized KV cache the decode
     tier would consume."""
     dev = resolve_device(device)
+    scale = _scale_of("llm", len(params_body))
     steps = _Steps(timings, dev)
     b = _bundle("llm", scale)
     params = _load_params("llm", params_body, scale, dev)
@@ -316,11 +334,12 @@ def llm_prefill(params_body, prompt_body, *, scale="tiny", device=None,
     return out
 
 
-def llm_decode(params_body, kv_body, *, scale="tiny", device=None,
-               plain=False, timings=None) -> tuple[bytes, int]:
+def llm_decode(params_body, kv_body, *, device=None, plain=False,
+               timings=None) -> tuple[bytes, int]:
     """One decode step: deserialize (cache, token), advance the model,
     return (serialized updated cache, next token id)."""
     dev = resolve_device(device)
+    scale = _scale_of("llm", len(params_body))
     steps = _Steps(timings, dev)
     b = _bundle("llm", scale)
     params = _load_params("llm", params_body, scale, dev)
@@ -337,10 +356,11 @@ def llm_decode(params_body, kv_body, *, scale="tiny", device=None,
     return out, nxt
 
 
-def emb_encode(params_body, tokens_body, *, scale="tiny", device=None,
-               plain=False, timings=None) -> bytes:
+def emb_encode(params_body, tokens_body, *, device=None, plain=False,
+               timings=None) -> bytes:
     """Batch encode: final-position logits as the embedding vectors."""
     dev = resolve_device(device)
+    scale = _scale_of("emb", len(params_body))
     steps = _Steps(timings, dev)
     b = _bundle("emb", scale)
     params = _load_params("emb", params_body, scale, dev)
@@ -353,11 +373,12 @@ def emb_encode(params_body, tokens_body, *, scale="tiny", device=None,
     return out
 
 
-def moe_infer(shard_bodies, *, scale="tiny", device=None, plain=False,
+def moe_infer(shard_bodies, *, device=None, plain=False,
               timings=None) -> bytes:
     """Expert-shard fan-in: reassemble the MoE params from the fetched
     shards, run the fixed prompt through the router + top-k experts."""
     dev = resolve_device(device)
+    scale = _scale_of("moe", len(shard_bodies[0]), len(shard_bodies))
     steps = _Steps(timings, dev)
     params = _load_params("moe", b"".join(shard_bodies),
                           scale, dev)

@@ -458,3 +458,31 @@ def test_serving_core_kernel_path_matches_plain_path(card, scenario,
         if not (flipped and not torch.allclose(kernel, plain, atol=0.3,
                                                rtol=0.05)):
             torch.testing.assert_close(kernel, plain, atol=0.3, rtol=0.05)
+
+
+@pytest.mark.parametrize("system", ["nexus", "baseline"])
+def test_worker_node_runs_a_handler_on_the_card(card, system):
+    """LLM-COLD through the port's worker node on the card: the handler's
+    core launches both attention kernels on the guest thread, and the
+    durable output equals the kernel-path core's on the same bytes, cold
+    and warm."""
+    from repro_torch.core.runtime import WorkerNode
+    from repro_torch.core.workloads import ml_suite
+    payloads = serving.seed_payloads("LLM-COLD")
+    direct = serving.run_scenario("LLM-COLD", payloads)
+    L = serving._bundle("llm")["cfg"].num_layers
+    node = WorkerNode(system, byte_scale=1.0)
+    try:
+        assert node.device.type == "cuda"
+        node.deploy(ml_suite("tiny")["LLM-COLD"])
+        node.seed_input("LLM-COLD", payloads=payloads)
+        for cold in (True, False):
+            before = (flash_ops.launches, decode_ops.launches)
+            res = node.invoke("LLM-COLD").result(timeout=300)
+            assert res.cold == cold
+            assert (flash_ops.launches - before[0],
+                    decode_ops.launches - before[1]) == (L, L)
+            assert node.store.get("out",
+                                  f"{res.invocation_id}-out") == direct
+    finally:
+        node.shutdown()

@@ -15,7 +15,6 @@ the cores are held against the reference's cores on the reference's own
 * MoE routing: a different expert is excused only at a router margin
   within 2e-2 (`test_torch_model.RoutingSpy`).
 """
-import dataclasses
 import functools
 
 import jax
@@ -118,18 +117,17 @@ class TokenSpy:
 # ------------------------------------------------------- calibrate copy
 
 def test_calibrate_constants_equal_reference():
-    for name in ("CALIBRATION_VERSION", "ML_ROLES", "SERVING_SHAPES",
-                 "ROLE_SHARDS", "LLM_WEIGHT_SHARDS", "MOE_SHARDS", "SCALES",
-                 "PHASES"):
+    """Every name the port's read side keeps equals the reference's; the
+    derivation's names (the machine profiles, the phase list, the format
+    version) stay with the reference."""
+    for name in ("ML_ROLES", "SERVING_SHAPES", "ROLE_SHARDS",
+                 "LLM_WEIGHT_SHARDS", "MOE_SHARDS", "SCALES"):
         assert getattr(calibrate, name) == getattr(ref_calibrate, name), name
     assert fabric.GHZ_MCYC_PER_S == ref_fabric.GHZ_MCYC_PER_S
-    assert set(calibrate.MACHINES) == set(ref_calibrate.MACHINES)
-    for scale, machine in calibrate.MACHINES.items():
-        ref = ref_calibrate.MACHINES[scale]
-        assert dataclasses.asdict(machine) == dataclasses.asdict(ref)
-        for flops, nbytes in ((1e12, 1e9), (3e9, 7e10), (0.0, 0.0)):
-            assert machine.seconds(flops, nbytes) == ref.seconds(flops, nbytes)
-            assert machine.mcycles(flops, nbytes) == ref.mcycles(flops, nbytes)
+    assert set(calibrate.SCALES) == set(ref_calibrate.MACHINES)
+    for name in ("MachineProfile", "MACHINES", "PHASES",
+                 "CALIBRATION_VERSION"):
+        assert not hasattr(calibrate, name), name
 
 
 @pytest.mark.parametrize("shards", [1, 2, 3, 4, 7])
@@ -146,8 +144,7 @@ def test_calibration_json_is_byte_identical():
             open(ref_calibrate.CALIBRATION_PATH, "rb") as b:
         assert a.read() == b.read()
     assert calibrate.load_calibration() == ref_calibrate.load_calibration()
-    assert (calibrate.load_calibration(calibrate.CALIBRATION_PATH)
-            == calibrate.load_calibration())
+    assert calibrate.load_calibration() is calibrate.load_calibration()
     with pytest.raises(KeyError, match="no calibration for huge/llm"):
         calibrate.model_entry("huge", "llm")
 
@@ -159,7 +156,8 @@ def test_role_sizes_equal_committed_entries(scale, role):
     8 devices at full scale, 1 at tiny."""
     arch = calibrate.ML_ROLES[role]
     cfg = registry.get(arch) if scale == "full" else registry.get_smoke(arch)
-    sizes = serving.role_sizes(cfg, devices=calibrate.MACHINES[scale].devices)
+    sizes = serving.role_sizes(cfg,
+                               devices=ref_calibrate.MACHINES[scale].devices)
     entry = calibrate.model_entry(scale, role)
     assert entry["arch"] == cfg.name and entry["family"] == cfg.family
     assert sizes == {k: entry[k] for k in sizes}
