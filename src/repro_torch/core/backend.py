@@ -14,8 +14,7 @@ One backend process multiplexes I/O for every co-resident instance:
 * is stateless + crash-only: a supervisor restarts it, frontends retry,
   and PUT idempotency keys preserve at-least-once semantics (§5).
 
-A copy of ``repro.core.backend`` without the SharedCache plane, which the
-port has not copied yet: every GET takes the remote path.
+A copy of ``repro.core.backend``, whole.
 """
 from __future__ import annotations
 
@@ -27,6 +26,7 @@ from dataclasses import dataclass, field
 from repro_torch.core import fabric as F
 from repro_torch.core import metrics as M
 from repro_torch.core.arena import ArenaRegistry, Slot
+from repro_torch.core.cache import SharedCache
 from repro_torch.core.credentials import TokenManager
 from repro_torch.core.hints import InputHint, OutputHint
 from repro_torch.core.ratelimit import ClientLimiter
@@ -88,11 +88,15 @@ class NexusBackend:
                  transport_name: str = "tcp",
                  arenas: ArenaRegistry | None = None,
                  tokens: TokenManager | None = None,
+                 cache: SharedCache | None = None,
                  fault_hooks=None,
                  alloc_timeout_s: float = 10.0):
         self.remote = remote
         self.acct = acct
         self.transport_name = transport_name
+        # SharedCache: node-owned like the arenas/tokens — survives a
+        # backend crash and re-attaches to the restarted daemon.
+        self.cache = cache
         # FaultPlane taps (faults.FaultHooks), read at call time so the
         # injector stays armed across supervisor restarts
         self.fault_hooks = fault_hooks
@@ -112,7 +116,8 @@ class NexusBackend:
         # write re-executes — idempotent PUTs keep at-least-once intact.
         self._completed_puts: dict[str, int] = {}
         self.stats = {"prefetches": 0, "sync_gets": 0, "puts": 0,
-                      "stream_gets": 0, "dedup_hits": 0, "acks_dropped": 0}
+                      "stream_gets": 0, "dedup_hits": 0, "acks_dropped": 0,
+                      "cache_hits": 0}
         self._conn_established: set[str] = set()
 
     # ----------------------------------------------------------- liveness
@@ -169,11 +174,36 @@ class NexusBackend:
         nominal = int(nbytes * self.remote.cost_scale)
         time.sleep(F.fabric_op_mcycles("aws", "go", nominal) / 2100.0)
 
-    def _authorized_get(self, cred: str, bucket: str, key: str) -> bytes:
-        """Authorized GET over the remote path."""
+    def _authorized_get(self, tenant: str, cred: str, bucket: str,
+                        key: str, *, hinted: bool = True,
+                        use_cache: bool = True) -> bytes:
+        """Authorized GET through the SharedCache plane. A validated
+        hit is served from the host arena tier: no remote trip, no SDK
+        cycles, no S3 rate-limit spend — only the modeled arena copy
+        time (the same `hit_duration_s` the DES charges). A miss takes
+        the full remote path and offers the bytes back for admission
+        (`hinted` = the GET was hint-promoted at ingress;
+        ``use_cache=False`` is the per-GET opt-out header)."""
         self.tokens.authorize(cred, bucket, "get")
         self.connection_setup(bucket)
-        data = self.remote.get(bucket, key)
+        cache = self.cache if use_cache else None
+        if cache is not None:
+            data = cache.get(tenant, bucket, key, self.remote.store,
+                             hinted=hinted)
+            if data is not None:
+                self.stats["cache_hits"] += 1
+                time.sleep(cache.spec.hit_duration_s(
+                    int(len(data) * self.remote.cost_scale)))
+                return data
+        # bytes and etag come from ONE atomic store snapshot: a PUT
+        # committing during the modeled transfer must never let the
+        # fill bind the old bytes to the new version's etag (that
+        # entry would revalidate forever and serve stale data).
+        data, meta = self.remote.get_with_meta(bucket, key)
+        if cache is not None:
+            cache.fill(tenant, bucket, key, data,
+                       int(len(data) * self.remote.cost_scale),
+                       hinted=hinted, etag=meta.etag)
         self._run_sdk(len(data))
         self.limiter.bucket("s3").throttle(len(data))
         return data
@@ -196,7 +226,9 @@ class NexusBackend:
                 self._check_alive()
                 if pre_connect is not None:
                     self.connection_setup(pre_connect)
-                data = self._authorized_get(cred, hint.bucket, hint.key)
+                data = self._authorized_get(tenant, cred, hint.bucket,
+                                            hint.key, hinted=True,
+                                            use_cache=hint.cacheable)
                 size = len(data)
                 # arena pressure is transient: stall for reclaim rather
                 # than failing the fetch outright (§4.3.1)
@@ -214,12 +246,13 @@ class NexusBackend:
         self._pool.submit(_run)
         return handle
 
-    def fetch_sync(self, tenant: str, cred: str, bucket: str,
-                   key: str) -> Slot:
+    def fetch_sync(self, tenant: str, cred: str, bucket: str, key: str,
+                   *, hinted: bool = True, cacheable: bool = True) -> Slot:
         """Synchronous remoted GET (Nexus-TCP path / no hints)."""
         self._check_alive()
         self.stats["sync_gets"] += 1
-        data = self._authorized_get(cred, bucket, key)
+        data = self._authorized_get(tenant, cred, bucket, key,
+                                    hinted=hinted, use_cache=cacheable)
         slot = self.arenas.get(tenant).alloc_wait(
             max(len(data), 1), timeout_s=self.alloc_timeout_s)
         slot.write(data)
@@ -234,7 +267,10 @@ class NexusBackend:
 
         def _run():
             try:
-                data = self._authorized_get(cred, bucket, key)
+                # opaque payload: never hint-promoted, so it is only
+                # admitted under the ``admit="all"`` policy
+                data = self._authorized_get(tenant, cred, bucket, key,
+                                            hinted=False)
                 for off in range(0, len(data), chunk):
                     buf.write(memoryview(data)[off:off + chunk])
             except BaseException as e:      # noqa: BLE001 — propagated
@@ -280,6 +316,14 @@ class NexusBackend:
                 meta = self.remote.put(out.bucket, out.key, view)
                 with self._lock:
                     self._completed_puts[dedup_key] = meta.etag
+                cache = self.cache
+                if cache is not None:
+                    # write-through strictly AFTER the remote PUT
+                    # committed durably (never caches an unacked
+                    # write); bytes copied before the slot goes back
+                    cache.put(tenant, out.bucket, out.key, bytes(view),
+                              int(len(view) * self.remote.cost_scale),
+                              meta.etag)
                 slot.release()
                 # FaultPlane ack-drop tap: the write IS durable and the
                 # idempotency record exists — only the ack is lost. The

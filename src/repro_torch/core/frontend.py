@@ -18,9 +18,7 @@ TCP stack, and never sees a credential (only the opaque handle).
 (Python), every byte traverses the virtualized network path, and the
 instance blocks on its own writes.
 
-A copy of ``repro.core.frontend`` without the SharedCache admission
-flags (``GuestContext.admission`` and ``NexusClient._admission``), which
-only the cache plane reads; the port has not copied that plane yet.
+A copy of ``repro.core.frontend``, but for two additions.
 `HandlerContext` carries one field the reference's lacks: ``device``,
 the torch device the node runs its handlers' tensors on. `NexusClient`
 takes one keyword the reference's lacks: ``prefetch_timeout_s``, how
@@ -100,12 +98,22 @@ class HandlerContext:
 
 @dataclass
 class GuestContext:
-    """What the guest is allowed to hold: opaque identifiers only."""
+    """What the guest is allowed to hold: opaque identifiers only.
+
+    `admission` carries the SharedCache per-GET flags: (bucket, key)
+    -> list of (hinted, cacheable) pairs in declared-profile order,
+    where `hinted` marks a GET promoted into RPC metadata at ingress
+    and `cacheable` is the per-GET cache opt-out header. The list is
+    consumed per occurrence (the interception contract matches the
+    handler's k-th GET to the k-th declared `Get`), so duplicate-key
+    profiles keep each GET's own flags — a set keyed on the pair would
+    collapse them and diverge from the DES's per-op admission."""
 
     tenant: str
     cred_handle: str
     invocation_id: str = ""
     prefetch: PrefetchHandle | None = None
+    admission: dict = field(default_factory=dict)
     state: dict = field(default_factory=dict)
 
 
@@ -205,6 +213,19 @@ class NexusClient:
             return out
         raise last if last else RuntimeError("ack retry budget exhausted")
 
+    def _admission(self, bucket: str, key: str) -> tuple[bool, bool]:
+        """Next (hinted, cacheable) flags for a GET on (bucket, key).
+        Each pair's queue holds its GETs' flags in declared-profile
+        order and is consumed per call, so duplicate-key GETs with
+        differing flags stay per-ordinal (matching the DES overlay's
+        per-op admission bits). The final entry sticks for calls past
+        the declared count (direct client use carries no profile);
+        a pair with no declared GET is unhinted but cacheable."""
+        q = self._ctx.admission.get((bucket, key))
+        if not q:
+            return False, True
+        return q.pop(0) if len(q) > 1 else q[0]
+
     # ------------------------------------------------------------- boto3 API
 
     def get_object(self, Bucket: str, Key: str) -> dict:
@@ -215,12 +236,18 @@ class NexusClient:
         if (pf is not None and pf.hint.bucket == Bucket
                 and pf.hint.key == Key):
             self._ctx.prefetch = None            # single-use: consumed
+            # the ingress prefetch already spent this ordinal's flags
+            # (it fetched with the hint's own bits) — consume them so
+            # later same-key GETs keep their per-op alignment
+            self._admission(Bucket, Key)
             slot = pf.wait(self.prefetch_timeout_s)
             self._charge_stub_call("aws", 0)     # pointer return: no bytes move
             return {"Body": slot.view(), "ContentLength": slot.used,
                     "_slot": slot}
+        hinted, cacheable = self._admission(Bucket, Key)
         slot = self._retry(lambda: self._backend.fetch_sync(
-            self._ctx.tenant, self._ctx.cred_handle, Bucket, Key))
+            self._ctx.tenant, self._ctx.cred_handle, Bucket, Key,
+            hinted=hinted, cacheable=cacheable))
         self._charge_stub_call("aws", slot.used)
         return {"Body": slot.view(), "ContentLength": slot.used,
                 "_slot": slot}
@@ -232,6 +259,7 @@ class NexusClient:
         The stub's per-MB cycles can only be charged once the size is
         known — the ring's close hook fires after the backend pumped
         the last byte, so the full streamed count is billed (not 0)."""
+        self._admission(Bucket, Key)    # consume: keeps queues ordinal-aligned
         buf = CircularBuffer(capacity=max(chunk * 4, 1 << 20))
         buf.on_close = lambda b: self._charge_stub_call("aws", b.total_in)
         self._retry(lambda: self._backend.fetch_stream(

@@ -43,12 +43,12 @@ Everything here is pure data + a small deterministic state machine
 "admit" for every request and perturbs neither executor (the DES golden
 gate pins this bit-for-bit).
 
-A copy of ``repro.core.guardrails`` without ``GuardrailPolicy.drains_for``
-(drain windows derived from a ``FaultSchedule``, not copied yet) and
-``GuardrailPolicy.scaled`` (which stretches a policy for replays of the
-density simulator's schedules). The worker node calls
-`GuardState.decide` on every invocation, and `NexusClient` retries
-through `RetrySpec`.
+A copy of ``repro.core.guardrails`` without ``GuardrailPolicy.scaled``,
+which stretches a policy for replays of the density simulator's
+schedules (the port has no density simulator yet). The worker node calls
+`GuardState.decide` on every invocation, `NexusClient` retries through
+`RetrySpec`, and `drains_for` derives drain windows from a
+`faults.FaultSchedule`.
 """
 from __future__ import annotations
 
@@ -293,6 +293,19 @@ class GuardrailPolicy:
     @classmethod
     def disabled(cls) -> "GuardrailPolicy":
         return cls()
+
+    @classmethod
+    def drains_for(cls, schedule, *, lead_s: float = 0.2,
+                   settle_s: float = 0.2) -> tuple[DrainWindow, ...]:
+        """Quiesce windows bracketing each scheduled crash/restart in a
+        `faults.FaultSchedule`: stop admitting ``lead_s`` before the
+        kill, stay closed through the restart plus ``settle_s`` — the
+        planned-restart story rides the existing fault machinery."""
+        return tuple(
+            DrainWindow(max(0.0, at - lead_s),
+                        (at - max(0.0, at - lead_s))
+                        + schedule.restart_delay_s + settle_s)
+            for at in schedule.crashes())
 
 
 # ----------------------------------------------------------- interpretation

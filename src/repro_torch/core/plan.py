@@ -51,8 +51,7 @@ Structural rules (each a paper mechanism, applied as data):
   storage connections — serial with the first fetch, overlapped with
   the restore (§4.2.4, Fig 12 'Add Server').
 
-A copy of ``repro.core.plan``, whole, but for the verify-on-compile hook
-(see `set_verify_on_compile`), which raises until PlanVerify is copied.
+A copy of ``repro.core.plan``, whole.
 """
 from __future__ import annotations
 
@@ -589,8 +588,7 @@ def compile_program(spec: SystemSpec, profile: IOProfile | None = None,
 #: compile cache. Off by default: per-process re-verification is a
 #: debugging aid, not a correctness dependency. Seeded from the
 #: NEXUS_VERIFY_PLANS environment variable so CI and repro runs can
-#: flip it without touching code. The port has not copied the verifier
-#: yet, so compiling a program with the switch on raises.
+#: flip it without touching code.
 _verify_on_compile = os.environ.get("NEXUS_VERIFY_PLANS", "") not in ("", "0")
 
 
@@ -619,9 +617,9 @@ def _compile_program(spec: SystemSpec, shape: tuple, cold: bool,
                      kernel_bypass: bool) -> PlanProgram:
     prog = lower_program(_compile_plan(spec, shape, cold), kernel_bypass)
     if _verify_on_compile:
-        raise NotImplementedError(
-            "NEXUS_VERIFY_PLANS needs PlanVerify (analysis/verify.py, "
-            "verify_program), which the port has not copied yet")
+        # late import: analysis sits above plan in the layering
+        from repro_torch.core.analysis.verify import verify_program
+        verify_program(prog)
     return prog
 
 

@@ -22,7 +22,7 @@ per-variant control flow here: phase ordering, overlap, and the
 release/response barriers all come from
 `plan.compile_plan(spec, profile)`.
 
-A copy of ``repro.core.runtime``, line for line but for four
+A copy of ``repro.core.runtime``, line for line but for three
 deviations:
 
 * ``device`` — a keyword naming where the handlers' tensors live, the
@@ -32,10 +32,6 @@ deviations:
 * ``arena_mb`` — a keyword, 64 MB by default (the reference's
   `ArenaRegistry` default), forwarded to the tenant arenas the backend
   allocates; a payload larger than the arena needs a larger one.
-* ``cache`` — the SharedCache plane is not copied yet: a cache spec
-  other than ``None`` raises `NotImplementedError`, and the plane's
-  parts of the node (``cache_stats``, the per-GET admission flags
-  `_make_client` derives for it) are left out.
 * ``connect_timeout_s`` — the ingress-prefetch deadline also bounds the
   guest stub's wait for that prefetch (`frontend.NexusClient`'s
   ``prefetch_timeout_s``; the reference's stub waits a fixed 30 s, its
@@ -58,6 +54,7 @@ from repro_torch.core import metrics as M
 from repro_torch.core.analysis.diag import (PC_CONTRACT, PC_DUP_KEY,
                                             ProfileContractError)
 from repro_torch.core.backend import NexusBackend
+from repro_torch.core.cache import CacheSpec, SharedCache
 from repro_torch.core.faults import FaultHooks
 from repro_torch.core.frontend import (BaselineClient, GuestContext,
                                        HandlerContext, NexusClient)
@@ -447,16 +444,12 @@ class WorkerNode:
                  plan_stall_timeout_s: float = 120.0,
                  static_check: bool = True,
                  guardrails: "GR.GuardrailPolicy | None" = None,
-                 cache=None,
+                 cache: CacheSpec | None = None,
                  client_max_retries: int = 3,
                  retry_backoff_base_s: float = 0.002,
                  connect_timeout_s: float = 30.0,
                  device=None,
                  arena_mb: float = 64.0):
-        if cache is not None:
-            raise NotImplementedError(
-                "the SharedCache plane (core/cache.py) is not ported yet; "
-                "run the node with cache=None")
         self.spec = SYSTEMS[system]
         #: where the handlers' tensors live: the card unless the caller
         #: asks for the CPU (raises without a card)
@@ -499,6 +492,18 @@ class WorkerNode:
         #: so `drain()`/`resume()` work on any node.
         self.guardrails = (guardrails if guardrails is not None
                            else GR.GuardrailPolicy())
+        #: SharedCache plane (§SharedCache): node-owned like the arena
+        #: registry and token vault — it survives backend crashes and is
+        #: re-attached by `_make_backend`, so a supervisor restart never
+        #: cold-starts the cache (crash safety is the etag revalidation's
+        #: job, not eviction's).
+        #: the arena tier holds REAL (byte-scaled) payloads while the
+        #: capacity/ counters reason over nominal sizes — size the
+        #: backing region accordingly (TenantArena preallocates it)
+        self.cache_plane = (
+            SharedCache(cache,
+                        arena_mb=max(1.0, cache.capacity_mb * byte_scale))
+            if cache is not None else None)
         self._t0 = time.monotonic()
         self.guard = GR.GuardState(
             self.guardrails, clock=lambda: time.monotonic() - self._t0)
@@ -545,7 +550,8 @@ class WorkerNode:
         return NexusBackend(self.remote, self.acct,
                             transport_name=self.spec.transport,
                             arenas=self._arenas, tokens=self._tokens,
-                            fault_hooks=self.fault_hooks)
+                            fault_hooks=self.fault_hooks,
+                            cache=self.cache_plane)
 
     @property
     def backend(self) -> NexusBackend | None:
@@ -614,6 +620,12 @@ class WorkerNode:
         return keys
 
     # ------------------------------------------------------------- metrics
+
+    def cache_stats(self) -> dict | None:
+        """SharedCache counter snapshot (None when the node runs
+        cache-less) — the threaded side of the DES parity contract."""
+        return (self.cache_plane.snapshot()
+                if self.cache_plane is not None else None)
 
     def node_memory_mb(self) -> M.MemoryAccount:
         acct = M.MemoryAccount()
@@ -716,7 +728,7 @@ class WorkerNode:
             self.spec, profile, cold=cold_expected,
             kernel_bypass=TRANSPORTS[self.spec.transport].kernel_bypass)
         plan = program.plan
-        self._make_client(ctx)
+        self._make_client(ctx, profile)
         guest = _GuestRun(self, ctx, profile, self.plan_stall_timeout_s)
         ctx.guest = guest
 
@@ -769,7 +781,8 @@ class WorkerNode:
             raise GR.DeadlineExceeded("deadline", result=res)
         return res
 
-    def _make_client(self, ctx: _Invocation) -> None:
+    def _make_client(self, ctx: _Invocation,
+                     profile: IOProfile | None = None) -> None:
         spec = self.spec
         if spec.coupled:
             hooks = self.fault_hooks
@@ -779,9 +792,26 @@ class WorkerNode:
                 fault=lambda: (hooks.guest_crash is not None
                                and hooks.guest_crash()))
         else:
+            # SharedCache admission metadata, derived per GET *ordinal*
+            # from hint × effective-profile agreement: `hinted` marks
+            # GETs promoted at ingress (the DES's `prefetchable` bit —
+            # the two executors must agree on it for hit/miss parity);
+            # `cacheable` is the per-GET bypass (declared
+            # Get.cacheable=False or the event's `"cache": false`
+            # header). Flags are queued per (bucket, key) in declared
+            # order and consumed per occurrence — a set keyed on the
+            # pair would collapse duplicate-key GETs with differing
+            # flags into one decision and diverge from the DES's
+            # per-op admission.
+            gets = profile.gets if profile is not None else ()
+            admission: dict[tuple[str, str], list] = {}
+            for h, g in zip(ctx.inputs, gets):
+                admission.setdefault((h.bucket, h.key), []).append(
+                    (g.prefetchable, g.cacheable and h.cacheable))
             ctx.gctx = GuestContext(tenant=ctx.w.name,
                                     cred_handle=self._creds[ctx.w.name],
-                                    invocation_id=ctx.inv_id)
+                                    invocation_id=ctx.inv_id,
+                                    admission=admission)
             ctx.client = NexusClient(
                 ctx.gctx, lambda: self.supervisor.backend, self.acct,
                 max_retries=self.client_max_retries,

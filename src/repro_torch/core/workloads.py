@@ -12,16 +12,20 @@ variant's phase DAG and what the DES/SLO denominator prices without
 executing guest code. The profile is a *contract*: the runtime checks
 the handler's observed calls against it and rejects divergence.
 
-A copy of the I/O-profile types, `Workload` and the MLServe suite of
-``repro.core.workloads``. The paper suite (``SUITE``, ``SCENARIOS``), the
-arrival patterns and ``chaos_suite`` are not copied yet, so `REGISTRY`,
-the deployable-by-name set, is empty: `runtime.WorkerNode.deploy` by name
-raises `KeyError`, as the reference's does for an unknown name. The
-MLServe handlers mirror the reference's storage call for storage call;
-each also hands the core the device the node runs on (``ctx.device``).
+`SUITE` holds the paper's ten functions (most I/O-intensive to most
+compute-intensive, compute-to-I/O ratios ~10%..90%); `SCENARIOS` adds
+multi-I/O shapes the old one-GET-one-PUT runtime could not represent:
+scatter-gather fan-in (`SG`), a two-stage pipeline (`PIPE`), and a
+fan-out writer (`FAN`). `REGISTRY` is both.
+
+A copy of ``repro.core.workloads``, whole. The MLServe handlers mirror
+the reference's storage call for storage call; each also hands the core
+the device the node runs on (``ctx.device``).
 """
 from __future__ import annotations
 
+import hashlib
+import zlib
 from dataclasses import dataclass, replace
 from typing import Any, Callable
 
@@ -151,6 +155,67 @@ class IOProfile:
                     Put(int(out_mb * MB))))
 
 
+# ---------------------------------------------------------- arrival patterns
+
+@dataclass(frozen=True)
+class ArrivalPattern:
+    """How invocations of a deployed function arrive (paper §6: the
+    density experiment replays Azure-like traffic; the full sweep also
+    stresses the variants under heavier burst regimes and slow diurnal
+    load swings).
+
+    Pure data, like `SystemSpec`: the generator in `core.trace`
+    interprets it, every stream is seeded and process-deterministic.
+
+    * ``poisson`` — homogeneous Poisson (the classic open-loop model);
+    * ``mmpp``    — Markov-modulated Poisson (calm/burst phases;
+      ``burst_factor`` × rate for ``burst_fraction`` of the time);
+    * ``diurnal`` — inhomogeneous Poisson with a sinusoidal rate swing
+      of relative ``amplitude`` over ``period_s`` (phase-shifted per
+      function so the cluster sees staggered peaks).
+    """
+
+    name: str
+    kind: str = "mmpp"              # 'poisson' | 'mmpp' | 'diurnal'
+    burst_factor: float = 3.0
+    burst_fraction: float = 0.25
+    period_s: float = 120.0         # diurnal period
+    amplitude: float = 0.8          # diurnal peak-to-mean rate swing
+
+    def __post_init__(self):
+        if self.kind not in ("poisson", "mmpp", "diurnal"):
+            raise ValueError(f"unknown arrival kind {self.kind!r}")
+        if not 0.0 <= self.amplitude < 1.0:
+            raise ValueError("amplitude must be in [0, 1)")
+        if self.burst_factor <= 0.0:
+            raise ValueError("burst_factor must be > 0")
+        if not 0.0 <= self.burst_fraction < 1.0:
+            raise ValueError("burst_fraction must be in [0, 1)")
+        if self.period_s <= 0.0:
+            raise ValueError("period_s must be > 0")
+
+
+#: named patterns the density sweep iterates over. `azure` is the
+#: historical default (MMPP with the paper-calibrated burst mix).
+ARRIVAL_PATTERNS: dict[str, ArrivalPattern] = {p.name: p for p in (
+    ArrivalPattern("azure"),
+    ArrivalPattern("poisson", kind="poisson"),
+    ArrivalPattern("bursty", kind="mmpp",
+                   burst_factor=8.0, burst_fraction=0.1),
+    ArrivalPattern("diurnal", kind="diurnal"),
+)}
+
+
+def resolve_pattern(pattern: "str | ArrivalPattern") -> ArrivalPattern:
+    if isinstance(pattern, ArrivalPattern):
+        return pattern
+    try:
+        return ARRIVAL_PATTERNS[pattern]
+    except KeyError:
+        raise KeyError(f"unknown arrival pattern {pattern!r}; "
+                       f"known: {sorted(ARRIVAL_PATTERNS)}") from None
+
+
 # ---------------------------------------------------------------- workloads
 
 @dataclass(frozen=True)
@@ -186,6 +251,185 @@ class Workload:
     @property
     def output_bytes(self) -> int:
         return sum(p.size_bytes for p in self.profile.puts)
+
+
+# ----------------------------------------------------------- handler bodies
+#
+# Real functions over real (zero-copy) payload views, scaled so wall
+# time stays in the low milliseconds. Deterministic in their inputs:
+# the transparency test diffs their durable outputs byte-for-byte
+# across every system variant.
+
+def _expand(digest: bytes, out_mb: float) -> bytes:
+    block = (digest * (32 * 1024 // len(digest) + 1))[:32 * 1024]
+    return block * max(int(out_mb * MB) // len(block), 1)
+
+
+def _digest_n(view, out_mb: float, rounds: int = 1) -> bytes:
+    """Hash the payload `rounds` times, expand digest to out_mb bytes."""
+    h = hashlib.sha256()
+    for _ in range(rounds):
+        h.update(view)
+    return _expand(h.digest(), out_mb)
+
+
+def _crc_reduce(view, out_mb: float) -> bytes:
+    crc = zlib.crc32(view) & 0xFFFFFFFF
+    return _expand(crc.to_bytes(4, "little"), out_mb)
+
+
+def _single_io_handler(transform):
+    """The ten paper functions share the classic one-GET-one-PUT body;
+    only the pure `transform` differs. One code object per workload,
+    zero platform knowledge: all I/O goes through ``ctx.storage``."""
+    def handler(event, ctx):
+        src, dst = event["inputs"][0], event["outputs"][0]
+        obj = ctx.storage.get_object(Bucket=src["bucket"], Key=src["key"])
+        body = transform(obj["Body"])
+        ctx.storage.put_object(Bucket=dst["bucket"], Key=dst["key"],
+                               Body=body)
+        return {"statusCode": 200, "bytes_out": len(body)}
+    return handler
+
+
+def _sg_handler(event, ctx):
+    """Scatter-gather fan-in: reduce N input shards to one summary."""
+    h = hashlib.sha256()
+    for src in event["inputs"]:
+        part = ctx.storage.get_object(Bucket=src["bucket"], Key=src["key"])
+        h.update(part["Body"])
+    dst = event["outputs"][0]
+    out = _expand(h.digest(), 2.0)
+    ctx.storage.put_object(Bucket=dst["bucket"], Key=dst["key"], Body=out)
+    return {"statusCode": 200, "shards": len(event["inputs"])}
+
+
+def _pipe_handler(event, ctx):
+    """Two-stage pipeline: get -> stage-1 -> put -> stage-2 -> put."""
+    src = event["inputs"][0]
+    obj = ctx.storage.get_object(Bucket=src["bucket"], Key=src["key"])
+    stage1 = _digest_n(obj["Body"], 2.0)
+    d0 = event["outputs"][0]
+    ctx.storage.put_object(Bucket=d0["bucket"], Key=d0["key"], Body=stage1)
+    stage2 = _digest_n(memoryview(stage1), 1.0, rounds=2)
+    d1 = event["outputs"][1]
+    ctx.storage.put_object(Bucket=d1["bucket"], Key=d1["key"], Body=stage2)
+    return {"statusCode": 200, "stages": 2}
+
+
+def _fan_handler(event, ctx):
+    """Fan-out writer: one GET, three derived durable outputs."""
+    src = event["inputs"][0]
+    obj = ctx.storage.get_object(Bucket=src["bucket"], Key=src["key"])
+    seed = hashlib.sha256(obj["Body"]).digest()
+    for i, dst in enumerate(event["outputs"]):
+        branch = hashlib.sha256(seed + i.to_bytes(2, "little")).digest()
+        ctx.storage.put_object(Bucket=dst["bucket"], Key=dst["key"],
+                               Body=_expand(branch, 1.5))
+    return {"statusCode": 200, "outputs": len(event["outputs"])}
+
+
+def _wl(name, input_mb, output_mb, compute, libs, out_fn=None, **kw):
+    fn = out_fn or (lambda v, o=output_mb: _digest_n(v, o))
+    return Workload(name, IOProfile.single(input_mb, output_mb, compute),
+                    libs, _single_io_handler(fn), **kw)
+
+
+# Compute budgets in Mcycles; at 2.1 GHz, 100 Mcycles ~= 48 ms.
+# I/O share decreases top to bottom (paper order: ST-R most I/O-heavy).
+SUITE: dict[str, Workload] = {w.name: w for w in [
+    # name      in_MB out_MB compute libs
+    _wl("ST-R", 18.0, 6.0, 14.0, 55.0,
+        out_fn=lambda v: _crc_reduce(v, 6.0)),          # stacking reducer
+    _wl("LR-S", 9.0, 0.3, 11.0, 68.0),                  # sklearn-ish infer
+    _wl("AES", 4.0, 4.0, 36.0, 28.0,
+        out_fn=lambda v: _digest_n(v, 4.0, rounds=2)),  # encryption
+    _wl("WEB", 1.2, 0.4, 30.0, 36.0),                   # templated web
+    _wl("ST-T", 12.0, 4.0, 95.0, 55.0),                 # stacking trainer
+    _wl("RNN", 0.8, 0.2, 82.0, 78.0),                   # RNN serving (torch)
+    _wl("MAP", 3.0, 3.0, 88.0, 32.0),                    # JSON map
+    _wl("RED", 3.0, 1.0, 92.0, 32.0),                    # JSON reduce
+    _wl("CNN", 1.5, 0.1, 210.0, 82.0),                  # CNN serving (torch)
+    _wl("IR", 2.5, 1.8, 185.0, 59.0),                   # image resize
+]}
+
+NAMES = list(SUITE)
+
+#: multi-I/O shapes: unrepresentable under the old fixed
+#: one-GET-one-PUT plan, now just data. Kept out of `SUITE` so the
+#: paper's ten-function mix (Figs 2-13 denominators) stays untouched.
+SCENARIOS: dict[str, Workload] = {w.name: w for w in [
+    # scatter-gather fan-in: 4 GETs (only the first is hint-prefetched
+    # at ingress; the rest are guest-issued), one reduced output.
+    Workload("SG", IOProfile((
+        Get(3 * MB), Get(3 * MB), Get(3 * MB), Get(3 * MB),
+        ComputeSegment(60.0), Put(2 * MB))), 50.0, _sg_handler),
+    # two-stage chain: the first PUT overlaps stage-2 compute under
+    # async writeback; the response still gates on both acks.
+    Workload("PIPE", IOProfile((
+        Get(6 * MB), ComputeSegment(30.0), Put(2 * MB),
+        ComputeSegment(40.0), Put(1 * MB))), 55.0, _pipe_handler),
+    # fan-out: one GET, three durable outputs, release after compute.
+    Workload("FAN", IOProfile((
+        Get(5 * MB), ComputeSegment(45.0),
+        Put(int(1.5 * MB)), Put(int(1.5 * MB)), Put(int(1.5 * MB)))),
+        52.5, _fan_handler),
+]}
+
+SCENARIO_NAMES = list(SCENARIOS)
+
+#: everything deployable: the paper suite + the multi-I/O scenarios.
+REGISTRY: dict[str, Workload] = {**SUITE, **SCENARIOS}
+
+
+# ----------------------------------------------------------- chaos suite
+#
+# Tiny-payload workloads for the FaultPlane chaos harness and the
+# fault-tolerance benchmark: threaded invocations complete in
+# milliseconds (the differential harness replays whole fault schedules
+# in real time), and the fan-out shape exercises per-logical-write PUT
+# idempotency under retries. Deliberately NOT in REGISTRY: the paper
+# suite's denominators and the DES parity goldens must not move.
+
+_CH_OUT = 64 * 1024
+
+
+def _fit(digest: bytes, nbytes: int) -> bytes:
+    return (digest * (nbytes // len(digest) + 1))[:nbytes]
+
+
+def _chaos_handler(event, ctx):
+    src, dst = event["inputs"][0], event["outputs"][0]
+    obj = ctx.storage.get_object(Bucket=src["bucket"], Key=src["key"])
+    body = _fit(hashlib.sha256(obj["Body"]).digest(), _CH_OUT)
+    ctx.storage.put_object(Bucket=dst["bucket"], Key=dst["key"], Body=body)
+    return {"statusCode": 200, "bytes_out": len(body)}
+
+
+def _chaos_fan_handler(event, ctx):
+    src = event["inputs"][0]
+    obj = ctx.storage.get_object(Bucket=src["bucket"], Key=src["key"])
+    seed = hashlib.sha256(obj["Body"]).digest()
+    for i, dst in enumerate(event["outputs"]):
+        branch = hashlib.sha256(seed + i.to_bytes(2, "little")).digest()
+        ctx.storage.put_object(Bucket=dst["bucket"], Key=dst["key"],
+                               Body=_fit(branch, _CH_OUT // 2))
+    return {"statusCode": 200, "outputs": len(event["outputs"])}
+
+
+def chaos_suite() -> dict[str, Workload]:
+    """The chaos harness's deployment mix: `CH` (the classic shape) and
+    `CH-FAN` (one GET, two durable PUTs — distinct logical keys whose
+    at-least-once retries must dedup per key, never cross keys)."""
+    return {w.name: w for w in (
+        Workload("CH", IOProfile((
+            Get(96 * 1024), ComputeSegment(2.0), Put(_CH_OUT))),
+            8.0, _chaos_handler),
+        Workload("CH-FAN", IOProfile((
+            Get(96 * 1024), ComputeSegment(1.0),
+            Put(_CH_OUT // 2), Put(_CH_OUT // 2))),
+            8.0, _chaos_fan_handler),
+    )}
 
 
 # ------------------------------------------------------------ MLServe suite
@@ -352,6 +596,13 @@ def ml_suite(scale: str = "full") -> dict[str, Workload]:
     )}
 
 
-#: everything deployable by name: the paper suite and the multi-I/O
-#: scenarios, which the port has not copied yet.
-REGISTRY: dict[str, Workload] = {}
+def compute_io_ratio(w: Workload, io_mcycles_per_mb: float = 12.0) -> float:
+    """Approximate compute share of (compute + baseline-I/O) cycles."""
+    io = w.io_mb * io_mcycles_per_mb
+    return w.compute_mcycles / (w.compute_mcycles + io)
+
+
+#: a balanced deployment mix (paper: each function contributes equally
+#: to CPU utilization -> weight inversely to per-invocation cost).
+def balanced_mix() -> list[str]:
+    return list(NAMES)

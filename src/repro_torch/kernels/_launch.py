@@ -7,7 +7,7 @@ import torch
 
 #: dtype -> the code the C entry points take
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128)
 
 ptr = ctypes.c_void_p
 i32 = ctypes.c_int

@@ -33,7 +33,8 @@
 //   exponentials on every (slot, head) pair and was bound by instruction
 //   issue, not by memory.
 // * f32 caches: the first version's SIMT loop (four slots a step; lane i
-//   owns dims i, i + 32, ...; each score a warp-wide sum), exact f32.
+//   owns dims i, i + 32, ...; each score a warp-wide sum), exact f32; at
+//   hd 16 each half-warp reads its own slot (see warp_loop_simt).
 //
 // The warps' states are combined in shared memory into one (m, l,
 // acc[G][hd]) per block. After a cluster barrier each block combines a
@@ -119,14 +120,23 @@ struct WarpStates {
   float acc[NW][G][HD];
 };
 
-// f32 caches: the SIMT loop. Lane i owns dims i, i + 32, ...; each score
-// is a warp-wide sum.
+// f32 caches: the SIMT loop. A slot's row is read by LPS = min(HD, 32)
+// lanes, lane i of them owning dims i, i + LPS, ...; each score is a sum
+// over those lanes. At hd 32 and up one slot fills the warp; at hd 16 each
+// half-warp reads its own slot, so a step reads SPS = 2 slots at once, the
+// halves keep separate (m, l, acc) over their slots, and the two states
+// are combined with exp(m_i - M) weights at the end, as the warps' are.
 template <int HD, int G>
 __device__ __forceinline__ void warp_loop_simt(const Args& a, const float* q, const float* kc,
                                                const float* vc, const int* sp, int p, int kh,
                                                int lo, int hi, int warp, int lane,
                                                WarpStates<HD, G>& st) {
-  constexpr int PER = HD / 32;        // dims per lane
+  constexpr int LPS = HD < 32 ? HD : 32;   // lanes per slot
+  constexpr int SPS = 32 / LPS;            // slots a warp reads at once
+  constexpr int PER = HD / LPS;            // dims per lane
+  static_assert(LPS * PER == HD && SPS * LPS == 32, "head_dim 16, 32, 64 or 128");
+  const int sub = lane / LPS;              // which slot of the SPS this lane reads
+  const int dl = lane % LPS;
   float qr[G][PER], m[G], l[G], acc[G][PER];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
@@ -134,35 +144,38 @@ __device__ __forceinline__ void warp_loop_simt(const Args& a, const float* q, co
     l[g] = 0.f;
 #pragma unroll
     for (int j = 0; j < PER; ++j) {
-      qr[g][j] = q[(kh * G + g) * a.q_sh + lane + 32 * j] * a.scale;
+      qr[g][j] = q[(kh * G + g) * a.q_sh + dl + LPS * j] * a.scale;
       acc[g][j] = 0.f;
     }
   }
 
-  for (int w0 = lo + warp * U; w0 < hi; w0 += NW * U) {
+  for (int w0 = lo + warp * U * SPS; w0 < hi; w0 += NW * U * SPS) {
     float kv[U][PER], vv[U][PER];
     bool ok[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      const int w = w0 + u;
+      const int w = w0 + u * SPS + sub;
       const bool in = w < hi;
       const int s = in ? sp[w] : -1;
       ok[u] = in && s >= 0 && s <= p && (a.window <= 0 || p - s < a.window);
 #pragma unroll
       for (int j = 0; j < PER; ++j) {
-        kv[u][j] = in ? kc[w * a.k_sw + lane + 32 * j] : 0.f;
-        vv[u][j] = in ? vc[w * a.v_sw + lane + 32 * j] : 0.f;
+        kv[u][j] = in ? kc[w * a.k_sw + dl + LPS * j] : 0.f;
+        vv[u][j] = in ? vc[w * a.v_sw + dl + LPS * j] : 0.f;
       }
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      if (w0 + u >= hi) break;        // warp-uniform
+      if (w0 + u * SPS >= hi) break;  // warp-uniform: no slot of this step is in range
+      const bool in = w0 + u * SPS + sub < hi;
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         float s = 0.f;
 #pragma unroll
         for (int j = 0; j < PER; ++j) s = fmaf(qr[g][j], kv[u][j], s);
-        s = warp_sum(s);
+#pragma unroll
+        for (int off = LPS / 2; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+        if (!in) continue;            // past the range: this half-warp's slot weighs nothing
         if (!ok[u]) s = NEG_INF;
         const float m_new = fmaxf(m[g], s);
         const float alpha = expf(m[g] - m_new);
@@ -175,14 +188,34 @@ __device__ __forceinline__ void warp_loop_simt(const Args& a, const float* q, co
     }
   }
 
+  if constexpr (SPS > 1) {
+    // the half-warps' states combined, as the warps' are in decode_kernel
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[g], LPS);
+      const float l_o = __shfl_xor_sync(0xffffffffu, l[g], LPS);
+      const float M = fmaxf(m[g], mo);
+      const float e = expf(m[g] - M), eo = expf(mo - M);
+      l[g] = fmaf(l[g], e, l_o * eo);
+#pragma unroll
+      for (int j = 0; j < PER; ++j) {
+        const float ao = __shfl_xor_sync(0xffffffffu, acc[g][j], LPS);
+        acc[g][j] = fmaf(acc[g][j], e, ao * eo);
+      }
+      m[g] = M;
+    }
+  }
+
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     if (lane == 0) {
       st.m[warp][g] = m[g];
       st.l[warp][g] = l[g];
     }
+    if (sub == 0) {
 #pragma unroll
-    for (int j = 0; j < PER; ++j) st.acc[warp][g][lane + 32 * j] = acc[g][j];
+      for (int j = 0; j < PER; ++j) st.acc[warp][g][dl + LPS * j] = acc[g][j];
+    }
   }
 }
 
@@ -202,7 +235,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // N 32-bit words (N / 2 bf16 pairs) from 16-byte aligned memory (8-byte
-// aligned when N == 2).
+// aligned when N == 2, 4-byte when N == 1).
 template <int N>
 __device__ __forceinline__ void load_words(uint32_t (&w)[N], const __nv_bfloat16* src) {
   if constexpr (N % 4 == 0) {
@@ -214,11 +247,13 @@ __device__ __forceinline__ void load_words(uint32_t (&w)[N], const __nv_bfloat16
       w[4 * i + 2] = v.z;
       w[4 * i + 3] = v.w;
     }
-  } else {
-    static_assert(N == 2, "two words or a multiple of four");
+  } else if constexpr (N == 2) {
     const uint2 v = __ldg(reinterpret_cast<const uint2*>(src));
     w[0] = v.x;
     w[1] = v.y;
+  } else {
+    static_assert(N == 1, "one word, two words or a multiple of four");
+    w[0] = __ldg(reinterpret_cast<const unsigned int*>(src));
   }
 }
 
@@ -230,8 +265,11 @@ __device__ __forceinline__ void load_words(uint32_t (&w)[N], const __nv_bfloat16
 // (P rounded to bf16), whose rows are hd and whose 8 columns are the
 // heads, so no accumulator row is wasted. Both products sum over an
 // index that may be permuted at will, so each thread loads contiguous
-// 16-byte pieces: for S, pair e of k-step kk is hd HD / 4 * t + 4 kk + 2 e;
-// for O, row i (< 16) of m-tile j is hd HD / 8 * (i % 8) + 2 j + i / 8.
+// pieces of a row, HD / 2 bytes of K and HD / 4 of V (16-byte vectors at
+// hd 64 and 128; at hd 32 8 bytes of V, at hd 16 8 bytes of K and 4 of V,
+// one k-step and one m-tile): for S, pair e of k-step kk is
+// hd HD / 4 * t + 4 kk + 2 e; for O, row i (< 16) of m-tile j is
+// hd HD / 8 * (i % 8) + 2 j + i / 8.
 template <int HD, int G>
 __device__ __forceinline__ void warp_loop_tc(const Args& a, const __nv_bfloat16* q,
                                              const __nv_bfloat16* kc, const __nv_bfloat16* vc,
@@ -470,6 +508,7 @@ int dispatch_g(int G, const Args& a, int B, int K, cudaStream_t st) {
 template <typename T>
 int dispatch_hd(int hd, int G, const Args& a, int B, int K, cudaStream_t st) {
   switch (hd) {
+    case 16: return dispatch_g<T, 16>(G, a, B, K, st);
     case 32: return dispatch_g<T, 32>(G, a, B, K, st);
     case 64: return dispatch_g<T, 64>(G, a, B, K, st);
     case 128: return dispatch_g<T, 128>(G, a, B, K, st);

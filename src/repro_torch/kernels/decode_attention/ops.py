@@ -8,9 +8,11 @@ first), and reads ``slot_pos`` and ``pos`` on the device. One launch
 splits each (kv head, batch)'s cache across the blocks of a thread-block
 cluster (`cluster_size` of them) that combine their partial softmax
 states in distributed shared memory. bf16 caches run their products on
-the tensor cores and read cache rows in 16-byte pieces, so for them the
-wrapper checks that the caches' base addresses and strides are multiples
-of 16 bytes and raises otherwise; f32 caches run the SIMT loop.
+the tensor cores and read cache rows in vector pieces of up to 16 bytes
+(4 and 8 bytes at head_dim 16), so for them the wrapper checks that the
+caches' base addresses and strides are multiples of 16 bytes and raises
+otherwise; f32 caches run the SIMT loop, two slots a warp step at
+head_dim 16.
 ``launches`` counts kernel launches.
 """
 from __future__ import annotations

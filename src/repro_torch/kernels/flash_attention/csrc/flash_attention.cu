@@ -47,11 +47,14 @@
 //   launched first. cuTensorMapEncodeTiled, a driver API, is reached
 //   through cudaGetDriverEntryPoint, so the library links nothing beyond
 //   the CUDA runtime.
-// * f32 (any head dim) and bf16 at hd 32: the SIMT body of the first
-//   version, unchanged: exact f32 products on the CUDA cores, which is
-//   what meets the 2e-5 f32 tolerance. One block per (64 query rows, q
-//   head, batch), 64-row K/V tiles in shared memory, m/l/acc in
-//   registers.
+// * f32 (any head dim) and bf16 at hd 16 or 32: the SIMT body of the
+//   first version: exact f32 products on the CUDA cores, which is what
+//   meets the 2e-5 f32 tolerance. One block per (64 query rows, q head,
+//   batch), 64-row K/V tiles in shared memory, m/l/acc in registers.
+//   Each half-warp's 16 lanes own output columns tx + 16 c, c < HD / 16,
+//   so at hd 16 (NC = 1) lane tx owns column tx and the 16 lanes still
+//   cover every column; the scores' 16 x 64 tile per half-warp does not
+//   depend on HD.
 //
 // Not done yet: warp specialisation with setmaxnreg, ping-pong of the
 // softmax of one warpgroup against the other's wgmma, persistent CTAs.
@@ -253,6 +256,8 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o, St
                 Strides sk, Strides sv, Strides so, int B, int H, int K, int Sq, int Sk,
                 int causal, int window, cudaStream_t stream) {
   switch (hd) {
+    case 16:
+      return launch<T, 16>(q, k, v, o, sq, sk, sv, so, B, H, K, Sq, Sk, causal, window, stream);
     case 32:
       return launch<T, 32>(q, k, v, o, sq, sk, sv, so, B, H, K, Sq, Sk, causal, window, stream);
     case 64:
@@ -772,6 +777,9 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, cons
                                     window, st);
   if (dtype == 1 && hd == 32)
     return simt::launch<__nv_bfloat16, 32>(q, k, v, o, sq, sk, sv, so, B, H, K, Sq, Sk, causal,
+                                           window, st);
+  if (dtype == 1 && hd == 16)
+    return simt::launch<__nv_bfloat16, 16>(q, k, v, o, sq, sk, sv, so, B, H, K, Sq, Sk, causal,
                                            window, st);
   return -1;
 }

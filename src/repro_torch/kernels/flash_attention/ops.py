@@ -8,7 +8,7 @@ launches.
 
 The source has two bodies, picked from the dtype and head dim alone
 (`body`): bf16 at hd 64 or 128 runs on the tensor cores (wgmma, tiles
-loaded by TMA); f32 and bf16 at hd 32 run the SIMT body. TMA describes a
+loaded by TMA); f32 and bf16 at hd 16 or 32 run the SIMT body. TMA describes a
 tensor only when its base address and every stride but the innermost
 are multiples of 16 bytes: for the tensor-core body the wrapper checks
 that and raises, it never falls back.

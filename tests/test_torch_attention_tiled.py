@@ -112,6 +112,10 @@ CASES = {
     "hymba H25/K5 S160 w128": (1, 25, 5, 160, 64, True, 128),
     "bidirectional S130": (2, 2, 1, 130, 64, False, 0),
     "small head dim hd32 S192 w64": (1, 6, 3, 192, 32, True, 64),
+    # the moe role's tiny config (qwen3-moe-30b-a3b smoke): H 4, K 2, hd 16
+    "moe smoke heads hd16 S200": (2, 4, 2, 200, 16, True, 0),
+    "moe smoke heads hd16 S160 w48": (1, 4, 2, 160, 16, True, 48),
+    "hd16 bidirectional S70": (1, 4, 1, 70, 16, False, 0),
 }
 
 
@@ -161,8 +165,19 @@ def test_body_is_chosen_from_dtype_and_head_dim_alone():
     assert flash_ops.body(torch.bfloat16, 128) == "wgmma"
     assert flash_ops.body(torch.bfloat16, 64) == "wgmma"
     assert flash_ops.body(torch.bfloat16, 32) == "simt"
-    for hd in (32, 64, 128):
+    assert flash_ops.body(torch.bfloat16, 16) == "simt"
+    for hd in (16, 32, 64, 128):
         assert flash_ops.body(torch.float32, hd) == "simt"
+    assert X.HEAD_DIMS == (16, 32, 64, 128)
+
+
+@pytest.mark.parametrize("hd", X.HEAD_DIMS)
+def test_simt_lanes_cover_every_column_once(hd):
+    """The SIMT body's output layout: lane tx of each 16-lane column group
+    owns columns tx + 16 c, c < hd / 16 (NC = 1 at hd 16)."""
+    nc = hd // 16
+    cols = sorted(tx + 16 * c for tx in range(16) for c in range(nc))
+    assert cols == list(range(hd))
 
 
 def test_tma_checks_pass_the_model_layout_and_fused_views():

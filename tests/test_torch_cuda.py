@@ -358,8 +358,7 @@ def test_flash_decode_at_qwen3_moe_heads(card, dtype, B, fill, pos):
 
 def test_qwen3_moe_full_width_kernel_path_matches_plain_path(card):
     """qwen3-moe-30b-a3b at full width, 2 layers, B 1, S 512: prefill and
-    one decode step through the kernels against the plain path (the
-    smoke config's hd 16 is not a head dim the kernels take)."""
+    one decode step through the kernels against the plain path."""
     cfg = registry.get("qwen3-moe-30b-a3b").replace(num_layers=2)
     model = Model(cfg)
     params = model.init_params(torch.Generator(device=card).manual_seed(0))
@@ -484,5 +483,112 @@ def test_worker_node_runs_a_handler_on_the_card(card, system):
                     decode_ops.launches - before[1]) == (L, L)
             assert node.store.get("out",
                                   f"{res.invocation_id}-out") == direct
+    finally:
+        node.shutdown()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,K,causal,window", [
+    (2, 200, 4, 2, True, 0),                # the moe smoke heads, G 2
+    (1, 160, 4, 2, True, 48),
+    (1, 70, 8, 1, False, 0),                # G 8, bidirectional
+])
+def test_flash_attention_takes_head_dim_16(card, dtype, B, S, H, K, causal,
+                                           window):
+    gen = torch.Generator(device=card).manual_seed(11)
+    q = _randn(gen, (B, S, H, 16), dtype)
+    k, v = (_randn(gen, (B, S, K, 16), dtype) for _ in range(2))
+    assert flash_ops.body(dtype, 16) == "simt"
+    before = flash_ops.launches
+    out = mha(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_ops.launches == before + 1
+    _close(out, mha_ref(q, k, v, causal=causal, window=window), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,K,W,window,fill,pos", [
+    (2, 4, 2, 300, 0, 300, 300),            # the moe smoke heads, G 2
+    (1, 4, 2, 2048, 0, 2049, 2048),         # first wrap, cluster split
+    (1, 4, 2, 256, 96, 400, 399),           # wrapped ring, window
+    (2, 8, 1, 512, 0, 37, 37),              # G 8, partial fill
+    (2, 4, 2, 64, 0, 0, 0),                 # no valid slot: mean of V
+    (1, 4, 2, 9, 0, 9, 9),                  # fewer slots than lanes
+])
+def test_flash_decode_takes_head_dim_16(card, dtype, B, H, K, W, window, fill,
+                                        pos):
+    gen = torch.Generator(device=card).manual_seed(12)
+    q = _randn(gen, (B, 1, H, 16), dtype)
+    kc, vc = (_randn(gen, (B, W, K, 16), dtype) for _ in range(2))
+    sp = ring_slot_pos(W, fill, B, card)
+    p = torch.full((B,), pos, dtype=torch.int32, device=card)
+    before = decode_ops.launches
+    out = decode_mha(q, kc, vc, sp, p, window=window)
+    torch.cuda.synchronize()
+    assert decode_ops.launches == before + 1
+    _close(out, decode_mha_ref(q, kc, vc, sp, p, window=window), dtype)
+
+
+def test_flash_decode_hd16_bf16_rejects_misaligned_caches(card):
+    gen = torch.Generator(device=card).manual_seed(13)
+    q = _randn(gen, (1, 1, 4, 16), torch.bfloat16)
+    wide = _randn(gen, (1, 64, 2, 24), torch.bfloat16)
+    sp = ring_slot_pos(64, 64, 1, card)
+    pos = torch.full((1,), 64, dtype=torch.int32, device=card)
+    before = decode_ops.launches
+    with pytest.raises(ValueError, match="aligned"):
+        decode_mha(q, wide[..., 2:18], wide[..., 2:18], sp, pos)
+    assert decode_ops.launches == before
+
+
+@pytest.mark.parametrize("system", ["baseline", "nexus-tcp", "nexus-async",
+                                    "nexus", "nexus-sdk-only",
+                                    "nexus-prefetch-only", "wasm"])
+def test_moe_runs_through_the_node_on_the_card(card, system):
+    """MOE (the moe role's tiny config, hd 16) through the port's node on
+    the card, cold and warm: L flash launches and no decode launch per
+    invocation, the durable output the kernel-path core's."""
+    from repro_torch.core.runtime import WorkerNode
+    from repro_torch.core.workloads import ml_suite
+    payloads = serving.seed_payloads("MOE")
+    direct = serving.run_scenario("MOE", payloads)
+    L = serving._bundle("moe")["cfg"].num_layers
+    node = WorkerNode(system, byte_scale=1.0)
+    try:
+        node.deploy(ml_suite("tiny")["MOE"])
+        node.seed_input("MOE", payloads=payloads)
+        for cold in (True, False):
+            before = (flash_ops.launches, decode_ops.launches)
+            res = node.invoke("MOE").result(timeout=300)
+            assert res.cold == cold
+            assert (flash_ops.launches - before[0],
+                    decode_ops.launches - before[1]) == (L, 0)
+            assert node.store.get("out",
+                                  f"{res.invocation_id}-out") == direct
+    finally:
+        node.shutdown()
+
+
+def test_cache_serves_the_second_invocation_on_the_card(card):
+    """LLM-PREFILL twice on one node with the SharedCache on: the second
+    invocation's GETs hit, and both outputs are the kernel-path core's."""
+    from repro_torch.core.cache import CacheSpec
+    from repro_torch.core.runtime import WorkerNode
+    from repro_torch.core.workloads import ml_suite
+    payloads = serving.seed_payloads("LLM-PREFILL")
+    direct = serving.run_scenario("LLM-PREFILL", payloads)
+    node = WorkerNode("nexus", byte_scale=1.0,
+                      cache=CacheSpec(capacity_mb=64.0))
+    try:
+        node.deploy(ml_suite("tiny")["LLM-PREFILL"])
+        node.seed_input("LLM-PREFILL", payloads=payloads)
+        for _ in range(2):
+            res = node.invoke("LLM-PREFILL").result(timeout=300)
+            assert node.store.get("out",
+                                  f"{res.invocation_id}-out") == direct
+        node.drain(timeout_s=60.0)
+        stats = node.cache_stats()
+        assert stats["lookups"] == 4 and stats["hits"] == 2
+        assert node.backend.stats["cache_hits"] == 2
     finally:
         node.shutdown()

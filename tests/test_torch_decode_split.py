@@ -75,6 +75,69 @@ def split_decode(q, k_cache, v_cache, slot_pos, pos, *, window, C,
     return out.reshape(B, H, 1, hd).to(q.dtype)
 
 
+#: the f32 SIMT loop's geometry: warps per block, slots per warp step
+NW, U = 8, 4
+
+
+def simt_streams(lo, hi, hd):
+    """The slots of [lo, hi) each (warp, lane group) of a block reads in
+    the f32 SIMT loop, in order: a slot row is read by min(hd, 32) lanes,
+    so at hd 16 each half-warp takes its own slot of a step's pair."""
+    sps = 32 // min(hd, 32)
+    streams = {}
+    for warp in range(NW):
+        for sub in range(sps):
+            streams[warp, sub] = [
+                w0 + u * sps + sub
+                for w0 in range(lo + warp * U * sps, hi, NW * U * sps)
+                for u in range(U) if w0 + u * sps + sub < hi]
+    return streams
+
+
+def _combine(states):
+    """exp(m_i - M)-weighted sum of (m, l, acc) states."""
+    m = torch.stack([s[0] for s in states])
+    M = m.amax(dim=0)
+    w = torch.exp(m - M)
+    return (M, (torch.stack([s[1] for s in states]) * w).sum(dim=0),
+            (torch.stack([s[2] for s in states]) * w[..., None]).sum(dim=0))
+
+
+def simt_decode(q, k_cache, v_cache, slot_pos, pos, *, window, C):
+    """The f32 SIMT loop, lane group by lane group: an online softmax per
+    (warp, lane group) stream, the half-warps combined, then the warps,
+    then the cluster's blocks, all with exp(m_i - M) weights."""
+    B, H, _, hd = q.shape
+    K, W = k_cache.shape[1], k_cache.shape[2]
+    G = H // K
+    qg = q.reshape(B, K, G, hd).float() * (1.0 / math.sqrt(hd))
+    s = torch.einsum("bkgd,bkwd->bkgw", qg, k_cache.float())
+    valid = (slot_pos >= 0) & (slot_pos <= pos[:, None])
+    if window > 0:
+        valid &= (pos[:, None] - slot_pos) < window
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    v = v_cache.float()
+    blocks = []
+    for lo, hi in split_ranges(W, C):
+        warps = {}
+        for (warp, sub), slots in simt_streams(lo, hi, hd).items():
+            m = torch.full((B, K, G), NEG_INF)
+            l = torch.zeros((B, K, G))
+            acc = torch.zeros((B, K, G, hd))
+            for w in slots:
+                m_new = torch.maximum(m, s[..., w])
+                alpha = torch.exp(m - m_new)
+                p = torch.exp(s[..., w] - m_new)
+                l = l * alpha + p
+                acc = acc * alpha[..., None] + p[..., None] * v[:, :, None, w]
+                m = m_new
+            warps.setdefault(warp, []).append((m, l, acc))
+        blocks.append(_combine([_combine(st) for st in warps.values()]))
+    _, L, A = _combine(blocks)
+    out = A / L.clamp_min(1e-30)[..., None]
+    return out.reshape(B, H, 1, hd).to(q.dtype)
+
+
 def ring_slot_pos(W, fill, B):
     slots = np.arange(W)
     if fill <= W:
@@ -117,6 +180,11 @@ CASES = {
                                   256),
     "fewer slots than blocks W5 C8": (1, 4, 2, 5, 32, 0, 5, 5, 8, 5),
     "one block C1": (3, 2, 1, 100, 64, 0, 77, 77, 1, 64),
+    # the moe role's tiny config (qwen3-moe-30b-a3b smoke): H 4, K 2, hd 16
+    "moe smoke heads hd16 W300 C8": (2, 4, 2, 300, 16, 0, 300, 300, 8, 64),
+    "hd16 wrapped ring window W256 C2": (1, 4, 2, 256, 16, 96, 400, 399, 2,
+                                         64),
+    "hd16 partial fill W512 C8": (1, 8, 1, 512, 16, 0, 37, 37, 8, 64),
 }
 
 
@@ -158,6 +226,38 @@ def test_empty_splits_weigh_nothing(C):
     alone = decode_ref(q, kc[:, :, :fill], vc[:, :, :fill], sp[:, :fill], p)
     torch.testing.assert_close(out, alone, atol=2e-5, rtol=2e-5)
     assert all(lo >= fill for lo, _ in split_ranges(W, C)[1:])
+
+
+@pytest.mark.parametrize("hd", X.HEAD_DIMS)
+@pytest.mark.parametrize("lo,hi", [(0, 5), (0, 300), (37, 301), (512, 2048)])
+def test_simt_streams_cover_every_slot_once(lo, hi, hd):
+    slots = sorted(w for st in simt_streams(lo, hi, hd).values() for w in st)
+    assert slots == list(range(lo, hi))
+    assert len(simt_streams(lo, hi, hd)) == NW * (2 if hd == 16 else 1)
+
+
+@pytest.mark.parametrize("case", [c for c in CASES if "hd16" in c]
+                         + ["W not a multiple of C W300 C8"])
+def test_simt_streams_match_plain_version_and_pallas(case):
+    """The f32 loop's half-warp streams at hd 16 (and one stream a warp
+    above it), combined as the kernel combines them."""
+    B, H, K, W, hd, window, fill, pos, C, block_k = CASES[case]
+    j, t = _inputs(B, H, K, W, hd, fill, pos, "float32", seed=17)
+    out = simt_decode(*t, window=window, C=C)
+    _close(decode_ref(*t, window=window).numpy(), out, "float32")
+    _close(flash_decode(*j, window=window, block_k=block_k), out, "float32")
+
+
+@pytest.mark.parametrize("fill", [0, 3, 9])
+def test_simt_half_warp_without_a_valid_slot_weighs_nothing(fill):
+    """At hd 16 a half-warp whose slots are all invalid (or that has no
+    slot at all) keeps m = -1e30: it weighs 0 once the other half saw a
+    valid slot, and with no valid slot anywhere the output is the mean
+    of V."""
+    _, (q, kc, vc, sp, p) = _inputs(1, 4, 2, 9, 16, fill, max(fill - 1, 0),
+                                    "float32", seed=18)
+    out = simt_decode(q, kc, vc, sp, p, window=0, C=1)
+    _close(decode_ref(q, kc, vc, sp, p).numpy(), out, "float32")
 
 
 def test_split_ranges_cover_every_slot_once():

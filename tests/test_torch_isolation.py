@@ -25,7 +25,14 @@ bad = sorted(n for n in sys.modules
              or n == "repro" or n.startswith("repro."))
 print("IMPORTED", len([n for n in sys.modules if n.startswith("repro_torch")]))
 print("BAD", bad)
+print("MODULES", " ".join(sorted(n for n in sys.modules
+                                 if n.startswith("repro_torch."))))
 """
+
+#: the copies of the node's planes, which must be in the probe's graph
+PLANES = ("repro_torch.core.cache", "repro_torch.core.faults",
+          "repro_torch.core.workloads", "repro_torch.core.analysis.verify",
+          "repro_torch.core.backend", "repro_torch.core.runtime")
 
 
 def test_port_imports_no_jax_and_no_reference():
@@ -36,6 +43,7 @@ def test_port_imports_no_jax_and_no_reference():
     lines = dict(line.split(" ", 1) for line in out.stdout.splitlines())
     assert int(lines["IMPORTED"]) >= 20
     assert lines["BAD"] == "[]"
+    assert set(PLANES) <= set(lines["MODULES"].split())
 
 
 @pytest.fixture

@@ -80,7 +80,10 @@ def test_ml_suite_constants_and_handlers():
         assert tiny[name].handler is full[name].handler
     with pytest.raises(ValueError, match="unknown ml_suite scale"):
         workloads.ml_suite("medium")
-    assert workloads.REGISTRY == {}
+    # the MLServe suite stays out of the deployable set, as in the
+    # reference, which deploys the paper suite and the scenarios by name
+    assert list(workloads.REGISTRY) == list(ref_workloads.REGISTRY)
+    assert not set(SCENARIOS) & set(workloads.REGISTRY)
 
 
 def test_profile_effective_and_shape_follow_reference():
@@ -168,13 +171,26 @@ def test_incoherent_spec_rejected_like_reference():
 
 def test_verify_on_compile_names_the_missing_verifier():
     """The switch is kept and off by default; turned on, compiling a new
-    program raises and names PlanVerify, which is not copied yet."""
+    program runs PlanVerify (`analysis.verify.verify_program`, copied
+    since it was missing), which passes a sound program and rejects a
+    damaged one with its code."""
+    from repro_torch.core.analysis import verify
+    from repro_torch.core.analysis.diag import PlanCheckError
     assert plan.verify_on_compile() is False
     prev = plan.set_verify_on_compile(True)
+    seen = []
+    real = verify.verify_program
     try:
-        with pytest.raises(NotImplementedError, match="verify_program"):
-            plan.compile_program(plan.SYSTEMS["nexus"], cold=True)
+        verify.verify_program = lambda prog: (seen.append(prog),
+                                              real(prog))[1]
+        prog = plan.compile_program(plan.SYSTEMS["nexus"], cold=True)
+        assert seen == [prog]
+        bad = dataclasses.replace(prog, roots=())
+        with pytest.raises(PlanCheckError) as e:
+            real(bad)
+        assert e.value.code == "V-ROOTS"
     finally:
+        verify.verify_program = real
         plan.set_verify_on_compile(prev)
         plan._compile_program.cache_clear()
     assert plan.verify_on_compile() is False

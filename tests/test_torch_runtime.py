@@ -30,6 +30,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import cache as ref_cache
+from repro.core import des as ref_des
 from repro.core import fabric as ref_fabric
 from repro.core import faults as ref_faults
 from repro.core import frontend as ref_frontend
@@ -44,12 +46,13 @@ from repro.core import supervisor as ref_supervisor
 from repro.core import workloads as ref_workloads
 from repro.core.analysis import diag as ref_diag
 from repro.core.analysis import infer as ref_infer
+from repro.core.analysis import verify as ref_verify
 from repro.core.arena import ArenaRegistry as RefArenaRegistry
 from repro.models import serving as ref_serving
-from repro_torch.core import (fabric, faults, frontend, guardrails,
+from repro_torch.core import (cache, fabric, faults, frontend, guardrails,
                               lifecycle, metrics, runtime, storage,
                               streaming, supervisor, workloads)
-from repro_torch.core.analysis import diag, infer
+from repro_torch.core.analysis import diag, infer, verify
 from repro_torch.core.runtime import WorkerNode
 from repro_torch.core.workloads import (ComputeSegment, Get, IOProfile, Put,
                                         Workload)
@@ -530,8 +533,10 @@ def test_node_default_device_raises_without_card(no_card):
 
 def test_node_arena_cache_and_registry_deviations():
     """``arena_mb`` defaults to the reference's arena size and reaches
-    the tenant arenas; a cache spec raises; deploying by name raises
-    `KeyError`, since the paper suite is not copied yet."""
+    the tenant arenas; a cache spec builds the node's SharedCache plane
+    (sized as the reference sizes it) and reaches the backend; deploying
+    by name finds the paper suite, and an unknown name raises
+    `KeyError`, as in the reference."""
     default = inspect.signature(WorkerNode).parameters["arena_mb"].default
     ref_default = inspect.signature(RefArenaRegistry).parameters[
         "capacity_mb"].default
@@ -540,12 +545,25 @@ def test_node_arena_cache_and_registry_deviations():
     try:
         node.deploy(workloads.ml_suite("tiny")["EMB"])
         assert node.backend.arenas.get("EMB").capacity == int(2.5 * 2 ** 20)
+        node.deploy("WEB")
         with pytest.raises(KeyError):
-            node.deploy("WEB")
+            node.deploy("NOT-A-FUNCTION")
+        assert node.cache_plane is None and node.cache_stats() is None
     finally:
         node.shutdown()
-    with pytest.raises(NotImplementedError, match="SharedCache"):
-        WorkerNode("nexus", device="cpu", cache=object())
+    spec = cache.CacheSpec(capacity_mb=8.0)
+    node = WorkerNode("nexus", device="cpu", cache=spec)
+    ref = ref_runtime.WorkerNode("nexus", cache=ref_cache.CacheSpec(
+        capacity_mb=8.0))
+    try:
+        assert node.cache_plane.spec == spec
+        assert node.backend.cache is node.cache_plane
+        assert (node.cache_plane._arenas._capacity_mb
+                == ref.cache_plane._arenas._capacity_mb)
+        assert node.cache_stats() == ref.cache_stats()
+    finally:
+        node.shutdown()
+        ref.shutdown()
 
 
 def _defaults(fn):
@@ -591,28 +609,38 @@ def _upper(mod):
     (streaming, ref_streaming), (guardrails, ref_guardrails),
     (workloads, ref_workloads), (runtime, ref_runtime),
     (frontend, ref_frontend), (diag, ref_diag), (infer, ref_infer),
-    (lifecycle, ref_lifecycle), (faults, ref_faults),
+    (lifecycle, ref_lifecycle), (faults, ref_faults), (cache, ref_cache),
+    (verify, ref_verify),
 ], ids=lambda m: getattr(m, "__name__", "").rsplit(".", 1)[-1])
 def test_copied_constants_equal_reference(port_mod, ref_mod):
     """Every upper-case module constant a copy keeps has the reference's
-    value (a copy may keep fewer; none has one of its own)."""
+    value (a copy may keep fewer). None has one of its own, but for the
+    DES opcodes PlanVerify keeps, which equal the DES's."""
     port, ref = _upper(port_mod), _upper(ref_mod)
+    if port_mod is verify:
+        ref = {**ref, "_OP_WIRE": ref_des._OP_WIRE,
+               "_OP_CACHE": ref_des._OP_CACHE}
+        assert {"_OP_WIRE", "_OP_CACHE"} <= port.keys()
     own = {n for n in port if n not in ref}
     assert not own, own
     for name, value in port.items():
-        if name == "REGISTRY":      # the paper suite is not copied yet
-            assert value == {}
-            continue
         assert _plain(value) == _plain(ref[name]), name
 
 
 def _plain(value):
     """Dataclass instances as (class name, fields), so the copies' values
-    compare with the reference's."""
+    compare with the reference's; a handler as its name (the two packages
+    hold two function objects of one body)."""
     if dataclasses.is_dataclass(value) and not isinstance(value, type):
-        return type(value).__name__, _plain(dataclasses.asdict(value))
+        return type(value).__name__, {
+            f.name: _plain(getattr(value, f.name))
+            for f in dataclasses.fields(value)}
     if isinstance(value, dict):
         return {k: _plain(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return type(value)(_plain(v) for v in value)
+    if isinstance(value, types.FunctionType):
+        return value.__qualname__
     return value
 
 
@@ -623,7 +651,12 @@ def test_fault_and_policy_dataclasses_equal_reference():
             (guardrails.RetrySpec, ref_guardrails.RetrySpec),
             (guardrails.BreakerSpec, ref_guardrails.BreakerSpec),
             (guardrails.GuardrailPolicy, ref_guardrails.GuardrailPolicy),
-            (frontend.HandlerContext, ref_frontend.HandlerContext)]:
+            (frontend.HandlerContext, ref_frontend.HandlerContext),
+            (frontend.GuestContext, ref_frontend.GuestContext),
+            (cache.CacheSpec, ref_cache.CacheSpec),
+            (faults.FaultSpec, ref_faults.FaultSpec),
+            (faults.FaultSchedule, ref_faults.FaultSchedule),
+            (workloads.ArrivalPattern, ref_workloads.ArrivalPattern)]:
         fields = {f.name: f.default for f in dataclasses.fields(port_cls)}
         if port_cls is frontend.HandlerContext:
             assert fields.pop("device") is None
