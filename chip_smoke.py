@@ -74,6 +74,20 @@ Phases, each of which fails the run (exit 1) if it fails:
    hash and copy, the hit's copies, the handler's decode / forward /
    encode), the cache's counters, ``MemTotal`` and ``MemAvailable``
    before the phase, and peak device memory and peak host RSS;
+   then the density simulator (``repro_torch.core.des``) on this
+   machine's host, no kernel launching: one run of the paper suite
+   (baseline, 160 functions) and one of the full-scale MLServe suite
+   (nexus, 20 functions) under each of the four engines, with one
+   sha256 digest of each run's latency streams and ``completed`` that
+   must agree across the engines; ``find_density(system, seed=1,
+   fast=True)`` at its defaults for the five systems of Fig 6, one
+   process each, each density a passing probe below every failing one,
+   printed with its probes, its gain over baseline and its host wall
+   time (modeled virtual-time densities, not a measurement of the card);
+   and the DES's zero-contention LLM-PREFILL under ``nexus``, cold and
+   warm, per breakdown group (fetch[0], compute[0], write[0]) beside the
+   full-width node run above, the DES pricing compute from
+   ``calibration.json``'s ``hbm-accel-8x`` profile;
 6. each kernel timed at the serve shapes (the attention kernels at
    llama3-8b's, hymba-1.5b's and qwen3-moe-30b-a3b's, and at head_dim 16
    with the moe smoke heads, prefill also at the MLServe shapes B 8 x
@@ -123,6 +137,10 @@ NODE_TINY = {**MLSERVE, "moe": ("MOE",)}
 FAULTED = ("LLM-PREFILL", "LLM-DECODE")
 FAULTED_SYSTEMS = ("nexus", "baseline")
 MLSERVE_SCALES = ("tiny", "full")
+#: the five systems of the paper's Fig 6 (``SYSTEMS_ORDER`` of
+#: benchmarks/density.py), each searched by the density phase
+DENSITY_SYSTEMS = ("baseline", "nexus-tcp", "nexus-prefetch-only",
+                   "nexus-async", "nexus")
 #: the deadline of one worker-node invocation's future (phase 5)
 NODE_TIMEOUT_S = 900
 #: a scenario's durable output, as its key in role_sizes / calibration
@@ -178,6 +196,33 @@ def nvidia_smi() -> str:
     return out.stdout.strip()
 
 
+def latency_digest(result, sim) -> str:
+    """sha256 over a density-simulator run's latency streams (each
+    function's name and its latencies as float hex, in deployment order)
+    and its ``completed`` count."""
+    import hashlib
+    h = hashlib.sha256()
+    for fn in sim.functions:
+        h.update(fn.encode())
+        h.update(",".join(x.hex() for x in result.latencies.get(fn, []))
+                 .encode())
+    h.update(str(result.completed).encode())
+    return h.hexdigest()
+
+
+def density_search(system):
+    """``find_density(system, seed=1, fast=True)`` at its defaults, in a
+    process of its own: the density, each probe's (n, meets the SLO),
+    and the search's wall seconds."""
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    from repro_torch.core.des import find_density
+    t0 = time.perf_counter()
+    best, results = find_density(system, seed=1, fast=True)
+    return (best, [(r.n_functions, r.meets_slo()) for r in results],
+            time.perf_counter() - t0)
+
+
 class Smoke:
     def __init__(self, torch):
         self.torch = torch
@@ -186,6 +231,7 @@ class Smoke:
         self.launches = {}              # arch -> kernel -> launches
         self.timing = {}
         self.also = {}                  # kernel -> timings at other shapes
+        self.node_full_runs = None      # the full-width node's two results
 
     # ------------------------------------------------------------ helpers
     def gen(self, seed):
@@ -1358,6 +1404,141 @@ class Smoke:
         if runs[1]["cache"]["hits"] < 1 or stats["prefetches"] != 2:
             raise AssertionError(f"{path}: cache {runs[1]['cache']}, "
                                  f"prefetches {stats['prefetches']}")
+        self.node_full_runs = [run["res"] for run in runs]
+
+    def phase_density(self):
+        """The density simulator (`repro_torch.core.des`) on this
+        machine's host: the four engines on one run each of the paper
+        suite and the full-scale MLServe suite, one latency digest each;
+        `find_density` for the five systems of Fig 6; then the DES's
+        zero-contention LLM-PREFILL under ``nexus`` per breakdown group
+        beside the full-width node run of the worker-node phase. Every
+        number is modeled virtual time (the reference's cost model on
+        4 nodes x 28 cores x 128 GB) or this host's wall time; nothing
+        here runs on the card, and no kernel launches."""
+        counters = self.counters()
+        for mod in counters.values():
+            mod.launches = 0
+        self.density_engines()
+        self.density_search()
+        self.density_against_card()
+        self.launches["density"] = {n: m.launches
+                                    for n, m in counters.items()}
+        if any(self.launches["density"].values()):
+            raise AssertionError("density: a kernel ran")
+
+    def density_engines(self):
+        """Each run under all four engines, which must give one digest."""
+        from repro_torch.core.des import ENGINES, DensitySimulator
+        from repro_torch.core.workloads import ml_suite
+        runs = {
+            "baseline n 160 (paper suite, 20 s)": lambda engine:
+                DensitySimulator("baseline", 160, seed=1, duration_s=20.0,
+                                 warmup_s=5.0, engine=engine),
+            "nexus n 20 (ml_suite full, 15 s)": lambda engine:
+                DensitySimulator("nexus", 20, seed=1, duration_s=15.0,
+                                 warmup_s=3.0, mean_rate=0.25,
+                                 suite=ml_suite("full"), engine=engine),
+        }
+        for label, build in runs.items():
+            digests = {}
+            for engine in ENGINES:
+                t0 = time.perf_counter()
+                sim = build(engine)
+                res = sim.run()
+                digests[engine] = latency_digest(res, sim)
+                print(f"  density engines {label} {engine:8s}: sha256 "
+                      f"{digests[engine]} completed {res.completed} "
+                      f"cold_starts {res.cold_starts} (modeled); host wall "
+                      f"{time.perf_counter() - t0:.2f} s")
+            if len(set(digests.values())) != 1:
+                raise AssertionError(f"density engines {label}: the engines' "
+                                     f"digests differ: {digests}")
+
+    def density_search(self):
+        """`find_density(system, seed=1, fast=True)` at its defaults for
+        the five systems of Fig 6, one process per system; each density
+        must be a passing probe below every failing one."""
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+        t0 = time.perf_counter()
+        with ProcessPoolExecutor(
+                max_workers=len(DENSITY_SYSTEMS),
+                mp_context=multiprocessing.get_context("spawn")) as pool:
+            found = dict(zip(DENSITY_SYSTEMS,
+                             pool.map(density_search, DENSITY_SYSTEMS)))
+        base = found["baseline"][0]
+        print(f"  density search: modeled virtual-time densities from the "
+              f"reference's cost model (4 nodes x 28 cores x 128 GB, SLO p99 "
+              f"< 5x unloaded), seed 1, fast=True; host wall seconds of "
+              f"this machine, {len(DENSITY_SYSTEMS)} searches in parallel "
+              f"processes, {time.perf_counter() - t0:.1f} s in all; not a "
+              f"measurement of the card")
+        for system, (best, probes, wall) in found.items():
+            print(f"  density {system:20s}: {best} functions, "
+                  f"{len(probes)} probes {[n for n, _ in probes]}, gain over "
+                  f"baseline {best / base - 1:+.1%}, host wall {wall:.1f} s")
+            fails = [n for n, ok in probes if not ok]
+            if (best <= 0 or (best, True) not in probes
+                    or any(n <= best for n in fails)):
+                raise AssertionError(f"density {system}: {best} is not a "
+                                     f"passing probe below every failing "
+                                     f"one: {probes}")
+
+    def density_against_card(self):
+        """The DES's zero-contention LLM-PREFILL under ``nexus`` (the
+        settings of the reference's `TestDESParity`), cold and warm,
+        per breakdown group, beside the full-width node run of the
+        worker-node phase (the miss is cold, the hit warm)."""
+        from repro_torch.core.calibrate import load_calibration
+        from repro_torch.core.des import DensitySimulator
+        from repro_torch.core.plan import (SYSTEMS, compile_plan,
+                                           phase_durations, phase_group)
+        from repro_torch.core.workloads import ml_suite
+        if self.node_full_runs is None:
+            raise AssertionError("density against card: the worker-node "
+                                 "phase left no full-width run")
+        name, system = "LLM-PREFILL", "nexus"
+        spec, w = SYSTEMS[system], ml_suite("full")[name]
+        machine = load_calibration()["machines"]["full"]
+        print(f"  density against card: the DES prices {name}'s compute "
+              f"from calibration.json's {machine['name']!r} profile "
+              f"({machine}, an 8-device A100/TPUv4-class slice) and its "
+              f"I/O from the per-device bytes it declares "
+              f"({[g.size_bytes for g in w.profile.gets]} B in, "
+              f"{[p.size_bytes for p in w.profile.puts]} B out); the card "
+              f"prices nothing: the node run moved the real full-width "
+              f"bytes, and served its second params GET from the "
+              f"SharedCache, which the DES run here leaves off. The gap is "
+              f"a finding, not a check")
+        for cold, res in zip((True, False), self.node_full_runs):
+            sim = DensitySimulator(system, 1, seed=0, duration_s=5.0,
+                                   warmup_s=0.0, cores=4096,
+                                   backend_workers=4096, nodes=1,
+                                   mem_gb=4096.0, suite={name: w})
+            fn = sim.functions[0]
+            inst = sim._spawn(fn)
+            inst.state = "busy"
+            sim._execute(inst, 0.0, cold=cold)
+            sim.loop.run(3600.0)
+            (lat,) = sim.latencies[fn]
+            plan = compile_plan(spec, w.profile, cold=cold)
+            durs = phase_durations(spec, w, cold=cold)
+            if abs(lat - plan.critical_path(durs)) > 1e-9 * lat:
+                raise AssertionError(f"density against card: DES latency "
+                                     f"{lat} is not the critical path")
+            groups = {}
+            for phase in plan.phase_names:
+                g = phase_group(phase)
+                groups[g] = groups.get(g, 0.0) + durs.get(phase, 0.0)
+            run = ("cold, beside the node's miss" if cold
+                   else "warm, beside the node's cache hit")
+            print(f"  density against card {name} {system} {run}: DES "
+                  f"latency {lat:.4f} s (modeled), node {res.latency_s:.4f} s "
+                  f"(card run, cold {res.cold})")
+            for g in ("fetch[0]", "compute[0]", "write[0]"):
+                print(f"    {g:11s} DES {groups[g]:10.4f} s   node "
+                      f"{res.breakdown[g]:10.4f} s")
 
     def phase_timing(self):
         """Each kernel at its serve shape (the row of the kernels line),
@@ -1565,6 +1746,7 @@ def main() -> int:
                        lambda arch=arch: smoke.serve_path(arch)))
     phases.append(("mlserve cores", smoke.phase_mlserve))
     phases.append(("worker node", smoke.phase_node))
+    phases.append(("density", smoke.phase_density))
     phases.append(("timing", smoke.phase_timing))
     for name, fn in phases:
         print(f"== {name}", flush=True)

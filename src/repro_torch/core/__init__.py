@@ -1,17 +1,21 @@
-"""The port's own copies of the Nexus core: host I/O and the worker node.
+"""The port's own copies of the Nexus core: host I/O, the worker node and
+the density simulator.
 
 Copies of their ``repro.core`` namesakes (jax-free Python), trimmed only
 of code the port's paths cannot reach, each saying what it left out:
 ``metrics``, ``transport``, ``fabric``, ``storage``, ``streaming``,
-``arena``, ``credentials``, ``hints``, ``ratelimit``, ``cache`` (the
-SharedCache), ``backend``, ``faults`` (the FaultPlane and its
-`FaultInjector`), ``guardrails``, ``workloads`` (the paper suite, the
-multi-I/O scenarios, the chaos suite and the MLServe suite), ``plan``,
-``lifecycle``, ``supervisor``, ``frontend``, ``analysis`` (ProfileInfer
-and PlanVerify) and ``runtime`` (the worker node); ``calibrate`` is the
-read side of the MLServe calibration, with a byte-identical copy of its
-``calibration.json``. Every constant keeps the reference's value. The
-package exports what ``repro.core`` exports.
+``arena``, ``planes`` (the vsock control plane, 4 KB message bound),
+``credentials``, ``hints``, ``ratelimit``, ``cache`` (the SharedCache),
+``backend``, ``faults`` (the FaultPlane and its `FaultInjector`),
+``guardrails``, ``workloads`` (the paper suite, the multi-I/O scenarios,
+the chaos suite and the MLServe suite), ``plan``, ``lifecycle``,
+``supervisor``, ``frontend``, ``analysis`` (ProfileInfer and PlanVerify),
+``runtime`` (the worker node), ``trace`` (Azure-like MMPP arrival
+generation), ``fluid`` (the mean-value bracket of the density search) and
+``des`` (the virtual-time cluster simulator for density sweeps, paper
+§7.1); ``calibrate`` is the read side of the MLServe calibration, with a
+byte-identical copy of its ``calibration.json``. Every constant keeps the
+reference's value. The package exports what ``repro.core`` exports.
 """
 from repro_torch.core.backend import NexusBackend
 from repro_torch.core.frontend import (BaselineClient, GuestContext,

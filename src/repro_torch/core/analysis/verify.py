@@ -28,11 +28,7 @@ check order so each corruption class maps to a distinct diagnostic
     `verify_cache_overlay` (`V-CACHE-OP` / `V-CACHE-WIRE` /
     `V-CACHE-COVER`).
 
-A copy of ``repro.core.analysis.verify``, whole. The reference's
-`verify_cache_overlay` reads the DES's wire and cache opcodes from
-``repro.core.des``; the port has no DES yet, so it keeps its own copy of
-the two constants (`_OP_WIRE`, `_OP_CACHE`) at the DES's values, and
-nothing in the port builds an overlay for it to check yet.
+A copy of ``repro.core.analysis.verify``, whole.
 """
 from __future__ import annotations
 
@@ -79,11 +75,6 @@ from .diag import (
 )
 
 _FABRIC_BASES = ("fetch_cpu", "fetch_net", "write_cpu", "write_net")
-
-#: the DES's phase opcodes a SharedCache overlay patches: the wire
-#: opcode of a GET's ``fetch_net`` becomes the cache opcode
-_OP_WIRE = 3       # timed, pure latency
-_OP_CACHE = 4      # timed, pure latency, SharedCache-eligible GET wire
 
 
 def _fail(code: str, subject: str, msg: str) -> None:
@@ -407,6 +398,7 @@ def verify_cache_overlay(program: PlanProgram,
       `CacheState`'s input, so both executors consult the cache
       identically.
     """
+    from repro_torch.core.des import _OP_CACHE, _OP_WIRE
     who = subject if subject is not None else "<program>"
     names = program.names
     n = len(names)

@@ -43,19 +43,14 @@ Everything here is pure data + a small deterministic state machine
 "admit" for every request and perturbs neither executor (the DES golden
 gate pins this bit-for-bit).
 
-A copy of ``repro.core.guardrails`` without ``GuardrailPolicy.scaled``,
-which stretches a policy for replays of the density simulator's
-schedules (the port has no density simulator yet). The worker node calls
-`GuardState.decide` on every invocation, `NexusClient` retries through
-`RetrySpec`, and `drains_for` derives drain windows from a
-`faults.FaultSchedule`.
+A copy of ``repro.core.guardrails``, whole.
 """
 from __future__ import annotations
 
 import threading
 import zlib
 from collections import deque
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 from repro_torch.core.ratelimit import TokenBucket
 
@@ -306,6 +301,28 @@ class GuardrailPolicy:
                         (at - max(0.0, at - lead_s))
                         + schedule.restart_delay_s + settle_s)
             for at in schedule.crashes())
+
+    def scaled(self, time_scale: float) -> "GuardrailPolicy":
+        """The same policy with every time stretched by `time_scale`
+        (the threaded runtime replays DES-scale policies slower; rates
+        scale inversely, counts and ratios stay put)."""
+        adm = self.admission
+        if adm is not None:
+            adm = replace(adm, rate_per_s=adm.rate_per_s / time_scale,
+                          max_queue_s=adm.max_queue_s * time_scale)
+        rt = self.retry
+        if rt is not None:
+            rt = replace(rt, backoff_base_s=rt.backoff_base_s * time_scale,
+                         max_backoff_s=rt.max_backoff_s * time_scale)
+        br = self.breaker
+        if br is not None:
+            br = replace(br, window_s=br.window_s * time_scale,
+                         open_s=br.open_s * time_scale)
+        return replace(
+            self, admission=adm, retry=rt, breaker=br,
+            drains=tuple(replace(d, at_s=d.at_s * time_scale,
+                                 duration_s=d.duration_s * time_scale)
+                         for d in self.drains))
 
 
 # ----------------------------------------------------------- interpretation

@@ -49,9 +49,9 @@ from repro.core.analysis import infer as ref_infer
 from repro.core.analysis import verify as ref_verify
 from repro.core.arena import ArenaRegistry as RefArenaRegistry
 from repro.models import serving as ref_serving
-from repro_torch.core import (cache, fabric, faults, frontend, guardrails,
-                              lifecycle, metrics, runtime, storage,
-                              streaming, supervisor, workloads)
+from repro_torch.core import (cache, des, fabric, faults, frontend,
+                              guardrails, lifecycle, metrics, runtime,
+                              storage, streaming, supervisor, workloads)
 from repro_torch.core.analysis import diag, infer, verify
 from repro_torch.core.runtime import WorkerNode
 from repro_torch.core.workloads import (ComputeSegment, Get, IOProfile, Put,
@@ -614,13 +614,16 @@ def _upper(mod):
 ], ids=lambda m: getattr(m, "__name__", "").rsplit(".", 1)[-1])
 def test_copied_constants_equal_reference(port_mod, ref_mod):
     """Every upper-case module constant a copy keeps has the reference's
-    value (a copy may keep fewer). None has one of its own, but for the
-    DES opcodes PlanVerify keeps, which equal the DES's."""
+    value (a copy may keep fewer). None has one of its own: PlanVerify
+    keeps no copy of the DES opcodes, and reads the port's `des`'s,
+    which equal the reference DES's."""
     port, ref = _upper(port_mod), _upper(ref_mod)
     if port_mod is verify:
-        ref = {**ref, "_OP_WIRE": ref_des._OP_WIRE,
-               "_OP_CACHE": ref_des._OP_CACHE}
-        assert {"_OP_WIRE", "_OP_CACHE"} <= port.keys()
+        assert not {"_OP_WIRE", "_OP_CACHE"} & port.keys()
+        assert not hasattr(verify, "_OP_WIRE")
+        assert not hasattr(verify, "_OP_CACHE")
+        assert (des._OP_WIRE, des._OP_CACHE) == (ref_des._OP_WIRE,
+                                                 ref_des._OP_CACHE)
     own = {n for n in port if n not in ref}
     assert not own, own
     for name, value in port.items():

@@ -18,7 +18,12 @@ What is held:
 * the SharedCache overlay checker, fed the reference DES's overlays
   (`repro.core.des.cache_overlay`) carried over to the port's types,
   passes them and rejects the reference's three corruptions with the
-  same codes; its two opcode constants are pinned to the DES's.
+  same codes; its two opcode constants are pinned to the DES's;
+* the same checker fed the overlays the port's own DES builds
+  (`repro_torch.core.des._build_bundle` and `cache_overlay`) for every
+  variant x profile x cold/warm: they equal the reference DES's, pass,
+  and the three corruptions raise the same codes; the checker reads its
+  opcodes from the port's DES and keeps no copy of them.
 """
 import dataclasses
 
@@ -31,7 +36,8 @@ from repro.core.analysis import diag as ref_diag
 from repro.core.analysis import mutate as ref_mutate
 from repro.core.analysis import verify as ref_verify
 from repro.core.transport import TRANSPORTS
-from repro_torch.core import plan, workloads
+from repro_torch.core import des, plan, workloads
+from repro_torch.core.transport import TRANSPORTS as PORT_TRANSPORTS
 from repro_torch.core.analysis import diag, verify
 from repro_torch.core.analysis.diag import PlanCheckError
 
@@ -151,8 +157,12 @@ def test_verify_on_compile_verifies_every_new_program(monkeypatch):
 
 
 def test_overlay_opcodes_pinned_to_the_des():
-    assert verify._OP_WIRE == ref_des._OP_WIRE
-    assert verify._OP_CACHE == ref_des._OP_CACHE
+    """PlanVerify keeps no copy of the opcodes it checks: they are the
+    port DES's, which equal the reference DES's."""
+    assert not hasattr(verify, "_OP_WIRE")
+    assert not hasattr(verify, "_OP_CACHE")
+    assert des._OP_WIRE == ref_des._OP_WIRE
+    assert des._OP_CACHE == ref_des._OP_CACHE
 
 
 def _overlay(system, wname, cold):
@@ -197,3 +207,63 @@ def test_overlay_corruptions_raise_the_reference_codes():
             with pytest.raises(err) as e:
                 fn(p, tmpl[4], tmpl[5], o, o2, a, P)
             assert e.value.code == code
+
+
+def test_overlay_opcodes_read_from_the_port_s_des(monkeypatch):
+    """The checker reads the opcodes from the port's `des` at each call:
+    a clean overlay fails once the DES's cache opcode is moved."""
+    prog, tmpl, cops, cops2, acc = _port_overlay(
+        "nexus", workloads.REGISTRY["WEB"])(False)
+    verify.verify_cache_overlay(prog, tmpl[4], tmpl[5], cops, cops2, acc,
+                                workloads.REGISTRY["WEB"].profile)
+    monkeypatch.setattr(des, "_OP_CACHE", des._OP_CACHE + 1000)
+    with pytest.raises(PlanCheckError) as e:
+        verify.verify_cache_overlay(prog, tmpl[4], tmpl[5], cops, cops2,
+                                    acc, workloads.REGISTRY["WEB"].profile)
+    assert e.value.code == "V-CACHE-WIRE"
+
+
+def _port_overlay(system, w):
+    """The port DES's bundle and cache overlay for one workload."""
+    def build(cold):
+        spec = plan.SYSTEMS[system]
+        kb = PORT_TRANSPORTS[spec.transport].kernel_bypass
+        prog, tmpl = des._build_bundle(spec, w, cold, kb)
+        return (prog, tmpl,
+                *des.cache_overlay(prog, tmpl[4], tmpl[5], w.profile))
+    return build
+
+
+@pytest.mark.parametrize("cold", [False, True])
+@pytest.mark.parametrize("system", SYSTEMS)
+def test_port_des_overlays_equal_reference_and_verify_clean(system, cold):
+    ref_profiles = _profiles(ref_workloads)
+    for name, w in _profiles(workloads).items():
+        prog, tmpl, cops, cops2, acc = _port_overlay(system, w)(cold)
+        verify.verify_cache_overlay(prog, tmpl[4], tmpl[5], cops, cops2,
+                                    acc, w.profile,
+                                    subject=f"{system}/{name}")
+        rw = ref_profiles[name]
+        spec = ref_plan.SYSTEMS[system]
+        rprog, rtmpl = ref_des._build_bundle(
+            spec, rw, cold, TRANSPORTS[spec.transport].kernel_bypass)
+        assert _fields(prog) == _fields(rprog), name
+        assert (cops, cops2, acc) == ref_des.cache_overlay(
+            rprog, rtmpl[4], rtmpl[5], rw.profile), name
+
+
+def test_port_overlay_corruptions_raise_the_reference_codes():
+    w = workloads.REGISTRY["WEB"]
+    prog, tmpl, cops, cops2, acc = _port_overlay("nexus", w)(False)
+    bad = list(cops)
+    bad[prog.names.index("compute[0]")] = des._OP_CACHE
+    cases = {
+        "V-CACHE-WIRE": (tuple(bad), cops2, acc),
+        "V-CACHE-COVER": (tmpl[4], cops2, acc),
+        "V-CACHE-OP": (cops, cops2, acc[:-1]),
+    }
+    for code, (o, o2, a) in cases.items():
+        with pytest.raises(PlanCheckError) as e:
+            verify.verify_cache_overlay(prog, tmpl[4], tmpl[5], o, o2, a,
+                                        w.profile)
+        assert e.value.code == code
