@@ -88,6 +88,15 @@ Phases, each of which fails the run (exit 1) if it fails:
    warm, per breakdown group (fetch[0], compute[0], write[0]) beside the
    full-width node run above, the DES pricing compute from
    ``calibration.json``'s ``hbm-accel-8x`` profile;
+   then the fleet model (``repro_torch.core.cluster``) on this machine's
+   host, no kernel launching: ``benchmarks/cluster.py``'s headline fleet
+   (48 boxes: 30 ``nexus``, 12 ``nexus-async``, 6 ``baseline``; 480
+   functions, azure arrivals, seed 5, 30 s after 6 s warmup) under its
+   five dispatch policies, one process each, printing offered,
+   completed, goodput, p50/p99, shed and mean utilisation (modeled
+   virtual time), at least 3 policies with distinct (goodput, p99); and
+   PlanCheck (``repro_torch.core.analysis``): ``run_matrix()`` clean, and
+   every seeded corruption of ``mutate`` caught with its own code;
 6. each kernel timed at the serve shapes (the attention kernels at
    llama3-8b's, hymba-1.5b's and qwen3-moe-30b-a3b's, and at head_dim 16
    with the moe smoke heads, prefill also at the MLServe shapes B 8 x
@@ -141,6 +150,11 @@ MLSERVE_SCALES = ("tiny", "full")
 #: benchmarks/density.py), each searched by the density phase
 DENSITY_SYSTEMS = ("baseline", "nexus-tcp", "nexus-prefetch-only",
                    "nexus-async", "nexus")
+#: the fleet phase: `benchmarks/cluster.py`'s headline fleet size and its
+#: five dispatch policies (``POLICIES``), one process each
+FLEET_N = 48
+FLEET_POLICIES = ("round_robin", "random", "least_loaded", "jbsq",
+                  "affinity")
 #: the deadline of one worker-node invocation's future (phase 5)
 NODE_TIMEOUT_S = 900
 #: a scenario's durable output, as its key in role_sizes / calibration
@@ -220,6 +234,39 @@ def density_search(system):
     t0 = time.perf_counter()
     best, results = find_density(system, seed=1, fast=True)
     return (best, [(r.n_functions, r.meets_slo()) for r in results],
+            time.perf_counter() - t0)
+
+
+def fleet_run(policy):
+    """`benchmarks/cluster.py`'s headline cell under one dispatch policy,
+    in a process of its own: the port's `ClusterSimulator` on the fleet
+    of ``FLEET_N`` boxes (~1/8 fat ``baseline``, ~1/4 ``nexus-async``,
+    the rest ``nexus``), 10 functions a box, azure arrivals at mean rate
+    1.0, seed 5, 30 s after 6 s of warmup. Returns the cell's numbers
+    and the run's host wall seconds."""
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    from repro_torch.core.cluster import (ClusterSimulator, ClusterSpec,
+                                          NodeSpec)
+    n = FLEET_N
+    n_base, n_async = max(1, n // 8), max(1, n // 4)
+    slim = dict(nodes=1, cores=8, mem_gb=16.0, backend_workers=16,
+                max_vms_per_node=70)
+    nodes = (NodeSpec("nexus", count=n - n_base - n_async, **slim),
+             NodeSpec("nexus-async", count=n_async, **slim),
+             NodeSpec("baseline", count=n_base, nodes=1, cores=16,
+                      mem_gb=24.0, backend_workers=16, max_vms_per_node=100))
+    spec = ClusterSpec(nodes=nodes, n_functions=10 * n, policy=policy,
+                       mean_rate=1.0, duration_s=30.0, warmup_s=6.0,
+                       arrival_pattern="azure")
+    t0 = time.perf_counter()
+    r = ClusterSimulator(spec, seed=5).run()
+    util = r.node_utilization()
+    return ({"members": [(ns.system, ns.count) for ns in nodes],
+             "offered": r.offered, "completed": r.completed,
+             "goodput": r.goodput, "p50_s": r.p50, "p99_s": r.p99,
+             "shed": r.shed_total, "util_mean": sum(util) / len(util),
+             "conserved": r.offered == sum(r.dispatched) + r.shed["frontend"]},
             time.perf_counter() - t0)
 
 
@@ -1540,6 +1587,110 @@ class Smoke:
                 print(f"    {g:11s} DES {groups[g]:10.4f} s   node "
                       f"{res.breakdown[g]:10.4f} s")
 
+    def phase_fleet(self):
+        """The fleet model (`repro_torch.core.cluster`) and PlanCheck's
+        matrix (`repro_torch.core.analysis`) on this machine's host: the
+        headline fleet of `benchmarks/cluster.py` under its five dispatch
+        policies, one process each, at least 3 of them with distinct
+        (goodput, p99) as the bench requires; then `run_matrix()`, which
+        must be clean, and every seeded corruption of `mutate`, which
+        `verify_program` must catch with its own code. Every latency is
+        modeled virtual time; nothing here runs on the card, and no
+        kernel launches."""
+        counters = self.counters()
+        for mod in counters.values():
+            mod.launches = 0
+        self.fleet_policies()
+        self.plancheck()
+        self.launches["fleet and plancheck"] = {n: m.launches
+                                                for n, m in counters.items()}
+        if any(self.launches["fleet and plancheck"].values()):
+            raise AssertionError("fleet and plancheck: a kernel ran")
+
+    def fleet_policies(self):
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+        t0 = time.perf_counter()
+        with ProcessPoolExecutor(
+                max_workers=len(FLEET_POLICIES),
+                mp_context=multiprocessing.get_context("spawn")) as pool:
+            cells = dict(zip(FLEET_POLICIES,
+                             pool.map(fleet_run, FLEET_POLICIES)))
+        members = cells[FLEET_POLICIES[0]][0]["members"]
+        print(f"  fleet n {FLEET_N} {members}, {10 * FLEET_N} functions, azure "
+              f"arrivals, seed 5, 30 s after 6 s warmup: modeled virtual-time "
+              f"latencies from the reference's cost model; host wall seconds "
+              f"of this machine, {len(FLEET_POLICIES)} runs in parallel "
+              f"processes, {time.perf_counter() - t0:.1f} s in all; not a "
+              f"measurement of the card")
+        for policy, (m, wall) in cells.items():
+            print(f"  fleet {policy:12s}: offered {m['offered']} completed "
+                  f"{m['completed']} goodput {m['goodput']} p50 "
+                  f"{m['p50_s'] * 1e3:.3f} ms p99 {m['p99_s'] * 1e3:.3f} ms "
+                  f"shed {m['shed']} mean utilisation {m['util_mean']:.4f} "
+                  f"(modeled); host wall {wall:.1f} s")
+            if not m["conserved"] or m["completed"] <= 0:
+                raise AssertionError(f"fleet {policy}: arrivals not conserved "
+                                     f"or nothing completed: {m}")
+        outcomes = {(m["goodput"], m["p99_s"]) for m, _ in cells.values()}
+        print(f"  fleet: {len(outcomes)} distinct (goodput, p99) outcomes of "
+              f"{len(FLEET_POLICIES)} policies (the bench asks for 3)")
+        if len(outcomes) < 3:
+            raise AssertionError("fleet: the dispatch policies are "
+                                 "indistinguishable")
+
+    def plancheck(self):
+        from repro_torch.core.analysis import run_matrix, verify_program
+        from repro_torch.core.analysis import mutate
+        from repro_torch.core.analysis.diag import PlanCheckError
+        from repro_torch.core.plan import (SYSTEMS, compile_program,
+                                           duration_vector)
+        from repro_torch.core.transport import TRANSPORTS
+        from repro_torch.core.workloads import REGISTRY
+        t0 = time.perf_counter()
+        report = run_matrix()
+        print(f"  plancheck: {report.handlers_checked} handlers, "
+              f"{report.cells_verified} plan/program cells, "
+              f"{len(report.warnings)} warnings, {len(report.failures)} "
+              f"failures; host wall {time.perf_counter() - t0:.1f} s")
+        if not report.ok or report.warnings:
+            raise AssertionError(f"plancheck: the matrix is not clean: "
+                                 f"{report.failures + report.warnings}")
+        # the mutation matrix of tests/test_plancheck.py
+        cells = [("nexus", "PIPE", True), ("nexus", "PIPE", False),
+                 ("nexus", "SG", True), ("nexus", "FAN", True),
+                 ("nexus-tcp", "PIPE", True), ("nexus-async", "PIPE", True),
+                 ("baseline", "PIPE", True), ("baseline", "AES", False)]
+        caught = {}
+        for c in mutate.CORRUPTIONS:
+            for system, wname, cold in cells:
+                spec, w = SYSTEMS[system], REGISTRY[wname]
+                prog = compile_program(
+                    spec, w.profile, cold,
+                    kernel_bypass=TRANSPORTS[spec.transport].kernel_bypass)
+                try:
+                    bad, durs = mutate.corrupt(
+                        prog, duration_vector(spec, w, cold), c.name, seed=7)
+                except mutate.Ineligible:
+                    continue
+                try:
+                    verify_program(bad, durations=durs)
+                except PlanCheckError as e:
+                    if e.code != c.code:
+                        raise AssertionError(
+                            f"plancheck: {c.name} on {system}/{wname} raised "
+                            f"{e.code}, not {c.code}") from e
+                else:
+                    raise AssertionError(f"plancheck: {c.name} on "
+                                         f"{system}/{wname} passed")
+                caught[c.name] = caught.get(c.name, 0) + 1
+        missed = [c.name for c in mutate.CORRUPTIONS if c.name not in caught]
+        print(f"  plancheck mutations: {len(caught)} of "
+              f"{len(mutate.CORRUPTIONS)} corruptions each caught with its "
+              f"own code on {sum(caught.values())} eligible cells")
+        if missed:
+            raise AssertionError(f"plancheck: no eligible cell for {missed}")
+
     def phase_timing(self):
         """Each kernel at its serve shape (the row of the kernels line),
         and the attention kernels and the scan at Hymba's shapes too."""
@@ -1747,6 +1898,7 @@ def main() -> int:
     phases.append(("mlserve cores", smoke.phase_mlserve))
     phases.append(("worker node", smoke.phase_node))
     phases.append(("density", smoke.phase_density))
+    phases.append(("fleet and plancheck", smoke.phase_fleet))
     phases.append(("timing", smoke.phase_timing))
     for name, fn in phases:
         print(f"== {name}", flush=True)

@@ -9,11 +9,13 @@ of code the port's paths cannot reach, each saying what it left out:
 ``backend``, ``faults`` (the FaultPlane and its `FaultInjector`),
 ``guardrails``, ``workloads`` (the paper suite, the multi-I/O scenarios,
 the chaos suite and the MLServe suite), ``plan``, ``lifecycle``,
-``supervisor``, ``frontend``, ``analysis`` (ProfileInfer and PlanVerify),
-``runtime`` (the worker node), ``trace`` (Azure-like MMPP arrival
-generation), ``fluid`` (the mean-value bracket of the density search) and
-``des`` (the virtual-time cluster simulator for density sweeps, paper
-§7.1); ``calibrate`` is the read side of the MLServe calibration, with a
+``supervisor``, ``frontend``, ``analysis`` (PlanCheck: ProfileInfer,
+PlanVerify, its mutation suite and matrix driver), ``runtime`` (the
+worker node), ``trace`` (Azure-like MMPP arrival generation), ``fluid``
+(the mean-value bracket of the density search), ``des`` (the
+virtual-time cluster simulator for density sweeps, paper §7.1) and
+``cluster`` (fleet-scale dispatch over per-node density simulators);
+``calibrate`` is the read side of the MLServe calibration, with a
 byte-identical copy of its ``calibration.json``. Every constant keeps the
 reference's value. The package exports what ``repro.core`` exports.
 """

@@ -9,12 +9,14 @@ Copies of ``repro.core.analysis``'s two analyzers:
   invariant of a lowered `PlanProgram` against its `PhasePlan` and
   variant rules (`verify_program`);
 
-with their shared diagnostics (`diag`). The reference's seeded corruptor
-(``mutate``) and its matrix driver (``driver``) are not copied yet, so
-the package exports the reference's names but for ``MatrixReport``,
-``matrix_workloads`` and ``run_matrix``.
+with their shared diagnostics (`diag`), plus `mutate` (the seeded
+corruptor that mutation-tests the verifier) and `driver` (the exhaustive
+variant × workload × coldness matrix run by
+``python -m repro_torch.core.analysis``). The package exports what the
+reference's exports.
 """
 from .diag import Diagnostic, PlanCheckError, ProfileContractError
+from .driver import MatrixReport, matrix_workloads, run_matrix
 from .infer import InferenceResult, check_workload, infer_handler
 from .verify import verify_plan, verify_program
 
@@ -27,4 +29,7 @@ __all__ = [
     "infer_handler",
     "verify_plan",
     "verify_program",
+    "MatrixReport",
+    "matrix_workloads",
+    "run_matrix",
 ]

@@ -29,13 +29,16 @@ print("MODULES", " ".join(sorted(n for n in sys.modules
                                  if n.startswith("repro_torch."))))
 """
 
-#: the copies of the node's planes and of the density simulator, which
-#: must be in the probe's graph
+#: the copies of the node's planes, of the density simulator, of the
+#: fleet model and of PlanCheck, which must be in the probe's graph
 PLANES = ("repro_torch.core.cache", "repro_torch.core.faults",
           "repro_torch.core.workloads", "repro_torch.core.analysis.verify",
           "repro_torch.core.backend", "repro_torch.core.runtime",
           "repro_torch.core.trace", "repro_torch.core.planes",
-          "repro_torch.core.fluid", "repro_torch.core.des")
+          "repro_torch.core.fluid", "repro_torch.core.des",
+          "repro_torch.core.cluster", "repro_torch.core.analysis.mutate",
+          "repro_torch.core.analysis.driver",
+          "repro_torch.core.analysis.__main__")
 
 
 def test_port_imports_no_jax_and_no_reference():

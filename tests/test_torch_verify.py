@@ -12,7 +12,9 @@ What is held:
   damage classes `tests/test_plancheck.py` pins), applied to the
   reference's programs and carried over to the port's types, raise in
   the port the diagnostic code they raise in the reference, on every
-  eligible cell;
+  eligible cell; and the port's own corruptor
+  (`repro_torch.core.analysis.mutate`) on the port's own programs
+  raises the same codes in the port's verifier;
 * `NEXUS_VERIFY_PLANS` on (`plan.set_verify_on_compile`) makes the
   port's compiler verify each new program instead of raising;
 * the SharedCache overlay checker, fed the reference DES's overlays
@@ -38,7 +40,7 @@ from repro.core.analysis import verify as ref_verify
 from repro.core.transport import TRANSPORTS
 from repro_torch.core import des, plan, workloads
 from repro_torch.core.transport import TRANSPORTS as PORT_TRANSPORTS
-from repro_torch.core.analysis import diag, verify
+from repro_torch.core.analysis import diag, mutate, verify
 from repro_torch.core.analysis.diag import PlanCheckError
 
 SYSTEMS = list(ref_plan.SYSTEMS)
@@ -122,6 +124,37 @@ def test_corruption_caught_with_the_reference_code(c):
             ref_verify.verify_program(bad, durations=bad_durs)
         with pytest.raises(PlanCheckError) as err:
             verify.verify_program(_to_port(bad), durations=bad_durs,
+                                  subject=f"{system}/{wname}")
+        assert err.value.code == ref_err.value.code == c.code, (
+            c.name, system, wname, cold)
+        caught += 1
+    assert caught, f"no eligible cell for corruption {c.name}"
+
+
+@pytest.mark.parametrize("c", mutate.CORRUPTIONS, ids=lambda c: c.name)
+def test_corruption_caught_with_the_port_mutate(c):
+    """The twin of the test above with the port's own corruptor applied
+    to the port's own program: the same code as the reference's
+    corruptor and verifier give on the reference's program."""
+    caught = 0
+    for system, wname, cold in _MUTATION_CELLS:
+        rprog, rdurs = _ref_cell(system, wname, cold)
+        spec = plan.SYSTEMS[system]
+        w = workloads.REGISTRY[wname]
+        kb = PORT_TRANSPORTS[spec.transport].kernel_bypass
+        prog = plan.compile_program(spec, w.profile, cold, kernel_bypass=kb)
+        durs = plan.duration_vector(spec, w, cold)
+        try:
+            bad, bad_durs = mutate.corrupt(prog, durs, c.name, seed=7)
+        except mutate.Ineligible:
+            with pytest.raises(ref_mutate.Ineligible):
+                ref_mutate.corrupt(rprog, rdurs, c.name, seed=7)
+            continue
+        rbad, rbad_durs = ref_mutate.corrupt(rprog, rdurs, c.name, seed=7)
+        with pytest.raises(ref_diag.PlanCheckError) as ref_err:
+            ref_verify.verify_program(rbad, durations=rbad_durs)
+        with pytest.raises(PlanCheckError) as err:
+            verify.verify_program(bad, durations=bad_durs,
                                   subject=f"{system}/{wname}")
         assert err.value.code == ref_err.value.code == c.code, (
             c.name, system, wname, cold)
