@@ -13,21 +13,33 @@ Phases, each of which fails the run (exit 1) if it fails:
    S 2048 causal, decode B 1 and 8 after the ring's first wrap and at a
    partial fill; prefill also at the MLServe shapes, llama's heads at B 8
    x S 2048 and B 32 x S 512; both also at head_dim 16, the moe role's
-   tiny heads H 4 over K 2), bf16 (atol = rtol = 2e-2) and fp32 (2e-5),
-   each check naming the body that ran (prefill: wgmma or SIMT; decode:
-   mma or SIMT, and its cluster size), q/k/v as views of a fused
-   projection, and misaligned bf16 views (prefill at hd 64, decode at hd
-   16) that must raise; the selective scan at
+   tiny heads H 4 over K 2; and at the group sizes 6 and 7: yi-34b's 56
+   q heads over 8 (prefill S 2048, decode B 1 and 8, a wrapped ring with
+   a window), mixtral-8x22b's 48 over 8 with its 4096 window (prefill S
+   8192; decode on its served W 4096 ring and on a wrapped W 8192 ring),
+   yi-34b's smoke heads H 7 over K 1 and H 6 over K 1 at hd 16), bf16
+   (atol = rtol = 2e-2) and fp32 (2e-5), each check naming the body that
+   ran (prefill: wgmma or SIMT; decode: mma or SIMT, and its cluster
+   size), q/k/v as views of a fused projection, and misaligned bf16
+   views (prefill at hd 64, decode at hd 16) and a group size outside
+   the decode kernel's (G 3) that must raise; the selective scan at
    Falcon-Mamba-7B and Hymba-1.5B widths, fp32 (1e-4), with the model's
    long-memory dt and A, every states-per-thread R forced, N = 8, layouts
    that are not 16-byte aligned and S = 0, 1 and 5, each check naming the
    R that ran (``[R r]``);
 3. each served model at full width, 2 layers: kernel path against plain
-   path, prefill and one decode step (atol 0.3, rtol 0.05);
+   path, prefill and one decode step (atol 0.3, rtol 0.05), prompt 2048
+   (mixtral-8x22b 8192, past its window), qwen2-72b's QKV biases set to
+   nonzero random values, the MoE routing of the plain path held to the
+   kernel path's where a token's k-th and (k+1)-th router probabilities
+   lie within 2e-2 (``RoutePin``; a flip at a larger margin fails);
 4. the serve driver (``repro_torch.launch.serve.main``) for each ported
    arch at full published width (llama3-8b 32 layers, falcon-mamba-7b
    64, hymba-1.5b 32, qwen3-moe-30b-a3b 48 with 128 experts top-8,
-   30.53e9 parameters), prompt 2048, 8 requests x 16 tokens, 2 replicas
+   30.53e9 parameters; yi-34b 60, 34.39e9 parameters, 68.8 GB), and
+   (``repro_torch.launch.serve.run``) qwen2-72b at full width cut to 32
+   of its 80 layers and mixtral-8x22b cut to 12 of 56 with prompt 8192;
+   prompt 2048, 8 requests x 16 tokens, 2 replicas
    sharing one params copy: durable completions, prefetches, exact
    kernel launch counts (every count set to 0 just before the path and
    read just after), the first request replayed through the plain path,
@@ -98,9 +110,11 @@ Phases, each of which fails the run (exit 1) if it fails:
    PlanCheck (``repro_torch.core.analysis``): ``run_matrix()`` clean, and
    every seeded corruption of ``mutate`` caught with its own code;
 6. each kernel timed at the serve shapes (the attention kernels at
-   llama3-8b's, hymba-1.5b's and qwen3-moe-30b-a3b's, and at head_dim 16
-   with the moe smoke heads, prefill also at the MLServe shapes B 8 x
-   S 2048 and granite-8b's B 32 x S 512),
+   llama3-8b's, hymba-1.5b's, qwen3-moe-30b-a3b's, yi-34b's (decode B 1
+   and 8) and mixtral-8x22b's (prefill S 8192 with its window, decode on
+   its W 4096 ring and on a W 8192 ring with the 4096 window), and at
+   head_dim 16 with the moe smoke heads, prefill also at the MLServe
+   shapes B 8 x S 2048 and granite-8b's B 32 x S 512),
    beside its bound,
    its plain version and, where there is one, one PyTorch library call (a
    yardstick only; the port never calls it). Kernel and library times
@@ -133,8 +147,19 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
-ARCHS = ("llama3-8b", "falcon-mamba-7b", "hymba-1.5b", "qwen3-moe-30b-a3b")
+ARCHS = ("llama3-8b", "falcon-mamba-7b", "hymba-1.5b", "qwen3-moe-30b-a3b",
+         "yi-34b")
 PROMPT, REQUESTS, GEN, REPLICAS = 2048, 8, 16, 2
+#: the archs served at full width with their depth cut to fit one card:
+#: (layers, prompt). qwen2-72b (80 layers, ~145 GB in bf16) keeps 32;
+#: mixtral-8x22b (56 layers, 140.6e9 params) keeps 12, and its prompt of
+#: 8192 is twice its 4096 window, so the window masks in prefill and its
+#: ring cache evicts in every decode step
+CUT = {"qwen2-72b": (32, PROMPT), "mixtral-8x22b": (12, 8192)}
+#: the largest gap between the k-th and (k+1)-th router probability at
+#: which the kernel and plain paths may route a token to other experts
+#: (the bf16 kernel tolerance, as tests/test_torch_model.py's ROUTE_TOL)
+ROUTE_TOL = 2e-2
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 SCAN_TOL = 1e-4                 # f32, as tests/test_kernels.py::TestSsmScan
 SCAN_SWEEP = (2, 4, 8)          # states per thread timed in phase 6
@@ -270,6 +295,64 @@ def fleet_run(policy):
             time.perf_counter() - t0)
 
 
+class RoutePin:
+    """Holds the plain path's MoE routing to the kernel path's where the
+    two choose other experts at a near-tie. The attention kernels and
+    their plain versions round differently in bf16, so a token whose
+    k-th and (k+1)-th router probabilities lie within ``ROUTE_TOL`` can
+    go to another expert on either path, and move its logits by far more
+    than the model tolerance. `record` keeps the kernel path's (gates,
+    idx) per router call; under `pin` each call of the plain path checks
+    every token whose expert set differs (a flip past ``ROUTE_TOL`` is a
+    fault and raises) and gives it the kernel path's routing."""
+
+    def __init__(self, torch, moe):
+        self.torch, self.moe = torch, moe
+        self.calls, self.flips, self.margins = [], 0, []
+
+    def _wrap(self, fn):
+        import contextlib
+        route = self.moe._route
+
+        @contextlib.contextmanager
+        def ctx():
+            self.moe._route = lambda p, cfg, xf: fn(route, p, cfg, xf)
+            try:
+                yield self
+            finally:
+                self.moe._route = route
+        return ctx()
+
+    def record(self):
+        def fn(route, p, cfg, xf):
+            out = route(p, cfg, xf)
+            self.calls.append((out[0], out[1]))
+            return out
+        return self._wrap(fn)
+
+    def pin(self):
+        torch, calls = self.torch, iter(list(self.calls))
+
+        def fn(route, p, cfg, xf):
+            gates, idx, aux = route(p, cfg, xf)
+            rec_gates, rec_idx = next(calls)
+            flip = (idx.sort(-1).values != rec_idx.sort(-1).values).any(-1)
+            if flip.any():
+                k = cfg.num_experts_per_tok
+                probs = torch.softmax(xf.float() @ p["router"], dim=-1)
+                top = probs.topk(k + 1, dim=-1).values
+                margin = (top[:, k - 1] - top[:, k])[flip]
+                self.margins.append(float(margin.max()))
+                if float(margin.max()) > ROUTE_TOL:
+                    raise AssertionError(f"a token routed to other experts "
+                                         f"at margin {float(margin.max())}")
+                self.flips += int(flip.sum())
+                gates = torch.where(flip[:, None], rec_gates, gates)
+                idx = torch.where(flip[:, None], rec_idx, idx)
+            return gates, idx, aux
+        return self._wrap(fn)
+
+
 class Smoke:
     def __init__(self, torch):
         self.torch = torch
@@ -378,6 +461,10 @@ class Smoke:
         qwen3 = (32, 4, 128, " qwen3 H32/K4/hd128")
         small = (8, 4, 32, " H8/K4/hd32")
         moe_tiny = (4, 2, 16, " moe smoke H4/K2/hd16")
+        yi, mixtral = (56, 8, 128, " yi H56/K8/hd128 G7"), (
+            48, 8, 128, " mixtral H48/K8/hd128 G6")
+        yi_tiny, g6_tiny = (7, 1, 16, " yi smoke H7/K1/hd16 G7"), (
+            6, 1, 16, " H6/K1/hd16 G6")
         for dname, tol in TOL.items():
             dtype = getattr(torch, dname)
             g = self.gen(1)
@@ -396,7 +483,9 @@ class Smoke:
                     # the MLServe prefills: the LLM-DECODE seed (B 8), and
                     # EMB (granite-8b has llama's heads)
                     (llama, 8, 2048, True, 0, "causal S=2048 (decode seed)"),
-                    (llama, 32, 512, True, 0, "causal S=512 (granite EMB)")]:
+                    (llama, 32, 512, True, 0, "causal S=512 (granite EMB)"),
+                    (yi, 1, 2048, True, 0, "causal S=2048"),
+                    (mixtral, 1, 8192, True, 4096, "window=4096 S=8192")]:
                 q = self.randn(g, (B, S, H, hd), dtype)
                 k, v = (self.randn(g, (B, S, K, hd), dtype) for _ in "kv")
                 out = mha(q, k, v, causal=causal, window=window)
@@ -431,7 +520,21 @@ class Smoke:
                     (moe_tiny, 1, 2048, 2049, 2048, 0, "first wrap W=2048"),
                     (moe_tiny, 2, 300, 37, 37, 0, "partial fill 37/300"),
                     (moe_tiny, 1, 256, 400, 399, 96, "wrapped ring window=96"),
-                    (moe_tiny, 2, 64, 0, 0, 0, "no valid slot: mean of V")]:
+                    (moe_tiny, 2, 64, 0, 0, 0, "no valid slot: mean of V"),
+                    (yi, 1, 2048, 2049, 2048, 0, "serve first wrap W=2048"),
+                    (yi, 8, 2048, 2049, 2048, 0, "serve first wrap W=2048"),
+                    (yi, 2, 2048, 5000, 5000, 1024,
+                     "wrapped ring window=1024"),
+                    (mixtral, 1, 4096, 8193, 8192, 4096,
+                     "serve ring W=4096 window=4096"),
+                    (mixtral, 1, 8192, 9000, 9000, 4096,
+                     "wrapped ring W=8192 window=4096"),
+                    (mixtral, 8, 4096, 700, 700, 4096,
+                     "partial fill 700/4096"),
+                    (yi_tiny, 2, 300, 400, 399, 64, "wrapped ring window=64"),
+                    (yi_tiny, 1, 2048, 2049, 2048, 0, "first wrap W=2048"),
+                    (g6_tiny, 2, 256, 400, 399, 96, "wrapped ring window=96"),
+                    (g6_tiny, 2, 64, 0, 0, 0, "no valid slot: mean of V")]:
                 q = self.randn(g, (B, 1, H, hd), dtype)
                 kc, vc = (self.randn(g, (B, W, K, hd), dtype) for _ in "kv")
                 sp = self.ring_slot_pos(W, fill, B)
@@ -467,6 +570,20 @@ class Smoke:
                   f"{e}")
         else:
             raise AssertionError("a misaligned decode view did not raise")
+        if decode_ops.launches != before:
+            raise AssertionError("a refused call counted a launch")
+        # a group size the kernel does not take raises: no fallback
+        q = self.randn(g, (1, 1, 24, 64), torch.bfloat16)
+        kc = self.randn(g, (1, 256, 8, 64), torch.bfloat16)
+        sp = self.ring_slot_pos(256, 256, 1)
+        p = torch.full((1,), 256, dtype=torch.int32, device=self.dev)
+        try:
+            decode_mha(q, kc, kc, sp, p)
+        except ValueError as e:
+            print(f"  {DECODE['name']:15s} G 3 (not in {decode_ops.GROUPS}) "
+                  f"raises: {e}")
+        else:
+            raise AssertionError("a group size outside GROUPS did not raise")
         if decode_ops.launches != before:
             raise AssertionError("a refused call counted a launch")
 
@@ -566,32 +683,57 @@ class Smoke:
         self.compare(name, "h_final halves vs whole", h2, h, SCAN_TOL)
 
     def phase_model(self):
-        for arch in ARCHS:
+        for arch in ARCHS + tuple(CUT):
             self.check_model(arch)
 
     def check_model(self, arch):
+        """Two layers at full width, prompt 2048 (mixtral-8x22b's 8192):
+        prefill and one decode step through the kernels against the plain
+        path, the QKV biases (qwen2-72b) set to nonzero random values and
+        the MoE routing of the plain path held to the kernel path's at
+        near-ties (`RoutePin`)."""
+        import contextlib
         torch = self.torch
         from repro_torch.configs import registry
-        from repro_torch.models import Model
+        from repro_torch.models import Model, moe
         cfg = registry.get(arch).replace(num_layers=2)
+        prompt = CUT.get(arch, (0, PROMPT))[1]
         model = Model(cfg)
         params = model.init_params(self.gen(0))
-        toks = torch.randint(0, cfg.vocab_size, (1, PROMPT), dtype=torch.int32,
+        if cfg.attn_bias:
+            g = self.gen(9)
+            for name in ("bq", "bk", "bv"):
+                leaf = params["layers"]["attn"][name]
+                leaf.copy_(self.randn(g, tuple(leaf.shape), leaf.dtype))
+        toks = torch.randint(0, cfg.vocab_size, (1, prompt), dtype=torch.int32,
                              device=self.dev, generator=self.gen(2))
+        pin = RoutePin(torch, moe) if cfg.family == "moe" else None
         out = {}
         for plain in (False, True):
-            logits, cache = model.prefill(params, {"tokens": toks},
-                                          plain=plain)
-            step, _ = model.decode_step(params, cache, toks[:, :1],
-                                        plain=plain)
+            ctx = (contextlib.nullcontext() if pin is None
+                   else pin.pin() if plain else pin.record())
+            with ctx:
+                logits, cache = model.prefill(params, {"tokens": toks},
+                                              plain=plain)
+                step, _ = model.decode_step(params, cache, toks[:, :1],
+                                            plain=plain)
             out[plain] = (logits, step)
+        extra = ((", QKV biases nonzero" if cfg.attn_bias else "")
+                 + (f", window {cfg.sliding_window}" if cfg.sliding_window
+                    else ""))
+        if pin is not None:
+            print(f"  {cfg.name} x2 layers prompt {prompt}: "
+                  f"{len(pin.calls)} router calls, {pin.flips} tokens routed "
+                  f"to other experts on the plain path at margins up to "
+                  f"{max(pin.margins, default=0.0):.3e} (<= {ROUTE_TOL}), "
+                  f"held to the kernel path's routing")
         for what, a, b in zip(("prefill logits", "decode logits"),
                               out[False], out[True]):
             err = (a - b).abs().max().item()
             ok = torch.allclose(a, b, atol=0.3, rtol=0.05)
-            print(f"  {cfg.name} x2 layers {what}: kernel vs plain "
-                  f"max_abs_err={err:.3e} (atol 0.3, rtol 0.05) "
-                  f"{'ok' if ok else 'FAIL'}")
+            print(f"  {cfg.name} x2 layers prompt {prompt}{extra} {what}: "
+                  f"kernel vs plain max_abs_err={err:.3e} (atol 0.3, rtol "
+                  f"0.05) {'ok' if ok else 'FAIL'}")
             if not (ok and torch.isfinite(a).all()):
                 raise AssertionError(f"{arch} {what}: kernel path disagrees")
 
@@ -604,7 +746,10 @@ class Smoke:
 
     def serve_path(self, arch):
         """Serve ``arch`` at full width, check the run, trace one replica,
-        and free the server before the next path."""
+        and free the server before the next path. An arch of ``ARCHS``
+        runs through the serve driver's ``main`` at its published depth;
+        one of ``CUT`` through `serve.run` on a server of its cut config
+        and prompt."""
         torch = self.torch
         from repro_torch.configs import registry
         from repro_torch.launch import serve
@@ -615,11 +760,18 @@ class Smoke:
               f" GiB allocated on the card")
         torch.cuda.reset_peak_memory_stats()
         counters = self.counters()
+        layers, prompt = CUT.get(arch, (None, PROMPT))
+        expect = registry.get(arch)
         for mod in counters.values():
             mod.launches = 0
-        result = serve.main(["--arch", arch, "--prompt-len", str(PROMPT),
-                             "--requests", str(REQUESTS), "--gen", str(GEN),
-                             "--replicas", str(REPLICAS)])
+        if layers is None:
+            result = serve.main(["--arch", arch, "--prompt-len", str(prompt),
+                                 "--requests", str(REQUESTS), "--gen",
+                                 str(GEN), "--replicas", str(REPLICAS)])
+        else:
+            expect = expect.replace(num_layers=layers)
+            result = serve.run(serve.NexusModelServer(
+                expect, replicas=REPLICAS, prompt_len=prompt), REQUESTS, GEN)
         launches = {name: mod.launches for name, mod in counters.items()}
         self.launches[arch] = launches
         peak = torch.cuda.max_memory_allocated()
@@ -631,15 +783,17 @@ class Smoke:
               f"wall={result['wall_s']:.3f}s "
               f"max_memory_allocated={peak / 2**30:.2f}GiB "
               f"launches={launches}")
-        if cfg != registry.get(arch):
-            raise AssertionError(f"the serve run was not full {arch}")
+        if cfg != expect:
+            raise AssertionError(f"the serve run was not {arch} at full "
+                                 f"width, {expect.num_layers} layers")
         params = server.instances[0].params
         if any(inst.params is not params for inst in server.instances):
             raise AssertionError("the replicas do not share one params copy")
         leaves = serialize.leaves(params)
         n_params = sum(x.numel() for x in leaves)
         param_bytes = serialize.tree_nbytes(params)
-        print(f"  {arch}: {cfg.num_layers} layers, {n_params} parameters "
+        print(f"  {arch}: {cfg.num_layers} of {registry.get(arch).num_layers}"
+              f" layers, prompt {prompt}, {n_params} parameters "
               f"({param_bytes / 1e9:.2f} GB) on {leaves[0].device}; peak "
               f"{peak / 1e9:.2f} GB ({nvidia_smi()})")
         if n_params != cfg.param_count() or leaves[0].device.type != "cuda":
@@ -670,7 +824,7 @@ class Smoke:
         self.replay_plain(server, outs[0])
         if cfg.family == "moe":
             self.check_moe_decode_in_place(server)
-        self.trace(server)
+        self.trace(server, prompt_len=prompt)
         del server, outs, result
         gc.collect()
         torch.cuda.empty_cache()
@@ -727,7 +881,7 @@ class Smoke:
         print(f"  req-0 replayed on the plain path: {compared}/{len(completion)}"
               f" tokens past the 0.3 margin, all equal")
 
-    def trace(self, server):
+    def trace(self, server, prompt_len):
         """Where a request's time goes on one replica: host wall time of
         prefill and of a decode step (synchronised), and the kernel time
         torch.profiler sees in each; the rest of the wall time the
@@ -763,7 +917,7 @@ class Smoke:
             prefill()
             dev_ms, launches, top = self.profile(fn)
             dev_ms, launches = dev_ms / n, launches / n
-            print(f"  {server.cfg.name}, one replica, prompt {PROMPT}, "
+            print(f"  {server.cfg.name}, one replica, prompt {prompt_len}, "
                   f"{what}: wall {wall_ms:.2f} ms, kernel time {dev_ms:.2f} ms in "
                   f"{launches:.0f} kernels, device idle share "
                   f"{1 - dev_ms / wall_ms:.3f}")
@@ -1708,7 +1862,10 @@ class Smoke:
                 *llama, 0, "granite-8b MLServe EMB", B=32, S=512),
             # head_dim 16 (the moe role's tiny heads) at the serve shape
             "hd 16 H=4 K=2": self.time_flash(4, 2, 16, 0, "hd 16, the moe "
-                                             "smoke heads")}
+                                             "smoke heads"),
+            "yi-34b": self.time_flash(56, 8, 128, 0, "yi-34b"),
+            "mixtral-8x22b S=8192": self.time_flash(
+                48, 8, 128, 4096, "mixtral-8x22b", S=8192)}
         self.timing[DECODE["name"]] = self.time_decode(1, *llama, 0,
                                                        "llama3-8b")
         self.also[DECODE["name"]] = {
@@ -1719,7 +1876,14 @@ class Smoke:
             "qwen3-moe-30b-a3b B=8": self.time_decode(8, *qwen3, 0,
                                                       "qwen3-moe-30b-a3b"),
             "hd 16 H=4 K=2": self.time_decode(1, 4, 2, 16, 0, "hd 16, the moe "
-                                              "smoke heads")}
+                                              "smoke heads"),
+            "yi-34b": self.time_decode(1, 56, 8, 128, 0, "yi-34b"),
+            "yi-34b B=8": self.time_decode(8, 56, 8, 128, 0, "yi-34b"),
+            "mixtral-8x22b W=4096": self.time_decode(
+                1, 48, 8, 128, 4096, "mixtral-8x22b, the served ring",
+                W=4096),
+            "mixtral-8x22b W=8192": self.time_decode(
+                1, 48, 8, 128, 4096, "mixtral-8x22b", W=8192)}
         self.timing[SCAN["name"]] = self.time_scan(8192, 256, "falcon-mamba-7b")
         self.also[SCAN["name"]] = {
             "hymba-1.5b": self.time_scan(3200, 100, "hymba-1.5b")}
@@ -1764,14 +1928,17 @@ class Smoke:
                     f"hd={hd} window={window} ({arch})", row)
         return row
 
-    def time_decode(self, B, H, K, hd, window, arch):
-        """Decode at the serve shape: W=2048 after the ring's first wrap,
-        bf16."""
+    def time_decode(self, B, H, K, hd, window, arch, W=PROMPT):
+        """Decode at the serve shape: W=2048 (unless given) after the
+        ring's first wrap, bf16. The bound counts the K and V rows of the
+        valid slots only (with a window shorter than W, the others are
+        not needed), and slot_pos whole."""
         torch = self.torch
         import torch.nn.functional as F
         from repro_torch.kernels.decode_attention import (decode_mha,
                                                           decode_mha_ref)
-        dt, W, pos = torch.bfloat16, PROMPT, PROMPT
+        from repro_torch.kernels.decode_attention import ops as decode_ops
+        dt, pos = torch.bfloat16, W
         n = max(3, 16 // B)
         g = self.gen(5)
         sets, lib_sets = [], []
@@ -1788,8 +1955,9 @@ class Smoke:
                              kc.transpose(1, 2).contiguous(),
                              vc.transpose(1, 2).contiguous(),
                              valid[:, None, None, :]))
-        nbytes = 2 * (2 * B * H * hd + 2 * B * W * K * hd) + 4 * (B * W + B)
-        bms, by = self.bound(nbytes, 4 * H * hd * int(valid.sum()))
+        n_valid = int(valid.sum())
+        nbytes = 2 * (2 * B * H * hd + 2 * n_valid * K * hd) + 4 * (B * W + B)
+        bms, by = self.bound(nbytes, 4 * H * hd * n_valid)
         row = self.time_row(
             lambda s: decode_mha(*s, window=window),
             lambda s: decode_mha_ref(*s, window=window),
@@ -1797,8 +1965,10 @@ class Smoke:
                 s[0], s[1], s[2], attn_mask=s[3], enable_gqa=True),
             sets, lib_sets, 200, 50)
         row.update(bound_ms=bms, bound_by=by)
-        self.report(f"flash_decode bf16 B={B} W=2048 H={H} K={K} hd={hd} "
-                    f"window={window} ({arch})", row)
+        C = decode_ops.cluster_size(W, B, K)
+        row.update(cluster=C)
+        self.report(f"flash_decode bf16 B={B} W={W} H={H} K={K} hd={hd} "
+                    f"window={window} [cluster {C}] ({arch})", row)
         return row
 
     def time_scan(self, di, rank, arch):
@@ -1892,7 +2062,7 @@ def main() -> int:
     phases = [("build", smoke.phase_build),
               ("kernels vs plain", smoke.phase_kernels),
               ("model kernel vs plain", smoke.phase_model)]
-    for arch in ARCHS:
+    for arch in ARCHS + tuple(CUT):
         phases.append((f"serve and trace {arch}",
                        lambda arch=arch: smoke.serve_path(arch)))
     phases.append(("mlserve cores", smoke.phase_mlserve))

@@ -95,6 +95,12 @@ class ModelConfig:
 
         return model_registry.param_count(self)
 
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top-k experts only)."""
+        from repro_torch.models import registry as model_registry
+
+        return model_registry.param_count(self, active_only=True)
+
 
 #: the architectures the port runs so far
 ARCH_IDS = [
@@ -103,6 +109,9 @@ ARCH_IDS = [
     "hymba-1.5b",
     "qwen3-moe-30b-a3b",
     "granite-8b",
+    "yi-34b",
+    "qwen2-72b",
+    "mixtral-8x22b",
 ]
 
 

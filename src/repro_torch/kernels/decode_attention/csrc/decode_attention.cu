@@ -270,6 +270,13 @@ __device__ __forceinline__ void load_words(uint32_t (&w)[N], const __nv_bfloat16
 // one k-step and one m-tile): for S, pair e of k-step kk is
 // hd HD / 4 * t + 4 kk + 2 e; for O, row i (< 16) of m-tile j is
 // hd HD / 8 * (i % 8) + 2 j + i / 8.
+//
+// Any G up to 8 fits the one m-tile of S and the 8 columns of O^T. Rows
+// G..15 of Q are zero, so a padding head scores 0 (or -1e30, or -inf) on
+// every slot and its softmax stays finite; the mma keeps its columns of
+// O^T apart from the real heads', and only rows r < G and columns
+// 2t + (c & 1) < G are stored. At G 6 and 7 the tile's last one or two
+// heads are padding, as rows 5-7 are at G 5.
 template <int HD, int G>
 __device__ __forceinline__ void warp_loop_tc(const Args& a, const __nv_bfloat16* q,
                                              const __nv_bfloat16* kc, const __nv_bfloat16* vc,
@@ -500,6 +507,8 @@ int dispatch_g(int G, const Args& a, int B, int K, cudaStream_t st) {
     case 2: return launch<T, HD, 2>(a, B, K, st);
     case 4: return launch<T, HD, 4>(a, B, K, st);
     case 5: return launch<T, HD, 5>(a, B, K, st);
+    case 6: return launch<T, HD, 6>(a, B, K, st);
+    case 7: return launch<T, HD, 7>(a, B, K, st);
     case 8: return launch<T, HD, 8>(a, B, K, st);
     default: return -1;
   }

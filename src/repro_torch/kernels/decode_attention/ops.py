@@ -27,7 +27,7 @@ from repro_torch.kernels.decode_attention.ref import decode_mha_ref
 
 NAME = "flash_decode"
 SOURCE = "decode_attention"
-GROUPS = (1, 2, 4, 5, 8)
+GROUPS = (1, 2, 4, 5, 6, 7, 8)
 launches = 0
 _count_lock = threading.Lock()
 

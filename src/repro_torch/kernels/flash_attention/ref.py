@@ -1,7 +1,12 @@
 """Plain PyTorch version of the prefill attention kernel.
 
 Mirrors ``repro.kernels.flash_attention.ref.attention_ref``: unblocked,
-f32, masked scores -1e30, the softmax sum clamped at 1e-30.
+f32, masked scores -1e30, the softmax sum clamped at 1e-30. Queries are
+taken in blocks of rows, as many as keep one block's f32 scores within
+``SCORE_ELEMS``, so a long prompt (mixtral-8x22b's 8192 tokens over 48
+heads would need 12.9 GB of scores, and several such temporaries) stays
+within the card beside the weights. Each row's softmax is whole, so the
+result is the unblocked one; short inputs take one block.
 """
 from __future__ import annotations
 
@@ -10,16 +15,29 @@ import math
 import torch
 
 NEG_INF = -1e30
+#: the most f32 scores one block of query rows may hold (1 GiB)
+SCORE_ELEMS = 1 << 28
 
 
 def attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     """q: (B, H, Sq, hd); k, v: (B, K, Sk, hd). Returns (B, H, Sq, hd)."""
     B, H, Sq, hd = q.shape
+    Sk = k.shape[2]
+    rows = max(1, SCORE_ELEMS // max(1, B * H * Sk))
+    if rows >= Sq:
+        return _rows(q, k, v, 0, causal, window)
+    return torch.cat([_rows(q[:, :, i:i + rows], k, v, i, causal, window)
+                      for i in range(0, Sq, rows)], dim=2)
+
+
+def _rows(q, k, v, q0, causal, window):
+    """Query rows q0 .. q0 + q.shape[2] of `attention_ref`."""
+    B, H, Sq, hd = q.shape
     K, Sk = k.shape[1], k.shape[2]
     G = H // K
     qg = q.reshape(B, K, G, Sq, hd).float() / math.sqrt(hd)
     s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float())
-    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    q_pos = torch.arange(q0, q0 + Sq, device=q.device)[:, None]
     k_pos = torch.arange(Sk, device=q.device)[None, :]
     mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
     if causal:

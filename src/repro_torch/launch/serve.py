@@ -162,27 +162,34 @@ def main(argv=None) -> dict:
     server = NexusModelServer(cfg, transport=args.transport,
                               replicas=args.replicas,
                               prompt_len=args.prompt_len, device=args.device)
+    return run(server, args.requests, args.gen)
+
+
+def run(server: NexusModelServer, requests: int, gen: int) -> dict:
+    """Seed ``requests`` prompts of the server's ``prompt_len``, warm
+    every replica, serve them all and check the completions; returns the
+    server, the completions and the wall time of the request phase."""
     rng = np.random.default_rng(0)
-    keys = [f"req-{i}" for i in range(args.requests)]
+    keys = [f"req-{i}" for i in range(requests)]
     for k in keys:
         server.seed_prompt(k, rng)
     for inst in server.instances:
-        inst.warmup(args.prompt_len)
+        inst.warmup(server.prompt_len)
 
     t0 = time.monotonic()
-    futs = [server.submit(k, args.gen) for k in keys]
+    futs = [server.submit(k, gen) for k in keys]
     outs = [f.result(timeout=600) for f in futs]
     wall = time.monotonic() - t0
 
-    if not all(o.size == args.gen for o in outs):
+    if not all(o.size == gen for o in outs):
         raise RuntimeError("a completion has the wrong length")
-    if server.store.gets < args.requests:
+    if server.store.gets < requests:
         raise RuntimeError("prompts were not fetched from the store")
     p50 = server.latency.percentile("serve", 50)
     p99 = server.latency.percentile("serve", 99)
-    print(f"{args.requests} requests x {args.gen} tokens in {wall:.2f}s "
+    print(f"{requests} requests x {gen} tokens in {wall:.2f}s "
           f"(p50={p50*1e3:.0f}ms p99={p99*1e3:.0f}ms, "
-          f"{args.requests * args.gen / wall:.1f} tok/s) on {server.device}")
+          f"{requests * gen / wall:.1f} tok/s) on {server.device}")
     return {"server": server, "outputs": outs, "wall_s": wall,
             "p50_s": p50, "p99_s": p99}
 

@@ -6,8 +6,10 @@ through the decode kernel (``repro_torch.kernels``); on CPU tensors their
 wrappers run the plain versions. ``plain=True`` asks for the plain
 versions explicitly, on any device. `full_attention` and
 `decode_attention` are the reference's plain layer functions, kept for
-comparison. The reference's ``S > 2048`` switch to a blocked jnp path
-bounds memory; the kernel already does, so it has no counterpart here.
+comparison. The reference's prefill switches to a blocked jnp path above
+``S > 2048`` or with a sliding window (mixtral-8x22b); the kernel bounds
+memory and masks the window itself, so that path has no counterpart
+here.
 """
 from __future__ import annotations
 
@@ -124,21 +126,29 @@ def init_attention(generator, cfg, dtype, device=None):
         "wv": dense_init(generator, (D, K * hd), 0, dtype, device),
         "wo": dense_init(generator, (H * hd, D), 0, dtype, device),
     }
+    device = generator.device if device is None else device
+    if cfg.attn_bias:
+        p["bq"] = torch.zeros((H * hd,), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((K * hd,), dtype=dtype, device=device)
+        p["bv"] = torch.zeros((K * hd,), dtype=dtype, device=device)
     if cfg.qk_norm:
-        device = generator.device if device is None else device
         p["q_norm"] = torch.ones((hd,), dtype=dtype, device=device)
         p["k_norm"] = torch.ones((hd,), dtype=dtype, device=device)
     return p
 
 
 def _project_qkv(p, cfg, x):
-    """q (B, S, H, hd), k and v (B, S, K, hd); with ``qk_norm`` q and k
-    are RMS-normed over hd per head (Qwen3), before RoPE."""
+    """q (B, S, H, hd), k and v (B, S, K, hd); with ``attn_bias`` the
+    QKV bias is added after the products (Qwen2); with ``qk_norm`` q and
+    k are RMS-normed over hd per head (Qwen3), before RoPE."""
     B, S, _ = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
-    k = (x @ p["wk"]).reshape(B, S, K, hd)
-    v = (x @ p["wv"]).reshape(B, S, K, hd)
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if cfg.attn_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, K, hd)
+    v = v.reshape(B, S, K, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)

@@ -31,8 +31,8 @@ def check_supported(cfg) -> None:
     """Raise for the parts of the reference the port does not have yet."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-    missing = [f for f in ("attn_bias", "uniform_decode",
-                           "embed_input", "is_encoder_decoder")
+    missing = [f for f in ("uniform_decode", "embed_input",
+                           "is_encoder_decoder")
                if getattr(cfg, f)]
     if missing:
         raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} not "

@@ -45,7 +45,19 @@ def get_model(cfg: ModelConfig, device=None) -> Model:
     return Model(cfg, device)
 
 
-def param_count(cfg: ModelConfig) -> int:
-    """Parameter count from the meta-device param tree (no allocation)."""
-    return sum(math.prod(x.shape)
-               for x in serialize.leaves(lm.param_structs(cfg)))
+def param_count(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Parameter count from the meta-device param tree (no allocation).
+
+    active_only: count only the top-k experts' share of the MoE FFN
+    params, as the reference's does.
+    """
+    structs = lm.param_structs(cfg)
+    total = sum(math.prod(x.shape) for x in serialize.leaves(structs))
+    if active_only and cfg.num_experts:
+        # expert FFN leaves scale by k/E
+        experts = structs["layers"]["moe"]
+        e_total = sum(math.prod(experts[k].shape)
+                      for k in ("w_gate", "w_up", "w_down"))
+        total = (total - e_total
+                 + e_total * cfg.num_experts_per_tok // cfg.num_experts)
+    return total

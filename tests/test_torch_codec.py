@@ -23,7 +23,7 @@ from repro_torch.models.convert import cache_from_numpy, params_from_numpy
 
 ARCH = "llama3-8b"
 ARCHS = ["llama3-8b", "falcon-mamba-7b", "hymba-1.5b", "qwen3-moe-30b-a3b",
-         "granite-8b"]
+         "granite-8b", "yi-34b", "qwen2-72b", "mixtral-8x22b"]
 PROMPT = 32
 CACHE_KEYS = {"dense": {"k", "v", "slot_pos", "pos"},
               "moe": {"k", "v", "slot_pos", "pos"},
@@ -67,6 +67,33 @@ def test_param_count_equals_reference(smoke, arch):
             == getattr(ref_registry, get)(arch).param_count())
 
 
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("smoke", [False, True])
+def test_active_param_count_equals_reference(smoke, arch):
+    """Params touched per token: the top-k experts' share of an MoE FFN,
+    every param of the other families."""
+    get = "get_smoke" if smoke else "get"
+    cfg = getattr(registry, get)(arch)
+    assert (cfg.active_param_count()
+            == getattr(ref_registry, get)(arch).active_param_count())
+    if cfg.num_experts:
+        assert cfg.active_param_count() < cfg.param_count()
+    else:
+        assert cfg.active_param_count() == cfg.param_count()
+
+
+def test_new_archs_have_their_sizes():
+    """yi-34b: 60 layers at d_model 7168 (34.39e9, 68.8 GB in bf16, one
+    H100's worth); qwen2-72b: 80 layers with QKV biases (72.7e9);
+    mixtral-8x22b: 56 layers of 8 experts top-2 (140.6e9, 39.2e9
+    active)."""
+    assert registry.get("yi-34b").param_count() == 34_388_917_248
+    assert registry.get("qwen2-72b").param_count() == 72_706_203_648
+    mixtral = registry.get("mixtral-8x22b")
+    assert mixtral.param_count() == 140_630_071_296
+    assert mixtral.active_param_count() == 39_161_468_928
+
+
 def test_falcon_mamba_has_its_published_size():
     """7.27e9 parameters at full width: 105.3 M per layer x 64, plus the
     embedding and the head (266 M each)."""
@@ -82,7 +109,7 @@ def test_qwen3_moe_has_its_published_size():
 
 def test_unported_arch_raises():
     with pytest.raises(KeyError, match="not ported"):
-        registry.get("qwen2-72b")
+        registry.get("internvl2-2b")
 
 
 def test_llama_reference_state_is_the_serving_payloads():

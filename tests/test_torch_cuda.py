@@ -381,7 +381,8 @@ def test_qwen3_moe_full_width_kernel_path_matches_plain_path(card):
 
 
 @pytest.mark.parametrize("arch", ["llama3-8b", "falcon-mamba-7b",
-                                  "hymba-1.5b"])
+                                  "hymba-1.5b", "yi-34b", "qwen2-72b",
+                                  "mixtral-8x22b"])
 def test_model_kernel_path_matches_plain_path(card, arch):
     cfg = registry.get_smoke(arch)
     model = Model(cfg)
@@ -592,3 +593,96 @@ def test_cache_serves_the_second_invocation_on_the_card(card):
         assert node.backend.stats["cache_hits"] == 2
     finally:
         node.shutdown()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,K,W,hd,window,fill,pos", [
+    (1, 56, 8, 2048, 128, 0, 2049, 2048),       # yi-34b serve, B 1
+    (8, 56, 8, 2048, 128, 0, 2049, 2048),       # yi-34b serve, B 8
+    (1, 48, 8, 4096, 128, 4096, 8193, 8192),    # mixtral-8x22b serve ring
+    (1, 48, 8, 8192, 128, 4096, 9000, 9000),    # wrapped, window 4096
+    (2, 7, 1, 300, 16, 64, 400, 399),           # yi-34b smoke heads
+    (2, 6, 1, 256, 16, 96, 400, 399),           # G 6 at hd 16
+    (1, 7, 1, 384, 64, 0, 200, 200),            # G 7, partial fill
+    (2, 12, 2, 512, 32, 0, 0, 0),               # G 6, no valid slot
+])
+def test_flash_decode_at_group_sizes_6_and_7(card, dtype, B, H, K, W, hd,
+                                             window, fill, pos):
+    """Both bodies at G 6 and 7: the bf16 tile's padding rows and the
+    f32 loop's G heads, with wrapped rings and windows."""
+    gen = torch.Generator(device=card).manual_seed(11)
+    q = _randn(gen, (B, 1, H, hd), dtype)
+    kc, vc = (_randn(gen, (B, W, K, hd), dtype) for _ in range(2))
+    sp = ring_slot_pos(W, fill, B, card)
+    p = torch.full((B,), pos, dtype=torch.int32, device=card)
+    assert H // K in decode_ops.GROUPS
+    before = decode_ops.launches
+    out = decode_mha(q, kc, vc, sp, p, window=window)
+    torch.cuda.synchronize()
+    assert decode_ops.launches == before + 1
+    _close(out, decode_mha_ref(q, kc, vc, sp, p, window=window), dtype)
+
+
+@pytest.mark.parametrize("H,K", [(3, 1), (9, 1), (24, 2)])
+def test_flash_decode_raises_outside_its_group_sizes(card, H, K):
+    gen = torch.Generator(device=card).manual_seed(12)
+    q = _randn(gen, (1, 1, H, 64), torch.bfloat16)
+    kc = _randn(gen, (1, 256, K, 64), torch.bfloat16)
+    sp = ring_slot_pos(256, 256, 1, card)
+    p = torch.full((1,), 256, dtype=torch.int32, device=card)
+    before = decode_ops.launches
+    with pytest.raises(ValueError, match="group"):
+        decode_mha(q, kc, kc, sp, p)
+    assert decode_ops.launches == before
+
+
+@pytest.mark.parametrize("dtype,B,S,H,K,window", [
+    (torch.bfloat16, 1, 2048, 56, 8, 0),        # yi-34b serve shape
+    (torch.float32, 1, 1024, 56, 8, 0),
+    (torch.bfloat16, 1, 8192, 48, 8, 4096),     # mixtral-8x22b serve shape
+    (torch.float32, 1, 1500, 48, 8, 512),
+])
+def test_flash_attention_at_yi_and_mixtral_heads(card, dtype, B, S, H, K,
+                                                 window):
+    """56 (G 7) and 48 (G 6) q heads over 8 kv heads at hd 128, causal,
+    mixtral's with its window."""
+    gen = torch.Generator(device=card).manual_seed(13)
+    q = _randn(gen, (B, S, H, 128), dtype)
+    k, v = (_randn(gen, (B, S, K, 128), dtype) for _ in range(2))
+    before = flash_ops.launches
+    out = mha(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert flash_ops.launches == before + 1
+    _close(out, mha_ref(q, k, v, causal=True, window=window), dtype)
+
+
+def test_qwen2_bias_and_mixtral_window_on_the_card(card):
+    """qwen2-72b smoke with nonzero QKV biases and mixtral-8x22b smoke
+    past its 64-slot window, kernel path against plain path: a prefill
+    of 100 tokens and decode steps beyond it."""
+    for arch in ("qwen2-72b", "mixtral-8x22b"):
+        cfg = registry.get_smoke(arch)
+        model = Model(cfg)
+        gen = torch.Generator(device=card).manual_seed(0)
+        params = model.init_params(gen)
+        if cfg.attn_bias:
+            for name in ("bq", "bk", "bv"):
+                leaf = params["layers"]["attn"][name]
+                leaf.copy_(torch.randn(leaf.shape, generator=gen,
+                                       device=card).to(leaf.dtype))
+        toks = torch.randint(0, cfg.vocab_size, (2, 100), dtype=torch.int32,
+                             device=card, generator=gen)
+        out = {}
+        for plain in (False, True):
+            logits, cache = model.prefill(params, {"tokens": toks},
+                                          plain=plain)
+            steps = [logits]
+            for i in range(3):
+                logits, cache = model.decode_step(params, cache,
+                                                  toks[:, i:i + 1],
+                                                  plain=plain)
+                steps.append(logits)
+            out[plain] = steps
+        for a, b in zip(out[False], out[True]):
+            assert torch.isfinite(a).all()
+            torch.testing.assert_close(a, b, atol=0.3, rtol=0.05)

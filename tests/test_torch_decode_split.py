@@ -10,7 +10,11 @@ PyTorch, so the CPU can answer whether the combine keeps the -1e30
 masking semantics: a split whose slots are all invalid weighs 0, and with
 no valid slot at all the output is the mean of V, as in the plain
 version. It is held against the Pallas kernel in interpret mode and
-against the port's plain versions.
+against the port's plain versions. `simt_decode` models the f32 loop lane
+group by lane group, and `tc_decode` the bf16 loop's tensor-core tile,
+whose padding rows carry the heads a group size under 8 leaves empty; both
+are held to the Pallas kernel at every group size the models use (1, 2,
+4, 5, 6, 7 and 8).
 
 The kernel itself runs only on a card (tests/test_torch_cuda.py).
 """
@@ -138,6 +142,57 @@ def simt_decode(q, k_cache, v_cache, slot_pos, pos, *, window, C):
     return out.reshape(B, H, 1, hd).to(q.dtype)
 
 
+def tc_decode(q, k_cache, v_cache, slot_pos, pos, *, window, C):
+    """The bf16 tensor-core loop, step by step: each warp takes 16 slots
+    a step (warp w's steps start at lo + 16 w, NW * 16 apart); the G q
+    heads are rows of an 8-row tile whose rows G..7 are zero (the m-tile's
+    rows 8..15 are zero as well, and the tile has 8 columns of O^T), with
+    scores in log2 units, -1e30 for an invalid slot and -inf past the
+    block's range, an online softmax per row and P rounded to bf16 before
+    P V. Returns the output of the G real heads and every row's combined
+    (m, l, acc), padding rows included."""
+    B, H, _, hd = q.shape
+    K, W = k_cache.shape[1], k_cache.shape[2]
+    G = H // K
+    assert G <= 8, "the tile has 8 columns"
+    log2e = 1.4426950408889634
+    qt = torch.zeros((B, K, 8, hd))
+    qt[:, :, :G] = q.reshape(B, K, G, hd).float()
+    s = torch.einsum("bkrd,bkwd->bkrw", qt, k_cache.float())
+    valid = (slot_pos >= 0) & (slot_pos <= pos[:, None])
+    if window > 0:
+        valid &= (pos[:, None] - slot_pos) < window
+    x = torch.where(valid[:, None, None, :],
+                    s * (log2e / math.sqrt(hd)), NEG_INF)
+    v = v_cache.float()
+    blocks = []
+    for lo, hi in split_ranges(W, C):
+        warps = []
+        for warp in range(NW):
+            m = torch.full((B, K, 8), NEG_INF)
+            l = torch.zeros((B, K, 8))
+            acc = torch.zeros((B, K, 8, hd))
+            for w0 in range(lo + warp * 16, hi, NW * 16):
+                idx = torch.arange(w0, w0 + 16)
+                inside = idx < hi
+                xc = torch.where(inside, x[..., idx.clamp_max(W - 1)],
+                                 -math.inf)
+                m_new = torch.maximum(m, xc.amax(dim=-1))
+                alpha = torch.exp2(m - m_new)
+                pe = torch.exp2(xc - m_new[..., None])
+                l = l * alpha + pe.sum(dim=-1)
+                vc = torch.where(inside[:, None],
+                                 v[:, :, idx.clamp_max(W - 1)], 0.0)
+                acc = acc * alpha[..., None] + torch.einsum(
+                    "bkrw,bkwd->bkrd", pe.to(torch.bfloat16).float(), vc)
+                m = m_new
+            warps.append((m * math.log(2.0), l, acc))
+        blocks.append(_combine(warps))
+    M, L, A = _combine(blocks)
+    out = A / L.clamp_min(1e-30)[..., None]
+    return out[:, :, :G].reshape(B, H, 1, hd).to(q.dtype), (M, L, A)
+
+
 def ring_slot_pos(W, fill, B):
     slots = np.arange(W)
     if fill <= W:
@@ -185,7 +240,22 @@ CASES = {
     "hd16 wrapped ring window W256 C2": (1, 4, 2, 256, 16, 96, 400, 399, 2,
                                          64),
     "hd16 partial fill W512 C8": (1, 8, 1, 512, 16, 0, 37, 37, 8, 64),
+    # group sizes 6 (mixtral-8x22b: H 48 over K 8) and 7 (yi-34b: H 56
+    # over K 8; its smoke config H 7 over K 1 at hd 16), each with a
+    # wrapped ring and a window
+    "G7 hd128 wrapped ring window W512 C4": (1, 14, 2, 512, 128, 256, 700,
+                                             700, 4, 128),
+    "yi smoke heads G7 hd16 wrapped window W300 C8": (2, 7, 1, 300, 16, 64,
+                                                      400, 399, 8, 64),
+    "G6 hd128 wrapped ring window W512 C3": (1, 12, 2, 512, 128, 128, 900,
+                                             899, 3, 128),
+    "G6 hd16 wrapped ring window W256 C2": (2, 6, 1, 256, 16, 96, 400, 399,
+                                            2, 64),
+    "G7 hd64 partial fill W384 C8": (1, 7, 1, 384, 64, 0, 200, 200, 8, 64),
 }
+
+#: the cases at a group size that is not a power of two
+ODD_GROUPS = [c for c, v in CASES.items() if v[1] // v[2] in (5, 6, 7)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -237,7 +307,10 @@ def test_simt_streams_cover_every_slot_once(lo, hi, hd):
 
 
 @pytest.mark.parametrize("case", [c for c in CASES if "hd16" in c]
-                         + ["W not a multiple of C W300 C8"])
+                         + ["W not a multiple of C W300 C8",
+                            "G7 hd128 wrapped ring window W512 C4",
+                            "G6 hd128 wrapped ring window W512 C3",
+                            "G7 hd64 partial fill W384 C8"])
 def test_simt_streams_match_plain_version_and_pallas(case):
     """The f32 loop's half-warp streams at hd 16 (and one stream a warp
     above it), combined as the kernel combines them."""
@@ -258,6 +331,39 @@ def test_simt_half_warp_without_a_valid_slot_weighs_nothing(fill):
                                     "float32", seed=18)
     out = simt_decode(q, kc, vc, sp, p, window=0, C=1)
     _close(decode_ref(q, kc, vc, sp, p).numpy(), out, "float32")
+
+
+@pytest.mark.parametrize("case", ODD_GROUPS + [
+    "llama heads full W2048 C8", "wrapped ring window W384 C3",
+    "moe smoke heads hd16 W300 C8"])
+def test_tensor_core_tile_matches_plain_version_and_pallas(case):
+    """The bf16 loop's tile at every group size the models take (G 2, 4,
+    5, 6, 7): with f32 inputs only P is rounded, so the output is within
+    the bf16 tolerance of the plain version and of the Pallas kernel; the
+    padding rows G..7 keep a finite state (their score is 0 or masked),
+    so nothing they hold can reach the stored rows."""
+    B, H, K, W, hd, window, fill, pos, C, block_k = CASES[case]
+    j, t = _inputs(B, H, K, W, hd, fill, pos, "float32", seed=19)
+    out, (M, L, A) = tc_decode(*t, window=window, C=C)
+    assert torch.isfinite(M).all() and torch.isfinite(L).all()
+    assert torch.isfinite(A).all() and (L > 0).all()
+    _close(decode_ref(*t, window=window).numpy(), out, "bfloat16")
+    _close(flash_decode(*j, window=window, block_k=block_k), out, "bfloat16")
+
+
+def test_tensor_core_tile_padding_rows_are_the_zero_query():
+    """A padding row's softmax is that of a zero query: uniform weights
+    over the valid slots, so its accumulator is the mean of their V."""
+    B, H, K, W, hd, window, fill, pos, C, _ = CASES[
+        "G7 hd128 wrapped ring window W512 C4"]
+    _, (q, kc, vc, sp, p) = _inputs(B, H, K, W, hd, fill, pos, "float32",
+                                    seed=20)
+    _, (M, L, A) = tc_decode(q, kc, vc, sp, p, window=window, C=C)
+    pad = A[:, :, 7] / L[:, :, 7, None]
+    valid = (sp >= 0) & (sp <= p[:, None]) & ((p[:, None] - sp) < window)
+    mean = (vc * valid[:, None, :, None]).sum(dim=2) / valid.sum(dim=1)[
+        :, None, None]
+    torch.testing.assert_close(pad, mean, atol=2e-2, rtol=2e-2)
 
 
 def test_split_ranges_cover_every_slot_once():

@@ -114,6 +114,39 @@ def test_decode_ref_matches_pallas_kernel(dtype, shape):
     _close(kern, decode_ref(*t, window=window), dtype)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [FLASH_SHAPES[2], FLASH_SHAPES[3],
+                                   FLASH_SHAPES[1]])
+def test_attention_ref_in_row_blocks_matches_the_reference(dtype, shape,
+                                                           monkeypatch):
+    """A score budget of a few rows splits the queries into blocks (the
+    last one ragged): the reference oracle's result, as in one block."""
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    B, H, _, _, Sk, _, causal, window = shape
+    (jq, jk, jv), (tq, tk, tv) = _flash_inputs(shape, dtype, seed=5)
+    whole = attention_ref(tq, tk, tv, causal=causal, window=window)
+    monkeypatch.setattr(flash_ref, "SCORE_ELEMS", 37 * B * H * Sk)
+    blocked = attention_ref(tq, tk, tv, causal=causal, window=window)
+    _close(ref_attention(jq, jk, jv, causal=causal, window=window), blocked,
+           dtype)
+    torch.testing.assert_close(blocked, whole, atol=1e-6, rtol=1e-6)
+
+
+def test_decode_kernel_group_sizes_and_the_cpu_path():
+    """The kernel takes G in `GROUPS`, 6 and 7 too (mixtral-8x22b and
+    yi-34b); any other G raises before a launch on the card
+    (tests/test_torch_cuda.py), while the CPU runs the plain version
+    whatever G is."""
+    assert decode_ops.GROUPS == (1, 2, 4, 5, 6, 7, 8)
+    q = torch.zeros((1, 1, 3, 64))
+    kv = torch.zeros((1, 16, 1, 64))
+    sp = torch.arange(16, dtype=torch.int32)[None]
+    pos = torch.full((1,), 15, dtype=torch.int32)
+    before = decode_ops.launches
+    assert decode_mha(q, kv, kv, sp, pos).shape == q.shape
+    assert decode_ops.launches == before
+
+
 def test_cpu_wrappers_run_plain_versions_without_launching():
     flash0, decode0 = flash_ops.launches, decode_ops.launches
     _, (q, k, v) = _flash_inputs(FLASH_SHAPES[2], "float32")

@@ -49,7 +49,7 @@ SSM_F32_DECODE_TOL = dict(atol=1e-3, rtol=1e-3)
 ROUTE_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 ARCH = "llama3-8b"
 ARCHS = ["llama3-8b", "falcon-mamba-7b", "hymba-1.5b", "qwen3-moe-30b-a3b",
-         "granite-8b"]
+         "granite-8b", "yi-34b", "qwen2-72b", "mixtral-8x22b"]
 INT_LEAVES = ("pos", "slot_pos")
 
 
@@ -120,23 +120,23 @@ def _np(x):
 
 
 def _prefill_then_decode(ref, rparams, port, pparams, tol, monkeypatch,
-                         decode_tol=None):
-    """Prefill 16 tokens of 2 rows and decode 4, comparing logits and
-    every cache leaf after each call (decode logits at ``decode_tol``,
-    by default ``tol``), on the rows no routing flip has reached (all
-    rows for families without MoE)."""
+                         decode_tol=None, S=16, steps=4):
+    """Prefill ``S`` tokens of 2 rows and decode ``steps``, comparing
+    logits and every cache leaf after each call (decode logits at
+    ``decode_tol``, by default ``tol``), on the rows no routing flip has
+    reached (all rows for families without MoE)."""
     cfg = port.cfg
     spy = RoutingSpy(monkeypatch) if cfg.family == "moe" else None
     route_tol = ROUTE_TOL[cfg.dtype]
     rng = np.random.default_rng(0)
-    B, S = 2, 16
+    B = 2
     rows = list(range(B))
     toks = rng.integers(0, cfg.vocab_size, (B, S), dtype=np.int32)
     rlogits, rcache = ref.prefill(rparams, {"tokens": jnp.asarray(toks)},
-                                  cache_len=S + 4)
+                                  cache_len=S + steps)
     logits, cache = port.prefill(pparams, {"tokens": torch.from_numpy(toks)},
-                                 cache_len=S + 4)
-    for step in range(5):
+                                 cache_len=S + steps)
+    for step in range(steps + 1):
         if step:
             tok = rng.integers(0, cfg.vocab_size, (B, 1), dtype=np.int32)
             rlogits, rcache = ref.decode_step(rparams, rcache,
@@ -163,6 +163,56 @@ def _prefill_then_decode(ref, rparams, port, pparams, tol, monkeypatch,
 
 def test_prefill_then_decode_matches_reference(pair, monkeypatch):
     _prefill_then_decode(*pair, TOL, monkeypatch)
+
+
+def test_qwen2_qkv_bias_matches_reference(monkeypatch):
+    """qwen2-72b smoke with nonzero random ``bq``, ``bk`` and ``bv`` set in
+    the reference's tree and carried over by `convert`: the zero init
+    would pass without the bias adds."""
+    cfg = ref_registry.get_smoke("qwen2-72b")
+    assert cfg.attn_bias
+    ref = ref_get_model(cfg)
+    rparams = jax.tree.map(np.asarray, ref.init_params(jax.random.PRNGKey(0)))
+    rng = np.random.default_rng(7)
+    attn = rparams["layers"]["attn"]
+    for name in ("bq", "bk", "bv"):
+        attn[name] = rng.standard_normal(attn[name].shape).astype(
+            attn[name].dtype)
+    pparams = params_from_numpy(rparams)
+    for name in ("bq", "bk", "bv"):
+        np.testing.assert_array_equal(_np(pparams["layers"]["attn"][name]),
+                                      attn[name].astype(np.float32))
+    port = get_model(registry.get_smoke("qwen2-72b"), device="cpu")
+    rparams = jax.tree.map(jnp.asarray, rparams)
+    _prefill_then_decode(ref, rparams, port, pparams, TOL, monkeypatch)
+    # the biases move the logits far past the tolerance
+    toks = torch.arange(16, dtype=torch.int32)[None]
+    with_bias, _ = port.prefill(pparams, {"tokens": toks})
+    zero = {**pparams, "layers": {**pparams["layers"], "attn": {
+        **pparams["layers"]["attn"],
+        **{n: torch.zeros_like(pparams["layers"]["attn"][n])
+           for n in ("bq", "bk", "bv")}}}}
+    without, _ = port.prefill(zero, {"tokens": toks})
+    assert (with_bias - without).abs().max() > 10 * TOL["atol"]
+
+
+def test_mixtral_past_its_window_matches_reference(monkeypatch):
+    """mixtral-8x22b smoke (window 64): a prefill of 100 tokens (the
+    reference's blocked attention against the port's prefill kernel path)
+    into a 64-slot ring, then 6 decode steps that each evict the oldest
+    slot, logits and every cache leaf held to the reference's."""
+    cfg = ref_registry.get_smoke("mixtral-8x22b")
+    assert cfg.family == "moe" and cfg.sliding_window == 64
+    ref = ref_get_model(cfg)
+    rparams = ref.init_params(jax.random.PRNGKey(0))
+    port = get_model(registry.get_smoke("mixtral-8x22b"), device="cpu")
+    pparams = params_from_numpy(jax.tree.map(np.asarray, rparams))
+    _prefill_then_decode(ref, rparams, port, pparams, TOL, monkeypatch,
+                         S=100, steps=6)
+    toks = torch.zeros((1, 100), dtype=torch.int32)
+    _, cache = port.prefill(pparams, {"tokens": toks}, cache_len=106)
+    assert cache["k"].shape[2] == 64
+    assert int(cache["slot_pos"].min()) == 100 - 64
 
 
 def _f32(cfg):
