@@ -13,7 +13,9 @@ Phases, each of which fails the run (exit 1) if it fails:
    S 2048 causal, decode B 1 and 8 after the ring's first wrap and at a
    partial fill; prefill also at the MLServe shapes, llama's heads at B 8
    x S 2048 and B 32 x S 512; both also at head_dim 16, the moe role's
-   tiny heads H 4 over K 2; and at the group sizes 6 and 7: yi-34b's 56
+   tiny heads H 4 over K 2; at qwen2-72b's 64 q heads over 8 (G 8,
+   prefill S 2048, decode B 1 and 8 after the first wrap); and at the
+   group sizes 6 and 7: yi-34b's 56
    q heads over 8 (prefill S 2048, decode B 1 and 8, a wrapped ring with
    a window), mixtral-8x22b's 48 over 8 with its 4096 window (prefill S
    8192; decode on its served W 4096 ring and on a wrapped W 8192 ring),
@@ -30,9 +32,10 @@ Phases, each of which fails the run (exit 1) if it fails:
 3. each served model at full width, 2 layers: kernel path against plain
    path, prefill and one decode step (atol 0.3, rtol 0.05), prompt 2048
    (mixtral-8x22b 8192, past its window), qwen2-72b's QKV biases set to
-   nonzero random values, the MoE routing of the plain path held to the
-   kernel path's where a token's k-th and (k+1)-th router probabilities
-   lie within 2e-2 (``RoutePin``; a flip at a larger margin fails);
+   nonzero random values; for mixtral-8x22b (top-2 of 8 experts) the
+   MoE routing of the plain path held to the kernel path's where a
+   token's 2nd and 3rd router probabilities lie within 2e-2
+   (``RoutePin``; a flip at a larger margin fails);
 4. the serve driver (``repro_torch.launch.serve.main``) for each ported
    arch at full published width (llama3-8b 32 layers, falcon-mamba-7b
    64, hymba-1.5b 32, qwen3-moe-30b-a3b 48 with 128 experts top-8,
@@ -110,8 +113,8 @@ Phases, each of which fails the run (exit 1) if it fails:
    PlanCheck (``repro_torch.core.analysis``): ``run_matrix()`` clean, and
    every seeded corruption of ``mutate`` caught with its own code;
 6. each kernel timed at the serve shapes (the attention kernels at
-   llama3-8b's, hymba-1.5b's, qwen3-moe-30b-a3b's, yi-34b's (decode B 1
-   and 8) and mixtral-8x22b's (prefill S 8192 with its window, decode on
+   llama3-8b's, hymba-1.5b's, qwen3-moe-30b-a3b's, yi-34b's and
+   qwen2-72b's (decode B 1 and 8) and mixtral-8x22b's (prefill S 8192 with its window, decode on
    its W 4096 ring and on a W 8192 ring with the 4096 window), and at
    head_dim 16 with the moe smoke heads, prefill also at the MLServe
    shapes B 8 x S 2048 and granite-8b's B 32 x S 512),
@@ -132,6 +135,7 @@ no result. Imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import resource
@@ -160,6 +164,10 @@ CUT = {"qwen2-72b": (32, PROMPT), "mixtral-8x22b": (12, 8192)}
 #: which the kernel and plain paths may route a token to other experts
 #: (the bf16 kernel tolerance, as tests/test_torch_model.py's ROUTE_TOL)
 ROUTE_TOL = 2e-2
+#: the archs whose phase-3 plain path replays the kernel path's routing at
+#: near-ties: one flipped expert of mixtral's top-2 moves half of that
+#: token's FFN, past the model tolerance; qwen3's top-8 is compared as is
+PINNED = ("mixtral-8x22b",)
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 SCAN_TOL = 1e-4                 # f32, as tests/test_kernels.py::TestSsmScan
 SCAN_SWEEP = (2, 4, 8)          # states per thread timed in phase 6
@@ -296,61 +304,48 @@ def fleet_run(policy):
 
 
 class RoutePin:
-    """Holds the plain path's MoE routing to the kernel path's where the
-    two choose other experts at a near-tie. The attention kernels and
-    their plain versions round differently in bf16, so a token whose
-    k-th and (k+1)-th router probabilities lie within ``ROUTE_TOL`` can
-    go to another expert on either path, and move its logits by far more
-    than the model tolerance. `record` keeps the kernel path's (gates,
-    idx) per router call; under `pin` each call of the plain path checks
-    every token whose expert set differs (a flip past ``ROUTE_TOL`` is a
-    fault and raises) and gives it the kernel path's routing."""
+    """Records the kernel path's MoE routing, (gates, idx) per router call
+    (`run(replay=False)`), and replays it on the plain path
+    (`run(replay=True)`) for every token whose expert set differs there;
+    a flip at a router margin (k-th less (k+1)-th probability) past
+    ``ROUTE_TOL`` raises. The tolerance is that of
+    tests/test_torch_model.py's `RoutingSpy`, which drops the rows a flip
+    reaches where this replays them."""
 
     def __init__(self, torch, moe):
         self.torch, self.moe = torch, moe
         self.calls, self.flips, self.margins = [], 0, []
 
-    def _wrap(self, fn):
-        import contextlib
-        route = self.moe._route
+    @contextlib.contextmanager
+    def run(self, replay):
+        torch, route, calls = self.torch, self.moe._route, iter(self.calls)
 
-        @contextlib.contextmanager
-        def ctx():
-            self.moe._route = lambda p, cfg, xf: fn(route, p, cfg, xf)
-            try:
-                yield self
-            finally:
-                self.moe._route = route
-        return ctx()
-
-    def record(self):
-        def fn(route, p, cfg, xf):
-            out = route(p, cfg, xf)
-            self.calls.append((out[0], out[1]))
-            return out
-        return self._wrap(fn)
-
-    def pin(self):
-        torch, calls = self.torch, iter(list(self.calls))
-
-        def fn(route, p, cfg, xf):
+        def spy(p, cfg, xf):
             gates, idx, aux = route(p, cfg, xf)
+            if not replay:
+                self.calls.append((gates, idx))
+                return gates, idx, aux
             rec_gates, rec_idx = next(calls)
             flip = (idx.sort(-1).values != rec_idx.sort(-1).values).any(-1)
             if flip.any():
                 k = cfg.num_experts_per_tok
-                probs = torch.softmax(xf.float() @ p["router"], dim=-1)
-                top = probs.topk(k + 1, dim=-1).values
-                margin = (top[:, k - 1] - top[:, k])[flip]
-                self.margins.append(float(margin.max()))
-                if float(margin.max()) > ROUTE_TOL:
+                top = torch.softmax(xf.float() @ p["router"], -1).topk(k + 1)
+                margin = float((top.values[:, k - 1]
+                                - top.values[:, k])[flip].max())
+                self.margins.append(margin)
+                if margin > ROUTE_TOL:
                     raise AssertionError(f"a token routed to other experts "
-                                         f"at margin {float(margin.max())}")
+                                         f"at margin {margin}")
                 self.flips += int(flip.sum())
                 gates = torch.where(flip[:, None], rec_gates, gates)
                 idx = torch.where(flip[:, None], rec_idx, idx)
             return gates, idx, aux
-        return self._wrap(fn)
+
+        self.moe._route = spy
+        try:
+            yield
+        finally:
+            self.moe._route = route
 
 
 class Smoke:
@@ -459,6 +454,7 @@ class Smoke:
         from repro_torch.kernels.flash_attention import ops as flash_ops
         llama, hymba = (32, 8, 128, ""), (25, 5, 64, " hymba H25/K5/hd64")
         qwen3 = (32, 4, 128, " qwen3 H32/K4/hd128")
+        qwen2 = (64, 8, 128, " qwen2 H64/K8/hd128")
         small = (8, 4, 32, " H8/K4/hd32")
         moe_tiny = (4, 2, 16, " moe smoke H4/K2/hd16")
         yi, mixtral = (56, 8, 128, " yi H56/K8/hd128 G7"), (
@@ -476,6 +472,7 @@ class Smoke:
                     (hymba, 1, 2048, True, 2048, "window=2048 S=2048"),
                     (hymba, 1, 3000, True, 2048, "window=2048 S=3000"),
                     (qwen3, 1, 2048, True, 0, "causal S=2048"),
+                    (qwen2, 1, 2048, True, 0, "causal S=2048"),
                     (small, 2, 512, True, 0, "causal S=512"),
                     (moe_tiny, 2, 512, True, 0, "causal S=512"),
                     (moe_tiny, 1, 300, True, 48, "ragged causal window=48"),
@@ -516,6 +513,8 @@ class Smoke:
                     (qwen3, 1, 2048, 2049, 2048, 0, "serve first wrap W=2048"),
                     (qwen3, 8, 2048, 2049, 2048, 0, "serve first wrap W=2048"),
                     (qwen3, 8, 2048, 900, 900, 0, "partial fill 900/2048"),
+                    (qwen2, 1, 2048, 2049, 2048, 0, "serve first wrap W=2048"),
+                    (qwen2, 8, 2048, 2049, 2048, 0, "serve first wrap W=2048"),
                     (moe_tiny, 2, 512, 512, 512, 0, "full W=512"),
                     (moe_tiny, 1, 2048, 2049, 2048, 0, "first wrap W=2048"),
                     (moe_tiny, 2, 300, 37, 37, 0, "partial fill 37/300"),
@@ -689,10 +688,9 @@ class Smoke:
     def check_model(self, arch):
         """Two layers at full width, prompt 2048 (mixtral-8x22b's 8192):
         prefill and one decode step through the kernels against the plain
-        path, the QKV biases (qwen2-72b) set to nonzero random values and
-        the MoE routing of the plain path held to the kernel path's at
-        near-ties (`RoutePin`)."""
-        import contextlib
+        path, the QKV biases (qwen2-72b) set to nonzero random values and,
+        for the ``PINNED`` archs, the MoE routing of the plain path held to
+        the kernel path's at near-ties (`RoutePin`)."""
         torch = self.torch
         from repro_torch.configs import registry
         from repro_torch.models import Model, moe
@@ -707,12 +705,11 @@ class Smoke:
                 leaf.copy_(self.randn(g, tuple(leaf.shape), leaf.dtype))
         toks = torch.randint(0, cfg.vocab_size, (1, prompt), dtype=torch.int32,
                              device=self.dev, generator=self.gen(2))
-        pin = RoutePin(torch, moe) if cfg.family == "moe" else None
+        pin = RoutePin(torch, moe) if arch in PINNED else None
         out = {}
         for plain in (False, True):
-            ctx = (contextlib.nullcontext() if pin is None
-                   else pin.pin() if plain else pin.record())
-            with ctx:
+            with (contextlib.nullcontext() if pin is None
+                  else pin.run(replay=plain)):
                 logits, cache = model.prefill(params, {"tokens": toks},
                                               plain=plain)
                 step, _ = model.decode_step(params, cache, toks[:, :1],
@@ -1864,6 +1861,7 @@ class Smoke:
             "hd 16 H=4 K=2": self.time_flash(4, 2, 16, 0, "hd 16, the moe "
                                              "smoke heads"),
             "yi-34b": self.time_flash(56, 8, 128, 0, "yi-34b"),
+            "qwen2-72b": self.time_flash(64, 8, 128, 0, "qwen2-72b"),
             "mixtral-8x22b S=8192": self.time_flash(
                 48, 8, 128, 4096, "mixtral-8x22b", S=8192)}
         self.timing[DECODE["name"]] = self.time_decode(1, *llama, 0,
@@ -1879,6 +1877,8 @@ class Smoke:
                                               "smoke heads"),
             "yi-34b": self.time_decode(1, 56, 8, 128, 0, "yi-34b"),
             "yi-34b B=8": self.time_decode(8, 56, 8, 128, 0, "yi-34b"),
+            "qwen2-72b": self.time_decode(1, 64, 8, 128, 0, "qwen2-72b"),
+            "qwen2-72b B=8": self.time_decode(8, 64, 8, 128, 0, "qwen2-72b"),
             "mixtral-8x22b W=4096": self.time_decode(
                 1, 48, 8, 128, 4096, "mixtral-8x22b, the served ring",
                 W=4096),

@@ -24,8 +24,6 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     B, H, Sq, hd = q.shape
     Sk = k.shape[2]
     rows = max(1, SCORE_ELEMS // max(1, B * H * Sk))
-    if rows >= Sq:
-        return _rows(q, k, v, 0, causal, window)
     return torch.cat([_rows(q[:, :, i:i + rows], k, v, i, causal, window)
                       for i in range(0, Sq, rows)], dim=2)
 
