@@ -1,15 +1,16 @@
-"""Shared model layers of the dense decoder: norms, RoPE, attention, MLP.
+"""Shared model layers: norms, RoPE, sinusoid positions, attention, MLP.
 
-The counterpart of ``repro.models.layers`` (dense parts). Attention over
-a sequence goes through the prefill kernel and one-token attention
-through the decode kernel (``repro_torch.kernels``); on CPU tensors their
-wrappers run the plain versions. ``plain=True`` asks for the plain
-versions explicitly, on any device. `full_attention` and
-`decode_attention` are the reference's plain layer functions, kept for
-comparison. The reference's prefill switches to a blocked jnp path above
-``S > 2048`` or with a sliding window (mixtral-8x22b); the kernel bounds
-memory and masks the window itself, so that path has no counterpart
-here.
+The counterpart of ``repro.models.layers``. Attention over a sequence
+(self-attention, bidirectional or causal, and cross-attention) goes
+through the prefill kernel and one-token attention (self or cross)
+through the decode kernel (``repro_torch.kernels``); on CPU tensors
+their wrappers run the plain versions. ``plain=True`` asks for the plain
+versions explicitly, on any device. `full_attention`, `decode_attention`
+and `blocked_causal_attention` are the reference's plain layer
+functions, kept for comparison: the reference's prefill takes the
+blocked one above ``S > 2048`` or with a sliding window, where the
+port's prefill runs the kernel, which bounds memory and masks the window
+itself. Nothing on the kernel path calls them.
 """
 from __future__ import annotations
 
@@ -116,6 +117,72 @@ def decode_attention(q, k_cache, v_cache, slot_pos, pos, *, window=0):
     return _gqa_values(p, v_cache).reshape(B, 1, H, hd).to(q.dtype)
 
 
+def blocked_causal_attention(q, k, v, *, window=0, q_block=512,
+                             kv_block=512, q_offset=0, causal=True):
+    """Flash-style blocked attention in plain tensor ops, the reference's
+    plain layer function, with Python loops over the blocks.
+
+    q: (B, Sq, H, hd); k, v: (B, Sk, K, hd) with H = K * G. ``window`` > 0
+    masks a sliding window and bounds the kv blocks visited per q block,
+    from a first block that, as in the reference, does not shift with
+    ``q_offset`` (the absolute position of q[:, 0]; k positions start at
+    0). ``causal=False`` gives bidirectional attention. Sq and Sk are
+    padded to whole blocks and the padded keys masked. Returns
+    (B, Sq, H, hd) in q.dtype.
+    """
+    B, Sq, H, hd = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = 1.0 / math.sqrt(hd)
+    q_block, kv_block = min(q_block, Sq), min(kv_block, Sk)
+    pad_q, pad_k = (-Sq) % q_block, (-Sk) % kv_block
+    q = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+    k = F.pad(k, (0, 0, 0, 0, 0, pad_k))
+    v = F.pad(v, (0, 0, 0, 0, 0, pad_k))
+    nq, nk = q.shape[1] // q_block, k.shape[1] // kv_block
+    qb = q.reshape(B, nq, q_block, K, G, hd)
+    kb = k.reshape(B, nk, kv_block, K, hd)
+    vb = v.reshape(B, nk, kv_block, K, hd)
+    if window > 0:            # the kv blocks a q block can ever need
+        nk_needed = min(nk, -(-(window + q_block) // kv_block) + 1)
+    else:
+        nk_needed = nk
+    k_pos_base = torch.arange(kv_block, device=q.device)
+    outs = []
+    for qi in range(nq):
+        q_i = qb[:, qi] * scale                          # (B, qc, K, G, hd)
+        q_pos = q_offset + qi * q_block + torch.arange(q_block,
+                                                       device=q.device)
+        first = 0
+        if window > 0:        # the earliest kv block visible to this block
+            lo = max(qi * q_block + q_block - 1
+                     - (window - 1 + kv_block - 1), 0)
+            first = min(max(lo // kv_block, 0), max(nk - nk_needed, 0))
+        m = torch.full((B, K, G, q_block), NEG_INF, device=q.device)
+        l = torch.zeros((B, K, G, q_block), device=q.device)
+        acc = torch.zeros((B, K, G, q_block, hd), device=q.device)
+        for j in range(first, first + nk_needed):
+            k_pos = j * kv_block + k_pos_base
+            s = _gqa_scores(q_i, kb[:, j])               # (B, K, G, qc, kc)
+            mask = (k_pos < Sk)[None, :]                 # kv padding
+            if causal:
+                mask = mask & (k_pos[None, :] <= q_pos[:, None])
+            if window > 0:
+                mask = mask & ((q_pos[:, None] - k_pos[None, :]) < window)
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgqs,bskd->bkgqd", p, vb[:, j].float())
+            m = m_new
+        out = acc / l.clamp_min(1e-30)[..., None]        # (B, K, G, qc, hd)
+        outs.append(out.permute(0, 3, 1, 2, 4).to(q.dtype))
+    out = torch.cat(outs, dim=1).reshape(B, nq * q_block, H, hd)
+    return out[:, :Sq]
+
+
 # ------------------------------------------------------------ attention layer
 
 def init_attention(generator, cfg, dtype, device=None):
@@ -180,17 +247,26 @@ def attention_decode_layer(p, cfg, x, k_cache, v_cache, slot_pos, pos, *,
     must ALREADY include the current token (the stack updates it once).
     This layer's K/V are written into slot ``pos % W`` of ``k_cache`` and
     ``v_cache`` IN PLACE (the reference returns updated copies); returns
-    (out, (k_cache, v_cache)).
+    (out, (k_cache, v_cache)). With ``cfg.uniform_decode`` the rows decode
+    in lockstep and every row writes slot ``pos[0] % W``, as the
+    reference's does: where rows stand at other positions, the cache and
+    ``slot_pos`` (stamped per row by the stack) disagree in both packages
+    alike.
     """
     B = x.shape[0]
     q, k, v = _project_qkv(p, cfg, x)
     q = apply_rope(q, pos[:, None], cfg.rope_theta)
     k = apply_rope(k, pos[:, None], cfg.rope_theta)
     W = k_cache.shape[1]
-    slot = (pos % W).long()
-    b_idx = torch.arange(B, device=x.device)
-    k_cache[b_idx, slot] = k[:, 0]
-    v_cache[b_idx, slot] = v[:, 0]
+    if cfg.uniform_decode:
+        slot0 = (pos[:1] % W).long()
+        k_cache.index_copy_(1, slot0, k)
+        v_cache.index_copy_(1, slot0, v)
+    else:
+        slot = (pos % W).long()
+        b_idx = torch.arange(B, device=x.device)
+        k_cache[b_idx, slot] = k[:, 0]
+        v_cache[b_idx, slot] = v[:, 0]
     attend = decode_mha_ref if plain else decode_mha
     out = attend(q, k_cache, v_cache, slot_pos, pos, window=cfg.sliding_window)
     out = out.reshape(B, 1, cfg.num_heads * cfg.head_dim)

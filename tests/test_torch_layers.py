@@ -13,6 +13,7 @@ import torch
 from repro.configs import registry as ref_registry
 from repro.models import kv_cache as ref_kvc
 from repro.models import layers as ref_layers
+from repro_torch.kernels.flash_attention import mha_ref
 from repro_torch.models import kv_cache as kvc
 from repro_torch.models import layers
 
@@ -94,6 +95,67 @@ def test_full_attention(dtype):
            layers.full_attention(tq, tk, tv, torch.from_numpy(mask)), dtype)
 
 
+#: (Sq, Sk, q_offset, q_block, kv_block). The first: square, neither
+#: length a multiple of its block, and with a window the kv blocks past
+#: the needed ones are skipped. The second: a query chunk at positions
+#: 25..44 against 45 keys, the blocks covering every key. The reference
+#: finds a q block's first kv block from its last row as if q_block were
+#: kv_block, and without q_offset, and bounds the blocks it visits by
+#: the window also where ``causal=False`` keeps every later key; where
+#: that skips keys the mask keeps, both packages differ from `mha_ref`
+#: alike (`test_blocked_attention_keeps_the_reference_block_rule`).
+BLOCKED_CASES = [(70, 70, 0, 16, 16), (20, 45, 25, 16, 16)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 8), (False, 0)])
+@pytest.mark.parametrize("H,K", [(4, 4), (4, 2)], ids=["G1", "G2"])
+@pytest.mark.parametrize("Sq,Sk,q_offset,q_block,kv_block", BLOCKED_CASES,
+                         ids=["square", "offset"])
+def test_blocked_causal_attention(dtype, window, causal, H, K, Sq, Sk,
+                                  q_offset, q_block, kv_block):
+    """Against the reference's, and against the prefill kernel's plain
+    version, whose queries start at position 0: there q is preceded by
+    ``q_offset`` zero rows and those rows of the result dropped."""
+    rng = np.random.default_rng(11)
+    q, k, v = (rng.standard_normal(s) for s in
+               ((2, Sq, H, 16), (2, Sk, K, 16), (2, Sk, K, 16)))
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype) for a in (q, k, v))
+    kw = dict(window=window, q_block=q_block, kv_block=kv_block,
+              q_offset=q_offset, causal=causal)
+    out = layers.blocked_causal_attention(tq, tk, tv, **kw)
+    assert out.dtype == tq.dtype and out.shape == tq.shape
+    _close(ref_layers.blocked_causal_attention(jq, jk, jv, **kw), out, dtype)
+    lead = torch.zeros((2, q_offset, H, 16), dtype=tq.dtype)
+    plain = mha_ref(torch.cat([lead, tq], 1), tk, tv, causal=causal,
+                    window=window)[:, q_offset:]
+    _close(plain.float().numpy(), out, dtype)
+
+
+@pytest.mark.parametrize("q_block,kv_block,q_offset,causal", [
+    (16, 8, 0, True), (16, 16, 20, True), (16, 16, 0, False)])
+def test_blocked_attention_keeps_the_reference_block_rule(q_block, kv_block,
+                                                          q_offset, causal):
+    """With a window, a q block larger than the kv block, a q_offset, or
+    ``causal=False`` makes the reference skip kv blocks its mask keeps;
+    the port visits the same blocks, so both agree with each other and
+    neither with `mha_ref`."""
+    rng = np.random.default_rng(12)
+    q, k, v = (rng.standard_normal(s) for s in
+               ((1, 80, 4, 16), (1, 80 + q_offset, 2, 16),
+                (1, 80 + q_offset, 2, 16)))
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, "float32") for a in (q, k, v))
+    kw = dict(window=8, q_block=q_block, kv_block=kv_block,
+              q_offset=q_offset, causal=causal)
+    out = layers.blocked_causal_attention(tq, tk, tv, **kw)
+    _close(ref_layers.blocked_causal_attention(jq, jk, jv, **kw), out,
+           "float32")
+    lead = torch.zeros((1, q_offset, 4, 16))
+    plain = mha_ref(torch.cat([lead, tq], 1), tk, tv, causal=causal,
+                    window=8)[:, q_offset:]
+    assert (out - plain).abs().max() > 0.1
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("window,fill", [(0, 20), (8, 40)])
 def test_decode_attention(dtype, window, fill):
@@ -143,6 +205,33 @@ def test_attention_decode_layer(dtype):
     out, (k, v) = layers.attention_decode_layer(
         tp, cfg, tx, tk, tv, torch.from_numpy(sp), torch.from_numpy(pos))
     assert k is tk and v is tv                  # written in place
+    for r, o in ((ref_out, out), (rk, k), (rv, v)):
+        _close(r, o, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("pos", [(16, 16), (16, 9)], ids=["lockstep",
+                                                          "apart"])
+def test_attention_decode_layer_uniform_decode(dtype, pos):
+    """With ``uniform_decode`` every row writes slot pos[0] % W, in the
+    reference and in place in the port, rows in lockstep or apart."""
+    cfg = _cfg(uniform_decode=True)
+    rng = np.random.default_rng(10)
+    B, W, K, hd = 2, 16, cfg.num_kv_heads, cfg.head_dim
+    jp, tp = _split(_attn_params(rng, cfg), dtype)
+    jx, tx = _pair(rng.standard_normal((B, 1, cfg.d_model)), dtype)
+    jk, tk = _pair(rng.standard_normal((B, W, K, hd)), dtype)
+    jv, tv = _pair(rng.standard_normal((B, W, K, hd)), dtype)
+    pos = np.array(pos, np.int32)
+    sp = np.stack([ring_slot_pos(W, p + 1, 1)[0] for p in pos])
+    ref_out, (rk, rv) = ref_layers.attention_decode_layer(
+        jp, cfg, jx, jk, jv, jnp.asarray(sp), jnp.asarray(pos))
+    before = tk.clone()
+    out, (k, v) = layers.attention_decode_layer(
+        tp, cfg, tx, tk, tv, torch.from_numpy(sp), torch.from_numpy(pos))
+    assert k is tk and v is tv
+    changed = (k != before).any(dim=(2, 3)).nonzero()[:, 1].unique()
+    assert changed.tolist() == [int(pos[0]) % W]
     for r, o in ((ref_out, out), (rk, k), (rv, v)):
         _close(r, o, dtype)
 

@@ -215,6 +215,55 @@ def test_mixtral_past_its_window_matches_reference(monkeypatch):
     assert int(cache["slot_pos"].min()) == 100 - 64
 
 
+@pytest.mark.parametrize("lag", [0, 3], ids=["lockstep", "apart"])
+def test_uniform_decode_matches_reference(lag):
+    """llama3-8b smoke with ``uniform_decode``: every row writes its K/V
+    into slot pos[0] % W. Row 1 is set ``lag`` positions behind row 0
+    after the prefill; apart, its K/V land in row 0's slot while
+    ``slot_pos`` stamps its own, in both packages alike. Logits and every
+    cache leaf after each of 6 decode steps; in lockstep the port's
+    logits equal its per-row path's."""
+    cfg = ref_registry.get_smoke(ARCH).replace(uniform_decode=True)
+    ref = ref_get_model(cfg)
+    rparams = ref.init_params(jax.random.PRNGKey(0))
+    pcfg = registry.get_smoke(ARCH).replace(uniform_decode=True)
+    port = get_model(pcfg, device="cpu")
+    per_row = get_model(pcfg.replace(uniform_decode=False), device="cpu")
+    pparams = params_from_numpy(jax.tree.map(np.asarray, rparams))
+    rng = np.random.default_rng(4)
+    B, S, steps = 2, 16, 6
+    toks = rng.integers(0, cfg.vocab_size, (B, S), dtype=np.int32)
+    _, rcache = ref.prefill(rparams, {"tokens": jnp.asarray(toks)},
+                            cache_len=S + steps)
+    _, cache = port.prefill(pparams, {"tokens": torch.from_numpy(toks)},
+                            cache_len=S + steps)
+    _, row_cache = per_row.prefill(pparams,
+                                   {"tokens": torch.from_numpy(toks)},
+                                   cache_len=S + steps)
+    rcache = {**rcache, "pos": rcache["pos"].at[1].add(-lag)}
+    with torch.inference_mode():        # the cache's tensors are
+        cache["pos"][1] -= lag          # inference tensors
+    for step in range(steps):
+        tok = rng.integers(0, cfg.vocab_size, (B, 1), dtype=np.int32)
+        rlogits, rcache = ref.decode_step(rparams, rcache, jnp.asarray(tok))
+        logits, cache = port.decode_step(pparams, cache,
+                                         torch.from_numpy(tok))
+        when = f"decode step {step}"
+        np.testing.assert_allclose(_np(logits), _np(rlogits), **TOL,
+                                   err_msg=when)
+        _assert_cache_matches(cache, rcache, when)
+        if not lag:
+            row_logits, row_cache = per_row.decode_step(
+                pparams, row_cache, torch.from_numpy(tok))
+            assert torch.equal(logits, row_logits), when
+    if lag:
+        # row 1's newest K/V sit in row 0's slots, which its slot_pos masks
+        W = cache["k"].shape[2]
+        slot = (S + steps - 1) % W
+        assert int(cache["slot_pos"][1, slot]) == -1
+        assert int(cache["slot_pos"][0, slot]) == S + steps - 1
+
+
 def _f32(cfg):
     return dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
 
