@@ -19,7 +19,14 @@ Phases, each of which fails the run (exit 1) if it fails:
    q heads over 8 (prefill S 2048, decode B 1 and 8, a wrapped ring with
    a window), mixtral-8x22b's 48 over 8 with its 4096 window (prefill S
    8192; decode on its served W 4096 ring and on a wrapped W 8192 ring),
-   yi-34b's smoke heads H 7 over K 1 and H 6 over K 1 at hd 16), bf16
+   yi-34b's smoke heads H 7 over K 1 and H 6 over K 1 at hd 16; at
+   internvl2-2b's heads H 16 over K 8 (G 2, hd 128: prefill causal S
+   2048, decode B 1 and 8 after the first wrap) and at
+   seamless-m4t-large-v2's H 16 over K 16 (G 1, hd 64: prefill
+   bidirectional S 2048 (its encoder), causal S 2048 (its decoder), and
+   cross-attention of 2048 queries against 2048 and against a ragged
+   1500 keys; decode on the self ring after its first wrap and on the
+   cross cache with every slot valid, W 2048 and 1500, B 1 and 8)), bf16
    (atol = rtol = 2e-2) and fp32 (2e-5), each check naming the body that
    ran (prefill: wgmma or SIMT; decode: mma or SIMT, and its cluster
    size), q/k/v as views of a fused projection, and misaligned bf16
@@ -31,7 +38,10 @@ Phases, each of which fails the run (exit 1) if it fails:
    R that ran (``[R r]``);
 3. each served model at full width, 2 layers: kernel path against plain
    path, prefill and one decode step (atol 0.3, rtol 0.05), prompt 2048
-   (mixtral-8x22b 8192, past its window), qwen2-72b's QKV biases set to
+   (mixtral-8x22b 8192, past its window; internvl2-2b from random bf16
+   embeddings; seamless-m4t-large-v2 at 2 encoder and 2 decoder layers,
+   2048 source frames and a 2048-token target prefix), qwen2-72b's QKV
+   biases set to
    nonzero random values; for mixtral-8x22b (top-2 of 8 experts) the
    MoE routing of the plain path held to the kernel path's where a
    token's 2nd and 3rd router probabilities lie within 2e-2
@@ -50,6 +60,19 @@ Phases, each of which fails the run (exit 1) if it fails:
    decode token through ``moe_dense`` allocating less than an eighth of
    one (E, D, F) expert weight leaf (the weights are read in place,
    never copied); each server is freed before the next path starts;
+   then ("embeds and enc-dec") internvl2-2b (24 layers, 1.89e9
+   parameters) and seamless-m4t-large-v2 (24 encoder and 24 decoder
+   layers, 2.03e9), which take precomputed embeddings and which the
+   serve driver refuses as the reference's does, at full width and depth
+   through the `Model` facade with seed-0 params on the card: at B 1 and
+   at B 8 a prefill of 2048 positions from random bf16 embeddings and 16
+   greedy decode steps, with exact launch counts (internvl2: 24
+   ``flash_attention`` per prefill, 24 ``flash_decode`` per step;
+   seamless: 72 and 48, its cross-attention through the decode kernel
+   with every slot valid), prefill and decode-step wall, tok/s and peak
+   device memory; the B 1 run replayed through the plain path on its
+   tokens, logits at every step within atol 0.3, rtol 0.05; one replica
+   of each traced as in phase 5;
 5. one replica of each served arch traced with torch.profiler: host
    wall time of prefill and of a decode step, device time, device idle
    share, top device ops;
@@ -115,7 +138,10 @@ Phases, each of which fails the run (exit 1) if it fails:
 6. each kernel timed at the serve shapes (the attention kernels at
    llama3-8b's, hymba-1.5b's, qwen3-moe-30b-a3b's, yi-34b's and
    qwen2-72b's (decode B 1 and 8) and mixtral-8x22b's (prefill S 8192 with its window, decode on
-   its W 4096 ring and on a W 8192 ring with the 4096 window), and at
+   its W 4096 ring and on a W 8192 ring with the 4096 window),
+   internvl2-2b's (decode B 1 and 8) and seamless-m4t-large-v2's
+   (prefill bidirectional, causal, and cross against 1500 keys; decode
+   B 1 and 8 with every slot valid, and on a W 1500 cross cache), and at
    head_dim 16 with the moe smoke heads, prefill also at the MLServe
    shapes B 8 x S 2048 and granite-8b's B 32 x S 512),
    beside its bound,
@@ -160,6 +186,11 @@ PROMPT, REQUESTS, GEN, REPLICAS = 2048, 8, 16, 2
 #: 8192 is twice its 4096 window, so the window masks in prefill and its
 #: ring cache evicts in every decode step
 CUT = {"qwen2-72b": (32, PROMPT), "mixtral-8x22b": (12, 8192)}
+#: the archs that take precomputed embeddings, which the serve driver
+#: refuses as the reference's does: driven through the `Model` facade at
+#: full width and depth, at these batch sizes
+EMBEDS = ("internvl2-2b", "seamless-m4t-large-v2")
+EMBEDS_BATCHES = (1, 8)
 #: the largest gap between the k-th and (k+1)-th router probability at
 #: which the kernel and plain paths may route a token to other experts
 #: (the bf16 kernel tolerance, as tests/test_torch_model.py's ROUTE_TOL)
@@ -461,6 +492,8 @@ class Smoke:
             48, 8, 128, " mixtral H48/K8/hd128 G6")
         yi_tiny, g6_tiny = (7, 1, 16, " yi smoke H7/K1/hd16 G7"), (
             6, 1, 16, " H6/K1/hd16 G6")
+        internvl2 = (16, 8, 128, " internvl2 H16/K8/hd128 G2")
+        seamless = (16, 16, 64, " seamless H16/K16/hd64 G1")
         for dname, tol in TOL.items():
             dtype = getattr(torch, dname)
             g = self.gen(1)
@@ -482,13 +515,28 @@ class Smoke:
                     (llama, 8, 2048, True, 0, "causal S=2048 (decode seed)"),
                     (llama, 32, 512, True, 0, "causal S=512 (granite EMB)"),
                     (yi, 1, 2048, True, 0, "causal S=2048"),
-                    (mixtral, 1, 8192, True, 4096, "window=4096 S=8192")]:
+                    (mixtral, 1, 8192, True, 4096, "window=4096 S=8192"),
+                    (internvl2, 1, 2048, True, 0, "causal S=2048"),
+                    (seamless, 1, 2048, False, 0,
+                     "bidirectional S=2048 (encoder)"),
+                    (seamless, 1, 2048, True, 0, "causal S=2048 (decoder)")]:
                 q = self.randn(g, (B, S, H, hd), dtype)
                 k, v = (self.randn(g, (B, S, K, hd), dtype) for _ in "kv")
                 out = mha(q, k, v, causal=causal, window=window)
                 ref = mha_ref(q, k, v, causal=causal, window=window)
                 self.compare(FLASH["name"], f"{dname} B={B} {what}{arch} "
                              f"[{flash_ops.body(dtype, hd)}]", out, ref, tol)
+            # seamless's cross-attention: the target's queries against the
+            # source's keys, bidirectional
+            for (H, K, hd, arch), Sq, Sk in [(seamless, 2048, 2048),
+                                             (seamless, 2048, 1500)]:
+                q = self.randn(g, (1, Sq, H, hd), dtype)
+                k, v = (self.randn(g, (1, Sk, K, hd), dtype) for _ in "kv")
+                out = mha(q, k, v, causal=False)
+                ref = mha_ref(q, k, v, causal=False)
+                self.compare(FLASH["name"], f"{dname} B=1 cross Sq={Sq} "
+                             f"Sk={Sk}{arch} [{flash_ops.body(dtype, hd)}]",
+                             out, ref, tol)
             # q, k, v as head slices of one fused (B, S, H + 2K, hd) tensor
             H, K, hd, _ = llama
             qkv = self.randn(g, (1, 1000, H + 2 * K, hd), dtype)
@@ -533,7 +581,24 @@ class Smoke:
                     (yi_tiny, 2, 300, 400, 399, 64, "wrapped ring window=64"),
                     (yi_tiny, 1, 2048, 2049, 2048, 0, "first wrap W=2048"),
                     (g6_tiny, 2, 256, 400, 399, 96, "wrapped ring window=96"),
-                    (g6_tiny, 2, 64, 0, 0, 0, "no valid slot: mean of V")]:
+                    (g6_tiny, 2, 64, 0, 0, 0, "no valid slot: mean of V"),
+                    (internvl2, 1, 2048, 2049, 2048, 0,
+                     "serve first wrap W=2048"),
+                    (internvl2, 8, 2048, 2049, 2048, 0,
+                     "serve first wrap W=2048"),
+                    (seamless, 1, 2048, 2049, 2048, 0,
+                     "self ring first wrap W=2048"),
+                    (seamless, 8, 2048, 2049, 2048, 0,
+                     "self ring first wrap W=2048"),
+                    # the cross cache: slot_pos arange(W), pos W - 1
+                    (seamless, 1, 2048, 2048, 2047, 0,
+                     "cross, every slot valid W=2048"),
+                    (seamless, 8, 2048, 2048, 2047, 0,
+                     "cross, every slot valid W=2048"),
+                    (seamless, 1, 1500, 1500, 1499, 0,
+                     "cross, every slot valid W=1500"),
+                    (seamless, 8, 1500, 1500, 1499, 0,
+                     "cross, every slot valid W=1500")]:
                 q = self.randn(g, (B, 1, H, hd), dtype)
                 kc, vc = (self.randn(g, (B, W, K, hd), dtype) for _ in "kv")
                 sp = self.ring_slot_pos(W, fill, B)
@@ -682,19 +747,39 @@ class Smoke:
         self.compare(name, "h_final halves vs whole", h2, h, SCAN_TOL)
 
     def phase_model(self):
-        for arch in ARCHS + tuple(CUT):
+        for arch in ARCHS + tuple(CUT) + EMBEDS:
             self.check_model(arch)
 
+    def prompt_batch(self, cfg, B, S, seed):
+        """A prefill batch of B x S and its tokens: tokens, or random bf16
+        embeddings (``inputs_embeds``; an encoder-decoder's S source
+        frames as ``src_embeds`` and the tokens as ``tgt_tokens``)."""
+        torch = self.torch
+        g = self.gen(seed)
+        toks = torch.randint(0, cfg.vocab_size, (B, S), dtype=torch.int32,
+                             device=self.dev, generator=g)
+        if not cfg.embed_input:
+            return {"tokens": toks}, toks
+        emb = self.randn(g, (B, S, cfg.d_model), torch.bfloat16)
+        if cfg.is_encoder_decoder:
+            return {"src_embeds": emb, "tgt_tokens": toks}, toks
+        return {"inputs_embeds": emb}, toks
+
     def check_model(self, arch):
-        """Two layers at full width, prompt 2048 (mixtral-8x22b's 8192):
-        prefill and one decode step through the kernels against the plain
-        path, the QKV biases (qwen2-72b) set to nonzero random values and,
-        for the ``PINNED`` archs, the MoE routing of the plain path held to
-        the kernel path's at near-ties (`RoutePin`)."""
+        """Two layers at full width (seamless-m4t-large-v2: 2 encoder and 2
+        decoder layers), prompt 2048 (mixtral-8x22b's 8192; internvl2-2b
+        from random bf16 embeddings; seamless from 2048 such source frames
+        and a 2048-token target prefix): prefill and one decode step
+        through the kernels against the plain path, the QKV biases
+        (qwen2-72b) set to nonzero random values and, for the ``PINNED``
+        archs, the MoE routing of the plain path held to the kernel path's
+        at near-ties (`RoutePin`)."""
         torch = self.torch
         from repro_torch.configs import registry
         from repro_torch.models import Model, moe
         cfg = registry.get(arch).replace(num_layers=2)
+        if cfg.is_encoder_decoder:
+            cfg = cfg.replace(num_encoder_layers=2)
         prompt = CUT.get(arch, (0, PROMPT))[1]
         model = Model(cfg)
         params = model.init_params(self.gen(0))
@@ -703,15 +788,13 @@ class Smoke:
             for name in ("bq", "bk", "bv"):
                 leaf = params["layers"]["attn"][name]
                 leaf.copy_(self.randn(g, tuple(leaf.shape), leaf.dtype))
-        toks = torch.randint(0, cfg.vocab_size, (1, prompt), dtype=torch.int32,
-                             device=self.dev, generator=self.gen(2))
+        batch, toks = self.prompt_batch(cfg, 1, prompt, 2)
         pin = RoutePin(torch, moe) if arch in PINNED else None
         out = {}
         for plain in (False, True):
             with (contextlib.nullcontext() if pin is None
                   else pin.run(replay=plain)):
-                logits, cache = model.prefill(params, {"tokens": toks},
-                                              plain=plain)
+                logits, cache = model.prefill(params, batch, plain=plain)
                 step, _ = model.decode_step(params, cache, toks[:, :1],
                                             plain=plain)
             out[plain] = (logits, step)
@@ -879,27 +962,33 @@ class Smoke:
               f" tokens past the 0.3 margin, all equal")
 
     def trace(self, server, prompt_len):
-        """Where a request's time goes on one replica: host wall time of
-        prefill and of a decode step (synchronised), and the kernel time
-        torch.profiler sees in each; the rest of the wall time the
-        device sits idle, waiting on the host."""
+        """One replica of a served model: `trace_model` on request 0's
+        prompt."""
         torch = self.torch
         import numpy as np
         inst = server.instances[0]
         prompt = np.frombuffer(server.store.get("prompts", "req-0"), np.int32)
         toks = torch.from_numpy(prompt.copy())[None].to(self.dev)
+        self.trace_model(server.cfg.name, inst.model, inst.params,
+                         {"tokens": toks}, prompt_len)
+
+    def trace_model(self, name, model, params, batch, prompt_len):
+        """Where a request's time goes on one replica: host wall time of
+        prefill and of a decode step (synchronised), and the kernel time
+        torch.profiler sees in each; the rest of the wall time the
+        device sits idle, waiting on the host."""
+        torch = self.torch
         steps = 8
         state = {}
 
         def prefill():
-            state["logits"], state["cache"] = inst.model.prefill(
-                inst.params, {"tokens": toks})
+            state["logits"], state["cache"] = model.prefill(params, batch)
 
         def decode():
             for _ in range(steps):
                 tok = state["logits"][:, -1:].argmax(dim=-1).to(torch.int32)
-                state["logits"], state["cache"] = inst.model.decode_step(
-                    inst.params, state["cache"], tok)
+                state["logits"], state["cache"] = model.decode_step(
+                    params, state["cache"], tok)
 
         for what, fn, n in (("prefill", prefill, 1), ("decode step", decode,
                                                        steps)):
@@ -914,13 +1003,126 @@ class Smoke:
             prefill()
             dev_ms, launches, top = self.profile(fn)
             dev_ms, launches = dev_ms / n, launches / n
-            print(f"  {server.cfg.name}, one replica, prompt {prompt_len}, "
+            print(f"  {name}, one replica, prompt {prompt_len}, "
                   f"{what}: wall {wall_ms:.2f} ms, kernel time {dev_ms:.2f} ms in "
                   f"{launches:.0f} kernels, device idle share "
                   f"{1 - dev_ms / wall_ms:.3f}")
             for e in top[:12]:
                 print(f"    {e.self_device_time_total / 1e3 / n:8.3f} ms "
                       f"{e.count / n:6.0f}x  {e.key[:80]}")
+
+    def embeds_path(self, arch):
+        """An arch of ``EMBEDS`` at full width and depth through the `Model`
+        facade (its entry point; the serve driver refuses it), seed-0
+        params on the card: at each of ``EMBEDS_BATCHES`` a prefill of
+        ``PROMPT`` positions from random bf16 embeddings, then ``GEN``
+        greedy decode steps, with exact launch counts (every count set to
+        0 just before the run and read just after), prefill and decode
+        wall, tok/s and peak device memory; the B 1 run replayed through
+        the plain path on its tokens, logits compared at each step (atol
+        0.3, rtol 0.05); one replica traced. Each batch size is warmed by
+        one prefill and one decode step before its run."""
+        torch = self.torch
+        from repro_torch.configs import registry
+        from repro_torch.models import Model, serialize
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = registry.get(arch)
+        model = Model(cfg)
+        params = model.init_params()
+        leaves = serialize.leaves(params)
+        n_params = sum(x.numel() for x in leaves)
+        param_bytes = serialize.tree_nbytes(params)
+        print(f"  {arch}: {n_params} parameters ({param_bytes / 1e9:.2f} GB) "
+              f"on {leaves[0].device} ({nvidia_smi()})")
+        if n_params != cfg.param_count() or leaves[0].device.type != "cuda":
+            raise AssertionError(f"{arch}: the params on the card are not "
+                                 f"the full model")
+        del leaves
+        L = cfg.num_layers
+        if cfg.is_encoder_decoder:      # encoder, decoder and cross layers
+            per_prefill, per_step = cfg.num_encoder_layers + 2 * L, 2 * L
+        else:
+            per_prefill, per_step = L, L
+        counters = self.counters()
+        want = {FLASH["name"]: per_prefill, DECODE["name"]: per_step * GEN,
+                SCAN["name"]: 0}
+        first = None
+        for B in EMBEDS_BATCHES:
+            batch, toks = self.prompt_batch(cfg, B, PROMPT, 20 + B)
+            # warm: the first calls at a shape pick their GEMM algorithms
+            _, cache = model.prefill(params, batch)
+            model.decode_step(params, cache, toks[:, :1])
+            del cache
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for mod in counters.values():
+                mod.launches = 0
+            run = self.generate(model, params, batch)
+            launches = {name: mod.launches for name, mod in counters.items()}
+            self.launches[f"{arch} B={B}"] = launches
+            peak = torch.cuda.max_memory_allocated()
+            wall = run["prefill_s"] + GEN * run["step_s"]
+            print(f"  {arch} B={B} prompt {PROMPT} + {GEN} greedy steps: "
+                  f"prefill {run['prefill_s'] * 1e3:.1f} ms, decode step "
+                  f"{run['step_s'] * 1e3:.2f} ms, tok/s={B * GEN / wall:.2f}, "
+                  f"max_memory_allocated={peak / 1e9:.2f} GB, "
+                  f"launches={launches}")
+            if launches != want:
+                raise AssertionError(f"{arch} B={B} launch counts {launches} "
+                                     f"!= {want}")
+            for i, logits in enumerate(run["logits"]):
+                if logits.shape != (B, 1, cfg.vocab_size) or not bool(
+                        torch.isfinite(logits).all()):
+                    raise AssertionError(f"{arch} B={B} call {i}: logits "
+                                         f"{tuple(logits.shape)}, not finite "
+                                         f"or of the wrong shape")
+            if first is None:
+                first = (batch, run)
+        batch, run = first
+        for mod in counters.values():
+            mod.launches = 0
+        plain = self.generate(model, params, batch, plain=True,
+                              tokens=run["tokens"])
+        if any(mod.launches for mod in counters.values()):
+            raise AssertionError("the plain replay launched a kernel")
+        worst = 0.0
+        for i, (a, b) in enumerate(zip(run["logits"], plain["logits"])):
+            err = (a - b).abs().max().item()
+            worst = max(worst, err)
+            if not torch.allclose(a, b, atol=0.3, rtol=0.05):
+                raise AssertionError(f"{arch} B=1 call {i}: kernel path "
+                                     f"against plain path max_abs_err "
+                                     f"{err:.3e} (atol 0.3, rtol 0.05)")
+        print(f"  {arch} B=1 replayed on the plain path: prefill and {GEN} "
+              f"steps, logits max_abs_err={worst:.3e} (atol 0.3, rtol 0.05) "
+              f"ok")
+        self.trace_model(cfg.name, model, params, batch, PROMPT)
+        del params, batch, run, plain, first
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def generate(self, model, params, batch, plain=False, tokens=None):
+        """Prefill, then ``GEN`` decode steps, each feeding the greedy
+        token (or, given ``tokens``, that step's row of them); the logits
+        of every call, the tokens fed, and the synchronised host wall time
+        of the prefill and of one decode step (their mean)."""
+        torch = self.torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, batch, plain=plain)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out, fed = [logits], []
+        for i in range(GEN):
+            tok = (logits[:, -1:].argmax(dim=-1).to(torch.int32)
+                   if tokens is None else tokens[i])
+            fed.append(tok)
+            logits, cache = model.decode_step(params, cache, tok, plain=plain)
+            out.append(logits)
+        torch.cuda.synchronize()
+        return {"logits": out, "tokens": fed, "prefill_s": t1 - t0,
+                "step_s": (time.perf_counter() - t1) / GEN}
 
     def profile(self, fn):
         """Total kernel time (ms) and kernel count of fn() under
@@ -1863,7 +2065,16 @@ class Smoke:
             "yi-34b": self.time_flash(56, 8, 128, 0, "yi-34b"),
             "qwen2-72b": self.time_flash(64, 8, 128, 0, "qwen2-72b"),
             "mixtral-8x22b S=8192": self.time_flash(
-                48, 8, 128, 4096, "mixtral-8x22b", S=8192)}
+                48, 8, 128, 4096, "mixtral-8x22b", S=8192),
+            "internvl2-2b": self.time_flash(16, 8, 128, 0, "internvl2-2b"),
+            "seamless-m4t-large-v2 encoder": self.time_flash(
+                16, 16, 64, 0, "seamless-m4t-large-v2 encoder",
+                causal=False),
+            "seamless-m4t-large-v2 decoder": self.time_flash(
+                16, 16, 64, 0, "seamless-m4t-large-v2 decoder"),
+            "seamless-m4t-large-v2 cross Sk=1500": self.time_flash(
+                16, 16, 64, 0, "seamless-m4t-large-v2 cross, ragged source",
+                causal=False, Sk=1500)}
         self.timing[DECODE["name"]] = self.time_decode(1, *llama, 0,
                                                        "llama3-8b")
         self.also[DECODE["name"]] = {
@@ -1883,7 +2094,20 @@ class Smoke:
                 1, 48, 8, 128, 4096, "mixtral-8x22b, the served ring",
                 W=4096),
             "mixtral-8x22b W=8192": self.time_decode(
-                1, 48, 8, 128, 4096, "mixtral-8x22b", W=8192)}
+                1, 48, 8, 128, 4096, "mixtral-8x22b", W=8192),
+            "internvl2-2b": self.time_decode(1, 16, 8, 128, 0,
+                                             "internvl2-2b"),
+            "internvl2-2b B=8": self.time_decode(8, 16, 8, 128, 0,
+                                                 "internvl2-2b"),
+            # every slot valid: the self ring after its first wrap, and
+            # the cross cache at W 2048 alike
+            "seamless-m4t-large-v2": self.time_decode(
+                1, 16, 16, 64, 0, "seamless-m4t-large-v2, self and cross"),
+            "seamless-m4t-large-v2 B=8": self.time_decode(
+                8, 16, 16, 64, 0, "seamless-m4t-large-v2, self and cross"),
+            "seamless-m4t-large-v2 cross W=1500": self.time_decode(
+                1, 16, 16, 64, 0, "seamless-m4t-large-v2 cross, ragged "
+                "source", W=1500)}
         self.timing[SCAN["name"]] = self.time_scan(8192, 256, "falcon-mamba-7b")
         self.also[SCAN["name"]] = {
             "hymba-1.5b": self.time_scan(3200, 100, "hymba-1.5b")}
@@ -1894,23 +2118,27 @@ class Smoke:
         tb, tf = nbytes / HBM_BYTES_PER_S, flops / peak
         return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
-    def time_flash(self, H, K, hd, window, arch, B=1, S=PROMPT):
-        """Prefill at the serve shape (B=1, S=2048 unless given), causal,
-        bf16."""
+    def time_flash(self, H, K, hd, window, arch, B=1, S=PROMPT, causal=True,
+                   Sk=None):
+        """Prefill at the serve shape (B=1, S=2048 unless given), causal
+        unless asked, keys as many as queries unless ``Sk``, bf16."""
         torch = self.torch
         import torch.nn.functional as F
         from repro_torch.kernels.flash_attention import mha, mha_ref
         dt = torch.bfloat16
         g = self.gen(3)
+        Sk = Sk or S
         sets = []
         for _ in range(4 if B * S <= PROMPT else 2):
             q = self.randn(g, (B, S, H, hd), dt)
-            sets.append((q, *(self.randn(g, (B, S, K, hd), dt) for _ in "kv")))
+            sets.append((q, *(self.randn(g, (B, Sk, K, hd), dt)
+                              for _ in "kv")))
         lib_sets = [tuple(t.transpose(1, 2).contiguous() for t in s)
                     for s in sets]
-        # visited (query, key) pairs: causal, within the window
-        pairs = sum(min(i + 1, window or S) for i in range(S))
-        nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * K * hd)
+        # visited (query, key) pairs: causal, within the window; or all
+        pairs = (sum(min(i + 1, window or S) for i in range(S)) if causal
+                 else S * Sk)
+        nbytes = 2 * (2 * B * S * H * hd + 2 * B * Sk * K * hd)
         bms, by = self.bound(nbytes, 4 * B * H * hd * pairs)
         lib_mask = None
         if window and window < S:
@@ -1918,13 +2146,16 @@ class Smoke:
             lib_mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :]
                                                      < window)
         row = self.time_row(
-            lambda s: mha(*s, causal=True, window=window),
-            lambda s: mha_ref(*s, causal=True, window=window),
+            lambda s: mha(*s, causal=causal, window=window),
+            lambda s: mha_ref(*s, causal=causal, window=window),
             lambda s: F.scaled_dot_product_attention(
-                *s, attn_mask=lib_mask, is_causal=lib_mask is None,
-                enable_gqa=True), sets, lib_sets, 20, 5)
+                *s, attn_mask=lib_mask,
+                is_causal=causal and lib_mask is None, enable_gqa=True),
+            sets, lib_sets, 20, 5)
         row.update(bound_ms=bms, bound_by=by)
-        self.report(f"flash_attention bf16 B={B} S={S} causal H={H} K={K} "
+        self.report(f"flash_attention bf16 B={B} S={S}"
+                    f"{f' Sk={Sk}' if Sk != S else ''} "
+                    f"{'causal' if causal else 'bidirectional'} H={H} K={K} "
                     f"hd={hd} window={window} ({arch})", row)
         return row
 
@@ -2065,6 +2296,9 @@ def main() -> int:
     for arch in ARCHS + tuple(CUT):
         phases.append((f"serve and trace {arch}",
                        lambda arch=arch: smoke.serve_path(arch)))
+    for arch in EMBEDS:
+        phases.append((f"embeds and enc-dec {arch}",
+                       lambda arch=arch: smoke.embeds_path(arch)))
     phases.append(("mlserve cores", smoke.phase_mlserve))
     phases.append(("worker node", smoke.phase_node))
     phases.append(("density", smoke.phase_density))

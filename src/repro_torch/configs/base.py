@@ -112,6 +112,8 @@ ARCH_IDS = [
     "yi-34b",
     "qwen2-72b",
     "mixtral-8x22b",
+    "internvl2-2b",
+    "seamless-m4t-large-v2",
 ]
 
 

@@ -159,6 +159,8 @@ def main(argv=None) -> dict:
 
     cfg = (registry.get_smoke(args.arch) if args.smoke
            else registry.get(args.arch))
+    if cfg.is_encoder_decoder or cfg.embed_input:
+        raise SystemExit("serve driver covers token-LM archs")
     server = NexusModelServer(cfg, transport=args.transport,
                               replicas=args.replicas,
                               prompt_len=args.prompt_len, device=args.device)

@@ -15,6 +15,7 @@ CACHE_KEYS = {
     "dense": ("k", "v", "slot_pos", "pos"),
     "ssm": ("pos", "conv", "ssm"),
     "hybrid": ("k", "v", "slot_pos", "pos", "conv", "ssm"),
+    "encdec": ("pos", "k", "v", "slot_pos", "cross_k", "cross_v"),
 }
 
 
@@ -36,8 +37,9 @@ def params_from_numpy(tree, device="cpu"):
 
 
 def cache_from_numpy(cache: dict, device="cpu") -> dict:
-    """A decode cache as torch tensors: dense (k, v, slot_pos, pos), ssm
-    (pos, conv, ssm) or hybrid (all six)."""
+    """A decode cache as torch tensors: dense, vlm and moe (k, v,
+    slot_pos, pos), ssm (pos, conv, ssm), hybrid (those six) or encdec
+    (pos, k, v, slot_pos, cross_k, cross_v)."""
     for keys in CACHE_KEYS.values():
         if set(cache) == set(keys):
             return {k: tensor_from_numpy(cache[k], device) for k in keys}

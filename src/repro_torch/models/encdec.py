@@ -1,0 +1,206 @@
+"""Encoder-decoder LM (the SeamlessM4T backbone).
+
+The counterpart of ``repro.models.encdec``, without training. The encoder
+takes precomputed frame embeddings (the modality frontend is a stub) and
+attends bidirectionally; the decoder is causal self-attention plus
+cross-attention over the encoder's output. Positions are additive
+sinusoids (no RoPE). Params keep the reference's tree (``enc_layers``
+and ``dec_layers`` stacked on a leading layer axis, ``enc_norm`` and an
+untied ``lm_head``), so the codec writes the same bytes.
+
+Prefill runs the encoder, then the decoder over the target prefix,
+writing each decoder layer's self K/V and cross K/V into a preallocated
+cache; `decode_step` updates the cache's ``k``, ``v`` and ``slot_pos`` IN
+PLACE and returns a dict that shares its leaves (the reference returns a
+new cache). Attention over a sequence (the encoder's, the decoder's and
+the prefill cross-attention) runs the prefill kernel, one token's (self
+and cross) the decode kernel; ``plain=True`` runs their plain versions,
+on any device.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import kv_cache as kvc
+from repro_torch.models import layers as L
+from repro_torch.models.lm import DTYPES, _lm_head, init_stack, layer_params
+
+
+# ------------------------------------------------------------------- params
+
+def init_enc_layer(generator, cfg, dtype, device=None):
+    ones = dict(dtype=dtype, device=device if device is not None
+                else generator.device)
+    return {
+        "ln1": torch.ones((cfg.d_model,), **ones),
+        "attn": L.init_attention(generator, cfg, dtype, device),
+        "ln2": torch.ones((cfg.d_model,), **ones),
+        "mlp": L.init_mlp(generator, cfg.d_model, cfg.d_ff, dtype, device),
+    }
+
+
+def init_dec_layer(generator, cfg, dtype, device=None):
+    ones = dict(dtype=dtype, device=device if device is not None
+                else generator.device)
+    return {
+        "ln1": torch.ones((cfg.d_model,), **ones),
+        "attn": L.init_attention(generator, cfg, dtype, device),
+        "ln_x": torch.ones((cfg.d_model,), **ones),
+        "xattn": L.init_attention(generator, cfg, dtype, device),
+        "ln2": torch.ones((cfg.d_model,), **ones),
+        "mlp": L.init_mlp(generator, cfg.d_model, cfg.d_ff, dtype, device),
+    }
+
+
+def init_params(generator, cfg, device=None):
+    """Seeded init from ``generator`` on its device; on the meta device
+    (``generator=None, device="meta"``) the tree of structs."""
+    dtype = DTYPES[cfg.param_dtype]
+    device = generator.device if device is None else torch.device(device)
+    embed = L.dense_init(generator, (cfg.vocab_size, cfg.d_model), 1, dtype,
+                         device)
+    enc = init_stack(init_enc_layer, generator, cfg, cfg.num_encoder_layers,
+                     dtype, device)
+    dec = init_stack(init_dec_layer, generator, cfg, cfg.num_layers, dtype,
+                     device)
+    return {
+        "embed": embed,
+        "enc_layers": enc,
+        "dec_layers": dec,
+        "enc_norm": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+        "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+        "lm_head": L.dense_init(generator, (cfg.d_model, cfg.vocab_size), 0,
+                                dtype, device),
+    }
+
+
+def param_structs(cfg):
+    """The params tree as meta tensors: shapes and dtypes, no data."""
+    return init_params(None, cfg, device="meta")
+
+
+# ------------------------------------------------------------------ forward
+
+def _add_pos(cfg, x, offset=0):
+    """x plus the sinusoid embeddings of positions ``offset + arange(S)``
+    (``offset`` an int, or (B, 1) for one token per row), cast to x's
+    dtype."""
+    positions = offset + torch.arange(x.shape[1], device=x.device)
+    return x + L.sinusoid_pos_embed(positions, cfg.d_model).to(x.dtype)
+
+
+def encode(cfg, params, src_embeds, plain=False):
+    """src_embeds: (B, Ss, D) -> encoder output (B, Ss, D) in cfg.dtype."""
+    x = _add_pos(cfg, src_embeds.to(DTYPES[cfg.dtype]))
+    for i in range(cfg.num_encoder_layers):
+        lp = layer_params(params["enc_layers"], i)
+        a, _ = L.attention_layer(lp["attn"], cfg,
+                                 L.rms_norm(x, lp["ln1"], cfg.norm_eps),
+                                 use_rope=False, causal=False, plain=plain)
+        x = x + a
+        x = x + L.mlp_layer(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps))
+    return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _cross_kv(lp, cfg, enc_out):
+    """Project the encoder's output to this layer's cross K/V."""
+    B, Ss, _ = enc_out.shape
+    K, hd = cfg.num_kv_heads, cfg.head_dim
+    k = (enc_out @ lp["xattn"]["wk"]).reshape(B, Ss, K, hd)
+    v = (enc_out @ lp["xattn"]["wv"]).reshape(B, Ss, K, hd)
+    return k, v
+
+
+def decode_seq(cfg, params, tgt_tokens, enc_out, cache=None, plain=False):
+    """Teacher-forced decoder pass over (B, St) tokens; returns the
+    final-normed hidden states. With ``cache``, each layer's self K/V go
+    into its first St slots and its cross K/V into ``cross_k`` and
+    ``cross_v``."""
+    x = _add_pos(cfg, params["embed"][tgt_tokens])
+    St = x.shape[1]
+    for i in range(cfg.num_layers):
+        lp = layer_params(params["dec_layers"], i)
+        a, (k, v) = L.attention_layer(lp["attn"], cfg,
+                                      L.rms_norm(x, lp["ln1"], cfg.norm_eps),
+                                      use_rope=False, plain=plain)
+        x = x + a
+        ck, cv = _cross_kv(lp, cfg, enc_out)
+        x = x + L.cross_attention_layer(
+            lp["xattn"], cfg, L.rms_norm(x, lp["ln_x"], cfg.norm_eps), ck,
+            cv, plain=plain)
+        x = x + L.mlp_layer(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps))
+        if cache is not None:
+            cache["k"][i, :, :St] = k
+            cache["v"][i, :, :St] = v
+            cache["cross_k"][i] = ck
+            cache["cross_v"][i] = cv
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+@torch.inference_mode()
+def prefill(cfg, params, batch, cache_len=None, plain=False):
+    """Encode ``batch["src_embeds"]`` (B, Ss, D) and run the decoder over
+    ``batch["tgt_tokens"]`` (B, St); returns (last-token logits, decode
+    cache).
+
+    The self cache is W = ``cache_len or St`` slots wide, zero past St,
+    as the reference's; without ``cache_len`` the first decode step
+    overwrites slot 0 (position 0), as in the decoder-only case.
+    """
+    tgt = batch["tgt_tokens"]
+    B, St = tgt.shape
+    W = cache_len or St
+    if W < St:
+        raise ValueError(f"cache_len {W} is shorter than the target prefix "
+                         f"{St}")
+    enc_out = encode(cfg, params, batch["src_embeds"], plain=plain)
+    device = enc_out.device
+    # self K/V in the decoder's dtype (the embedding's), cross K/V in the
+    # encoder's (cfg.dtype), as the reference's
+    cache = {"pos": torch.full((B,), St, dtype=torch.int32, device=device),
+             **kvc.init_attn_cache(cfg, B, W, dtype=params["embed"].dtype,
+                                   device=device),
+             "slot_pos": kvc.prefill_slot_pos(St, W, B, device=device),
+             **kvc.init_cross_cache(cfg, B, enc_out.shape[1],
+                                    dtype=enc_out.dtype, device=device)}
+    hidden = decode_seq(cfg, params, tgt, enc_out, cache=cache, plain=plain)
+    logits = (hidden[:, -1:] @ _lm_head(cfg, params)).float()
+    return logits, cache
+
+
+@torch.inference_mode()
+def decode_step(cfg, params, cache, token, plain=False):
+    """One decoder token (B, 1) against the self and cross caches ->
+    (logits (B, 1, V) f32, cache), the cache updated in place.
+
+    The cross-attention runs the decode kernel with every source slot
+    valid: a ``slot_pos`` of ``arange(Ss)`` per row and ``pos = Ss - 1``,
+    built once per step; they are not cache leaves.
+    """
+    pos = cache["pos"]
+    B = token.shape[0]
+    x = _add_pos(cfg, params["embed"][token], offset=pos[:, None])
+    slot_pos = cache["slot_pos"]
+    W = slot_pos.shape[1]
+    slot_pos[torch.arange(B, device=pos.device), (pos % W).long()] = pos
+    Ss = cache["cross_k"].shape[2]
+    every_slot = torch.arange(Ss, dtype=torch.int32, device=pos.device
+                              ).expand(B, Ss).contiguous()
+    last = torch.full((B,), Ss - 1, dtype=torch.int32, device=pos.device)
+    for i in range(cfg.num_layers):
+        lp = layer_params(params["dec_layers"], i)
+        a, _ = L.attention_decode_layer(
+            lp["attn"], cfg, L.rms_norm(x, lp["ln1"], cfg.norm_eps),
+            cache["k"][i], cache["v"][i], slot_pos, pos, use_rope=False,
+            plain=plain)
+        x = x + a
+        x = x + L.cross_attention_decode_layer(
+            lp["xattn"], cfg, L.rms_norm(x, lp["ln_x"], cfg.norm_eps),
+            cache["cross_k"][i], cache["cross_v"][i], every_slot, last,
+            plain=plain)
+        x = x + L.mlp_layer(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps))
+    logits = (L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+              @ _lm_head(cfg, params)).float()
+    new_cache = dict(cache)
+    new_cache["pos"] = pos + 1
+    return logits, new_cache

@@ -46,11 +46,19 @@ def init_ssm_cache(cfg, batch, device="cpu"):
     }
 
 
+def init_cross_cache(cfg, batch, src_len, dtype=torch.bfloat16,
+                     device="cpu"):
+    """Cross-attention K/V over the encoded source, per decoder layer."""
+    shape = (cfg.num_layers, batch, src_len, cfg.num_kv_heads, cfg.head_dim)
+    return {"cross_k": torch.zeros(shape, dtype=dtype, device=device),
+            "cross_v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
 def init_cache(cfg, batch, seq_len, dtype=torch.bfloat16, device="cpu"):
-    """Full decode cache for one model instance."""
-    if (cfg.family not in ATTN_FAMILIES + SSM_FAMILIES
-            or cfg.is_encoder_decoder):
-        raise NotImplementedError(f"{cfg.family} caches are not ported yet")
+    """Full decode cache for one model instance; an encoder-decoder's
+    cross K/V are ``seq_len`` wide, as the reference's."""
+    if cfg.family not in ATTN_FAMILIES + SSM_FAMILIES:
+        raise NotImplementedError(f"{cfg.family} caches are not ported")
     cache = {"pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
     if cfg.family in ATTN_FAMILIES:
         cache.update(init_attn_cache(cfg, batch, seq_len, dtype=dtype,
@@ -60,6 +68,9 @@ def init_cache(cfg, batch, seq_len, dtype=torch.bfloat16, device="cpu"):
                                        device=device)
     if cfg.family in SSM_FAMILIES:
         cache.update(init_ssm_cache(cfg, batch, device=device))
+    if cfg.is_encoder_decoder:
+        cache.update(init_cross_cache(cfg, batch, seq_len, dtype=dtype,
+                                      device=device))
     return cache
 
 

@@ -71,6 +71,17 @@ def apply_rope(x, positions, theta):
     return out.to(x.dtype)
 
 
+def sinusoid_pos_embed(positions, d_model):
+    """Absolute sinusoidal embeddings (enc-dec archs), in f32.
+    positions: (...,) -> (..., d_model)."""
+    half = d_model // 2
+    freqs = torch.exp(-math.log(10_000.0)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=positions.device) / half)
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------- attention (core)
 
 def _gqa_scores(q, k):
@@ -157,7 +168,7 @@ def blocked_causal_attention(q, k, v, *, window=0, q_block=512,
         if window > 0:        # the earliest kv block visible to this block
             lo = max(qi * q_block + q_block - 1
                      - (window - 1 + kv_block - 1), 0)
-            first = min(max(lo // kv_block, 0), max(nk - nk_needed, 0))
+            first = min(lo // kv_block, max(nk - nk_needed, 0))
         m = torch.full((B, K, G, q_block), NEG_INF, device=q.device)
         l = torch.zeros((B, K, G, q_block), device=q.device)
         acc = torch.zeros((B, K, G, q_block, hd), device=q.device)
@@ -222,25 +233,28 @@ def _project_qkv(p, cfg, x):
     return q, k, v
 
 
-def attention_layer(p, cfg, x, *, plain=False):
-    """Causal self-attention over a full sequence (prefill), positions
-    from 0, a window from ``cfg.sliding_window``.
+def attention_layer(p, cfg, x, *, use_rope=True, causal=True, plain=False):
+    """Self-attention over a full sequence (prefill, encoder), positions
+    from 0, a window from ``cfg.sliding_window``; ``causal=False`` is
+    bidirectional (the encoder's), ``use_rope=False`` leaves q and k
+    unrotated (the enc-dec archs add sinusoid positions to x instead).
 
     Returns (out, (k, v)) so callers can build a KV cache.
     """
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x)
-    positions = torch.arange(S, device=x.device)[None, :]
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if use_rope:
+        positions = torch.arange(S, device=x.device)[None, :]
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     attend = mha_ref if plain else mha
-    out = attend(q, k, v, causal=True, window=cfg.sliding_window)
+    out = attend(q, k, v, causal=causal, window=cfg.sliding_window)
     out = out.reshape(B, S, cfg.num_heads * cfg.head_dim)
     return out @ p["wo"], (k, v)
 
 
 def attention_decode_layer(p, cfg, x, k_cache, v_cache, slot_pos, pos, *,
-                           plain=False):
+                           use_rope=True, plain=False):
     """One-token self-attention against a ring cache.
 
     x: (B, 1, D); pos: (B,) absolute position of this token. ``slot_pos``
@@ -255,8 +269,9 @@ def attention_decode_layer(p, cfg, x, k_cache, v_cache, slot_pos, pos, *,
     """
     B = x.shape[0]
     q, k, v = _project_qkv(p, cfg, x)
-    q = apply_rope(q, pos[:, None], cfg.rope_theta)
-    k = apply_rope(k, pos[:, None], cfg.rope_theta)
+    if use_rope:
+        q = apply_rope(q, pos[:, None], cfg.rope_theta)
+        k = apply_rope(k, pos[:, None], cfg.rope_theta)
     W = k_cache.shape[1]
     if cfg.uniform_decode:
         slot0 = (pos[:1] % W).long()
@@ -271,6 +286,35 @@ def attention_decode_layer(p, cfg, x, k_cache, v_cache, slot_pos, pos, *,
     out = attend(q, k_cache, v_cache, slot_pos, pos, window=cfg.sliding_window)
     out = out.reshape(B, 1, cfg.num_heads * cfg.head_dim)
     return out @ p["wo"], (k_cache, v_cache)
+
+
+def _cross_query(p, cfg, x):
+    """q from ``wq`` alone: no bias and no q-norm, as the reference's."""
+    B, S, _ = x.shape
+    return (x @ p["wq"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
+
+
+def cross_attention_layer(p, cfg, x, k, v, *, plain=False):
+    """Cross-attention of x (B, St, D) against the encoder's K/V
+    (B, Ss, K, hd), unmasked: the prefill kernel, bidirectional, with
+    Sq = St and Sk = Ss."""
+    B, S, _ = x.shape
+    attend = mha_ref if plain else mha
+    out = attend(_cross_query(p, cfg, x), k, v, causal=False, window=0)
+    return out.reshape(B, S, cfg.num_heads * cfg.head_dim) @ p["wo"]
+
+
+def cross_attention_decode_layer(p, cfg, x, k, v, every_slot, last, *,
+                                 plain=False):
+    """One token's cross-attention (x: (B, 1, D)) against the encoder's
+    K/V (B, Ss, K, hd) through the decode kernel: ``every_slot`` is
+    (B, Ss) int32 ``arange(Ss)`` and ``last`` (B,) int32 ``Ss - 1``, so
+    every slot is valid and the kernel computes the reference's unmasked
+    attention."""
+    B = x.shape[0]
+    attend = decode_mha_ref if plain else decode_mha
+    out = attend(_cross_query(p, cfg, x), k, v, every_slot, last, window=0)
+    return out.reshape(B, 1, cfg.num_heads * cfg.head_dim) @ p["wo"]
 
 
 # ----------------------------------------------------------------------- MLP

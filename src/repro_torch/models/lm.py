@@ -1,6 +1,8 @@
-"""Decoder-only LM assembly: the dense, moe, ssm and hybrid families.
+"""Decoder-only LM assembly: the dense, vlm, moe, ssm and hybrid families.
 
-The counterpart of ``repro.models.lm`` for those families. Params keep
+The counterpart of ``repro.models.lm``. The vlm family is the dense
+decoder fed precomputed embeddings (``cfg.embed_input``: the prefill
+batch's ``inputs_embeds``); its decode steps embed tokens. Params keep
 the reference's tree: leaf names and a stacked leading layer axis
 (``params["layers"][name][i]`` is layer i), so the codec writes the same
 bytes in the same order. The reference's ``jax.lax.scan`` over layers is
@@ -24,18 +26,16 @@ from repro_torch.models import mamba as M
 from repro_torch.models import moe as MOE
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
+#: the families whose layers are the dense decoder's
+DENSE = ("dense", "vlm")
 
 
 def check_supported(cfg) -> None:
-    """Raise for the parts of the reference the port does not have yet."""
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-    missing = [f for f in ("embed_input", "is_encoder_decoder")
-               if getattr(cfg, f)]
-    if missing:
-        raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} not "
-                                  f"ported yet")
+    """Raise for a family the port does not have; an encoder-decoder runs
+    through `repro_torch.models.encdec`, whatever its family."""
+    if cfg.family not in FAMILIES and not cfg.is_encoder_decoder:
+        raise NotImplementedError(f"family {cfg.family!r} is not ported")
 
 
 # ------------------------------------------------------------------- params
@@ -45,10 +45,10 @@ def init_layer_params(generator, cfg, dtype, device=None):
     ones = dict(dtype=dtype, device=device if device is not None
                 else generator.device)
     p = {"ln1": torch.ones((cfg.d_model,), **ones)}
-    if fam in ("dense", "moe", "hybrid"):
+    if fam in DENSE + ("moe", "hybrid"):
         p["attn"] = L.init_attention(generator, cfg, dtype, device)
         p["ln2"] = torch.ones((cfg.d_model,), **ones)
-    if fam in ("dense", "hybrid"):
+    if fam in DENSE + ("hybrid",):
         p["mlp"] = L.init_mlp(generator, cfg.d_model, cfg.d_ff, dtype, device)
     if fam == "moe":
         p["moe"] = MOE.init_moe(generator, cfg, dtype, device)
@@ -74,28 +74,36 @@ def _empty_stacked(layer, n):
             for name, leaf in layer.items()}
 
 
+def init_stack(init_layer, generator, cfg, n, dtype, device):
+    """``n`` layers of ``init_layer`` drawn one at a time into a stacked
+    tree, so peak memory is the stack plus one layer; on the meta device
+    the tree of structs."""
+    stacked = None
+    for i in range(n):
+        layer = init_layer(generator, cfg, dtype, device)
+        if stacked is None:
+            stacked = _empty_stacked(layer, n)
+        if device.type != "meta":
+            _stack_into(stacked, layer, i)
+    return stacked
+
+
 def init_params(generator, cfg, device=None):
     """Seeded init from ``generator`` on its device.
 
-    Layers are drawn one at a time into the stacked tree, so peak memory
-    is the params plus one layer. On the meta device (``generator=None,
-    device="meta"``) it returns the tree of structs.
+    Layers are drawn one at a time into the stacked tree (`init_stack`).
+    On the meta device (``generator=None, device="meta"``) it returns the
+    tree of structs.
     """
     check_supported(cfg)
     dtype = DTYPES[cfg.param_dtype]
     device = generator.device if device is None else torch.device(device)
     embed = L.dense_init(generator, (cfg.vocab_size, cfg.d_model), 1, dtype,
                          device)
-    stacked = None
-    for i in range(cfg.num_layers):
-        layer = init_layer_params(generator, cfg, dtype, device)
-        if stacked is None:
-            stacked = _empty_stacked(layer, cfg.num_layers)
-        if device.type != "meta":
-            _stack_into(stacked, layer, i)
     params = {
         "embed": embed,
-        "layers": stacked,
+        "layers": init_stack(init_layer_params, generator, cfg,
+                             cfg.num_layers, dtype, device),
         "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=device),
     }
     if not cfg.tie_embeddings:
@@ -130,7 +138,7 @@ def _seq_sublayers(cfg, lp, x, plain=False):
     fam = cfg.family
     cache_out = {}
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-    if fam in ("dense", "moe"):
+    if fam in DENSE + ("moe",):
         attn_out, (cache_out["k"], cache_out["v"]) = L.attention_layer(
             lp["attn"], cfg, h, plain=plain)
         x = x + attn_out
@@ -155,7 +163,7 @@ def _decode_sublayers(cfg, lp, x, cache, i, slot_pos, pos, plain=False):
     the cache, in place."""
     fam = cfg.family
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-    if fam in ("dense", "moe", "hybrid"):
+    if fam in DENSE + ("moe", "hybrid"):
         attn_out, _ = L.attention_decode_layer(
             lp["attn"], cfg, h, cache["k"][i], cache["v"][i], slot_pos, pos,
             plain=plain)
@@ -225,15 +233,19 @@ def embed_tokens(cfg, params, tokens):
 
 @torch.inference_mode()
 def prefill(cfg, params, batch, cache_len=None, plain=False):
-    """Process the prompt; returns (last-token logits, decode cache).
+    """Process the prompt (``batch["tokens"]``, or with
+    ``cfg.embed_input`` ``batch["inputs_embeds"]`` (B, S, D) cast to
+    ``cfg.dtype``); returns (last-token logits, decode cache).
 
     Without ``cache_len`` the cache is exactly S wide, as in the
     reference, so the first decode step overwrites slot 0 (position 0).
     """
     check_supported(cfg)
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    x = embed_tokens(cfg, params, tokens)
+    if cfg.embed_input:
+        x = batch["inputs_embeds"].to(DTYPES[cfg.dtype])
+    else:
+        x = embed_tokens(cfg, params, batch["tokens"])
+    B, S = x.shape[:2]
     W = kvc.cache_width(cfg, max(cache_len or S, S))
     cache = kvc.init_cache(cfg, B, W, dtype=x.dtype, device=x.device)
     hidden = run_stack(cfg, params, x, cache, plain=plain)

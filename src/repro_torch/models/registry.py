@@ -7,8 +7,13 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import encdec, lm, serialize
 from repro_torch.models import kv_cache as kvc
-from repro_torch.models import lm, serialize
+
+
+def _module(cfg: ModelConfig):
+    """The family module: `encdec` for an encoder-decoder, else `lm`."""
+    return encdec if cfg.is_encoder_decoder else lm
 
 
 class Model:
@@ -21,20 +26,22 @@ class Model:
     def __init__(self, cfg: ModelConfig, device=None):
         lm.check_supported(cfg)
         self.cfg = cfg
+        self._mod = _module(cfg)
         self.device = resolve_device(device)
 
     def init_params(self, generator: torch.Generator | None = None):
         """Seeded params on this model's device (seed 0 by default)."""
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
-        return lm.init_params(generator, self.cfg, device=self.device)
+        return self._mod.init_params(generator, self.cfg, device=self.device)
 
     def prefill(self, params, batch, cache_len=None, plain=False):
-        return lm.prefill(self.cfg, params, batch, cache_len=cache_len,
-                          plain=plain)
+        return self._mod.prefill(self.cfg, params, batch,
+                                 cache_len=cache_len, plain=plain)
 
     def decode_step(self, params, cache, token, plain=False):
-        return lm.decode_step(self.cfg, params, cache, token, plain=plain)
+        return self._mod.decode_step(self.cfg, params, cache, token,
+                                     plain=plain)
 
     def init_cache(self, batch, seq_len, dtype=torch.bfloat16):
         return kvc.init_cache(self.cfg, batch, seq_len, dtype=dtype,
@@ -45,13 +52,19 @@ def get_model(cfg: ModelConfig, device=None) -> Model:
     return Model(cfg, device)
 
 
+def param_structs(cfg: ModelConfig):
+    """The params tree of any family as meta tensors: shapes and dtypes,
+    no data."""
+    return _module(cfg).param_structs(cfg)
+
+
 def param_count(cfg: ModelConfig, active_only: bool = False) -> int:
     """Parameter count from the meta-device param tree (no allocation).
 
     active_only: count only the top-k experts' share of the MoE FFN
     params, as the reference's does.
     """
-    structs = lm.param_structs(cfg)
+    structs = param_structs(cfg)
     total = sum(math.prod(x.shape) for x in serialize.leaves(structs))
     if active_only and cfg.num_experts:
         # expert FFN leaves scale by k/E

@@ -18,17 +18,21 @@ from repro.models import serialize as ref_serialize
 from repro.models import serving as ref_serving
 from repro_torch.configs import registry
 from repro_torch.models import kv_cache as kvc
-from repro_torch.models import lm, serialize
+from repro_torch.models import registry as model_registry
+from repro_torch.models import serialize
 from repro_torch.models.convert import cache_from_numpy, params_from_numpy
 
 ARCH = "llama3-8b"
 ARCHS = ["llama3-8b", "falcon-mamba-7b", "hymba-1.5b", "qwen3-moe-30b-a3b",
-         "granite-8b", "yi-34b", "qwen2-72b", "mixtral-8x22b"]
+         "granite-8b", "yi-34b", "qwen2-72b", "mixtral-8x22b",
+         "internvl2-2b", "seamless-m4t-large-v2"]
 PROMPT = 32
 CACHE_KEYS = {"dense": {"k", "v", "slot_pos", "pos"},
+              "vlm": {"k", "v", "slot_pos", "pos"},
               "moe": {"k", "v", "slot_pos", "pos"},
               "ssm": {"pos", "conv", "ssm"},
-              "hybrid": {"k", "v", "slot_pos", "pos", "conv", "ssm"}}
+              "hybrid": {"k", "v", "slot_pos", "pos", "conv", "ssm"},
+              "audio": {"pos", "k", "v", "slot_pos", "cross_k", "cross_v"}}
 
 
 def _numpy_tree(tree):
@@ -39,13 +43,22 @@ def _numpy_tree(tree):
 def _reference(arch):
     """The reference's smoke params (PRNGKey(0), as its serving bundle
     seeds them) and its decode state after a PROMPT-token prefill: the
-    (cache, next token) pair an LLM-DECODE payload carries."""
+    (cache, next token) pair an LLM-DECODE payload carries. An
+    ``embed_input`` arch takes PROMPT bf16 embeddings (an encoder-decoder
+    PROMPT source frames and the tokens as its target prefix)."""
     cfg = ref_registry.get_smoke(arch)
     model = ref_get_model(cfg)
     params = model.init_params(jax.random.PRNGKey(0))
-    toks = (np.arange(PROMPT) * 7 + 3) % cfg.vocab_size
-    logits, cache = model.prefill(
-        params, {"tokens": jnp.asarray(toks, jnp.int32)[None]})
+    toks = jnp.asarray((np.arange(PROMPT) * 7 + 3) % cfg.vocab_size,
+                       jnp.int32)[None]
+    batch = {"tokens": toks}
+    if cfg.embed_input:
+        emb = np.random.default_rng(0).standard_normal(
+            (1, PROMPT, cfg.d_model)).astype(np.float32)
+        emb = jnp.asarray(emb, jnp.bfloat16)
+        batch = ({"src_embeds": emb, "tgt_tokens": toks}
+                 if cfg.is_encoder_decoder else {"inputs_embeds": emb})
+    logits, cache = model.prefill(params, batch)
     token = jnp.argmax(logits[:, -1], axis=-1).astype(jnp.int32)[:, None]
     return params, cache, token
 
@@ -94,6 +107,17 @@ def test_new_archs_have_their_sizes():
     assert mixtral.active_param_count() == 39_161_468_928
 
 
+def test_vlm_and_encdec_have_their_sizes():
+    """internvl2-2b: 24 layers at d_model 2048 and a 92,553 vocab
+    (1.89e9, 3.78 GB in bf16); seamless-m4t-large-v2: 24 encoder and 24
+    decoder layers at d_model 1024, cross-attention in each decoder
+    layer, a 256,206 vocab and an untied head (2.03e9, 4.07 GB)."""
+    assert registry.get("internvl2-2b").param_count() == 1_889_146_880
+    seamless = registry.get("seamless-m4t-large-v2")
+    assert seamless.param_count() == 2_034_784_256
+    assert seamless.active_param_count() == seamless.param_count()
+
+
 def test_falcon_mamba_has_its_published_size():
     """7.27e9 parameters at full width: 105.3 M per layer x 64, plus the
     embedding and the head (266 M each)."""
@@ -108,8 +132,10 @@ def test_qwen3_moe_has_its_published_size():
 
 
 def test_unported_arch_raises():
+    """An id neither package holds."""
+    assert "llama2-7b" not in ref_registry.all_ids()
     with pytest.raises(KeyError, match="not ported"):
-        registry.get("internvl2-2b")
+        registry.get("llama2-7b")
 
 
 def test_llama_reference_state_is_the_serving_payloads():
@@ -134,7 +160,7 @@ def test_params_encode_byte_identical(arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_params_payload_round_trips(arch):
     blob = ref_serialize.dumps(_reference(arch)[0])
-    structs = lm.param_structs(registry.get_smoke(arch))
+    structs = model_registry.param_structs(registry.get_smoke(arch))
     assert serialize.tree_nbytes(structs) == len(blob)
     tree = serialize.loads(structs, blob)
     for got, spec in zip(serialize.leaves(tree), serialize.leaves(structs)):

@@ -686,3 +686,94 @@ def test_qwen2_bias_and_mixtral_window_on_the_card(card):
         for a, b in zip(out[False], out[True]):
             assert torch.isfinite(a).all()
             torch.testing.assert_close(a, b, atol=0.3, rtol=0.05)
+
+
+#: internvl2-2b's heads (H 16 over K 8, G 2, hd 128) and
+#: seamless-m4t-large-v2's (H 16 over K 16, G 1, hd 64)
+INTERNVL2, SEAMLESS = (16, 8, 128), (16, 16, 64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,Sq,Sk,causal", [
+    (INTERNVL2, 2048, 2048, True),
+    (SEAMLESS, 2048, 2048, False),          # the encoder
+    (SEAMLESS, 2048, 2048, True),           # the decoder
+    (SEAMLESS, 2048, 1500, False),          # cross-attention, ragged source
+], ids=["internvl2-causal", "seamless-encoder", "seamless-decoder",
+        "seamless-cross-1500"])
+def test_flash_attention_at_vlm_and_encdec_heads(card, dtype, heads, Sq, Sk,
+                                                 causal):
+    H, K, hd = heads
+    gen = torch.Generator(device=card).manual_seed(14)
+    q = _randn(gen, (1, Sq, H, hd), dtype)
+    k, v = (_randn(gen, (1, Sk, K, hd), dtype) for _ in range(2))
+    before = flash_ops.launches
+    out = mha(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_ops.launches == before + 1
+    _close(out, mha_ref(q, k, v, causal=causal), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,B,W,fill,pos", [
+    (INTERNVL2, 1, 2048, 2049, 2048),       # the served ring's first wrap
+    (INTERNVL2, 8, 2048, 2049, 2048),
+    (SEAMLESS, 1, 2048, 2049, 2048),        # the decoder's self ring
+    (SEAMLESS, 8, 2048, 2049, 2048),
+    (SEAMLESS, 1, 2048, 2048, 2047),        # the cross cache: every slot
+    (SEAMLESS, 8, 2048, 2048, 2047),
+    (SEAMLESS, 1, 1500, 1500, 1499),        # ... of a ragged source
+    (SEAMLESS, 8, 1500, 1500, 1499),
+])
+def test_flash_decode_at_vlm_and_encdec_heads(card, dtype, heads, B, W, fill,
+                                              pos):
+    H, K, hd = heads
+    gen = torch.Generator(device=card).manual_seed(15)
+    q = _randn(gen, (B, 1, H, hd), dtype)
+    kc, vc = (_randn(gen, (B, W, K, hd), dtype) for _ in range(2))
+    sp = ring_slot_pos(W, fill, B, card)
+    p = torch.full((B,), pos, dtype=torch.int32, device=card)
+    before = decode_ops.launches
+    out = decode_mha(q, kc, vc, sp, p)
+    torch.cuda.synchronize()
+    assert decode_ops.launches == before + 1
+    _close(out, decode_mha_ref(q, kc, vc, sp, p), dtype)
+
+
+@pytest.mark.parametrize("arch", ["internvl2-2b", "seamless-m4t-large-v2"])
+def test_vlm_and_encdec_kernel_path_matches_plain_path(card, arch):
+    """The smoke configs from bf16 embeddings (seamless: 56 source frames
+    against a 48-token target prefix): prefill and 3 decode steps,
+    kernel path against plain path, with the launches of each."""
+    cfg = registry.get_smoke(arch)
+    model = Model(cfg)
+    gen = torch.Generator(device=card).manual_seed(0)
+    params = model.init_params(gen)
+    toks = torch.randint(0, cfg.vocab_size, (2, 48), dtype=torch.int32,
+                         device=card, generator=gen)
+    emb = _randn(gen, (2, 56 if cfg.is_encoder_decoder else 48, cfg.d_model),
+                 torch.bfloat16)
+    batch = ({"src_embeds": emb, "tgt_tokens": toks}
+             if cfg.is_encoder_decoder else {"inputs_embeds": emb})
+    out = {}
+    flash0, decode0 = flash_ops.launches, decode_ops.launches
+    for plain in (False, True):
+        logits, cache = model.prefill(params, batch, plain=plain)
+        steps = [logits]
+        for i in range(3):
+            logits, cache = model.decode_step(params, cache,
+                                              toks[:, i:i + 1], plain=plain)
+            steps.append(logits)
+        out[plain] = steps
+    # per prefill the encoder's, the decoder's and the cross layers; per
+    # step the self and the cross layers
+    L = cfg.num_layers
+    if cfg.is_encoder_decoder:
+        assert flash_ops.launches - flash0 == cfg.num_encoder_layers + 2 * L
+        assert decode_ops.launches - decode0 == 3 * 2 * L
+    else:
+        assert flash_ops.launches - flash0 == L
+        assert decode_ops.launches - decode0 == 3 * L
+    for a, b in zip(out[False], out[True]):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, atol=0.3, rtol=0.05)

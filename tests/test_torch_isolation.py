@@ -69,6 +69,16 @@ def test_model_default_device_raises_without_card(no_card):
             make(cfg)
 
 
+@pytest.mark.parametrize("arch", ["internvl2-2b", "seamless-m4t-large-v2"])
+def test_vlm_and_encdec_default_device_raises_without_card(no_card, arch):
+    """The `Model` facade is these archs' entry point (the serve driver
+    refuses them): on the card by default, the CPU only when asked."""
+    cfg = registry.get(arch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Model(cfg)
+    assert Model(registry.get_smoke(arch), device="cpu").device.type == "cpu"
+
+
 def test_main_default_device_raises_without_card(no_card):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--smoke", "--requests", "1", "--gen", "1"])

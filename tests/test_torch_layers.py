@@ -301,6 +301,102 @@ def test_attention_layers_with_qk_norm(dtype):
         _close(r, o, dtype)
 
 
+def test_sinusoid_pos_embed():
+    """f32 in both packages, for positions (S,) and (B, 1)."""
+    for positions in (np.arange(40, dtype=np.int32),
+                      np.array([[3], [1000]], np.int32)):
+        ref = ref_layers.sinusoid_pos_embed(jnp.asarray(positions), 64)
+        out = layers.sinusoid_pos_embed(torch.from_numpy(positions), 64)
+        assert out.dtype == torch.float32 and tuple(out.shape) == ref.shape
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5,
+                                   rtol=2e-5)
+
+
+def _seamless():
+    return ref_registry.get_smoke("seamless-m4t-large-v2")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_layer_without_rope(dtype, causal):
+    """The enc-dec archs' self-attention: no RoPE, causal (the decoder's)
+    or bidirectional (the encoder's)."""
+    cfg = _seamless()
+    rng = np.random.default_rng(13)
+    jp, tp = _split(_attn_params(rng, cfg), dtype)
+    jx, tx = _pair(rng.standard_normal((2, 24, cfg.d_model)), dtype)
+    ref_out, (rk, rv) = ref_layers.attention_layer(jp, cfg, jx,
+                                                   use_rope=False,
+                                                   causal=causal)
+    out, (k, v) = layers.attention_layer(tp, cfg, tx, use_rope=False,
+                                         causal=causal)
+    for r, o in ((ref_out, out), (rk, k), (rv, v)):
+        _close(r, o, dtype)
+    # without RoPE a bidirectional layer commutes with permuting positions
+    if not causal:
+        perm = torch.randperm(24, generator=torch.Generator().manual_seed(0))
+        shuffled, _ = layers.attention_layer(tp, cfg, tx[:, perm],
+                                             use_rope=False, causal=False)
+        _close(out[:, perm].float().numpy(), shuffled, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_attention_decode_layer_without_rope(dtype):
+    cfg = _seamless()
+    rng = np.random.default_rng(14)
+    B, W, K, hd = 2, 16, cfg.num_kv_heads, cfg.head_dim
+    jp, tp = _split(_attn_params(rng, cfg), dtype)
+    jx, tx = _pair(rng.standard_normal((B, 1, cfg.d_model)), dtype)
+    jk, tk = _pair(rng.standard_normal((B, W, K, hd)), dtype)
+    jv, tv = _pair(rng.standard_normal((B, W, K, hd)), dtype)
+    pos = np.array([12, 20], np.int32)
+    sp = np.stack([ring_slot_pos(W, p + 1, 1)[0] for p in pos])
+    ref_out, (rk, rv) = ref_layers.attention_decode_layer(
+        jp, cfg, jx, jk, jv, jnp.asarray(sp), jnp.asarray(pos),
+        use_rope=False)
+    out, (k, v) = layers.attention_decode_layer(
+        tp, cfg, tx, tk, tv, torch.from_numpy(sp), torch.from_numpy(pos),
+        use_rope=False)
+    for r, o in ((ref_out, out), (rk, k), (rv, v)):
+        _close(r, o, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("St,Ss", [(24, 24), (24, 37), (1, 37)])
+def test_cross_attention_layer(dtype, St, Ss):
+    """Sq = St against Sk = Ss, unmasked, through the prefill kernel's
+    bidirectional mode (its plain version on the CPU); q from wq alone."""
+    cfg = _seamless()
+    rng = np.random.default_rng(15)
+    K, hd = cfg.num_kv_heads, cfg.head_dim
+    jp, tp = _split(_attn_params(rng, cfg), dtype)
+    jx, tx = _pair(rng.standard_normal((2, St, cfg.d_model)), dtype)
+    jk, tk = _pair(rng.standard_normal((2, Ss, K, hd)), dtype)
+    jv, tv = _pair(rng.standard_normal((2, Ss, K, hd)), dtype)
+    _close(ref_layers.cross_attention_layer(jp, cfg, jx, jk, jv),
+           layers.cross_attention_layer(tp, cfg, tx, tk, tv), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("Ss", [37, 64])
+def test_cross_attention_decode_layer(dtype, Ss):
+    """One token through the decode kernel's plain version with every
+    slot valid (slot_pos arange(Ss), pos Ss - 1): the reference's
+    unmasked cross-attention."""
+    cfg = _seamless()
+    rng = np.random.default_rng(16)
+    B, K, hd = 2, cfg.num_kv_heads, cfg.head_dim
+    jp, tp = _split(_attn_params(rng, cfg), dtype)
+    jx, tx = _pair(rng.standard_normal((B, 1, cfg.d_model)), dtype)
+    jk, tk = _pair(rng.standard_normal((B, Ss, K, hd)), dtype)
+    jv, tv = _pair(rng.standard_normal((B, Ss, K, hd)), dtype)
+    every = torch.arange(Ss, dtype=torch.int32).expand(B, Ss).contiguous()
+    last = torch.full((B,), Ss - 1, dtype=torch.int32)
+    _close(ref_layers.cross_attention_layer(jp, cfg, jx, jk, jv),
+           layers.cross_attention_decode_layer(tp, cfg, tx, tk, tv, every,
+                                               last), dtype)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_mlp_layer(dtype):
     rng = np.random.default_rng(6)
@@ -340,3 +436,18 @@ def test_cache_width_and_init_cache_match_reference():
             assert tuple(out[name].shape) == ref[name].shape
             np.testing.assert_array_equal(out[name].float().numpy(),
                                           np.asarray(ref[name], np.float32))
+
+
+@pytest.mark.parametrize("arch", ["internvl2-2b", "seamless-m4t-large-v2"])
+def test_init_cache_of_vlm_and_encdec_matches_reference(arch):
+    """The vlm cache has the dense leaves; the encoder-decoder's adds
+    ``cross_k`` and ``cross_v``, ``seq_len`` wide."""
+    cfg = ref_registry.get_smoke(arch)
+    ref = ref_kvc.init_cache(cfg, 2, 32)
+    out = kvc.init_cache(cfg, 2, 32)
+    assert set(out) == set(ref)
+    for name in ref:
+        assert tuple(out[name].shape) == ref[name].shape, name
+        assert str(out[name].dtype).split(".")[-1] == ref[name].dtype.name
+        np.testing.assert_array_equal(out[name].float().numpy(),
+                                      np.asarray(ref[name], np.float32))

@@ -1,5 +1,5 @@
-"""The port's decoders (dense, moe, ssm, hybrid) against repro.models on
-the same params.
+"""The port's models (dense, vlm, moe, ssm, hybrid and the
+encoder-decoder) against repro.models on the same params.
 
 The reference's params (JAX init) reach the port through
 `repro_torch.models.convert`; logits and every cache leaf are compared
@@ -9,7 +9,9 @@ with the whole-model bf16 tolerance of tests/test_models.py
 MoE routing is a discrete choice, and the two packages' bf16 activations
 differ in their last bits, so at a near-tie one package can route a
 token to another expert than the other and move the logits by far more
-than the tolerance. `RoutingSpy` records the router probabilities of
+than the tolerance. The vlm and encoder-decoder archs take bf16
+embeddings drawn with numpy (the encoder's source a few frames longer
+than the target prefix) and decode 6 steps. `RoutingSpy` records the router probabilities of
 every MoE layer in both packages. Where the chosen experts differ, the
 k-th and (k+1)-th probabilities must lie within ``ROUTE_TOL`` (else the
 test fails: a flip at a clear margin is a fault), and from then on the
@@ -25,11 +27,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCH_IDS as REF_ARCH_IDS
 from repro.configs import registry as ref_registry
 from repro.models import get_model as ref_get_model
 from repro.models import moe as ref_moe
 from repro.models import serialize as ref_serialize
-from repro_torch.configs import registry
+from repro_torch.configs import ARCH_IDS, registry
 from repro_torch.models import Model, get_model, moe, serialize
 from repro_torch.models.convert import cache_from_numpy, params_from_numpy
 
@@ -49,8 +52,33 @@ SSM_F32_DECODE_TOL = dict(atol=1e-3, rtol=1e-3)
 ROUTE_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 ARCH = "llama3-8b"
 ARCHS = ["llama3-8b", "falcon-mamba-7b", "hymba-1.5b", "qwen3-moe-30b-a3b",
-         "granite-8b", "yi-34b", "qwen2-72b", "mixtral-8x22b"]
+         "granite-8b", "yi-34b", "qwen2-72b", "mixtral-8x22b",
+         "internvl2-2b", "seamless-m4t-large-v2"]
 INT_LEAVES = ("pos", "slot_pos")
+#: decode steps of the parity runs, by family (4 unless listed)
+STEPS = {"vlm": 6, "audio": 6}
+#: the encoder's source frames beyond the target prefix in parity runs
+SRC_EXTRA = 3
+
+
+def _batches(cfg, rng, B, S, src=None, toks=None):
+    """One prefill batch for the reference and for the port from the same
+    numpy draws: ``toks`` (drawn if not given), or for an ``embed_input``
+    config embeddings rounded to bf16 on both sides (``inputs_embeds``,
+    or an encoder-decoder's ``src`` frames of ``src_embeds``, S by
+    default, and ``toks`` as its ``tgt_tokens``)."""
+    if toks is None:
+        toks = rng.integers(0, cfg.vocab_size, (B, S), dtype=np.int32)
+    if not cfg.embed_input:
+        return {"tokens": jnp.asarray(toks)}, {"tokens": torch.from_numpy(toks)}
+    emb = rng.standard_normal((B, src or S, cfg.d_model)).astype(np.float32)
+    name = "src_embeds" if cfg.is_encoder_decoder else "inputs_embeds"
+    ref = {name: jnp.asarray(emb, jnp.bfloat16)}
+    port = {name: torch.from_numpy(emb).to(torch.bfloat16)}
+    if cfg.is_encoder_decoder:
+        ref["tgt_tokens"] = jnp.asarray(toks)
+        port["tgt_tokens"] = torch.from_numpy(toks)
+    return ref, port
 
 
 class RoutingSpy:
@@ -120,22 +148,22 @@ def _np(x):
 
 
 def _prefill_then_decode(ref, rparams, port, pparams, tol, monkeypatch,
-                         decode_tol=None, S=16, steps=4):
-    """Prefill ``S`` tokens of 2 rows and decode ``steps``, comparing
-    logits and every cache leaf after each call (decode logits at
-    ``decode_tol``, by default ``tol``), on the rows no routing flip has
-    reached (all rows for families without MoE)."""
+                         decode_tol=None, S=16, steps=None):
+    """Prefill ``S`` positions of 2 rows and decode ``steps`` (by default
+    `STEPS` of the family), comparing logits and every cache leaf after
+    each call (decode logits at ``decode_tol``, by default ``tol``), on
+    the rows no routing flip has reached (all rows for families without
+    MoE)."""
     cfg = port.cfg
+    steps = steps or STEPS.get(cfg.family, 4)
     spy = RoutingSpy(monkeypatch) if cfg.family == "moe" else None
     route_tol = ROUTE_TOL[cfg.dtype]
     rng = np.random.default_rng(0)
     B = 2
     rows = list(range(B))
-    toks = rng.integers(0, cfg.vocab_size, (B, S), dtype=np.int32)
-    rlogits, rcache = ref.prefill(rparams, {"tokens": jnp.asarray(toks)},
-                                  cache_len=S + steps)
-    logits, cache = port.prefill(pparams, {"tokens": torch.from_numpy(toks)},
-                                 cache_len=S + steps)
+    rbatch, batch = _batches(cfg, rng, B, S, src=S + SRC_EXTRA)
+    rlogits, rcache = ref.prefill(rparams, rbatch, cache_len=S + steps)
+    logits, cache = port.prefill(pparams, batch, cache_len=S + steps)
     for step in range(steps + 1):
         if step:
             tok = rng.integers(0, cfg.vocab_size, (B, 1), dtype=np.int32)
@@ -284,9 +312,11 @@ def test_f32_config_matches_reference(arch, monkeypatch):
     _prefill_then_decode(ref, rparams, port, pparams, F32_TOL, monkeypatch,
                          SSM_F32_DECODE_TOL if cfg.family in ("ssm", "hybrid")
                          else None)
-    toks = (np.arange(12, dtype=np.int32) % cfg.vocab_size)[None]
-    _, rcache = ref.prefill(rparams, {"tokens": jnp.asarray(toks)})
-    _, cache = port.prefill(pparams, {"tokens": torch.from_numpy(toks)})
+    rbatch, batch = _batches(
+        cfg, np.random.default_rng(1), 1, 12,
+        toks=(np.arange(12, dtype=np.int32) % cfg.vocab_size)[None])
+    _, rcache = ref.prefill(rparams, rbatch)
+    _, cache = port.prefill(pparams, batch)
     if "conv" in cache:
         assert cache["conv"].dtype == torch.bfloat16
     assert serialize.tree_nbytes(cache) == len(ref_serialize.dumps(rcache))
@@ -320,8 +350,10 @@ def _assert_cache_matches(cache, rcache, when, tol=TOL, rows=None):
 def test_decode_from_reference_cache(pair, monkeypatch):
     """A decode state written by the reference advances in the port."""
     ref, rparams, port, pparams = pair
-    toks = jnp.arange(24, dtype=jnp.int32)[None] % port.cfg.vocab_size
-    _, rcache = ref.prefill(rparams, {"tokens": toks})
+    rbatch, _ = _batches(
+        port.cfg, np.random.default_rng(2), 1, 24,
+        toks=(np.arange(24, dtype=np.int32) % port.cfg.vocab_size)[None])
+    _, rcache = ref.prefill(rparams, rbatch)
     cache = cache_from_numpy(jax.tree.map(np.asarray, rcache))
     tok = np.array([[5]], np.int32)
     spy = RoutingSpy(monkeypatch) if port.cfg.family == "moe" else None
@@ -363,7 +395,9 @@ def test_first_decode_evicts_position_zero_like_the_reference(pair):
 class TestDecodeConsistency:
     """Port copy of tests/test_models.py::TestDecodeConsistency: prefill
     then decode matches a teacher-forced full prefill (the port's own
-    seeded params)."""
+    seeded params). The vlm prefill takes the tokens' own embeddings as
+    ``inputs_embeds``; the encoder-decoder prefills its target prefix
+    against one source in both runs."""
 
     @pytest.mark.parametrize("arch", ARCHS)
     def test_decode_matches_prefill_logits(self, arch):
@@ -377,8 +411,18 @@ class TestDecodeConsistency:
         B, S = 1, 32
         toks = torch.randint(0, cfg.vocab_size, (B, S), dtype=torch.int32,
                              generator=torch.Generator().manual_seed(3))
-        logits_full, _ = model.prefill(params, {"tokens": toks})
-        logits_pre, cache = model.prefill(params, {"tokens": toks[:, :-1]},
+
+        def batch(t):
+            if cfg.is_encoder_decoder:
+                return {"src_embeds": src, "tgt_tokens": t}
+            if cfg.embed_input:
+                return {"inputs_embeds": params["embed"][t]}
+            return {"tokens": t}
+
+        src = torch.randn((B, S, cfg.d_model),
+                          generator=torch.Generator().manual_seed(4))
+        logits_full, _ = model.prefill(params, batch(toks))
+        logits_pre, cache = model.prefill(params, batch(toks[:, :-1]),
                                           cache_len=S)
         logits_dec, _ = model.decode_step(params, cache, toks[:, -1:])
         np.testing.assert_allclose(_np(logits_full[:, -1]),
@@ -387,9 +431,10 @@ class TestDecodeConsistency:
 
 def test_plain_flag_matches_wrapper_path_on_cpu(pair):
     _, _, port, pparams = pair
-    toks = torch.arange(10, dtype=torch.int32)[None]
-    a, ca = port.prefill(pparams, {"tokens": toks})
-    b, cb = port.prefill(pparams, {"tokens": toks}, plain=True)
+    _, batch = _batches(port.cfg, np.random.default_rng(3), 1, 10,
+                        toks=np.arange(10, dtype=np.int32)[None])
+    a, ca = port.prefill(pparams, batch)
+    b, cb = port.prefill(pparams, batch, plain=True)
     assert torch.equal(a, b)
     for name in ca:
         if name == "ssm":
@@ -402,6 +447,34 @@ def test_plain_flag_matches_wrapper_path_on_cpu(pair):
 
 
 def test_unported_family_raises():
-    cfg = registry.get_smoke(ARCH).replace(family="vlm")
-    with pytest.raises(NotImplementedError, match="vlm"):
+    """A family neither package has (the reference's families are dense,
+    ssm, moe, vlm, audio and hybrid)."""
+    cfg = registry.get_smoke(ARCH).replace(family="diffusion")
+    with pytest.raises(NotImplementedError, match="diffusion"):
         Model(cfg, device="cpu")
+
+
+def test_port_holds_every_reference_arch():
+    assert sorted(ARCH_IDS) == sorted(REF_ARCH_IDS)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+class TestArchSmoke:
+    """Port copy of tests/test_models.py::TestArchSmoke's
+    test_forward_prefill_decode, without the loss (training is not
+    ported): the smoke config, the port's seeded params, B 2 x S 64."""
+
+    def test_forward_prefill_decode(self, arch):
+        cfg = registry.get_smoke(arch)
+        model = get_model(cfg, device="cpu")
+        params = model.init_params(torch.Generator().manual_seed(0))
+        B, S = 2, 64
+        _, batch = _batches(cfg, np.random.default_rng(0), B, S)
+        logits, cache = model.prefill(params, batch)
+        assert logits.shape == (B, 1, cfg.vocab_size)
+        assert torch.isfinite(logits).all()
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        logits2, cache2 = model.decode_step(params, cache, tok)
+        assert logits2.shape == (B, 1, cfg.vocab_size)
+        assert torch.isfinite(logits2).all()
+        assert int(cache2["pos"][0]) == S + 1

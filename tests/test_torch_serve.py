@@ -16,6 +16,7 @@ from repro.core import fabric as ref_fabric
 from repro.core import metrics as ref_metrics
 from repro.core import ratelimit as ref_ratelimit
 from repro.core import transport as ref_transport
+from repro.launch import serve as ref_serve
 from repro.launch.serve import NexusModelServer as RefServer
 from repro_torch.configs import registry
 from repro_torch.core import fabric, metrics, ratelimit, transport
@@ -108,6 +109,23 @@ def test_main_runs_on_cpu(capsys, arch):
     assert [o.size for o in result["outputs"]] == [3, 3]
     assert result["server"].cfg.name == f"{arch}-smoke"
     assert "2 requests x 3 tokens" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["internvl2-2b", "seamless-m4t-large-v2"])
+@pytest.mark.parametrize("smoke", [False, True])
+def test_main_refuses_vlm_and_encdec_like_the_reference(monkeypatch, arch,
+                                                        smoke):
+    """Both drivers serve token LMs only: an ``embed_input`` or
+    encoder-decoder arch exits with the same message, before any server
+    is built."""
+    argv = ["--arch", arch] + (["--smoke"] if smoke else [])
+    monkeypatch.setattr("sys.argv", ["serve"] + argv)
+    with pytest.raises(SystemExit) as ref_exit:
+        ref_serve.main()
+    with pytest.raises(SystemExit) as port_exit:
+        serve.main(argv + ["--device", "cpu"])
+    assert str(port_exit.value) == str(ref_exit.value) == \
+        "serve driver covers token-LM archs"
 
 
 def test_copied_core_constants_equal_reference():
