@@ -31,7 +31,15 @@ Phases, each of which fails the run (exit 1) if it fails:
    ran (prefill: wgmma or SIMT; decode: mma or SIMT, and its cluster
    size), q/k/v as views of a fused projection, and misaligned bf16
    views (prefill at hd 64, decode at hd 16) and a group size outside
-   the decode kernel's (G 3) that must raise; the selective scan at
+   the decode kernel's (G 3) that must raise; the attention backward
+   (``flash_attention_bwd``) against ``mha_ref_bwd`` (autograd of the
+   plain attention), dq, dk and dv each within 2e-2 (bf16) or 1e-4 (f32)
+   of its largest |value|, at llama's training shape (B 2 x S 4096 and B
+   1 x S 2048, causal), hymba's heads at S 4096 with its 2048 window,
+   seamless's cross shape (2048 queries against 1500 keys,
+   bidirectional), the group sizes 1, 2, 5, 6, 7 and 8, hd 16 and 32, a
+   dout that is a transposed view, and two runs bit for bit; the
+   selective scan at
    Falcon-Mamba-7B and Hymba-1.5B widths, fp32 (1e-4), with the model's
    long-memory dt and A, every states-per-thread R forced, N = 8, layouts
    that are not 16-byte aligned and S = 0, 1 and 5, each check naming the
@@ -73,13 +81,27 @@ Phases, each of which fails the run (exit 1) if it fails:
    device memory; the B 1 run replayed through the plain path on its
    tokens, logits at every step within atol 0.3, rtol 0.05; one replica
    of each traced as in phase 5;
+   then ("train llama3-8b") 4 AdamW steps of llama3-8b at full width cut
+   to 8 of its 32 layers (12 B a parameter on the card), bf16, seed-0
+   init, B 2 x S 4096, through ``repro_torch.launch.train.run`` (a
+   SyntheticCorpus in the port's object store, the DataPipeline's
+   prefetch through its NexusBackend): loss and grad norm per step, step
+   wall and device time, tokens/s, mfu against 989 TFLOP/s, peak device
+   memory and host RSS, exact attention launches (the forward, its
+   recompute under the remat policy and the backward, per layer and
+   step), a torch.profiler trace of step 2; a 2-layer full-width model's
+   loss and every gradient leaf on the kernel path against the plain
+   path (B 1 x S 4096); and at llama3-8b smoke a checkpoint through the
+   port's AsyncCheckpointer restored with ``--resume`` semantics, equal
+   bit for bit;
 5. one replica of each served arch traced with torch.profiler: host
    wall time of prefill and of a decode step, device time, device idle
    share, top device ops;
    then the MLServe serving cores (``repro_torch.models.serving``): the
    scenarios LLM-COLD, LLM-PREFILL and LLM-DECODE (llama3-8b) and EMB
    (granite-8b), from seed payloads built once per role,
-   through the kernels and then ``plain=True`` on the same bytes: at tiny
+   through the kernels and then ``plain=True`` on the inputs the kernel
+   run decoded (the payloads are not decoded twice): at tiny
    scale (the SMOKE configs, hd 32) with every payload and output length
    equal to ``calibration.json``, and at full published width (llama3-8b
    32 layers, 16.06 GB of params in one payload or 4 shards, a 2.15 GB
@@ -151,8 +173,12 @@ Phases, each of which fails the run (exit 1) if it fails:
    many calls, so the host's launch overhead (tens of microseconds per
    call from Python, more than a decode kernel takes) does not stand in
    for the kernel's time; the eager times are printed beside them. The
-   plain versions are timed eagerly. The scan is also timed at every R
-   of ``SCAN_SWEEP`` beside the R its rule picks.
+   plain versions are timed eagerly. The attention backward is timed at
+   llama's training shape (B 2 x S 4096) and at B 1 x S 2048 beside its
+   bound by operations (2.5x the forward's FLOPs), the plain backward and
+   the library's (autograd of ``F.scaled_dot_product_attention``,
+   eager). The scan is also timed at every R of ``SCAN_SWEEP`` beside
+   the R its rule picks.
 
 Prints a JSON line of the kernels, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -164,6 +190,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import math
 import resource
 import subprocess
 import sys
@@ -200,6 +227,9 @@ ROUTE_TOL = 2e-2
 #: token's FFN, past the model tolerance; qwen3's top-8 is compared as is
 PINNED = ("mixtral-8x22b",)
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+#: the attention backward: each gradient's largest error over its largest
+#: |value| (as tests/test_torch_cuda.py's BWD_TOL)
+BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 SCAN_TOL = 1e-4                 # f32, as tests/test_kernels.py::TestSsmScan
 SCAN_SWEEP = (2, 4, 8)          # states per thread timed in phase 6
 #: the MLServe scenarios driven on the card, by role
@@ -219,6 +249,11 @@ DENSITY_SYSTEMS = ("baseline", "nexus-tcp", "nexus-prefetch-only",
 FLEET_N = 48
 FLEET_POLICIES = ("round_robin", "random", "least_loaded", "jbsq",
                   "affinity")
+#: the train phase: llama3-8b at full width cut to TRAIN_LAYERS of 32
+#: layers (12 B a parameter on the card: 33.5 GB), the reference's
+#: ``train_4k`` sequence length, TRAIN_STEPS steps, step TRAIN_TRACED traced
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 8, 2, 4096
+TRAIN_STEPS, TRAIN_TRACED = 4, 2
 #: the deadline of one worker-node invocation's future (phase 5)
 NODE_TIMEOUT_S = 900
 #: a scenario's durable output, as its key in role_sizes / calibration
@@ -229,6 +264,12 @@ FLASH = {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:92"}
+FLASH_BWD = {"name": "flash_attention_bwd", "route": "cuda",
+             "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                       "flash_attention_bwd.cu",
+             "replaces": "XLA autodiff of src/repro/models/layers.py:212 "
+                         "full_attention / :124 blocked_causal_attention "
+                         "(no Pallas backward)"}
 DECODE = {"name": "flash_decode", "route": "cuda",
           "source": "src/repro_torch/kernels/decode_attention/csrc/"
                     "decode_attention.cu",
@@ -236,7 +277,33 @@ DECODE = {"name": "flash_decode", "route": "cuda",
 SCAN = {"name": "ssm_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan/kernel.py:67"}
-KERNELS = (FLASH, DECODE, SCAN)
+KERNELS = (FLASH, FLASH_BWD, DECODE, SCAN)
+
+
+def _paths(tree, prefix=""):
+    """(path, leaf) of a params tree in its leaves' order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _paths(tree[k], f"{prefix}/{k}" if prefix else k)
+    else:
+        yield prefix, tree
+
+
+class Counter:
+    """A kernel's launch count kept under another attribute name of its
+    wrapper module (the attention backward's ``bwd_launches`` beside the
+    forward's ``launches``), read and set as ``launches``."""
+
+    def __init__(self, mod, attr):
+        self.mod, self.attr = mod, attr
+
+    @property
+    def launches(self):
+        return getattr(self.mod, self.attr)
+
+    @launches.setter
+    def launches(self, n):
+        setattr(self.mod, self.attr, n)
 
 
 class RssSampler:
@@ -384,6 +451,7 @@ class Smoke:
         self.torch = torch
         self.dev = torch.device("cuda")
         self.err = {meta["name"]: 0.0 for meta in KERNELS}
+        self.rel_err = {}               # kernel -> largest relative error
         self.launches = {}              # arch -> kernel -> launches
         self.timing = {}
         self.also = {}                  # kernel -> timings at other shapes
@@ -474,7 +542,84 @@ class Smoke:
 
     def phase_kernels(self):
         self.check_attention()
+        self.check_attention_bwd()
         self.check_scan()
+
+    def check_attention_bwd(self):
+        """The attention backward kernel against `mha_ref_bwd` (autograd of
+        the plain attention), dq, dk and dv each within ``BWD_TOL`` of its
+        largest |value|: llama's training shape (B 2 x S 4096, H 32 over K
+        8, hd 128, causal) and B 1 x S 2048, hymba's heads at S 4096 with
+        its 2048 window, seamless's cross-attention (2048 queries against
+        1500 keys, bidirectional), the group sizes 1, 2, 5, 6, 7 and 8, hd
+        16 and 32, in bf16 and f32; then a dout that is not contiguous,
+        and two runs of one backward bit for bit."""
+        torch = self.torch
+        from repro_torch.kernels.flash_attention import (mha, mha_bwd,
+                                                         mha_ref_bwd)
+        name = FLASH_BWD["name"]
+        cases = [
+            ((2, 4096, 4096, 32, 8, 128), True, 0, "llama train B=2 S=4096"),
+            ((1, 2048, 2048, 32, 8, 128), True, 0, "llama train B=1 S=2048"),
+            ((1, 4096, 4096, 25, 5, 64), True, 2048,
+             "hymba H25/K5/hd64 G5 window=2048 S=4096"),
+            ((1, 2048, 1500, 16, 16, 64), False, 0,
+             "seamless cross Sq=2048 Sk=1500 G1"),
+            ((1, 2048, 2048, 16, 8, 128), True, 0, "internvl2 H16/K8 G2"),
+            ((1, 1024, 1024, 48, 8, 128), True, 512,
+             "mixtral H48/K8 G6 window=512"),
+            ((1, 1024, 1024, 56, 8, 128), True, 0, "yi H56/K8 G7"),
+            ((1, 1024, 1024, 64, 8, 128), True, 0, "qwen2 H64/K8 G8"),
+            ((2, 300, 300, 4, 2, 16), True, 48, "hd 16 H4/K2 window=48"),
+            ((2, 512, 512, 8, 4, 32), False, 0, "hd 32 H8/K4 bidirectional"),
+        ]
+        for dname, tol in BWD_TOL.items():
+            dtype = getattr(torch, dname)
+            g = self.gen(11)
+            for (B, Sq, Sk, H, K, hd), causal, window, what in cases:
+                q = self.randn(g, (B, Sq, H, hd), dtype)
+                k, v = (self.randn(g, (B, Sk, K, hd), dtype) for _ in "kv")
+                dout = self.randn(g, (B, Sq, H, hd), dtype)
+                out = mha(q, k, v, causal=causal, window=window)
+                got = mha_bwd(q, k, v, out, dout, causal=causal,
+                              window=window)
+                want = mha_ref_bwd(q, k, v, out, dout, causal=causal,
+                                   window=window)
+                for gname, a, b in zip(("dq", "dk", "dv"), got, want):
+                    self.compare_rel(name, f"{dname} {gname} {what}", a, b,
+                                     tol)
+                del q, k, v, dout, out, got, want
+            # dout as a transposed view, made contiguous by the wrapper
+            q = self.randn(g, (1, 1000, 8, 128), dtype)
+            k, v = (self.randn(g, (1, 1000, 2, 128), dtype) for _ in "kv")
+            dout = self.randn(g, (1, 8, 1000, 128), dtype).transpose(1, 2)
+            out = mha(q, k, v)
+            got = mha_bwd(q, k, v, out, dout)
+            for gname, a, b in zip(("dq", "dk", "dv"), got,
+                                   mha_ref_bwd(q, k, v, out, dout)):
+                self.compare_rel(name, f"{dname} {gname} dout a transposed "
+                                 f"view S=1000", a, b, tol)
+            again = mha_bwd(q, k, v, out, dout)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{name}: two runs of one backward "
+                                     f"differ")
+            print(f"  {name:15s} {dname} two runs of one backward: equal bit "
+                  f"for bit")
+
+    def compare_rel(self, kernel, label, out, ref, tol):
+        """Max error relative to the reference's largest |value|."""
+        self.torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        rel = err / scale if scale else err
+        ok = rel <= tol and bool(self.torch.isfinite(out).all())
+        self.err[kernel] = max(self.err[kernel], err)
+        self.rel_err[kernel] = max(self.rel_err.get(kernel, 0.0), rel)
+        print(f"  {kernel:15s} {label:52s} max_abs_err={err:.3e} of "
+              f"{scale:.3e}: {rel:.3e} (tol {tol:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{kernel} {label} disagrees with its plain "
+                                 f"version")
 
     def check_attention(self):
         torch = self.torch
@@ -821,8 +966,9 @@ class Smoke:
         from repro_torch.kernels.decode_attention import ops as decode_ops
         from repro_torch.kernels.flash_attention import ops as flash_ops
         from repro_torch.kernels.ssm_scan import ops as scan_ops
-        return {FLASH["name"]: flash_ops, DECODE["name"]: decode_ops,
-                SCAN["name"]: scan_ops}
+        return {FLASH["name"]: flash_ops,
+                FLASH_BWD["name"]: Counter(flash_ops, "bwd_launches"),
+                DECODE["name"]: decode_ops, SCAN["name"]: scan_ops}
 
     def serve_path(self, arch):
         """Serve ``arch`` at full width, check the run, trace one replica,
@@ -890,7 +1036,8 @@ class Smoke:
         want = {FLASH["name"]: L * (REQUESTS + REPLICAS) if attn else 0,
                 DECODE["name"]: (L * (REQUESTS * GEN + REPLICAS) if attn
                                  else 0),
-                SCAN["name"]: L * (REQUESTS + REPLICAS) if ssm else 0}
+                SCAN["name"]: L * (REQUESTS + REPLICAS) if ssm else 0,
+                FLASH_BWD["name"]: 0}
         if launches != want:
             raise AssertionError(f"{arch} launch counts {launches} != {want}")
         for i, o in enumerate(outs):
@@ -1046,7 +1193,7 @@ class Smoke:
             per_prefill, per_step = L, L
         counters = self.counters()
         want = {FLASH["name"]: per_prefill, DECODE["name"]: per_step * GEN,
-                SCAN["name"]: 0}
+                SCAN["name"]: 0, FLASH_BWD["name"]: 0}
         first = None
         for B in EMBEDS_BATCHES:
             batch, toks = self.prompt_batch(cfg, B, PROMPT, 20 + B)
@@ -1127,12 +1274,21 @@ class Smoke:
     def profile(self, fn):
         """Total kernel time (ms) and kernel count of fn() under
         torch.profiler, and the kernel rows by time."""
+        out = {}
+        with self.profiled(out):
+            fn()
+        return out["ms"], out["count"], out["rows"]
+
+    @contextlib.contextmanager
+    def profiled(self, out):
+        """torch.profiler around the block; fills ``out`` with the total
+        kernel time (ms), the kernel count and the kernel rows by time."""
         torch = self.torch
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            fn()
+            yield
             torch.cuda.synchronize()
         # device-side rows only (CPU operators also carry the time of the
         # kernels they launch); "Command Buffer Full" is a launch-queue
@@ -1141,8 +1297,204 @@ class Smoke:
                 if e.device_type == DeviceType.CUDA
                 and e.key != "Command Buffer Full"]
         rows.sort(key=lambda e: -e.self_device_time_total)
-        return (sum(e.self_device_time_total for e in rows) / 1e3,
-                sum(e.count for e in rows), rows)
+        out.update(ms=sum(e.self_device_time_total for e in rows) / 1e3,
+                   count=sum(e.count for e in rows), rows=rows)
+
+    # -------------------------------------------------------------- train
+    def phase_train(self):
+        """llama3-8b at full width cut to ``TRAIN_LAYERS`` layers, trained
+        through `launch/train.run`; then kernel path against plain path on
+        a 2-layer model; then a checkpoint round trip at smoke size."""
+        self.train_full()
+        self.train_against_plain()
+        self.train_checkpoint_round_trip()
+
+    def train_full(self):
+        """``TRAIN_STEPS`` AdamW steps of B ``TRAIN_BATCH`` x S
+        ``TRAIN_SEQ`` on llama3-8b (full width, ``TRAIN_LAYERS`` of 32
+        layers, bf16, seed-0 init), fed by SyntheticCorpus -> DataPipeline
+        -> the port's NexusBackend: loss and grad norm per step (finite),
+        step wall and device time, tokens/s, mfu, peak device memory and
+        host RSS, exact attention launches (the forward, its recompute
+        under the remat policy, the backward), and a torch.profiler trace
+        of step ``TRAIN_TRACED``."""
+        torch = self.torch
+        from repro_torch.configs import registry
+        from repro_torch.launch import train
+        from repro_torch.models import serialize
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = registry.get("llama3-8b").replace(num_layers=TRAIN_LAYERS)
+        B, S, L = TRAIN_BATCH, TRAIN_SEQ, cfg.num_layers
+        n_params = cfg.param_count()
+        n_matmul = n_params - cfg.vocab_size * cfg.d_model   # no embed gather
+        print(f"  {cfg.name} x{L}: {n_params} parameters "
+              f"({2 * n_params / 1e9:.2f} GB in bf16; params, grads, f32 mu "
+              f"and nu {12 * n_params / 1e9:.2f} GB), remat "
+              f"{cfg.remat_policy!r}, B {B} x S {S}; before the phase "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+        trace = {}
+
+        def step_context(step):
+            return (self.profiled(trace) if step == TRAIN_TRACED
+                    else contextlib.nullcontext())
+
+        counters = self.counters()
+        torch.cuda.reset_peak_memory_stats()
+        for mod in counters.values():
+            mod.launches = 0
+        with RssSampler() as rss:
+            result = train.run(cfg, steps=TRAIN_STEPS, batch=B, seq=S,
+                               ckpt_every=TRAIN_STEPS + 1, device="cuda",
+                               step_context=step_context)
+        launches = {n: m.launches for n, m in counters.items()}
+        path = f"train {cfg.name} x{L}"
+        self.launches[path] = launches
+        peak = torch.cuda.max_memory_allocated()
+        recompute = 0 if cfg.remat_policy == "none" else 1
+        want = {FLASH["name"]: TRAIN_STEPS * L * (1 + recompute),
+                FLASH_BWD["name"]: TRAIN_STEPS * L, DECODE["name"]: 0,
+                SCAN["name"]: 0}
+        pairs = S * (S + 1) // 2
+        flops = 6 * n_matmul * B * S + 12 * B * cfg.num_heads \
+            * cfg.head_dim * pairs * L
+        for r in result["records"]:
+            dev_s = r["device_s"]
+            print(f"  {path} step {r['step']}: loss {r['loss']:.6f} grad_norm "
+                  f"{r['grad_norm']:.6f}; wall {r['wall_s'] * 1e3:.1f} ms, "
+                  f"device {dev_s * 1e3:.1f} ms, {B * S / r['wall_s']:.1f} "
+                  f"tokens/s, mfu {flops / r['wall_s'] / BF16_FLOPS_PER_S:.4f}"
+                  f" (wall) {flops / dev_s / BF16_FLOPS_PER_S:.4f} (device)")
+        print(f"  {path}: model FLOPs per step {flops:.4e} (6 x {n_matmul} "
+              f"matmul params x {B * S} tokens + causal attention 12 B H hd "
+              f"S(S+1)/2 L), mfu against {BF16_FLOPS_PER_S / 1e12:.0f} "
+              f"TFLOP/s dense bf16; peak device memory {peak / 1e9:.2f} GB; "
+              f"host RSS {rss.start / 2**30:.2f} GiB at the start, peak "
+              f"{rss.peak / 2**30:.2f} GiB; launches {launches} "
+              f"({nvidia_smi()})")
+        steady = [r["wall_s"] for r in result["records"][1:]
+                  if r["step"] != TRAIN_TRACED] or [result["records"][-1][
+                      "wall_s"]]
+        wall_ms = 1e3 * sum(steady) / len(steady)
+        print(f"  {path} step {TRAIN_TRACED} traced: kernel time "
+              f"{trace['ms']:.1f} ms in {trace['count']} kernels against the "
+              f"untraced steps' mean wall {wall_ms:.1f} ms: device idle share "
+              f"{1 - trace['ms'] / wall_ms:.3f}")
+        for e in trace["rows"][:15]:
+            print(f"    {e.self_device_time_total / 1e3:9.3f} ms "
+                  f"{e.count:6d}x  {e.key[:90]}")
+        if launches != want:
+            raise AssertionError(f"{path}: launches {launches} != {want}")
+        if len(result["records"]) != TRAIN_STEPS or not all(
+                math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                for r in result["records"]):
+            raise AssertionError(f"{path}: not {TRAIN_STEPS} finite steps")
+        if serialize.leaves(result["state"].params)[0].device.type != "cuda":
+            raise AssertionError(f"{path}: the params are not on the card")
+        self.train_summary = {"records": result["records"], "peak": peak,
+                              "rss_peak": rss.peak, "flops": flops,
+                              "trace_ms": trace["ms"], "wall_ms": wall_ms}
+        del result, trace
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def train_against_plain(self):
+        """A 2-layer full-width llama3-8b, B 1 x S ``TRAIN_SEQ``: one train
+        step on the kernel path and one on the plain path
+        (``make_train_step(..., plain=True)``) from the same params and
+        batch. The loss within 2e-2, and every gradient leaf, as the
+        step's first moment (0.1 x the clipped gradient), within 5e-2 of
+        its largest |value| (the bf16 tolerances of
+        tests/test_torch_train.py)."""
+        torch = self.torch
+        from repro_torch.configs import registry
+        from repro_torch.models import Model, serialize
+        from repro_torch.optim import adamw_init, make_train_step
+        cfg = registry.get("llama3-8b").replace(num_layers=2)
+        model = Model(cfg)
+        params = model.init_params(self.gen(0))
+        toks = torch.randint(0, cfg.vocab_size, (1, TRAIN_SEQ + 1),
+                             dtype=torch.int32, device=self.dev,
+                             generator=self.gen(31))
+        batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+        names = [k for k, _ in _paths(params)]
+        counters = self.counters()
+        out = {}
+        for plain in (True, False):         # the kernel path takes params
+            state = adamw_init(params if not plain else
+                               serialize.unflatten(params, [
+                                   p.clone() for p in serialize.leaves(
+                                       params)]))
+            for mod in counters.values():
+                mod.launches = 0
+            state, metrics = make_train_step(model, plain=plain)(state,
+                                                                 batch)
+            path = f"train {cfg.name} x2 {'plain' if plain else 'kernel'}"
+            self.launches[path] = {n: m.launches
+                                   for n, m in counters.items()}
+            out[plain] = (metrics, serialize.leaves(state.mu))
+            print(f"  {path}: loss {float(metrics['loss']):.6f} grad_norm "
+                  f"{float(metrics['grad_norm']):.6f}, launches "
+                  f"{self.launches[path]}")
+            del state
+        if any(self.launches[f"train {cfg.name} x2 plain"].values()):
+            raise AssertionError("the plain path launched a kernel")
+        L = cfg.num_layers * (1 + (cfg.remat_policy != "none"))
+        want = {FLASH["name"]: L, FLASH_BWD["name"]: cfg.num_layers,
+                DECODE["name"]: 0, SCAN["name"]: 0}
+        if self.launches[f"train {cfg.name} x2 kernel"] != want:
+            raise AssertionError(f"train kernel path: launches != {want}")
+        err = abs(float(out[False][0]["loss"]) - float(out[True][0]["loss"]))
+        worst, bad = 0.0, []
+        for name, a, b in zip(names, out[False][1], out[True][1]):
+            scale = b.abs().max().item()
+            rel = (a - b).abs().max().item() / max(scale, 1e-30)
+            worst = max(worst, rel)
+            if rel > 5e-2 or not bool(torch.isfinite(a).all()):
+                bad.append((name, rel))
+        print(f"  train {cfg.name} x2 B=1 S={TRAIN_SEQ}: kernel vs plain loss "
+              f"diff {err:.3e} (atol 2e-2), worst gradient leaf "
+              f"{worst:.3e} of its max (5e-2) over {len(names)} leaves "
+              f"{'ok' if err <= 2e-2 and not bad else 'FAIL'}")
+        if err > 2e-2 or bad:
+            raise AssertionError(f"train kernel vs plain: loss diff {err}, "
+                                 f"leaves {bad}")
+        del params, out
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def train_checkpoint_round_trip(self):
+        """llama3-8b smoke on the card: 2 steps with a checkpoint at step 2
+        through the port's AsyncCheckpointer (``wait()`` inside `run`),
+        then a run with ``--resume`` semantics on the same store restores
+        it; the restored state equals the saved one bit for bit."""
+        torch = self.torch
+        from repro_torch.checkpoint.ckpt import _items
+        from repro_torch.configs import registry
+        from repro_torch.launch import train
+        cfg = registry.get_smoke("llama3-8b")
+        runtime = train.build_runtime()
+        counters = self.counters()
+        for mod in counters.values():
+            mod.launches = 0
+        saved = train.run(cfg, steps=2, batch=2, seq=64, ckpt_every=2,
+                          device="cuda", runtime=runtime)
+        restored = train.run(cfg, steps=0, batch=2, seq=64, resume=True,
+                             device="cuda", runtime=runtime)
+        path = f"train {cfg.name} checkpoint round trip"
+        self.launches[path] = {n: m.launches for n, m in counters.items()}
+        a, b = (dict(_items(r["state"])) for r in (saved, restored))
+        objects = runtime[0].list_bucket("ckpts")
+        same = (list(a) == list(b) and all(
+            x.dtype == y.dtype and x.device == y.device and torch.equal(x, y)
+            for x, y in zip(a.values(), b.values())))
+        print(f"  {path}: {len(objects)} objects in the bucket, restored at "
+              f"step {restored['start_step']} into {len(b)} leaves on "
+              f"{b['params/embed'].device}: "
+              f"{'equal bit for bit' if same else 'DIFFERENT'}; launches "
+              f"{self.launches[path]}")
+        if restored["start_step"] != 2 or int(b["step"]) != 2 or not same:
+            raise AssertionError(f"{path}: the restored state differs")
 
     def phase_mlserve(self):
         """The MLServe cores at tiny scale, then at full width: each role's
@@ -1201,12 +1553,16 @@ class Smoke:
         if got != need:
             raise AssertionError(f"{path}: payloads of {got} bytes, "
                                  f"{need} expected")
-        runs = {plain: self.run_core(scenario, payloads, scale, plain)
-                for plain in (False, True)}
+        # the plain replay runs its forward on the inputs the kernel run
+        # decoded (its params, tokens and decode state), not on a second
+        # decode of the payloads
+        runs = {False: self.run_core(scenario, payloads, scale, False)}
+        runs[True] = self.run_core(scenario, payloads, scale, True,
+                                   decoded=runs[False].pop("decoded"))
         L = cfg.num_layers
         expect = {FLASH["name"]: L if scenario != "LLM-DECODE" else 0,
                   DECODE["name"]: L if scenario in ("LLM-COLD", "LLM-DECODE")
-                  else 0, SCAN["name"]: 0}
+                  else 0, SCAN["name"]: 0, FLASH_BWD["name"]: 0}
         self.launches[path] = runs[False]["launches"]
         if runs[False]["launches"] != expect:
             raise AssertionError(f"{path}: launches {runs[False]['launches']}"
@@ -1220,8 +1576,10 @@ class Smoke:
                                      f"expected")
             t = run["timings"]
             total = sum(t.values())
+            decode = ("decode (reusing the kernel run's inputs)" if plain
+                      else "decode")
             print(f"  {path} {'plain ' if plain else 'kernel'}: "
-                  f"{sum(got)} B in, {len(run['body'])} B out; decode "
+                  f"{sum(got)} B in, {len(run['body'])} B out; {decode} "
                   f"{t['decode'] * 1e3:.1f} ms, forward "
                   f"{t['forward'] * 1e3:.1f} ms, encode "
                   f"{t['encode'] * 1e3:.1f} ms (payload handling "
@@ -1286,24 +1644,58 @@ class Smoke:
                 f"{decode_ops.cluster_size(W, B, cfg.num_kv_heads)} at "
                 f"B {B}, W {W}")
 
-    def run_core(self, scenario, payloads, scale, plain):
+    def run_core(self, scenario, payloads, scale, plain, decoded=None):
         """One core call: its output bytes (and token), the logits and
         token of each `_next_token` it took, its step times, launches and
-        peaks."""
+        peaks. Without ``decoded`` the inputs the core decodes (its params
+        from `serving._load_params`, then what it reads with
+        `serialize.loads`: tokens or the decode state, cloned since a
+        decode step updates it in place) are recorded and returned under
+        ``"decoded"``; given them, the core's decode calls return them in
+        the same order instead of decoding the payloads again (a sharded
+        core still joins its shards first)."""
         torch = self.torch
-        from repro_torch.models import serving
+        from repro_torch.models import serialize, serving
         counters = self.counters()
         for mod in counters.values():
             mod.launches = 0
         seen, timings = [], {}
-        orig = serving._next_token
+        orig, load_params, loads = (serving._next_token,
+                                    serving._load_params, serialize.loads)
+        record, inside = [], [0]
 
         def spy(logits):
             tok = orig(logits)
             seen.append((logits[:, -1].float(), tok))
             return tok
 
+        def clone(tree):
+            if isinstance(tree, dict):
+                return {k: clone(v) for k, v in tree.items()}
+            if isinstance(tree, (tuple, list)):
+                return type(tree)(clone(v) for v in tree)
+            return tree.clone()
+
+        def params_spy(*args, **kw):
+            inside[0] += 1
+            try:
+                out = load_params(*args, **kw)
+            finally:
+                inside[0] -= 1
+            record.append(out)
+            return out
+
+        def loads_spy(*args, **kw):
+            out = loads(*args, **kw)
+            if not inside[0]:
+                record.append(clone(out))
+            return out
+
+        if decoded is not None:
+            replay = iter(decoded)
+            params_spy = loads_spy = lambda *args, **kw: next(replay)
         serving._next_token = spy
+        serving._load_params, serialize.loads = params_spy, loads_spy
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         try:
@@ -1311,6 +1703,10 @@ class Smoke:
                                        timings=timings)
         finally:
             serving._next_token = orig
+            serving._load_params, serialize.loads = load_params, loads
+        if decoded is not None and next(replay, None) is not None:
+            raise AssertionError(f"{scenario}: the replay left decoded "
+                                 f"inputs unread")
         token = None
         if scenario == "LLM-DECODE":
             out, token = out
@@ -1319,7 +1715,7 @@ class Smoke:
                 "launches": {n: m.launches for n, m in counters.items()},
                 "peak": torch.cuda.max_memory_allocated(),
                 "rss": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
-                * 1024}
+                * 1024, **({"decoded": record} if decoded is None else {})}
 
     def compare_core(self, path, scenario, scale, runs):
         """Kernel output against plain output, decoded onto the card:
@@ -1421,7 +1817,7 @@ class Smoke:
                             "tiny")["cfg"].num_layers
         expect = {FLASH["name"]: L if scenario != "LLM-DECODE" else 0,
                   DECODE["name"]: L if scenario in ("LLM-COLD", "LLM-DECODE")
-                  else 0, SCAN["name"]: 0}
+                  else 0, SCAN["name"]: 0, FLASH_BWD["name"]: 0}
         for system in SYSTEMS:
             node = WorkerNode(system, byte_scale=1.0)
             try:
@@ -1758,7 +2154,7 @@ class Smoke:
         del node
         gc.collect()
         want = {FLASH["name"]: cfg.num_layers, DECODE["name"]: 0,
-                SCAN["name"]: 0}
+                SCAN["name"]: 0, FLASH_BWD["name"]: 0}
         direct = serving.llm_prefill(*payloads)
         for i, run in enumerate(runs, 1):
             res = run["res"]
@@ -2108,6 +2504,11 @@ class Smoke:
             "seamless-m4t-large-v2 cross W=1500": self.time_decode(
                 1, 16, 16, 64, 0, "seamless-m4t-large-v2 cross, ragged "
                 "source", W=1500)}
+        self.timing[FLASH_BWD["name"]] = self.time_flash_bwd(
+            TRAIN_BATCH, TRAIN_SEQ, *llama, "llama3-8b training shape")
+        self.also[FLASH_BWD["name"]] = {
+            "llama3-8b B=1 S=2048": self.time_flash_bwd(
+                1, 2048, *llama, "llama3-8b")}
         self.timing[SCAN["name"]] = self.time_scan(8192, 256, "falcon-mamba-7b")
         self.also[SCAN["name"]] = {
             "hymba-1.5b": self.time_scan(3200, 100, "hymba-1.5b")}
@@ -2157,6 +2558,54 @@ class Smoke:
                     f"{f' Sk={Sk}' if Sk != S else ''} "
                     f"{'causal' if causal else 'bidirectional'} H={H} K={K} "
                     f"hd={hd} window={window} ({arch})", row)
+        return row
+
+    def time_flash_bwd(self, B, S, H, K, hd, arch):
+        """The attention backward at a causal training shape, bf16: the
+        kernel by graph replay (and eagerly), the plain backward
+        (`mha_ref_bwd`) eagerly, and the library's backward (autograd of
+        one ``F.scaled_dot_product_attention(..., is_causal=True,
+        enable_gqa=True)`` on the same inputs in its (B, H, S, hd)
+        layout, a yardstick the port never calls) eagerly between CUDA
+        events. The bound by operations is 2.5x the forward's causal
+        FLOPs; by bytes, q, k, v, out and dout read once and dq, dk, dv
+        written once."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.kernels.flash_attention import (mha, mha_bwd,
+                                                         mha_ref_bwd)
+        dt = torch.bfloat16
+        g = self.gen(12)
+        sets, lib_sets = [], []
+        for _ in range(2):
+            q = self.randn(g, (B, S, H, hd), dt)
+            k, v = (self.randn(g, (B, S, K, hd), dt) for _ in "kv")
+            dout = self.randn(g, (B, S, H, hd), dt)
+            sets.append((q, k, v, mha(q, k, v), dout))
+            lq, lk, lv = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                          for t in (q, k, v))
+            lout = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
+                                                  enable_gqa=True)
+            lib_sets.append((lq, lk, lv, lout,
+                             dout.transpose(1, 2).contiguous()))
+        pairs = S * (S + 1) // 2
+        flops = 2.5 * 4 * B * H * hd * pairs
+        nbytes = 2 * (4 * B * S * H * hd + 4 * B * S * K * hd)
+        bms, by = self.bound(nbytes, flops)
+        row = {"ms": self.time_ms(lambda s: mha_bwd(*s), sets, 5, graph=True),
+               "eager_ms": self.time_ms(lambda s: mha_bwd(*s), sets, 5),
+               "plain_ms": self.time_ms(lambda s: mha_ref_bwd(*s), sets[:1],
+                                        2),
+               "library_ms": self.time_ms(
+                   lambda s: torch.autograd.grad(s[3], s[:3], s[4],
+                                                 retain_graph=True),
+                   lib_sets, 10)}
+        row["library_eager_ms"] = row["library_ms"]
+        row.update(bound_ms=bms, bound_by=by)
+        self.report(f"flash_attention_bwd bf16 B={B} S={S} causal H={H} K={K}"
+                    f" hd={hd} ({arch}; {flops / 1e9:.1f} GFLOP, library "
+                    f"eager)", row)
+        del sets, lib_sets
         return row
 
     def time_decode(self, B, H, K, hd, window, arch, W=PROMPT):
@@ -2266,8 +2715,10 @@ class Smoke:
                        for arch, counts in self.launches.items()}
             rows.append({**meta, "launches": sum(by_path.values()),
                          "launches_by_path": by_path,
-                         "max_abs_err": self.err[name], **self.timing[name],
-                         "also": self.also[name]})
+                         "max_abs_err": self.err[name],
+                         **({"max_rel_err": self.rel_err[name]}
+                            if name in self.rel_err else {}),
+                         **self.timing[name], "also": self.also[name]})
         return json.dumps({"kernels": rows})
 
 
@@ -2299,6 +2750,7 @@ def main() -> int:
     for arch in EMBEDS:
         phases.append((f"embeds and enc-dec {arch}",
                        lambda arch=arch: smoke.embeds_path(arch)))
+    phases.append(("train llama3-8b", smoke.phase_train))
     phases.append(("mlserve cores", smoke.phase_mlserve))
     phases.append(("worker node", smoke.phase_node))
     phases.append(("density", smoke.phase_density))

@@ -1,7 +1,9 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 Each kernel keeps one source, ``kernels/<name>/csrc/<name>.cu``, with a
-plain C interface. At first use it is compiled for Hopper into a shared
+plain C interface; the attention backward's, ``flash_attention_bwd.cu``,
+sits beside the forward's in ``kernels/flash_attention/csrc/`` and
+builds as a library of its own. At first use it is compiled for Hopper into a shared
 library under ``build/kernels/`` at the root of the checkout, named by a
 digest of its source and flags so an edited source is rebuilt, and
 loaded with `ctypes`. A source that includes no PyTorch header builds in
@@ -23,7 +25,10 @@ from pathlib import Path
 
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
-NAMES = ("flash_attention", "decode_attention", "ssm_scan")
+NAMES = ("flash_attention", "flash_attention_bwd", "decode_attention",
+         "ssm_scan")
+#: the kernels whose source lives in another kernel's package
+PACKAGES = {"flash_attention_bwd": "flash_attention"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -43,7 +48,7 @@ def nvcc() -> str:
 
 
 def source(name: str) -> Path:
-    return KERNELS_DIR / name / "csrc" / f"{name}.cu"
+    return KERNELS_DIR / PACKAGES.get(name, name) / "csrc" / f"{name}.cu"
 
 
 def library_path(name: str) -> Path:

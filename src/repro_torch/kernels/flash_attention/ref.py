@@ -7,6 +7,7 @@ taken in blocks of rows, as many as keep one block's f32 scores within
 heads would need 12.9 GB of scores, and several such temporaries) stays
 within the card beside the weights. Each row's softmax is whole, so the
 result is the unblocked one; short inputs take one block.
+`mha_ref_bwd` is its gradient by autograd, the backward kernel's oracle.
 """
 from __future__ import annotations
 
@@ -55,3 +56,16 @@ def mha_ref(q, k, v, *, causal: bool = True, window: int = 0):
     return attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                          v.transpose(1, 2), causal=causal,
                          window=window).transpose(1, 2)
+
+
+def mha_ref_bwd(q, k, v, out, dout, *, causal: bool = True, window: int = 0):
+    """The plain backward: dq, dk, dv of `mha_ref` at (q, k, v) for the
+    output gradient ``dout``, by ``torch.autograd.grad``, in the inputs'
+    dtypes. ``out`` (the forward's output) is taken for the kernel's
+    signature and not read. The oracle of the backward kernel; nothing on
+    the card's train path calls it."""
+    del out
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        o = mha_ref(*leaves, causal=causal, window=window)
+        return torch.autograd.grad(o, leaves, dout)

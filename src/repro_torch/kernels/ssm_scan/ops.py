@@ -7,7 +7,10 @@ version in ``ref.py``. The kernel reads B and C through their strides
 in bf16 or f32, and masks the ragged tail of S instead of padding it.
 Each thread carries R of a channel's N states; `states_per_thread` says
 which R the kernel takes for a shape, and `selective_scan_at` forces it.
-``launches`` counts kernel launches.
+``launches`` counts kernel launches. The kernel has no backward yet: on
+CUDA tensors that require grad (with grad enabled) the wrapper raises
+`NotImplementedError` rather than return a result autograd cannot
+differentiate.
 """
 from __future__ import annotations
 
@@ -82,6 +85,11 @@ def _scan(dt, xr, Bmat, Cmat, A, h0, R):
         return ssm_scan_ref(dt, xr, Bmat, Cmat, A, h0)
     if dev.type != "cuda":
         raise ValueError(f"{NAME}: device {dev} not supported")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (dt, xr, Bmat, Cmat, A, h0)):
+        raise NotImplementedError(f"{NAME}: the backward kernel is not "
+                                  f"ported yet; the scan cannot be "
+                                  f"differentiated on the card")
     if N not in STATES:
         raise ValueError(f"{NAME}: state size {N} not in {STATES}")
     B, S, di = dt.shape

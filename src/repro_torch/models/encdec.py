@@ -1,6 +1,6 @@
 """Encoder-decoder LM (the SeamlessM4T backbone).
 
-The counterpart of ``repro.models.encdec``, without training. The encoder
+The counterpart of ``repro.models.encdec``. The encoder
 takes precomputed frame embeddings (the modality frontend is a stub) and
 attends bidirectionally; the decoder is causal self-attention plus
 cross-attention over the encoder's output. Positions are additive
@@ -16,6 +16,13 @@ new cache). Attention over a sequence (the encoder's, the decoder's and
 the prefill cross-attention) runs the prefill kernel, one token's (self
 and cross) the decode kernel; ``plain=True`` runs their plain versions,
 on any device.
+
+`forward_train` runs the encoder and the teacher-forced decoder with
+grad and no cache, each layer under the remat policy
+(`repro_torch.models.lm.checkpoint_layer`), then the chunked loss; the
+encoder's bidirectional attention and the cross-attention at Sq != Sk
+go through the differentiable `mha`, so on the card their gradients are
+the backward kernel's. Its aux loss is 0, as the reference's.
 """
 from __future__ import annotations
 
@@ -23,7 +30,8 @@ import torch
 
 from repro_torch.models import kv_cache as kvc
 from repro_torch.models import layers as L
-from repro_torch.models.lm import DTYPES, _lm_head, init_stack, layer_params
+from repro_torch.models.lm import (DTYPES, _lm_head, checkpoint_layer,
+                                   chunked_ce_loss, init_stack, layer_params)
 
 
 # ------------------------------------------------------------------- params
@@ -89,16 +97,20 @@ def _add_pos(cfg, x, offset=0):
     return x + L.sinusoid_pos_embed(positions, cfg.d_model).to(x.dtype)
 
 
+def _enc_layer(cfg, lp, x, plain):
+    a, _ = L.attention_layer(lp["attn"], cfg,
+                             L.rms_norm(x, lp["ln1"], cfg.norm_eps),
+                             use_rope=False, causal=False, plain=plain)
+    x = x + a
+    return x + L.mlp_layer(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps))
+
+
 def encode(cfg, params, src_embeds, plain=False):
     """src_embeds: (B, Ss, D) -> encoder output (B, Ss, D) in cfg.dtype."""
     x = _add_pos(cfg, src_embeds.to(DTYPES[cfg.dtype]))
     for i in range(cfg.num_encoder_layers):
-        lp = layer_params(params["enc_layers"], i)
-        a, _ = L.attention_layer(lp["attn"], cfg,
-                                 L.rms_norm(x, lp["ln1"], cfg.norm_eps),
-                                 use_rope=False, causal=False, plain=plain)
-        x = x + a
-        x = x + L.mlp_layer(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps))
+        x = checkpoint_layer(cfg.remat_policy, _enc_layer, cfg,
+                             layer_params(params["enc_layers"], i), x, plain)
     return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -111,6 +123,21 @@ def _cross_kv(lp, cfg, enc_out):
     return k, v
 
 
+def _dec_layer(cfg, lp, x, enc_out, plain):
+    """One decoder layer over the target; returns x and the layer's self
+    K/V and cross K/V."""
+    a, (k, v) = L.attention_layer(lp["attn"], cfg,
+                                  L.rms_norm(x, lp["ln1"], cfg.norm_eps),
+                                  use_rope=False, plain=plain)
+    x = x + a
+    ck, cv = _cross_kv(lp, cfg, enc_out)
+    x = x + L.cross_attention_layer(
+        lp["xattn"], cfg, L.rms_norm(x, lp["ln_x"], cfg.norm_eps), ck, cv,
+        plain=plain)
+    x = x + L.mlp_layer(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps))
+    return x, k, v, ck, cv
+
+
 def decode_seq(cfg, params, tgt_tokens, enc_out, cache=None, plain=False):
     """Teacher-forced decoder pass over (B, St) tokens; returns the
     final-normed hidden states. With ``cache``, each layer's self K/V go
@@ -119,22 +146,28 @@ def decode_seq(cfg, params, tgt_tokens, enc_out, cache=None, plain=False):
     x = _add_pos(cfg, params["embed"][tgt_tokens])
     St = x.shape[1]
     for i in range(cfg.num_layers):
-        lp = layer_params(params["dec_layers"], i)
-        a, (k, v) = L.attention_layer(lp["attn"], cfg,
-                                      L.rms_norm(x, lp["ln1"], cfg.norm_eps),
-                                      use_rope=False, plain=plain)
-        x = x + a
-        ck, cv = _cross_kv(lp, cfg, enc_out)
-        x = x + L.cross_attention_layer(
-            lp["xattn"], cfg, L.rms_norm(x, lp["ln_x"], cfg.norm_eps), ck,
-            cv, plain=plain)
-        x = x + L.mlp_layer(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps))
+        x, k, v, ck, cv = checkpoint_layer(
+            cfg.remat_policy, _dec_layer, cfg,
+            layer_params(params["dec_layers"], i), x, enc_out, plain)
         if cache is not None:
             cache["k"][i, :, :St] = k
             cache["v"][i, :, :St] = v
             cache["cross_k"][i] = ck
             cache["cross_v"][i] = cv
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def forward_train(cfg, params, batch, plain=False):
+    """Returns (loss, metrics) for ``batch["src_embeds"]`` (B, Ss, D),
+    ``batch["tgt_tokens"]`` and ``batch["targets"]`` (B, St); the aux loss
+    is 0, as in the reference."""
+    enc_out = encode(cfg, params, batch["src_embeds"], plain=plain)
+    hidden = decode_seq(cfg, params, batch["tgt_tokens"], enc_out,
+                        plain=plain)
+    loss = chunked_ce_loss(cfg, params, hidden, batch["targets"])
+    return loss, {"ce_loss": loss,
+                  "aux_loss": torch.zeros((), dtype=torch.float32,
+                                          device=loss.device)}
 
 
 @torch.inference_mode()

@@ -15,10 +15,24 @@ dict that shares them (the reference returns a new cache).
 (attention and the selective scan), on any device. The moe family's
 prefill layers dispatch by ``cfg.moe_impl`` and its decode layers always
 run the dropless `moe_dense`, as the reference's do.
+
+Training: `forward_train` runs the stack without a cache and with grad
+enabled, each layer under the remat policy ``cfg.remat_policy``
+(`checkpoint_layer`: "none", "full", or "dots", which saves the outputs
+of the projection products as the reference's
+``dots_with_no_batch_dims_saveable`` does), then `chunked_ce_loss`. On
+the card the attention's gradient is the hand-written backward kernel
+(`repro_torch.kernels.flash_attention.ops.mha`); the selective scan has
+no backward kernel yet, so the ssm and hybrid families refuse to train
+there and train on the CPU through the plain versions.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import kv_cache as kvc
 from repro_torch.models import layers as L
@@ -29,6 +43,12 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
 #: the families whose layers are the dense decoder's
 DENSE = ("dense", "vlm")
+LOSS_CHUNK = 2048
+REMAT_POLICIES = ("none", "dots", "full")
+#: the products the "dots" policy saves: matrix products without batch
+#: dimensions (an (B, S, D) @ (D, F) projection reaches the dispatcher as
+#: one ``mm``); batched products (attention's, the experts') recompute
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
 def check_supported(cfg) -> None:
@@ -132,11 +152,14 @@ def _fuse(cfg, lp, attn_out, m_out):
                   + L.rms_norm(m_out, lp["bn_mamba"], cfg.norm_eps))
 
 
-def _seq_sublayers(cfg, lp, x, plain=False):
-    """One layer over a full sequence. Returns (x, cache_out) with the
-    layer's ``k``/``v`` and/or ``conv``/``ssm``."""
+def _seq_sublayers(cfg, lp, x, plain=False, train=False):
+    """One layer over a full sequence. Returns (x, cache_out, aux): the
+    layer's ``k``/``v`` and/or ``conv``/``ssm``, and the moe family's
+    load-balancing loss (None for the others). In ``train`` mode a
+    ``moe_impl`` of "local" runs `moe_sorted`, as the reference's
+    training does."""
     fam = cfg.family
-    cache_out = {}
+    cache_out, aux = {}, None
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     if fam in DENSE + ("moe",):
         attn_out, (cache_out["k"], cache_out["v"]) = L.attention_layer(
@@ -145,7 +168,7 @@ def _seq_sublayers(cfg, lp, x, plain=False):
     elif fam == "ssm":
         m_out, st = M.mamba_layer(lp["mamba"], cfg, h, plain=plain)
         cache_out.update(st)
-        return x + m_out, cache_out                # mamba block has no MLP
+        return x + m_out, cache_out, aux           # mamba block has no MLP
     else:                                          # hybrid
         attn_out, (cache_out["k"], cache_out["v"]) = L.attention_layer(
             lp["attn"], cfg, h, plain=plain)
@@ -154,8 +177,12 @@ def _seq_sublayers(cfg, lp, x, plain=False):
         x = x + _fuse(cfg, lp, attn_out, m_out)
     h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
     if fam == "moe":
-        return x + MOE.moe_layer(lp["moe"], cfg, h2)[0], cache_out
-    return x + L.mlp_layer(lp["mlp"], h2), cache_out
+        if train and cfg.moe_impl == "local":
+            moe_out, aux = MOE.moe_sorted(lp["moe"], cfg, h2)
+        else:
+            moe_out, aux = MOE.moe_layer(lp["moe"], cfg, h2)
+        return x + moe_out, cache_out, aux
+    return x + L.mlp_layer(lp["mlp"], h2), cache_out, aux
 
 
 def _decode_sublayers(cfg, lp, x, cache, i, slot_pos, pos, plain=False):
@@ -186,19 +213,59 @@ def _decode_sublayers(cfg, lp, x, cache, i, slot_pos, pos, plain=False):
 
 # ------------------------------------------------------------------- stacks
 
-def run_stack(cfg, params, x, cache, plain=False):
-    """Run the layer stack over a full sequence, writing each layer's
-    slice of ``cache``. Returns the final-normed hidden states."""
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def checkpoint_layer(policy, fn, *args):
+    """``fn(*args)`` under a remat policy, when grad is enabled (else a
+    plain call): "none" keeps every activation, "full" keeps only the
+    inputs and recomputes the layer in the backward pass, "dots" keeps
+    the products of `_DOTS` too (`torch.utils.checkpoint` without
+    reentrancy; a selective checkpoint for "dots"). The loss and the
+    gradients are the same under all three."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {policy!r} is not one of "
+                         f"{REMAT_POLICIES}")
+    if policy == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    if policy == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    contexts = functools.partial(create_selective_checkpoint_contexts,
+                                 _dots_policy)
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=contexts)
+
+
+def run_stack(cfg, params, x, cache=None, plain=False):
+    """Run the layer stack over a full sequence. With ``cache`` (prefill)
+    each layer's slice of it is written; without (training) nothing is,
+    and each layer runs under `checkpoint_layer`. Returns the
+    final-normed hidden states and, in training, the sum of the layers'
+    moe losses (a 0-d f32 tensor; None in prefill)."""
+    aux = (torch.zeros((), dtype=torch.float32, device=x.device)
+           if cache is None else None)
     for i in range(cfg.num_layers):
-        x, out = _seq_sublayers(cfg, layer_params(params["layers"], i), x,
-                                plain=plain)
+        lp = layer_params(params["layers"], i)
+        if cache is None:
+            x, aux_l = checkpoint_layer(cfg.remat_policy, _train_layer, cfg,
+                                        lp, x, plain)
+            if aux_l is not None:
+                aux = aux + aux_l
+            continue
+        x, out, _ = _seq_sublayers(cfg, lp, x, plain=plain)
         if "k" in out:                    # into the (ring) cache slice
             kvc.write_prefill_entries(cache["k"][i], out["k"])
             kvc.write_prefill_entries(cache["v"][i], out["v"])
         if "ssm" in out:
             cache["conv"][i].copy_(out["conv"])
             cache["ssm"][i].copy_(out["ssm"])
-    return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+
+
+def _train_layer(cfg, lp, x, plain):
+    x, _, aux = _seq_sublayers(cfg, lp, x, plain=plain, train=True)
+    return x, aux
 
 
 def run_stack_decode(cfg, params, x, cache, pos, plain=False):
@@ -231,6 +298,67 @@ def embed_tokens(cfg, params, tokens):
     return params["embed"][tokens]
 
 
+def _chunk_nll(h, t, head):
+    """The summed negative log-likelihood of one chunk and its count of
+    valid targets (targets < 0 are padding)."""
+    logits = (h @ head).float()                         # (B, chunk, V)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, t.clamp_min(0).long()[..., None])[..., 0]
+    valid = (t >= 0).float()
+    return ((lse - gold) * valid).sum(), valid.sum()
+
+
+def chunked_ce_loss(cfg, params, hidden, targets, chunk=LOSS_CHUNK):
+    """Cross-entropy without materialising the full (B, S, V) logits:
+    ``chunk`` positions at a time, targets padded with -1, logsumexp in
+    f32, as the reference's. Each chunk is checkpointed when grad is
+    enabled, so its f32 logits are recomputed in the backward pass
+    rather than kept."""
+    B, S, D = hidden.shape
+    head = _lm_head(cfg, params)
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    if pad:
+        hidden = torch.nn.functional.pad(hidden, (0, 0, 0, pad))
+        targets = torch.nn.functional.pad(targets, (0, pad), value=-1)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, hidden.shape[1], chunk):
+        h, t = hidden[:, c0:c0 + chunk], targets[:, c0:c0 + chunk]
+        nll, n = (checkpoint(_chunk_nll, h, t, head, use_reentrant=False)
+                  if torch.is_grad_enabled() else _chunk_nll(h, t, head))
+        tot, cnt = tot + nll, cnt + n
+    return tot / cnt.clamp_min(1.0)
+
+
+def check_trainable(cfg, device, plain=False) -> None:
+    """Raise where training has no kernel backward: the selective scan's
+    (the ssm and hybrid families) on the card's kernel path."""
+    if (cfg.family in ("ssm", "hybrid") and torch.device(device).type
+            == "cuda" and not plain):
+        raise NotImplementedError(
+            f"{cfg.name}: the ssm_scan backward kernel is not ported yet, so "
+            f"the {cfg.family} family cannot train on the card (it trains on "
+            f"the CPU through the plain versions)")
+
+
+def forward_train(cfg, params, batch, plain=False):
+    """Returns (loss, metrics): the mean next-token cross-entropy of
+    ``batch["targets"]`` plus the moe family's load-balancing loss, and
+    ``{"ce_loss", "aux_loss"}``. batch: ``tokens`` (or with
+    ``cfg.embed_input`` ``inputs_embeds``) and ``targets``. Runs with
+    grad as the caller has it (never under inference mode), no cache."""
+    check_supported(cfg)
+    if cfg.embed_input:
+        x = batch["inputs_embeds"].to(DTYPES[cfg.dtype])
+    else:
+        x = embed_tokens(cfg, params, batch["tokens"])
+    check_trainable(cfg, x.device, plain)
+    hidden, aux = run_stack(cfg, params, x, plain=plain)
+    loss = chunked_ce_loss(cfg, params, hidden, batch["targets"])
+    return loss + aux, {"ce_loss": loss, "aux_loss": aux}
+
+
 @torch.inference_mode()
 def prefill(cfg, params, batch, cache_len=None, plain=False):
     """Process the prompt (``batch["tokens"]``, or with
@@ -248,7 +376,7 @@ def prefill(cfg, params, batch, cache_len=None, plain=False):
     B, S = x.shape[:2]
     W = kvc.cache_width(cfg, max(cache_len or S, S))
     cache = kvc.init_cache(cfg, B, W, dtype=x.dtype, device=x.device)
-    hidden = run_stack(cfg, params, x, cache, plain=plain)
+    hidden, _ = run_stack(cfg, params, x, cache, plain=plain)
     logits = (hidden[:, -1:] @ _lm_head(cfg, params)).float()
     cache["pos"].fill_(S)
     if "slot_pos" in cache:

@@ -17,7 +17,8 @@ def _module(cfg: ModelConfig):
 
 
 class Model:
-    """init_params / prefill / decode_step / init_cache on one device.
+    """init_params / loss / prefill / decode_step / init_cache on one
+    device.
 
     ``device`` defaults to ``"cuda"`` and raises when there is no card;
     pass ``device="cpu"`` to run on the CPU.
@@ -34,6 +35,10 @@ class Model:
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         return self._mod.init_params(generator, self.cfg, device=self.device)
+
+    def loss(self, params, batch, plain=False):
+        """(loss, metrics) of one batch, differentiable in ``params``."""
+        return self._mod.forward_train(self.cfg, params, batch, plain=plain)
 
     def prefill(self, params, batch, cache_len=None, plain=False):
         return self._mod.prefill(self.cfg, params, batch,

@@ -46,6 +46,12 @@ def _unflatten(tree, it):
     return next(it)
 
 
+def unflatten(tree, flat: list):
+    """A tree of ``tree``'s structure whose leaves are ``flat``, given in
+    `leaves` order."""
+    return _unflatten(tree, iter(flat))
+
+
 def struct(shape, dtype) -> torch.Tensor:
     """A shape-and-dtype leaf that holds no data (a meta tensor)."""
     return torch.empty(tuple(shape), dtype=dtype, device="meta")

@@ -15,7 +15,8 @@ import torch
 from repro_torch.configs import registry
 from repro_torch.kernels.decode_attention import decode_mha, decode_mha_ref
 from repro_torch.kernels.decode_attention import ops as decode_ops
-from repro_torch.kernels.flash_attention import mha, mha_ref
+from repro_torch.kernels.flash_attention import (mha, mha_bwd, mha_ref,
+                                                 mha_ref_bwd)
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.ssm_scan import selective_scan, ssm_scan_ref
 from repro_torch.kernels.ssm_scan import ops as scan_ops
@@ -24,6 +25,9 @@ from repro_torch.models import Model, serving
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+#: the backward kernel: each gradient's largest error over its largest
+#: |value| (f32 sums in another order; bf16 inputs, outputs and dout)
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
 @pytest.fixture
@@ -777,3 +781,173 @@ def test_vlm_and_encdec_kernel_path_matches_plain_path(card, arch):
     for a, b in zip(out[False], out[True]):
         assert torch.isfinite(a).all()
         torch.testing.assert_close(a, b, atol=0.3, rtol=0.05)
+
+
+# ------------------------------------------------------ attention backward
+
+def _grads_close(got, want, dtype, what=""):
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        err = (a.float() - b.float()).abs().max().item()
+        scale = b.float().abs().max().item()
+        assert torch.isfinite(a).all(), f"{what} {name}"
+        assert err <= BWD_TOL[dtype] * scale, (f"{what} {name}: max error "
+                                               f"{err:.3e} of max {scale:.3e}")
+
+
+def _bwd_inputs(card, seed, B, Sq, Sk, H, K, hd, dtype):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    q = _randn(gen, (B, Sq, H, hd), dtype)
+    k, v = (_randn(gen, (B, Sk, K, hd), dtype) for _ in range(2))
+    dout = _randn(gen, (B, Sq, H, hd), dtype)
+    return q, k, v, dout
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,K,hd,causal,window", [
+    (2, 256, 256, 4, 2, 64, True, 0),
+    (1, 128, 128, 4, 4, 64, False, 0),      # G 1, bidirectional
+    (2, 256, 256, 8, 2, 128, True, 96),     # a window
+    (1, 200, 200, 2, 1, 64, True, 0),       # ragged, G 2
+    (1, 192, 192, 6, 3, 32, True, 64),      # hd 32
+    (1, 300, 300, 25, 5, 64, True, 128),    # hymba's heads, G 5
+    (1, 130, 130, 6, 1, 16, True, 0),       # hd 16, G 6
+    (1, 256, 256, 7, 1, 64, True, 0),       # G 7
+    (1, 256, 256, 8, 1, 128, True, 0),      # G 8
+    (1, 200, 150, 16, 16, 64, False, 0),    # cross: Sq > Sk
+    (2, 100, 300, 4, 2, 64, False, 0),      # Sq < Sk, bidirectional
+    (1, 100, 300, 4, 2, 32, True, 0),       # Sq < Sk, causal
+    (1, 300, 200, 4, 2, 128, True, 0),      # Sq > Sk, causal
+])
+def test_flash_attention_bwd_matches_plain(card, dtype, B, Sq, Sk, H, K, hd,
+                                           causal, window):
+    q, k, v, dout = _bwd_inputs(card, 20, B, Sq, Sk, H, K, hd, dtype)
+    out = mha(q, k, v, causal=causal, window=window)
+    before = flash_ops.bwd_launches
+    got = mha_bwd(q, k, v, out, dout, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_ops.bwd_launches == before + 1
+    want = mha_ref_bwd(q, k, v, out, dout, causal=causal, window=window)
+    _grads_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_is_deterministic(card, dtype):
+    """Two runs of the same backward give the same bits: no atomics."""
+    q, k, v, dout = _bwd_inputs(card, 21, 2, 500, 500, 16, 2, 128, dtype)
+    out = mha(q, k, v)
+    a = mha_bwd(q, k, v, out, dout)
+    b = mha_bwd(q, k, v, out, dout)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 128),
+                                      (torch.float32, 64)])
+def test_flash_attention_bwd_reads_views_and_noncontiguous_dout(card, dtype,
+                                                                hd):
+    """q, k and v as head slices of one fused projection, and a dout that
+    is a transposed view: gradients of the views, through autograd."""
+    B, S, H, K = 2, 300, 8, 2
+    gen = torch.Generator(device=card).manual_seed(22)
+    qkv = _randn(gen, (B, S, H + 2 * K, hd), dtype).requires_grad_(True)
+    dout = _randn(gen, (B, H, S, hd), dtype).transpose(1, 2)
+    assert not dout.is_contiguous()
+    out = mha(qkv[:, :, :H], qkv[:, :, H:H + K], qkv[:, :, H + K:])
+    (got,) = torch.autograd.grad(out, qkv, dout)
+    plain = qkv.detach().requires_grad_(True)
+    ref = mha_ref(plain[:, :, :H], plain[:, :, H:H + K], plain[:, :, H + K:])
+    (want,) = torch.autograd.grad(ref, plain, dout)
+    _grads_close((got[:, :, :H], got[:, :, H:H + K], got[:, :, H + K:]),
+                 (want[:, :, :H], want[:, :, H:H + K], want[:, :, H + K:]),
+                 dtype)
+
+
+def test_mha_autograd_launches_and_inference_mode(card):
+    """With grad, one forward and one backward launch; under
+    inference_mode only the forward, and nothing requires grad."""
+    q, k, v, dout = _bwd_inputs(card, 23, 1, 256, 256, 8, 2, 128,
+                                torch.bfloat16)
+    leaves = [t.requires_grad_(True) for t in (q, k, v)]
+    f0, b0 = flash_ops.launches, flash_ops.bwd_launches
+    out = mha(*leaves)
+    grads = torch.autograd.grad(out, leaves, dout)
+    assert (flash_ops.launches - f0, flash_ops.bwd_launches - b0) == (1, 1)
+    _grads_close(grads, mha_bwd(q.detach(), k.detach(), v.detach(),
+                                out.detach(), dout), torch.bfloat16)
+    with torch.inference_mode():
+        again = mha(*leaves)
+    assert not again.requires_grad
+    assert (flash_ops.launches - f0, flash_ops.bwd_launches - b0) == (2, 2)
+
+
+@pytest.mark.parametrize("policy", ["full", "dots"])
+def test_mha_autograd_inside_checkpoint(card, policy):
+    """The autograd Function inside ``torch.utils.checkpoint``: the
+    recompute launches the forward again, the gradients are those of the
+    run without a checkpoint, bit for bit."""
+    from repro_torch.models.lm import checkpoint_layer
+    q, k, v, dout = _bwd_inputs(card, 24, 2, 300, 300, 8, 2, 64,
+                                torch.bfloat16)
+    w = _randn(torch.Generator(device=card).manual_seed(25), (64, 64),
+               torch.bfloat16).requires_grad_(True)
+
+    def layer(x):
+        return mha(x @ w, k, v, window=100)
+
+    x = q.requires_grad_(True)
+    plain = torch.autograd.grad(layer(x), (x, w), dout)
+    f0, b0 = flash_ops.launches, flash_ops.bwd_launches
+    out = checkpoint_layer(policy, layer, x)
+    got = torch.autograd.grad(out, (x, w), dout)
+    assert (flash_ops.launches - f0, flash_ops.bwd_launches - b0) == (2, 1)
+    for a, b in zip(got, plain):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_model_loss_backward_kernel_matches_plain(card, dtype):
+    """llama3-8b smoke: the loss and every gradient leaf on the kernel
+    path against the plain path, from the same params and batch, with
+    one forward and one backward attention launch per layer, and the
+    layer's recompute under the remat policy."""
+    from repro_torch.models import serialize
+    cfg = registry.get_smoke("llama3-8b").replace(dtype=dtype,
+                                                  param_dtype=dtype)
+    model = Model(cfg)
+    params = model.init_params(torch.Generator(device=card).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 65), dtype=torch.int32,
+                         device=card,
+                         generator=torch.Generator(device=card).manual_seed(1))
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    leaves = serialize.leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    out = {}
+    for plain in (False, True):
+        f0, b0 = flash_ops.launches, flash_ops.bwd_launches
+        loss, _ = model.loss(params, batch, plain=plain)
+        grads = torch.autograd.grad(loss, leaves)
+        out[plain] = (loss, grads, flash_ops.launches - f0,
+                      flash_ops.bwd_launches - b0)
+    L = cfg.num_layers
+    assert out[False][2:] == (2 * L, L)         # forward, recompute, backward
+    assert out[True][2:] == (0, 0)
+    tol = BWD_TOL[getattr(torch, dtype)]
+    torch.testing.assert_close(out[False][0], out[True][0], atol=tol,
+                               rtol=tol)
+    for a, b in zip(out[False][1], out[True][1]):
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= 5 * tol * max(b.float().abs().max().item(), 1e-6)
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "hymba-1.5b"])
+def test_ssm_families_refuse_to_train_on_the_card(card, arch):
+    """The selective scan has no backward kernel yet: forward_train on the
+    kernel path raises, it does not fall back to the plain scan."""
+    cfg = registry.get_smoke(arch)
+    model = Model(cfg)
+    params = model.init_params(torch.Generator(device=card).manual_seed(0))
+    toks = torch.zeros((1, 16), dtype=torch.int32, device=card)
+    with pytest.raises(NotImplementedError, match="ssm_scan"):
+        model.loss(params, {"tokens": toks, "targets": toks})

@@ -8,7 +8,7 @@ import pytest
 import torch
 
 from repro_torch.configs import registry
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 from repro_torch.launch.serve import NexusModelServer
 from repro_torch.models import Model, get_model, serving
 
@@ -30,7 +30,8 @@ print("MODULES", " ".join(sorted(n for n in sys.modules
 """
 
 #: the copies of the node's planes, of the density simulator, of the
-#: fleet model and of PlanCheck, which must be in the probe's graph
+#: fleet model and of PlanCheck, and the training modules, which must be
+#: in the probe's graph
 PLANES = ("repro_torch.core.cache", "repro_torch.core.faults",
           "repro_torch.core.workloads", "repro_torch.core.analysis.verify",
           "repro_torch.core.backend", "repro_torch.core.runtime",
@@ -38,7 +39,9 @@ PLANES = ("repro_torch.core.cache", "repro_torch.core.faults",
           "repro_torch.core.fluid", "repro_torch.core.des",
           "repro_torch.core.cluster", "repro_torch.core.analysis.mutate",
           "repro_torch.core.analysis.driver",
-          "repro_torch.core.analysis.__main__")
+          "repro_torch.core.analysis.__main__",
+          "repro_torch.optim.adamw", "repro_torch.checkpoint.ckpt",
+          "repro_torch.data.pipeline", "repro_torch.launch.train")
 
 
 def test_port_imports_no_jax_and_no_reference():
@@ -82,6 +85,15 @@ def test_vlm_and_encdec_default_device_raises_without_card(no_card, arch):
 def test_main_default_device_raises_without_card(no_card):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--smoke", "--requests", "1", "--gen", "1"])
+
+
+def test_train_default_device_raises_without_card(no_card):
+    """The train driver's ``--device`` defaults to cuda, and `run` to the
+    card: both raise without one, before any step."""
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--smoke", "--steps", "1", "--batch", "1", "--seq", "8"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.run(registry.get_smoke("llama3-8b"), steps=1, batch=1, seq=8)
 
 
 @pytest.mark.parametrize("call", [

@@ -461,15 +461,22 @@ def test_port_holds_every_reference_arch():
 @pytest.mark.parametrize("arch", ARCH_IDS)
 class TestArchSmoke:
     """Port copy of tests/test_models.py::TestArchSmoke's
-    test_forward_prefill_decode, without the loss (training is not
-    ported): the smoke config, the port's seeded params, B 2 x S 64."""
+    test_forward_prefill_decode: the smoke config, the port's seeded
+    params, B 2 x S 64; the loss of the batch with its tokens as targets
+    (train_step_updates is copied in tests/test_torch_train.py)."""
 
     def test_forward_prefill_decode(self, arch):
         cfg = registry.get_smoke(arch)
         model = get_model(cfg, device="cpu")
         params = model.init_params(torch.Generator().manual_seed(0))
         B, S = 2, 64
-        _, batch = _batches(cfg, np.random.default_rng(0), B, S)
+        rng = np.random.default_rng(0)
+        toks = rng.integers(0, cfg.vocab_size, (B, S), dtype=np.int32)
+        _, batch = _batches(cfg, rng, B, S, toks=toks)
+        loss, _ = model.loss(params, {**batch,
+                                      "targets": torch.from_numpy(toks)})
+        assert loss.shape == ()
+        assert torch.isfinite(loss)
         logits, cache = model.prefill(params, batch)
         assert logits.shape == (B, 1, cfg.vocab_size)
         assert torch.isfinite(logits).all()
