@@ -6,7 +6,8 @@ Phases, each of which fails the run (exit 1) if it fails:
 
 1. print the card's name and power limit; build the CUDA kernels from
    the sources in this checkout (one nvcc per source, in parallel) and
-   print the build time;
+   print the build time and, from ``-Xptxas -v``, every kernel's
+   registers and spill bytes;
 2. hold each kernel against its plain PyTorch version on the card:
    the attention kernels at Llama-3-8B, Hymba-1.5B and Qwen3-30B-A3B
    widths (qwen3: 32 q heads over 4 kv heads, G 8, hd 128; prefill B 1
@@ -32,9 +33,12 @@ Phases, each of which fails the run (exit 1) if it fails:
    size), q/k/v as views of a fused projection, and misaligned bf16
    views (prefill at hd 64, decode at hd 16) and a group size outside
    the decode kernel's (G 3) that must raise; the attention backward
-   (``flash_attention_bwd``) against ``mha_ref_bwd`` (autograd of the
-   plain attention), dq, dk and dv each within 2e-2 (bf16) or 1e-4 (f32)
-   of its largest |value|, at llama's training shape (B 2 x S 4096 and B
+   (``flash_attention_bwd``), on the out and lse of ``mha_with_lse``,
+   against ``mha_ref_bwd`` (autograd of the plain attention), dq, dk and
+   dv each within 2e-2 (bf16) or 1e-4 (f32) of its largest |value|, each
+   check naming the body that ran (bf16 hd 64/128: wgmma; else SIMT), and
+   the forward's lse against the plain row lse (``LSE_TOL``), at llama's
+   training shape (B 2 x S 4096 and B
    1 x S 2048, causal), hymba's heads at S 4096 with its 2048 window,
    seamless's cross shape (2048 queries against 1500 keys,
    bidirectional), the group sizes 1, 2, 5, 6, 7 and 8, hd 16 and 32, a
@@ -173,8 +177,9 @@ Phases, each of which fails the run (exit 1) if it fails:
    many calls, so the host's launch overhead (tens of microseconds per
    call from Python, more than a decode kernel takes) does not stand in
    for the kernel's time; the eager times are printed beside them. The
-   plain versions are timed eagerly. The attention backward is timed at
-   llama's training shape (B 2 x S 4096) and at B 1 x S 2048 beside its
+   plain versions are timed eagerly. The attention backward is timed on
+   the forward's lse at llama's training shape (B 2 x S 4096), at B 1 x
+   S 2048 and at hymba's heads (hd 64, window 2048, S 4096) beside its
    bound by operations (2.5x the forward's FLOPs), the plain backward and
    the library's (autograd of ``F.scaled_dot_product_attention``,
    eager). The scan is also timed at every R of ``SCAN_SWEEP`` beside
@@ -230,6 +235,9 @@ TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 #: the attention backward: each gradient's largest error over its largest
 #: |value| (as tests/test_torch_cuda.py's BWD_TOL)
 BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+#: the forward's row lse against the plain one, over its largest |value|
+#: (f32 sums in another order; the tensor-core body's exp2 and ln 2)
+LSE_TOL = 1e-4
 SCAN_TOL = 1e-4                 # f32, as tests/test_kernels.py::TestSsmScan
 SCAN_SWEEP = (2, 4, 8)          # states per thread timed in phase 6
 #: the MLServe scenarios driven on the card, by role
@@ -332,6 +340,32 @@ class RssSampler:
     def __exit__(self, *exc):
         self._stop.set()
         self._thread.join()
+
+
+def kernel_name(mangled: str) -> str:
+    """A readable name of a kernel's mangled symbol: its namespace in
+    the source (tc or simt), name and template arguments (dtype, head
+    dim). Itanium names are length-prefixed; the prefix is the tail of a
+    run of digits that may follow a hash's digits."""
+    import re
+    for m in re.finditer(r"\d+", mangled):
+        run = m.group()
+        for i in range(len(run)):
+            n, at = int(run[i:]), m.end()
+            ident = mangled[at:at + n]
+            if not (n and ident.endswith("_kernel")
+                    and re.fullmatch(r"[A-Za-z_]\w*", ident)):
+                continue
+            ns = re.search(r"(?:2(tc)|4(simt))$", mangled[:m.start() + i])
+            args = mangled[at + n:].split("EE", 1)[0]
+            dtype = ("bf16" if "__nv_bfloat16" in args
+                     else "f32" if args.startswith("If") else "")
+            vals = [v if k == "i" else ("true" if v == "1" else "false")
+                    for k, v in re.findall(r"L([ib])(\d+)E", args + "E")]
+            parts = [t for t in (dtype, *vals) if t]
+            return ((f"{ns.group(1) or ns.group(2)}::" if ns else "") + ident
+                    + (f"<{', '.join(parts)}>" if parts else ""))
+    return mangled[:36]
 
 
 def nvidia_smi() -> str:
@@ -539,6 +573,21 @@ class Smoke:
         print(f"built {', '.join(p.name for p in libs.values())} with "
               f"{_build.nvcc()} {' '.join(_build.NVCC_FLAGS)}; kernel build "
               f"time {time.monotonic() - t0:.1f}s")
+        for name in libs:
+            if name not in _build.LOGS:
+                print(f"  {name}: built before this run (no ptxas report)")
+                continue
+            report = _build.ptxas_report(_build.LOGS[name])
+            if name.startswith("flash_attention"):   # every kernel
+                for kernel, regs, st, ld in report:
+                    print(f"  {name:19s} {kernel_name(kernel):28s} {regs:3d} "
+                          f"registers, spill stores {st} B, loads {ld} B")
+                continue
+            spilled = [f"{kernel_name(k)} {st}/{ld} B" for k, _, st, ld
+                       in report if st or ld]
+            print(f"  {name:19s} {len(report)} kernels, at most "
+                  f"{max((r for _, r, _, _ in report), default=0)} registers; "
+                  f"spill stores/loads: {', '.join(spilled) or 'none'}")
 
     def phase_kernels(self):
         self.check_attention()
@@ -552,11 +601,16 @@ class Smoke:
         8, hd 128, causal) and B 1 x S 2048, hymba's heads at S 4096 with
         its 2048 window, seamless's cross-attention (2048 queries against
         1500 keys, bidirectional), the group sizes 1, 2, 5, 6, 7 and 8, hd
-        16 and 32, in bf16 and f32; then a dout that is not contiguous,
-        and two runs of one backward bit for bit."""
+        16 and 32, in bf16 and f32, through the body ``bwd_body`` picks
+        and on the out and lse of ``mha_with_lse`` (whose lse is held to
+        the plain row lse within ``LSE_TOL``); then a dout that is not
+        contiguous, and two runs of one backward bit for bit."""
         torch = self.torch
-        from repro_torch.kernels.flash_attention import (mha, mha_bwd,
-                                                         mha_ref_bwd)
+        from repro_torch.kernels.flash_attention import (mha_bwd,
+                                                         mha_ref_bwd,
+                                                         mha_ref_with_lse,
+                                                         mha_with_lse)
+        from repro_torch.kernels.flash_attention import ops as flash_ops
         name = FLASH_BWD["name"]
         cases = [
             ((2, 4096, 4096, 32, 8, 128), True, 0, "llama train B=2 S=4096"),
@@ -580,31 +634,38 @@ class Smoke:
                 q = self.randn(g, (B, Sq, H, hd), dtype)
                 k, v = (self.randn(g, (B, Sk, K, hd), dtype) for _ in "kv")
                 dout = self.randn(g, (B, Sq, H, hd), dtype)
-                out = mha(q, k, v, causal=causal, window=window)
-                got = mha_bwd(q, k, v, out, dout, causal=causal,
+                out, lse = mha_with_lse(q, k, v, causal=causal,
+                                        window=window)
+                body = flash_ops.bwd_body(dtype, hd)
+                self.compare_rel(FLASH["name"], f"{dname} lse [{body}] "
+                                 f"{what}", lse, mha_ref_with_lse(
+                                     q, k, v, causal=causal,
+                                     window=window)[1], LSE_TOL)
+                got = mha_bwd(q, k, v, out, dout, lse=lse, causal=causal,
                               window=window)
                 want = mha_ref_bwd(q, k, v, out, dout, causal=causal,
                                    window=window)
                 for gname, a, b in zip(("dq", "dk", "dv"), got, want):
-                    self.compare_rel(name, f"{dname} {gname} {what}", a, b,
-                                     tol)
-                del q, k, v, dout, out, got, want
+                    self.compare_rel(name, f"{dname} {gname} [{body}] {what}",
+                                     a, b, tol)
+                del q, k, v, dout, out, lse, got, want
             # dout as a transposed view, made contiguous by the wrapper
             q = self.randn(g, (1, 1000, 8, 128), dtype)
             k, v = (self.randn(g, (1, 1000, 2, 128), dtype) for _ in "kv")
             dout = self.randn(g, (1, 8, 1000, 128), dtype).transpose(1, 2)
-            out = mha(q, k, v)
-            got = mha_bwd(q, k, v, out, dout)
+            out, lse = mha_with_lse(q, k, v)
+            got = mha_bwd(q, k, v, out, dout, lse=lse)
+            body = flash_ops.bwd_body(dtype, 128)
             for gname, a, b in zip(("dq", "dk", "dv"), got,
                                    mha_ref_bwd(q, k, v, out, dout)):
-                self.compare_rel(name, f"{dname} {gname} dout a transposed "
-                                 f"view S=1000", a, b, tol)
-            again = mha_bwd(q, k, v, out, dout)
+                self.compare_rel(name, f"{dname} {gname} [{body}] dout a "
+                                 f"transposed view S=1000", a, b, tol)
+            again = mha_bwd(q, k, v, out, dout, lse=lse)
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError(f"{name}: two runs of one backward "
                                      f"differ")
-            print(f"  {name:15s} {dname} two runs of one backward: equal bit "
-                  f"for bit")
+            print(f"  {name:15s} {dname} [{body}] two runs of one backward: "
+                  f"equal bit for bit")
 
     def compare_rel(self, kernel, label, out, ref, tol):
         """Max error relative to the reference's largest |value|."""
@@ -1381,6 +1442,15 @@ class Smoke:
               f"untraced steps' mean wall {wall_ms:.1f} ms: device idle share "
               f"{1 - trace['ms'] / wall_ms:.3f}")
         for e in trace["rows"][:15]:
+            print(f"    {e.self_device_time_total / 1e3:9.3f} ms "
+                  f"{e.count:6d}x  {e.key[:90]}")
+        ours = [e for e in trace["rows"] if any(
+            k in e.key for k in ("attn_tc_kernel", "attn_kernel",
+                                 "dkdv_kernel", "dq_kernel", "prep_kernel"))]
+        print(f"  {path} step {TRAIN_TRACED}: the attention kernels "
+              f"{sum(e.self_device_time_total for e in ours) / 1e3:.3f} ms "
+              f"of {trace['ms']:.1f} ms:")
+        for e in ours:
             print(f"    {e.self_device_time_total / 1e3:9.3f} ms "
                   f"{e.count:6d}x  {e.key[:90]}")
         if launches != want:
@@ -2508,7 +2578,9 @@ class Smoke:
             TRAIN_BATCH, TRAIN_SEQ, *llama, "llama3-8b training shape")
         self.also[FLASH_BWD["name"]] = {
             "llama3-8b B=1 S=2048": self.time_flash_bwd(
-                1, 2048, *llama, "llama3-8b")}
+                1, 2048, *llama, "llama3-8b"),
+            "hymba-1.5b S=4096 window=2048": self.time_flash_bwd(
+                1, TRAIN_SEQ, *hymba, "hymba-1.5b", window=2048)}
         self.timing[SCAN["name"]] = self.time_scan(8192, 256, "falcon-mamba-7b")
         self.also[SCAN["name"]] = {
             "hymba-1.5b": self.time_scan(3200, 100, "hymba-1.5b")}
@@ -2518,6 +2590,14 @@ class Smoke:
         """The least time (ms) for the work, and what sets it."""
         tb, tf = nbytes / HBM_BYTES_PER_S, flops / peak
         return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
+
+    def window_mask(self, S, window):
+        """The library call's boolean mask of a causal window shorter than
+        S (None where ``is_causal`` says it all)."""
+        if not window or window >= S:
+            return None
+        i = self.torch.arange(S, device=self.dev)
+        return (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
 
     def time_flash(self, H, K, hd, window, arch, B=1, S=PROMPT, causal=True,
                    Sk=None):
@@ -2541,11 +2621,7 @@ class Smoke:
                  else S * Sk)
         nbytes = 2 * (2 * B * S * H * hd + 2 * B * Sk * K * hd)
         bms, by = self.bound(nbytes, 4 * B * H * hd * pairs)
-        lib_mask = None
-        if window and window < S:
-            i = torch.arange(S, device=self.dev)
-            lib_mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :]
-                                                     < window)
+        lib_mask = self.window_mask(S, window)
         row = self.time_row(
             lambda s: mha(*s, causal=causal, window=window),
             lambda s: mha_ref(*s, causal=causal, window=window),
@@ -2560,51 +2636,63 @@ class Smoke:
                     f"hd={hd} window={window} ({arch})", row)
         return row
 
-    def time_flash_bwd(self, B, S, H, K, hd, arch):
-        """The attention backward at a causal training shape, bf16: the
-        kernel by graph replay (and eagerly), the plain backward
-        (`mha_ref_bwd`) eagerly, and the library's backward (autograd of
-        one ``F.scaled_dot_product_attention(..., is_causal=True,
-        enable_gqa=True)`` on the same inputs in its (B, H, S, hd)
-        layout, a yardstick the port never calls) eagerly between CUDA
-        events. The bound by operations is 2.5x the forward's causal
-        FLOPs; by bytes, q, k, v, out and dout read once and dq, dk, dv
-        written once."""
+    def time_flash_bwd(self, B, S, H, K, hd, arch, window=0):
+        """The attention backward at a causal training shape, bf16, on
+        the forward's lse: the kernel by graph replay (and eagerly), the
+        plain backward (`mha_ref_bwd`) eagerly, and the library's
+        backward (autograd of one ``F.scaled_dot_product_attention(...,
+        enable_gqa=True)``, causal or with the window's mask, on the same
+        inputs in its (B, H, S, hd) layout; it also starts from its
+        forward's saved lse; a yardstick the port never calls) eagerly
+        between CUDA events. The bound by operations is 2.5x the
+        forward's FLOPs over the visible pairs; by bytes, q, k, v, out,
+        lse and dout read once and dq, dk, dv written once."""
         torch = self.torch
         import torch.nn.functional as F
-        from repro_torch.kernels.flash_attention import (mha, mha_bwd,
-                                                         mha_ref_bwd)
+        from repro_torch.kernels.flash_attention import (mha_bwd,
+                                                         mha_ref_bwd,
+                                                         mha_with_lse)
+        from repro_torch.kernels.flash_attention import ops as flash_ops
         dt = torch.bfloat16
         g = self.gen(12)
+        lib_mask = self.window_mask(S, window)
         sets, lib_sets = [], []
         for _ in range(2):
             q = self.randn(g, (B, S, H, hd), dt)
             k, v = (self.randn(g, (B, S, K, hd), dt) for _ in "kv")
             dout = self.randn(g, (B, S, H, hd), dt)
-            sets.append((q, k, v, mha(q, k, v), dout))
+            sets.append((q, k, v, *mha_with_lse(q, k, v, window=window),
+                         dout))
             lq, lk, lv = (t.transpose(1, 2).contiguous().requires_grad_(True)
                           for t in (q, k, v))
-            lout = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
-                                                  enable_gqa=True)
+            lout = F.scaled_dot_product_attention(
+                lq, lk, lv, attn_mask=lib_mask, is_causal=lib_mask is None,
+                enable_gqa=True)
             lib_sets.append((lq, lk, lv, lout,
                              dout.transpose(1, 2).contiguous()))
-        pairs = S * (S + 1) // 2
+        pairs = sum(min(i + 1, window or S) for i in range(S))
         flops = 2.5 * 4 * B * H * hd * pairs
-        nbytes = 2 * (4 * B * S * H * hd + 4 * B * S * K * hd)
+        nbytes = 2 * (4 * B * S * H * hd + 4 * B * S * K * hd) + 4 * B * H * S
         bms, by = self.bound(nbytes, flops)
-        row = {"ms": self.time_ms(lambda s: mha_bwd(*s), sets, 5, graph=True),
-               "eager_ms": self.time_ms(lambda s: mha_bwd(*s), sets, 5),
-               "plain_ms": self.time_ms(lambda s: mha_ref_bwd(*s), sets[:1],
-                                        2),
+
+        def kernel(s):
+            return mha_bwd(s[0], s[1], s[2], s[3], s[5], lse=s[4],
+                           window=window)
+
+        row = {"ms": self.time_ms(kernel, sets, 5, graph=True),
+               "eager_ms": self.time_ms(kernel, sets, 5),
+               "plain_ms": self.time_ms(
+                   lambda s: mha_ref_bwd(s[0], s[1], s[2], s[3], s[5],
+                                         window=window), sets[:1], 2),
                "library_ms": self.time_ms(
                    lambda s: torch.autograd.grad(s[3], s[:3], s[4],
                                                  retain_graph=True),
                    lib_sets, 10)}
         row["library_eager_ms"] = row["library_ms"]
-        row.update(bound_ms=bms, bound_by=by)
+        row.update(bound_ms=bms, bound_by=by, body=flash_ops.bwd_body(dt, hd))
         self.report(f"flash_attention_bwd bf16 B={B} S={S} causal H={H} K={K}"
-                    f" hd={hd} ({arch}; {flops / 1e9:.1f} GFLOP, library "
-                    f"eager)", row)
+                    f" hd={hd} window={window} [{row['body']}] ({arch}; "
+                    f"{flops / 1e9:.1f} GFLOP, library eager)", row)
         del sets, lib_sets
         return row
 

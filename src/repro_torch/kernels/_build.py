@@ -3,11 +3,16 @@
 Each kernel keeps one source, ``kernels/<name>/csrc/<name>.cu``, with a
 plain C interface; the attention backward's, ``flash_attention_bwd.cu``,
 sits beside the forward's in ``kernels/flash_attention/csrc/`` and
-builds as a library of its own. At first use it is compiled for Hopper into a shared
-library under ``build/kernels/`` at the root of the checkout, named by a
-digest of its source and flags so an edited source is rebuilt, and
-loaded with `ctypes`. A source that includes no PyTorch header builds in
-seconds; a failed build raises with the compiler's output.
+builds as a library of its own; both include the shared header
+``hopper.cuh`` beside them. At first use a source is compiled for Hopper
+into a shared library under ``build/kernels/`` at the root of the
+checkout, named by a digest of its source, of every ``*.cuh`` header in
+its ``csrc/`` and of the flags, so an edited source or header is rebuilt,
+and loaded with `ctypes`. A source that includes no PyTorch header builds
+in seconds; a failed build raises with the compiler's output. ptxas
+reports each kernel's registers and spills (``-Xptxas -v``): `LOGS` keeps
+the compiler's output of each build this process ran, and `ptxas_report`
+reads it.
 
 `build` starts one nvcc per source, all together, and waits for all of
 them: ``chip_smoke.py`` calls it once so the kernels build in parallel.
@@ -18,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -30,10 +36,12 @@ NAMES = ("flash_attention", "flash_attention_bwd", "decode_attention",
 #: the kernels whose source lives in another kernel's package
 PACKAGES = {"flash_attention_bwd": "flash_attention"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+#: name -> nvcc's output of the build this process ran
+LOGS: dict[str, str] = {}
 
 
 def nvcc() -> str:
@@ -52,9 +60,34 @@ def source(name: str) -> Path:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(source(name).read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """The library's path, named by a digest of the source, the headers
+    beside it and the flags."""
+    src = source(name)
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_report(log: str) -> list[tuple[str, int, int, int]]:
+    """(mangled kernel name, registers, spill store bytes, spill load
+    bytes) of each entry function in an nvcc ``-Xptxas -v`` log."""
+    out, name, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        if m := _ENTRY.search(line):
+            name, spill = m.group(1), (0, 0)
+        elif (m := _SPILL.search(line)) and name:
+            spill = (int(m.group(1)), int(m.group(2)))
+        elif (m := _REGS.search(line)) and name:
+            out.append((name, int(m.group(1)), *spill))
+            name = None
+    return out
 
 
 def build(names=NAMES) -> dict[str, Path]:
@@ -78,6 +111,7 @@ def build(names=NAMES) -> dict[str, Path]:
     errors = []
     for name, proc, tmp, target in running:
         log, _ = proc.communicate()
+        LOGS[name] = log
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {name} (rc {proc.returncode}):\n{log}")
             tmp.unlink(missing_ok=True)

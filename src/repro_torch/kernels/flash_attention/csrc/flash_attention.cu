@@ -58,18 +58,14 @@
 //
 // Not done yet: warp specialisation with setmaxnreg, ping-pong of the
 // softmax of one warpgroup against the other's wgmma, persistent CTAs.
-#include <cuda.h>
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr float NEG_INF = -1e30f;
+using namespace hopper;
 
-struct Strides {
-  int64_t b, h, s;
-};
+constexpr float NEG_INF = -1e30f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // ------------------------------------------------------------------ SIMT body
 
@@ -108,8 +104,8 @@ constexpr size_t smem_bytes() {
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS, 2)
 attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-            T* __restrict__ o, Strides sq, Strides sk, Strides sv, Strides so,
-            int Sq, int Sk, int G, float scale, int causal, int window) {
+            T* __restrict__ o, float* __restrict__ lse, Strides sq, Strides sk, Strides sv,
+            Strides so, int Sq, int Sk, int G, float scale, int causal, int window) {
   extern __shared__ float smem[];
   float* Qs = smem;                  // [BQ][HD], pre-scaled
   float* Ks = Qs + BQ * HD;          // [BK][HD + 1], padded against bank conflicts
@@ -231,13 +227,15 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
       const float li = fmaxf(l[i], 1e-30f);
 #pragma unroll
       for (int c = 0; c < NC; ++c) ob[qi * so.s + tx + 16 * c] = from_f32<T>(acc[i][c] / li);
+      if (lse != nullptr && tx == 0)
+        lse[((int64_t)b * gridDim.y + h) * Sq + qi] = m[i] + logf(li);
     }
   }
 }
 
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, Strides sq, Strides sk,
-           Strides sv, Strides so, int B, int H, int K, int Sq, int Sk, int causal,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, Strides sq,
+           Strides sk, Strides sv, Strides so, int B, int H, int K, int Sq, int Sk, int causal,
            int window, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -247,28 +245,31 @@ int launch(const void* q, const void* k, const void* v, void* o, Strides sq, Str
   const float scale = 1.0f / sqrtf((float)HD);
   attn_kernel<T, HD><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), sq, sk, sv, so, Sq, Sk, H / K, scale, causal, window);
+      static_cast<T*>(o), lse, sq, sk, sv, so, Sq, Sk, H / K, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o, Strides sq,
-                Strides sk, Strides sv, Strides so, int B, int H, int K, int Sq, int Sk,
-                int causal, int window, cudaStream_t stream) {
+int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o, float* lse,
+                Strides sq, Strides sk, Strides sv, Strides so, int B, int H, int K, int Sq,
+                int Sk, int causal, int window, cudaStream_t stream) {
   switch (hd) {
     case 16:
-      return launch<T, 16>(q, k, v, o, sq, sk, sv, so, B, H, K, Sq, Sk, causal, window, stream);
+      return launch<T, 16>(q, k, v, o, lse, sq, sk, sv, so, B, H, K, Sq, Sk, causal, window,
+                           stream);
     case 32:
-      return launch<T, 32>(q, k, v, o, sq, sk, sv, so, B, H, K, Sq, Sk, causal, window, stream);
+      return launch<T, 32>(q, k, v, o, lse, sq, sk, sv, so, B, H, K, Sq, Sk, causal, window,
+                           stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, sq, sk, sv, so, B, H, K, Sq, Sk, causal, window, stream);
+      return launch<T, 64>(q, k, v, o, lse, sq, sk, sv, so, B, H, K, Sq, Sk, causal, window,
+                           stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, sq, sk, sv, so, B, H, K, Sq, Sk, causal, window, stream);
+      return launch<T, 128>(q, k, v, o, lse, sq, sk, sv, so, B, H, K, Sq, Sk, causal, window,
+                            stream);
     default:
       return -1;
   }
 }
-
 
 }  // namespace simt
 
@@ -281,7 +282,6 @@ constexpr int BN = 128;              // key rows per K/V tile
 constexpr int STAGES = 2;            // K/V ring depth
 constexpr int CONSUMERS = 256;       // two warpgroups
 constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
-constexpr int PANEL = 64;            // bf16 columns per 128-byte swizzled panel
 
 template <int HD>
 struct Smem {
@@ -294,185 +294,15 @@ struct Smem {
   static constexpr int ALLOC = BYTES + 1024;    // room to align the base to 1024
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// Wait until the phase of the given parity has completed. A wait that
-// lasts seconds can only be a broken pipeline: trap, so the launch fails
-// with an error instead of holding the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  uint64_t t0 = 0;
-  for (;;) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    const uint64_t t = global_ns();
-    if (t0 == 0) t0 = t;
-    else if (t - t0 > 4000000000ull) __trap();
-  }
-}
-
-// TMA: one box of a 4-d tensor map (coordinates innermost first) into
-// shared memory, completing `bar`'s transaction count.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
-         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte swizzled tile: start
-// address, leading and stride byte offsets (16-byte units), layout B128.
-__device__ __forceinline__ uint64_t desc_b128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
-       | (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16)
-       | (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32)
-       | (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keep the compiler from moving accumulator reads or writes across the
-// asynchronous products.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-
-// 2^x on the special-function unit, flushing denormal results to zero.
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// D (64 x 128, f32) += A (64 x 16, shared) * B (16 x 128, shared); A and B K-major.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
-                                                int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{" 
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// D (64 x 128, f32) += A (64 x 16, bf16 registers) * B (16 x 128, shared); B MN-major.
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
-                                                uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{" 
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D (64 x 64, f32) += A (64 x 16, bf16 registers) * B (16 x 64, shared); B MN-major.
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
-                                                uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{" 
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-
-template <int HD>
-__device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2], const uint32_t (&a)[4], uint64_t db);
-template <>
-__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64], const uint32_t (&a)[4], uint64_t db) {
-  wgmma_rs_n128(o, a, db);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], const uint32_t (&a)[4], uint64_t db) {
-  wgmma_rs_n64(o, a, db);
-}
-
-// The accumulator fragment of a 64 x N wgmma: thread t of the warpgroup
-// holds rows r0 = 16 * (t / 32) + (t % 32) / 4 and r0 + 8; register i is
-// row r0 + 8 * ((i / 2) % 2), column 8 * (i / 4) + 2 * (t % 4) + i % 2.
-template <int HD>
+// (the accumulator fragment's layout is described at hopper::to_frags).
+// LSE: write each row's lse; the serve paths run the instantiation
+// without it, whose code is the lse-free kernel's.
+template <int HD, bool LSE>
 __global__ void __launch_bounds__(THREADS, 1)
 attn_tc_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ CUtensorMap tmk,
                const __grid_constant__ CUtensorMap tmv, __nv_bfloat16* __restrict__ out,
-               Strides so, int Sq, int Sk, int G, float scale_log2, int causal, int window) {
+               float* __restrict__ lse, Strides so, int Sq, int Sk, int G, float scale_log2,
+               int causal, int window) {
   using L = Smem<HD>;
   constexpr int NP = HD / PANEL;     // panels of a Q/K/V row
   extern __shared__ uint8_t smem_raw[];
@@ -627,13 +457,7 @@ attn_tc_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ 
 
     // P in bf16 as the register A fragment of each k16 step of O += P V
     uint32_t pa[BN / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
-      pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
-      pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
-      pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
-    }
+    to_frags(sc, pa);
 
     // O += P V: V read MN-major, 16 keys (two 1024-byte swizzle atoms) a
     // step; the hd panels are BN * 128 bytes apart
@@ -644,7 +468,7 @@ attn_tc_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ 
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
       const uint64_t db = desc_b128(v_s(s) + kk * 16 * 128, BN * 128, 1024);
-      wgmma_pv<HD>(o, pa[kk], db);
+      wgmma_rs<HD>(o, pa[kk], db);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -652,14 +476,21 @@ attn_tc_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ 
     if (lane == 0) mbar_arrive(empty(s));
   }
 
-  // epilogue: full row sums across the quad, divide, store bf16 pairs
+  // epilogue: full row sums across the quad, divide, store bf16 pairs;
+  // with lse, each row's log-sum-exp in natural units of the scaled
+  // scores (m is in base-2 units of scale_log2, converted here once)
   float inv[2];
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     float t = l[hr];
     t += __shfl_xor_sync(0xffffffffu, t, 1);
     t += __shfl_xor_sync(0xffffffffu, t, 2);
-    inv[hr] = 1.f / fmaxf(t, 1e-30f);
+    t = fmaxf(t, 1e-30f);
+    inv[hr] = 1.f / t;
+    if constexpr (LSE) {
+      if ((lane & 3) == 0 && qrow[hr] < Sq)
+        lse[((int64_t)b * gridDim.x + h) * Sq + qrow[hr]] = m[hr] * LN2 + logf(t);
+    }
   }
   __nv_bfloat16* ob = out + b * so.b + h * so.h;
 #pragma unroll
@@ -674,65 +505,19 @@ attn_tc_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ 
   }
 }
 
-// cuTensorMapEncodeTiled from the driver, found once through the runtime.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn(int* rc) {
-  static EncodeTiled fn = nullptr;
-  static const int status = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                           cudaEnableDefault, &found);
-#else
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (found != cudaDriverEntryPointSuccess || p == nullptr)
-      return static_cast<int>(cudaErrorSymbolNotFound);
-    fn = reinterpret_cast<EncodeTiled>(p);
-    return 0;
-  }();
-  *rc = status;
-  return fn;
-}
-
-// A bf16 tensor of logical shape (batch, heads, seq, hd), hd contiguous,
-// as a 4-d map with dims (hd, heads, seq, batch) and boxes of one
-// 64-column panel x `rows` rows, 128-byte swizzled. Returns 0 or
-// TMAP_ERROR + the CUresult.
-constexpr int TMAP_ERROR = 2000;
-
-int make_map(CUtensorMap* map, const void* ptr, int batch, int heads, int seq, int hd,
-             Strides st, int rows) {
-  int rc = 0;
-  const EncodeTiled encode = encode_fn(&rc);
-  if (rc != 0) return rc;
-  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads, (cuuint64_t)seq,
-                              (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)st.h * 2, (cuuint64_t)st.s * 2,
-                                 (cuuint64_t)st.b * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)PANEL, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : TMAP_ERROR + static_cast<int>(r);
-}
-
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, Strides sq, Strides sk,
-           Strides sv, Strides so, int B, int H, int K, int Sq, int Sk, int causal, int window,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, Strides sq,
+           Strides sk, Strides sv, Strides so, int B, int H, int K, int Sq, int Sk, int causal,
+           int window, cudaStream_t stream) {
   constexpr int smem = Smem<HD>::ALLOC;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      attn_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static const cudaError_t attr = [] {
+    cudaError_t e = cudaFuncSetAttribute(attn_tc_kernel<HD, false>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(attn_tc_kernel<HD, true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    return e;
+  }();
   if (attr != cudaSuccess) return static_cast<int>(attr);
   CUtensorMap mq, mk, mv;
   int rc = make_map(&mq, q, B, H, Sq, HD, sq, BM);
@@ -741,8 +526,9 @@ int launch(const void* q, const void* k, const void* v, void* o, Strides sq, Str
   if (rc != 0) return rc;
   const dim3 grid(H, B, (Sq + BM - 1) / BM);
   const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(HD));
-  attn_tc_kernel<HD><<<grid, THREADS, smem, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), so, Sq, Sk, H / K, scale_log2, causal, window);
+  auto kernel = lse != nullptr ? attn_tc_kernel<HD, true> : attn_tc_kernel<HD, false>;
+  kernel<<<grid, THREADS, smem, stream>>>(mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, so, Sq,
+                                          Sk, H / K, scale_log2, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -751,14 +537,19 @@ int launch(const void* q, const void* k, const void* v, void* o, Strides sq, Str
 }  // namespace
 
 // q, o: logical (B, H, Sq, hd); k, v: logical (B, K, Sk, hd); each given by
-// its (batch, head, seq) element strides, head_dim contiguous.
+// its (batch, head, seq) element strides, head_dim contiguous. lse: null,
+// or (B, H, Sq) f32 contiguous, which then receives each query row's
+// log-sum-exp m + log(max(l, 1e-30)) in natural units of the scaled
+// scores q . k / sqrt(hd) (both bodies store this unit; the backward
+// converts it to its own). With a null lse nothing else changes.
 // dtype: 0 = float32, 1 = bfloat16. bf16 at hd 64 or 128 runs the
 // tensor-core body, which needs 16-byte aligned base pointers and strides
 // (the wrapper checks them); everything else runs the SIMT body. Returns
 // 0, a cudaError_t, 2000 + a CUresult when a tensor map cannot be built,
 // or -1 for a dtype or head_dim the kernel does not take.
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
-                                   void* o, int B, int H, int K, int Sq, int Sk, int hd,
+                                   void* o, float* lse, int B, int H, int K, int Sq, int Sk,
+                                   int hd,
                                    int64_t q_sb, int64_t q_sh, int64_t q_ss,
                                    int64_t k_sb, int64_t k_sh, int64_t k_ss,
                                    int64_t v_sb, int64_t v_sh, int64_t v_ss,
@@ -769,17 +560,17 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, cons
       so{o_sb, o_sh, o_ss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && hd == 128)
-    return tc::launch<128>(q, k, v, o, sq, sk, sv, so, B, H, K, Sq, Sk, causal, window, st);
+    return tc::launch<128>(q, k, v, o, lse, sq, sk, sv, so, B, H, K, Sq, Sk, causal, window, st);
   if (dtype == 1 && hd == 64)
-    return tc::launch<64>(q, k, v, o, sq, sk, sv, so, B, H, K, Sq, Sk, causal, window, st);
+    return tc::launch<64>(q, k, v, o, lse, sq, sk, sv, so, B, H, K, Sq, Sk, causal, window, st);
   if (dtype == 0)
-    return simt::dispatch_hd<float>(hd, q, k, v, o, sq, sk, sv, so, B, H, K, Sq, Sk, causal,
-                                    window, st);
+    return simt::dispatch_hd<float>(hd, q, k, v, o, lse, sq, sk, sv, so, B, H, K, Sq, Sk,
+                                    causal, window, st);
   if (dtype == 1 && hd == 32)
-    return simt::launch<__nv_bfloat16, 32>(q, k, v, o, sq, sk, sv, so, B, H, K, Sq, Sk, causal,
-                                           window, st);
+    return simt::launch<__nv_bfloat16, 32>(q, k, v, o, lse, sq, sk, sv, so, B, H, K, Sq, Sk,
+                                           causal, window, st);
   if (dtype == 1 && hd == 16)
-    return simt::launch<__nv_bfloat16, 16>(q, k, v, o, sq, sk, sv, so, B, H, K, Sq, Sk, causal,
-                                           window, st);
+    return simt::launch<__nv_bfloat16, 16>(q, k, v, o, lse, sq, sk, sv, so, B, H, K, Sq, Sk,
+                                           causal, window, st);
   return -1;
 }

@@ -8,18 +8,21 @@ launches.
 
 `mha` is differentiable. When grad is enabled and any of q, k, v
 requires it on a CUDA tensor, it runs as an autograd Function whose
-forward launches the forward kernel and whose backward launches the
-hand-written backward (``csrc/flash_attention_bwd.cu``, its own
-library, `mha_bwd`); ``bwd_launches`` counts those. Under
-``torch.inference_mode`` (prefill, decode) nothing of that runs. On CPU
-tensors the plain `mha_ref` runs under autograd. A failed build or launch
-raises; nothing falls back.
+forward launches the forward kernel, which then also writes each query
+row's log-sum-exp, and whose backward launches the hand-written backward
+(``csrc/flash_attention_bwd.cu``, its own library, `mha_bwd`) on that
+lse; ``bwd_launches`` counts those. Under ``torch.inference_mode``
+(prefill, decode) nothing of that runs and the forward writes no lse.
+`mha_with_lse` returns the forward's output and its lse. On CPU tensors
+the plain `mha_ref` runs under autograd. A failed build or launch raises;
+nothing falls back.
 
-The source has two bodies, picked from the dtype and head dim alone
-(`body`): bf16 at hd 64 or 128 runs on the tensor cores (wgmma, tiles
-loaded by TMA); f32 and bf16 at hd 16 or 32 run the SIMT body. TMA describes a
+Each source has two bodies, picked from the dtype and head dim alone
+(`body` for the forward, `bwd_body` for the backward, the same rule):
+bf16 at hd 64 or 128 runs on the tensor cores (wgmma, tiles loaded by
+TMA); f32 and bf16 at hd 16 or 32 run the SIMT body. TMA describes a
 tensor only when its base address and every stride but the innermost
-are multiples of 16 bytes: for the tensor-core body the wrapper checks
+are multiples of 16 bytes: for a tensor-core body the wrapper checks
 that and raises, it never falls back.
 """
 from __future__ import annotations
@@ -30,11 +33,14 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import _launch as X
-from repro_torch.kernels.flash_attention.ref import mha_ref
+from repro_torch.kernels.flash_attention.ref import mha_ref, mha_ref_with_lse
 
 NAME = "flash_attention"
 BWD_NAME = "flash_attention_bwd"
 WGMMA_HEAD_DIMS = (64, 128)
+#: the backward pads each (batch, head)'s lse and D rows to a multiple of
+#: this many (ROWS_PAD in csrc/flash_attention_bwd.cu)
+BWD_ROWS_PAD = 64
 launches = 0
 bwd_launches = 0
 _count_lock = threading.Lock()
@@ -45,7 +51,7 @@ def _lib():
     fn = lib.flash_attention_fwd
     if fn.argtypes is None:
         fn.restype = X.i32
-        fn.argtypes = ([X.i32] + [X.ptr] * 4 + [X.i32] * 6 + [X.i64] * 12
+        fn.argtypes = ([X.i32] + [X.ptr] * 5 + [X.i32] * 6 + [X.i64] * 12
                        + [X.i32, X.i32, X.ptr])
     return fn
 
@@ -65,6 +71,13 @@ def body(dtype: torch.dtype, hd: int) -> str:
     (tensor cores, TMA) or "simt"."""
     return "wgmma" if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS \
         else "simt"
+
+
+def bwd_body(dtype: torch.dtype, hd: int) -> str:
+    """The backward kernel's body for this dtype and head dim: "wgmma"
+    (tensor cores, TMA, bf16 P and dS) or "simt" (f32 products); the
+    forward's rule, so one layer's two kernels run the same kind."""
+    return body(dtype, hd)
 
 
 def _check(q, k, v):
@@ -92,29 +105,46 @@ def _strides(*tensors):
     return out
 
 
-def _forward(q, k, v, causal, window):
-    """One launch of the forward kernel on CUDA tensors."""
+def _forward(q, k, v, causal, window, with_lse=False):
+    """One launch of the forward kernel on CUDA tensors: out, and with
+    ``with_lse`` also each query row's log-sum-exp, (B, H, Sq) f32 in
+    natural units of the scaled scores q . k / sqrt(hd)."""
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
     if body(q.dtype, hd) == "wgmma":
         X.check_aligned(NAME, "TMA", q, k, v)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     rc = _lib()(X.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), out.data_ptr(), B, H, K, Sq, Sk, hd,
+                v.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr(), B, H, K, Sq, Sk, hd,
                 *_strides(q, k, v, out), int(causal), int(window),
                 X.stream(q.device))
     X.raise_on(NAME, rc)
     global launches
     with _count_lock:
         launches += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
-def mha_bwd(q, k, v, out, dout, *, causal: bool = True, window: int = 0):
-    """dq, dk, dv of `mha` at (q, k, v), given its output ``out`` and the
-    output's gradient ``dout`` (made contiguous if it is not), in q's
-    dtype: one launch of the backward kernel (three kernels on one
-    stream) on CUDA tensors."""
+def mha_with_lse(q, k, v, *, causal: bool = True, window: int = 0):
+    """`mha`'s output and each query row's log-sum-exp of the masked,
+    scaled scores, (B, H, Sq) f32: one launch of the forward kernel on
+    CUDA tensors, `mha_ref_with_lse` on CPU tensors. No autograd."""
+    dev = _check(q, k, v)
+    if dev.type == "cpu":
+        return mha_ref_with_lse(q, k, v, causal=causal, window=window)
+    return _forward(q, k, v, causal, window, with_lse=True)
+
+
+def mha_bwd(q, k, v, out, dout, *, lse, causal: bool = True,
+            window: int = 0):
+    """dq, dk, dv of `mha` at (q, k, v), given its output ``out``, the
+    forward's row log-sum-exp ``lse`` ((B, H, Sq) f32, as `mha_with_lse`
+    returns it) and the output's gradient ``dout`` (made contiguous if it
+    is not), in q's dtype: one launch of the backward kernel (three
+    kernels on one stream) on CUDA tensors. Nothing recomputes the lse."""
     dout = dout.contiguous()
     dev = _check(q, k, v)
     X.check_float(BWD_NAME, q, out, dout)
@@ -126,14 +156,20 @@ def mha_bwd(q, k, v, out, dout, *, causal: bool = True, window: int = 0):
                          f"not {dev}")
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
+    if lse is None or lse.shape != (B, H, Sq) or lse.dtype != torch.float32 \
+            or lse.device != dev or not lse.is_contiguous():
+        raise ValueError(f"{BWD_NAME}: lse must be the forward's contiguous "
+                         f"({B}, {H}, {Sq}) float32 row log-sum-exp on {dev}")
+    if bwd_body(q.dtype, hd) == "wgmma":
+        X.check_aligned(BWD_NAME, "TMA", q, k, v, out, dout)
     dq, dk, dv = (torch.empty_like(t, memory_format=torch.contiguous_format)
                   for t in (q, k, v))
-    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
-    dsum = torch.empty_like(lse)
+    rows = -(-Sq // BWD_ROWS_PAD) * BWD_ROWS_PAD
+    work = torch.empty(2 * B * H * rows, dtype=torch.float32, device=dev)
     rc = _lib_bwd()(X.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
                     v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                    lse.data_ptr(), dsum.data_ptr(), B, H, K, Sq, Sk, hd,
+                    lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                    dv.data_ptr(), work.data_ptr(), B, H, K, Sq, Sk, hd,
                     *_strides(q, k, v, out, dout, dq, dk, dv), int(causal),
                     int(window), X.stream(dev))
     X.raise_on(BWD_NAME, rc)
@@ -148,15 +184,15 @@ class _Attention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        out = _forward(q, k, v, causal, window)
-        ctx.save_for_backward(q, k, v, out)
+        out, lse = _forward(q, k, v, causal, window, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
-        dq, dk, dv = mha_bwd(q, k, v, out, dout, causal=ctx.causal,
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = mha_bwd(q, k, v, out, dout, lse=lse, causal=ctx.causal,
                              window=ctx.window)
         return dq, dk, dv, None, None
 

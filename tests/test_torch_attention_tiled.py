@@ -36,9 +36,12 @@ DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
 TILES = {"wgmma": (128, 128), "simt": (64, 64)}
 
 
-def tiled_prefill(q, k, v, *, causal, window, body):
+def tiled_prefill(q, k, v, *, causal, window, body, with_lse=False):
     """q: (B, H, Sq, hd); k, v: (B, K, Sk, hd) -> (B, H, Sq, hd) in
-    q.dtype, with the named body's tiles, scaling, exponent and P type."""
+    q.dtype, with the named body's tiles, scaling, exponent and P type;
+    with ``with_lse`` also each row's lse (B, H, Sq) as the kernel's
+    epilogue writes it: m + log(max(l, 1e-30)) in natural units (the
+    tensor-core body's m is in base-2 units, converted by ln 2)."""
     B, H, Sq, hd = q.shape
     K, Sk = k.shape[1], k.shape[2]
     G = H // K
@@ -56,6 +59,7 @@ def tiled_prefill(q, k, v, *, causal, window, body):
         scale = None
         exp = torch.exp
     out = torch.empty((B, H, Sq, hd), dtype=torch.float32)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32)
     for q0 in range(0, Sq, bm):
         rows = torch.arange(q0, min(q0 + bm, Sq))
         k_lo, k_hi = 0, Sk
@@ -87,7 +91,9 @@ def tiled_prefill(q, k, v, *, causal, window, body):
             o = o * alpha[..., None] + p @ vf[:, :, k0:k0 + bn]
             m = m_new
         out[:, :, rows] = o / l.clamp_min(1e-30)[..., None]
-    return out.to(q.dtype)
+        m = m * math.log(2.0) if body == "wgmma" else m
+        lse[:, :, rows] = m + torch.log(l.clamp_min(1e-30))
+    return (out.to(q.dtype), lse) if with_lse else out.to(q.dtype)
 
 
 def _inputs(B, H, K, S, hd, dtype, seed):

@@ -16,7 +16,9 @@ from repro_torch.configs import registry
 from repro_torch.kernels.decode_attention import decode_mha, decode_mha_ref
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import (mha, mha_bwd, mha_ref,
-                                                 mha_ref_bwd)
+                                                 mha_ref_bwd,
+                                                 mha_ref_with_lse,
+                                                 mha_with_lse)
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.ssm_scan import selective_scan, ssm_scan_ref
 from repro_torch.kernels.ssm_scan import ops as scan_ops
@@ -821,10 +823,12 @@ def _bwd_inputs(card, seed, B, Sq, Sk, H, K, hd, dtype):
 ])
 def test_flash_attention_bwd_matches_plain(card, dtype, B, Sq, Sk, H, K, hd,
                                            causal, window):
+    """Through the body `bwd_body` picks (bf16 hd 64/128: tensor cores),
+    on the forward's lse."""
     q, k, v, dout = _bwd_inputs(card, 20, B, Sq, Sk, H, K, hd, dtype)
-    out = mha(q, k, v, causal=causal, window=window)
+    out, lse = mha_with_lse(q, k, v, causal=causal, window=window)
     before = flash_ops.bwd_launches
-    got = mha_bwd(q, k, v, out, dout, causal=causal, window=window)
+    got = mha_bwd(q, k, v, out, dout, lse=lse, causal=causal, window=window)
     torch.cuda.synchronize()
     assert flash_ops.bwd_launches == before + 1
     want = mha_ref_bwd(q, k, v, out, dout, causal=causal, window=window)
@@ -835,11 +839,62 @@ def test_flash_attention_bwd_matches_plain(card, dtype, B, Sq, Sk, H, K, hd,
 def test_flash_attention_bwd_is_deterministic(card, dtype):
     """Two runs of the same backward give the same bits: no atomics."""
     q, k, v, dout = _bwd_inputs(card, 21, 2, 500, 500, 16, 2, 128, dtype)
-    out = mha(q, k, v)
-    a = mha_bwd(q, k, v, out, dout)
-    b = mha_bwd(q, k, v, out, dout)
+    out, lse = mha_with_lse(q, k, v)
+    a = mha_bwd(q, k, v, out, dout, lse=lse)
+    b = mha_bwd(q, k, v, out, dout, lse=lse)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("B,S,H,K,hd,window", [
+    (1, 1024, 25, 5, 64, 0),        # hymba's heads
+    (1, 1100, 8, 2, 64, 300),       # ragged, a window
+    (2, 1024, 32, 8, 128, 0),       # llama3-8b's heads
+    (1, 1300, 16, 2, 128, 0),       # ragged, G 8
+])
+def test_flash_attention_bwd_tensor_core_body_at_long_sequences(card, B, S, H,
+                                                                K, hd,
+                                                                window):
+    """bf16 at hd 64 and 128 through the tensor-core body over many tiles
+    of a row (P^T and dS^T in bf16), against the plain backward."""
+    assert flash_ops.bwd_body(torch.bfloat16, hd) == "wgmma"
+    q, k, v, dout = _bwd_inputs(card, 26, B, S, S, H, K, hd, torch.bfloat16)
+    out, lse = mha_with_lse(q, k, v, window=window)
+    got = mha_bwd(q, k, v, out, dout, lse=lse, window=window)
+    _grads_close(got, mha_ref_bwd(q, k, v, out, dout, window=window),
+                 torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Sk,H,K,hd,causal,window", [
+    (300, 300, 8, 2, 128, True, 0),
+    (500, 500, 25, 5, 64, True, 128),
+    (200, 150, 4, 4, 64, False, 0),
+    (192, 192, 6, 3, 32, True, 64),
+    (130, 130, 4, 2, 16, True, 48),
+])
+def test_mha_with_lse_matches_plain_lse(card, dtype, Sq, Sk, H, K, hd, causal,
+                                        window):
+    """The forward's lse (both bodies) against the plain row lse; the
+    output is the one `mha` gives, bit for bit."""
+    q, k, v, _ = _bwd_inputs(card, 27, 2, Sq, Sk, H, K, hd, dtype)
+    out, lse = mha_with_lse(q, k, v, causal=causal, window=window)
+    ref_out, ref_lse = mha_ref_with_lse(q, k, v, causal=causal,
+                                        window=window)
+    assert lse.shape == (2, H, Sq) and lse.dtype == torch.float32
+    assert torch.equal(out, mha(q, k, v, causal=causal, window=window))
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
+    _close(out, ref_out, dtype)
+
+
+def test_mha_bwd_raises_without_lse_on_the_card(card):
+    q, k, v, dout = _bwd_inputs(card, 28, 1, 64, 64, 4, 2, 64,
+                                torch.bfloat16)
+    out, lse = mha_with_lse(q, k, v)
+    with pytest.raises(ValueError, match="lse"):
+        mha_bwd(q, k, v, out, dout, lse=None)
+    with pytest.raises(ValueError, match="lse"):
+        mha_bwd(q, k, v, out, dout, lse=lse[:, :2])
 
 
 @pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 128),
@@ -873,12 +928,38 @@ def test_mha_autograd_launches_and_inference_mode(card):
     out = mha(*leaves)
     grads = torch.autograd.grad(out, leaves, dout)
     assert (flash_ops.launches - f0, flash_ops.bwd_launches - b0) == (1, 1)
+    _, lse = mha_ref_with_lse(q.detach(), k.detach(), v.detach())
     _grads_close(grads, mha_bwd(q.detach(), k.detach(), v.detach(),
-                                out.detach(), dout), torch.bfloat16)
+                                out.detach(), dout, lse=lse), torch.bfloat16)
     with torch.inference_mode():
         again = mha(*leaves)
     assert not again.requires_grad
     assert (flash_ops.launches - f0, flash_ops.bwd_launches - b0) == (2, 2)
+
+
+def test_inference_mode_forward_writes_no_lse(card, monkeypatch):
+    """Under inference_mode (the serve paths) the forward kernel is given
+    a null lse and launches once; with grad it is given one, saved for
+    the backward."""
+    seen = []
+    real = flash_ops._forward
+
+    def spy(q, k, v, causal, window, with_lse=False):
+        seen.append(with_lse)
+        return real(q, k, v, causal, window, with_lse=with_lse)
+
+    monkeypatch.setattr(flash_ops, "_forward", spy)
+    q, k, v, _ = _bwd_inputs(card, 29, 1, 256, 256, 8, 2, 128,
+                             torch.bfloat16)
+    f0, b0 = flash_ops.launches, flash_ops.bwd_launches
+    with torch.inference_mode():
+        out = mha(q, k, v)
+    assert seen == [False] and isinstance(out, torch.Tensor)
+    assert (flash_ops.launches - f0, flash_ops.bwd_launches - b0) == (1, 0)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    mha(*leaves).sum().backward()
+    assert seen == [False, True]
+    assert (flash_ops.launches - f0, flash_ops.bwd_launches - b0) == (2, 1)
 
 
 @pytest.mark.parametrize("policy", ["full", "dots"])

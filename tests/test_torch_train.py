@@ -41,7 +41,11 @@ from repro.optim.adamw import adamw_update as ref_adamw_update
 from repro.optim.adamw import compress_grads as ref_compress_grads
 from repro.optim.adamw import cosine_schedule as ref_cosine_schedule
 from repro_torch.configs import ARCH_IDS, registry
-from repro_torch.kernels.flash_attention import mha, mha_ref, mha_ref_bwd
+from repro_torch.kernels.flash_attention import (mha, mha_bwd, mha_ref,
+                                                 mha_ref_bwd,
+                                                 mha_ref_with_lse,
+                                                 mha_with_lse)
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.launch import train
 from repro_torch.models import get_model, lm, moe, serialize
 from repro_torch.models.convert import params_from_numpy
@@ -523,19 +527,38 @@ class TestArchSmoke:
 
 # ------------------------------------------------ the kernel's arithmetic
 
-def tiled_backward(q, k, v, out, dout, *, causal, window, bq=64, bk=64):
-    """The three passes of ``csrc/flash_attention_bwd.cu`` in plain
-    PyTorch, tile by tile, with the kernel's tile ranges: (a) each query
-    tile's lse (the forward's online m and l over the key tiles it
-    visits) and D = dout . out; (b) per key tile, dk and dv over the G
-    heads of its group and the query tiles that see it; (c) per query
-    tile, dq over the key tiles it visits. q, out, dout (B, Sq, H, hd);
-    k, v (B, Sk, K, hd); f32 throughout, results in q's dtype."""
+#: body -> (dk/dv: key rows per CTA, query rows per tile; dq: query rows
+#: per CTA, key rows per tile), as csrc/flash_attention_bwd.cu tiles them
+BWD_TILES = {"simt": (64, 64, 64, 64), "wgmma": (128, 64, 128, 64)}
+LOG2E = 1.4426950408889634
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16).float()
+
+
+def tiled_backward(q, k, v, out, dout, *, causal, window, body="simt",
+                   lse=None):
+    """The passes of ``csrc/flash_attention_bwd.cu`` in plain PyTorch,
+    tile by tile, with the body's tiles and ranges: D = dout . out; per
+    key tile, dk and dv over the G heads of its group and the query tiles
+    that see it; per query tile, dq over the key tiles it visits. q, out,
+    dout (B, Sq, H, hd); k, v (B, Sk, K, hd); results in q's dtype.
+
+    body "simt": f32 throughout, on the lse that the SIMT forward's loop
+    computes (each query tile's online m and l over the key tiles it
+    visits, rebuilt here). body "wgmma": the tensor-core kernels, on the
+    forward's ``lse`` (B, H, Sq) in natural units, converted to base 2
+    once: P^T = exp2(s scale log2(e) - lse2) on unscaled scores, P^T and
+    dS^T rounded to bf16 before their products, f32 sums, dk and dq
+    scaled by 1 / sqrt(hd) at the end."""
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
     G = H // K
+    wgmma = body == "wgmma"
+    kv_rows, qt_rows, dq_rows, kt_rows = BWD_TILES[body]
     scale = 1.0 / math.sqrt(hd)
-    qs = q.float() * scale
+    qf = q.float() if wgmma else q.float() * scale
     kf, vf, of, df = k.float(), v.float(), out.float(), dout.float()
 
     def visible(qp, kp):
@@ -546,7 +569,7 @@ def tiled_backward(q, k, v, out, dout, *, causal, window, bq=64, bk=64):
             ok &= (qp[:, None] - kp[None, :]) < window
         return ok
 
-    def k_range(q0):
+    def k_range(q0, bq, bk):
         lo, hi = 0, Sk
         if causal:
             hi = min(Sk, q0 + bq)
@@ -554,55 +577,65 @@ def tiled_backward(q, k, v, out, dout, *, causal, window, bq=64, bk=64):
             lo = max(0, q0 - window + 1)
         return range((lo // bk) * bk, hi, bk)
 
-    lse = torch.zeros((B, H, Sq))
     dsum = (df * of).sum(-1).transpose(1, 2)             # (B, H, Sq)
-    for q0 in range(0, Sq, bq):
-        qp = torch.arange(q0, min(q0 + bq, Sq))
-        m = torch.full((B, H, len(qp)), -1e30)
-        l = torch.zeros((B, H, len(qp)))
-        for k0 in k_range(q0):
-            kp = torch.arange(k0, min(k0 + bk, Sk))
-            s = torch.einsum("bqhd,bshd->bhqs", qs[:, qp],
-                             kf[:, kp].repeat_interleave(G, dim=2))
-            s = torch.where(visible(qp, kp), s, -1e30)
-            m_new = torch.maximum(m, s.amax(-1))
-            l = l * torch.exp(m - m_new) + torch.exp(
-                s - m_new[..., None]).sum(-1)
-            m = m_new
-        lse[:, :, qp] = m + torch.log(l.clamp_min(1e-30))
+    if wgmma:
+        lse2 = lse * LOG2E
+        scale_log2 = torch.tensor(LOG2E, dtype=torch.float32) * scale
+    else:
+        lse = torch.zeros((B, H, Sq))
+        for q0 in range(0, Sq, 64):
+            qp = torch.arange(q0, min(q0 + 64, Sq))
+            m = torch.full((B, H, len(qp)), -1e30)
+            l = torch.zeros((B, H, len(qp)))
+            for k0 in k_range(q0, 64, 64):
+                kp = torch.arange(k0, min(k0 + 64, Sk))
+                s = torch.einsum("bqhd,bshd->bhqs", qf[:, qp],
+                                 kf[:, kp].repeat_interleave(G, dim=2))
+                s = torch.where(visible(qp, kp), s, -1e30)
+                m_new = torch.maximum(m, s.amax(-1))
+                l = l * torch.exp(m - m_new) + torch.exp(
+                    s - m_new[..., None]).sum(-1)
+                m = m_new
+            lse[:, :, qp] = m + torch.log(l.clamp_min(1e-30))
 
     def probs_and_ds(qp, kp, h):
         kh = h // G
-        s = torch.einsum("bqd,bsd->bqs", qs[:, qp, h], kf[:, kp, kh])
-        p = torch.where(visible(qp, kp), torch.exp(
-            s - lse[:, h, qp][..., None]), 0.0)
+        s = torch.einsum("bqd,bsd->bqs", qf[:, qp, h], kf[:, kp, kh])
+        if wgmma:
+            p = torch.exp2(s * scale_log2 - lse2[:, h, qp][..., None])
+        else:
+            p = torch.exp(s - lse[:, h, qp][..., None])
+        p = torch.where(visible(qp, kp), p, 0.0)
         dp = torch.einsum("bqd,bsd->bqs", df[:, qp, h], vf[:, kp, kh])
-        return p, p * (dp - dsum[:, h, qp][..., None])
+        ds = p * (dp - dsum[:, h, qp][..., None])
+        return (_bf16(p), _bf16(ds)) if wgmma else (p, ds)
 
     dq = torch.zeros((B, Sq, H, hd))
     dk = torch.zeros((B, Sk, K, hd))
     dv = torch.zeros((B, Sk, K, hd))
-    for k0 in range(0, Sk, bk):
-        kp = torch.arange(k0, min(k0 + bk, Sk))
+    for k0 in range(0, Sk, kv_rows):
+        kp = torch.arange(k0, min(k0 + kv_rows, Sk))
         q_lo = k0 if causal else 0
-        q_hi = min(Sq, k0 + bk - 1 + window) if window > 0 else Sq
+        q_hi = min(Sq, k0 + kv_rows - 1 + window) if window > 0 else Sq
         for kh in range(K):
             for h in range(kh * G, kh * G + G):
-                for q0 in range((q_lo // bq) * bq, q_hi, bq):
-                    qp = torch.arange(q0, min(q0 + bq, Sq))
+                for q0 in range((q_lo // qt_rows) * qt_rows, q_hi, qt_rows):
+                    qp = torch.arange(q0, min(q0 + qt_rows, Sq))
                     p, ds = probs_and_ds(qp, kp, h)
                     dv[:, kp, kh] += torch.einsum("bqs,bqd->bsd", p,
                                                   df[:, qp, h])
                     dk[:, kp, kh] += torch.einsum("bqs,bqd->bsd", ds,
-                                                  qs[:, qp, h])
-    for q0 in range(0, Sq, bq):
-        qp = torch.arange(q0, min(q0 + bq, Sq))
+                                                  qf[:, qp, h])
+    for q0 in range(0, Sq, dq_rows):
+        qp = torch.arange(q0, min(q0 + dq_rows, Sq))
         for h in range(H):
-            for k0 in k_range(q0):
-                kp = torch.arange(k0, min(k0 + bk, Sk))
+            for k0 in k_range(q0, dq_rows, kt_rows):
+                kp = torch.arange(k0, min(k0 + kt_rows, Sk))
                 _, ds = probs_and_ds(qp, kp, h)
-                dq[:, qp, h] += torch.einsum("bqs,bsd->bqd", ds,
-                                             kf[:, kp, h // G]) * scale
+                step = torch.einsum("bqs,bsd->bqd", ds, kf[:, kp, h // G])
+                dq[:, qp, h] += step if wgmma else step * scale
+    if wgmma:
+        dq, dk = dq * scale, dk * scale
     return tuple(t.to(q.dtype) for t in (dq, dk, dv))
 
 
@@ -638,6 +671,108 @@ def test_tiled_backward_matches_reference_autodiff(Bq, Sq, Sk, H, K, hd,
         scale = float(np.abs(w).max())
         assert float(np.abs(a.numpy() - w).max()) <= 1e-4 * scale
         assert float(np.abs(p.numpy() - w).max()) <= 1e-4 * scale
+
+
+#: (B, Sq, Sk, H, K, hd, causal, window): the cases above at the
+#: tensor-core body's head dims, and one longer sequence with few heads
+WGMMA_BWD_CASES = [
+    (2, 150, 150, 4, 2, 64, True, 0),
+    (1, 130, 130, 4, 4, 128, False, 0),         # G 1, bidirectional
+    (1, 200, 200, 6, 1, 64, True, 48),          # G 6, a window
+    (1, 100, 170, 4, 2, 64, False, 0),          # cross: Sq < Sk
+    (1, 170, 100, 7, 1, 64, True, 0),           # G 7, causal, Sq > Sk
+    (1, 140, 140, 8, 1, 128, False, 70),        # G 8, bidirectional window
+    (1, 1100, 1100, 2, 1, 128, True, 0),        # many tiles of a row
+]
+
+
+@pytest.mark.parametrize("Bq,Sq,Sk,H,K,hd,causal,window", WGMMA_BWD_CASES)
+def test_tiled_backward_wgmma_matches_reference_autodiff(Bq, Sq, Sk, H, K, hd,
+                                                         causal, window):
+    """The tensor-core kernels' arithmetic (bf16 P^T and dS^T, the
+    forward's base-2 lse from the tensor-core forward's model) on bf16
+    inputs, against ``jax.vjp`` of the reference's attention on the same
+    bf16 inputs, within 2e-2 of each gradient's largest |value|."""
+    from tests.test_torch_attention_tiled import tiled_prefill
+    rng = np.random.default_rng(19)
+    arrs = [rng.standard_normal(shape).astype(np.float32) for shape in
+            [(Bq, Sq, H, hd), (Bq, Sk, K, hd), (Bq, Sk, K, hd),
+             (Bq, Sq, H, hd)]]
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(torch.bfloat16) for a in arrs)
+    T = (0, 2, 1, 3)
+    out, lse = tiled_prefill(*(t.permute(T) for t in (tq, tk, tv)),
+                             causal=causal, window=window, body="wgmma",
+                             with_lse=True)
+    got = tiled_backward(tq, tk, tv, out.permute(T), tdo, causal=causal,
+                         window=window, body="wgmma", lse=lse)
+    jq, jk, jv, jdo = (jnp.asarray(a.transpose(T), jnp.bfloat16)
+                       for a in arrs)
+    _, vjp = jax.vjp(lambda a, b, c: ref_attention(
+        a, b, c, causal=causal, window=window), jq, jk, jv)
+    want = [np.asarray(g, np.float32).transpose(T) for g in vjp(jdo)]
+    for a, w in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        err = float(np.abs(a.float().numpy() - w).max())
+        assert err <= 2e-2 * float(np.abs(w).max())
+
+
+@pytest.mark.parametrize("Sq,Sk,causal,window", [(90, 90, True, 0),
+                                                 (90, 90, True, 17),
+                                                 (60, 130, False, 0),
+                                                 (130, 60, True, 0),
+                                                 (80, 80, False, 25)])
+def test_plain_lse_matches_jax_logsumexp(Sq, Sk, causal, window):
+    """`mha_ref_with_lse`'s lse against jax's logsumexp of the
+    reference's masked scores (-1e30 where masked, scaled by 1/sqrt(hd)),
+    and its output against `mha_ref`."""
+    rng = np.random.default_rng(20)
+    q = rng.standard_normal((2, Sq, 6, 32)).astype(np.float32)
+    k, v = (rng.standard_normal((2, Sk, 2, 32)).astype(np.float32)
+            for _ in range(2))
+    out, lse = mha_ref_with_lse(*map(torch.from_numpy, (q, k, v)),
+                                causal=causal, window=window)
+    assert torch.equal(out, mha_ref(*map(torch.from_numpy, (q, k, v)),
+                                    causal=causal, window=window))
+    s = jnp.einsum("bqhd,bkhd->bhqk", jnp.asarray(q) / math.sqrt(32),
+                   jnp.repeat(jnp.asarray(k), 3, axis=2))
+    qp, kp = jnp.arange(Sq)[:, None], jnp.arange(Sk)[None, :]
+    mask = jnp.ones((Sq, Sk), bool)
+    if causal:
+        mask &= kp <= qp
+    if window:
+        mask &= (qp - kp) < window
+    want = jax.nn.logsumexp(jnp.where(mask, s, -1e30), axis=-1)
+    assert lse.shape == (2, 6, Sq) and lse.dtype == torch.float32
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_bwd_body_is_the_forward_rule():
+    for dtype in (torch.float32, torch.bfloat16):
+        for hd in (16, 32, 64, 128):
+            assert flash_ops.bwd_body(dtype, hd) == flash_ops.body(dtype, hd)
+    assert flash_ops.bwd_body(torch.bfloat16, 128) == "wgmma"
+    assert flash_ops.bwd_body(torch.bfloat16, 64) == "wgmma"
+    assert flash_ops.bwd_body(torch.bfloat16, 32) == "simt"
+    assert flash_ops.bwd_body(torch.float32, 128) == "simt"
+
+
+def test_mha_bwd_raises_on_cpu_tensors_and_without_lse():
+    """The backward kernel runs only on a card: CPU tensors raise before
+    anything is built, and so does a missing or misshapen lse; on CPU
+    tensors `mha_with_lse` is the plain version."""
+    g = torch.Generator().manual_seed(11)
+    q, dout = (torch.randn((1, 40, 4, 16), generator=g) for _ in range(2))
+    k, v = (torch.randn((1, 40, 2, 16), generator=g) for _ in range(2))
+    out, lse = mha_with_lse(q, k, v)
+    want = mha_ref_with_lse(q, k, v)
+    assert torch.equal(out, want[0]) and torch.equal(lse, want[1])
+    b0 = flash_ops.bwd_launches
+    with pytest.raises(ValueError, match="CUDA device"):
+        mha_bwd(q, k, v, out, dout, lse=lse)
+    with pytest.raises(TypeError):
+        mha_bwd(q, k, v, out, dout)                 # lse is required
+    assert flash_ops.bwd_launches == b0
 
 
 def test_mha_is_differentiable_on_the_cpu():
