@@ -7,7 +7,7 @@ Phases, each of which fails the run (exit 1) if it fails:
 1. print the card's name and power limit; build the CUDA kernels from
    the sources in this checkout (one nvcc per source, in parallel) and
    print the build time and, from ``-Xptxas -v``, every kernel's
-   registers and spill bytes;
+   registers and spill bytes (the scan backward's must not spill);
 2. hold each kernel against its plain PyTorch version on the card:
    the attention kernels at Llama-3-8B, Hymba-1.5B and Qwen3-30B-A3B
    widths (qwen3: 32 q heads over 4 kv heads, G 8, hd 128; prefill B 1
@@ -47,7 +47,16 @@ Phases, each of which fails the run (exit 1) if it fails:
    Falcon-Mamba-7B and Hymba-1.5B widths, fp32 (1e-4), with the model's
    long-memory dt and A, every states-per-thread R forced, N = 8, layouts
    that are not 16-byte aligned and S = 0, 1 and 5, each check naming the
-   R that ran (``[R r]``);
+   R that ran (``[R r]``); the scan's backward (``ssm_scan_bwd``) on the
+   forward's boundary states against ``ssm_scan_ref_bwd``, each gradient
+   (d(dt), dx, dB, dC, dA, dh0) within 1e-4 of its largest |value| (dx
+   2e-2 with xr bf16): Falcon-Mamba-7B's and Hymba-1.5B's widths with the
+   long-memory inputs at B 1 x S 2048 and B 2 x S 4096 (the training
+   shape), xr bf16 and f32, both R forced, N = 8, a ragged S, S = 0, 1
+   and 5, nonzero h0 and dh_final (and none), B and C views of one
+   projection, layouts that are not 16-byte aligned, two runs bit for
+   bit, and the forward with its states bit for bit the forward
+   without;
 3. each served model at full width, 2 layers: kernel path against plain
    path, prefill and one decode step (atol 0.3, rtol 0.05), prompt 2048
    (mixtral-8x22b 8192, past its window; internvl2-2b from random bf16
@@ -85,19 +94,22 @@ Phases, each of which fails the run (exit 1) if it fails:
    device memory; the B 1 run replayed through the plain path on its
    tokens, logits at every step within atol 0.3, rtol 0.05; one replica
    of each traced as in phase 5;
-   then ("train llama3-8b") 4 AdamW steps of llama3-8b at full width cut
-   to 8 of its 32 layers (12 B a parameter on the card), bf16, seed-0
-   init, B 2 x S 4096, through ``repro_torch.launch.train.run`` (a
-   SyntheticCorpus in the port's object store, the DataPipeline's
-   prefetch through its NexusBackend): loss and grad norm per step, step
-   wall and device time, tokens/s, mfu against 989 TFLOP/s, peak device
-   memory and host RSS, exact attention launches (the forward, its
-   recompute under the remat policy and the backward, per layer and
-   step), a torch.profiler trace of step 2; a 2-layer full-width model's
-   loss and every gradient leaf on the kernel path against the plain
-   path (B 1 x S 4096); and at llama3-8b smoke a checkpoint through the
-   port's AsyncCheckpointer restored with ``--resume`` semantics, equal
-   bit for bit;
+   then ("train") 4 AdamW steps each of llama3-8b at full width cut to 8
+   of its 32 layers, hymba-1.5b at full width and depth (32 layers,
+   1.52e9 parameters) and falcon-mamba-7b at full width cut to 8 of its
+   64 layers (12 B a parameter on the card), bf16, seed-0 init, B 2 x S
+   4096, through ``repro_torch.launch.train.run`` (a SyntheticCorpus in
+   the port's object store, the DataPipeline's prefetch through its
+   NexusBackend): loss and grad norm per step, step wall and device time,
+   tokens/s, mfu against 989 TFLOP/s, peak device memory and host RSS,
+   exact launches of the attention and scan kernels (each forward, its
+   recompute under the remat policy and each backward, per layer and
+   step), a torch.profiler trace of step 2 with the port's kernels'
+   rows; a 2-layer full-width model of each, its loss and every gradient
+   leaf on the kernel path against the plain path (B 1 x S 4096; the
+   scan's plain side under ``inner_remat``); and at llama3-8b smoke a
+   checkpoint through the port's AsyncCheckpointer restored with
+   ``--resume`` semantics, equal bit for bit;
 5. one replica of each served arch traced with torch.profiler: host
    wall time of prefill and of a decode step, device time, device idle
    share, top device ops;
@@ -129,11 +141,11 @@ Phases, each of which fails the run (exit 1) if it fails:
    invocation and durable bytes equal to the fault-free run; then the
    paper suite and the multi-I/O scenarios (no device work) under all 7
    variants, byte-identical across variants; then llama3-8b LLM-PREFILL
-   at full width under ``nexus`` with the SharedCache on: two
-   invocations of the full-scale workload on 16.06 GB of params, the
-   first a miss that fills the cache, the second served from it, both
-   durable 268 MB KV caches byte-equal to the kernel-path core's on the
-   same bytes, with each breakdown, the modeled sleeps (transfer, SDK,
+   at full width cut to 4 of its 32 layers under ``nexus`` with the
+   SharedCache on: two invocations of the full-scale workload on 3.85 GB
+   of params, the first a miss that fills the cache, the second served
+   from it, both durable KV caches byte-equal to the kernel-path core's
+   on the same bytes, with each breakdown, the modeled sleeps (transfer, SDK,
    token bucket, cache hit) beside the measured host work (the fill's
    hash and copy, the hit's copies, the handler's decode / forward /
    encode), the cache's counters, ``MemTotal`` and ``MemAvailable``
@@ -183,7 +195,11 @@ Phases, each of which fails the run (exit 1) if it fails:
    bound by operations (2.5x the forward's FLOPs), the plain backward and
    the library's (autograd of ``F.scaled_dot_product_attention``,
    eager). The scan is also timed at every R of ``SCAN_SWEEP`` beside
-   the R its rule picks.
+   the R its rule picks, and at the training shapes with and without its
+   boundary states. The scan's backward is timed at falcon-mamba-7b's and
+   hymba-1.5b's training shapes (B 2 x S 4096) and at B 1 x S 2048 beside
+   its bound (bytes, f32 operations and exponentials, the largest) and
+   the plain backward; no library call computes it.
 
 Prints a JSON line of the kernels, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -209,6 +225,7 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+SM_CLOCK_HZ = 1.98e9            # H100 SXM boost; 16 MUFU.EX2 a clock an SM
 ARCHS = ("llama3-8b", "falcon-mamba-7b", "hymba-1.5b", "qwen3-moe-30b-a3b",
          "yi-34b")
 PROMPT, REQUESTS, GEN, REPLICAS = 2048, 8, 16, 2
@@ -257,13 +274,25 @@ DENSITY_SYSTEMS = ("baseline", "nexus-tcp", "nexus-prefetch-only",
 FLEET_N = 48
 FLEET_POLICIES = ("round_robin", "random", "least_loaded", "jbsq",
                   "affinity")
-#: the train phase: llama3-8b at full width cut to TRAIN_LAYERS of 32
-#: layers (12 B a parameter on the card: 33.5 GB), the reference's
+#: the train phase: each arch at full width with the layers it keeps
+#: (None: all), at 12 B a parameter on the card: llama3-8b 8 of 32 (33.5
+#: GB), hymba-1.5b all 32 (1.52e9 params, 18.3 GB) and falcon-mamba-7b 8
+#: of 64 (1.37e9, 16.5 GB; all 64 would need 87 GB); the reference's
 #: ``train_4k`` sequence length, TRAIN_STEPS steps, step TRAIN_TRACED traced
-TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 8, 2, 4096
+TRAIN_RUNS = (("llama3-8b", 8), ("hymba-1.5b", None), ("falcon-mamba-7b", 8))
+TRAIN_BATCH, TRAIN_SEQ = 2, 4096
 TRAIN_STEPS, TRAIN_TRACED = 4, 2
+#: the kernels of the train paths, as they appear in a trace
+TRAIN_KERNELS = ("attn_tc_kernel", "attn_kernel", "dkdv_kernel", "dq_kernel",
+                 "prep_kernel", "ssm_scan_kernel", "ssm_scan_bwd_kernel",
+                 "ssm_scan_bwd_sum_kernel")
 #: the deadline of one worker-node invocation's future (phase 5)
 NODE_TIMEOUT_S = 900
+#: the full-width worker-node run's llama3-8b keeps this many of its 32
+#: layers: a 3.85 GB params GET, under the 4.72 GB that the token bucket's
+#: 60 s debt clamp covers at 600 Mbps, so every modeled sleep shrinks
+#: with the bytes (at 8 layers, 5.59 GB, the bucket would still sleep 60 s)
+NODE_LAYERS = 4
 #: a scenario's durable output, as its key in role_sizes / calibration
 MLSERVE_OUT = {"LLM-COLD": "cold_out_bytes", "LLM-PREFILL": "kv_prefill_bytes",
                "LLM-DECODE": "kv_out_bytes", "EMB": "emb_bytes"}
@@ -285,7 +314,17 @@ DECODE = {"name": "flash_decode", "route": "cuda",
 SCAN = {"name": "ssm_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan/kernel.py:67"}
-KERNELS = (FLASH, FLASH_BWD, DECODE, SCAN)
+SCAN_BWD = {"name": "ssm_scan_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan_bwd.cu",
+            "replaces": "XLA autodiff of src/repro/models/mamba.py:53 "
+                        "ssm_scan_chunked (no Pallas backward)"}
+KERNELS = (FLASH, FLASH_BWD, DECODE, SCAN, SCAN_BWD)
+
+
+def every_kernel(counts):
+    """A launch count for each kernel of ``KERNELS``: those given, 0 for
+    the others."""
+    return {meta["name"]: counts.get(meta["name"], 0) for meta in KERNELS}
 
 
 def _paths(tree, prefix=""):
@@ -578,10 +617,13 @@ class Smoke:
                 print(f"  {name}: built before this run (no ptxas report)")
                 continue
             report = _build.ptxas_report(_build.LOGS[name])
-            if name.startswith("flash_attention"):   # every kernel
-                for kernel, regs, st, ld in report:
-                    print(f"  {name:19s} {kernel_name(kernel):28s} {regs:3d} "
+            if name.startswith("flash_attention") or name == SCAN_BWD["name"]:
+                for kernel, regs, st, ld in report:   # every kernel
+                    print(f"  {name:19s} {kernel_name(kernel):34s} {regs:3d} "
                           f"registers, spill stores {st} B, loads {ld} B")
+                if name == SCAN_BWD["name"] and any(st or ld for _, _, st, ld
+                                                    in report):
+                    raise AssertionError(f"{name} spills registers")
                 continue
             spilled = [f"{kernel_name(k)} {st}/{ld} B" for k, _, st, ld
                        in report if st or ld]
@@ -593,6 +635,7 @@ class Smoke:
         self.check_attention()
         self.check_attention_bwd()
         self.check_scan()
+        self.check_scan_bwd()
 
     def check_attention_bwd(self):
         """The attention backward kernel against `mha_ref_bwd` (autograd of
@@ -952,6 +995,101 @@ class Smoke:
                      torch.cat([y1, y2], dim=1), y, SCAN_TOL)
         self.compare(name, "h_final halves vs whole", h2, h, SCAN_TOL)
 
+    def check_scan_bwd(self):
+        """The scan's backward kernel on the forward's boundary states
+        against `ssm_scan_ref_bwd`, each gradient's error over its largest
+        |value| within ``BWD_TOL`` (dx in xr's dtype): falcon-mamba-7b's
+        and hymba-1.5b's widths with the model's long-memory inputs at B 1
+        x S 2048 and at the training shape B 2 x S 4096, xr bf16 and f32,
+        N 8, a ragged S, S 0, 1 and 5, nonzero h0 and dh_final (and none),
+        B and C as column views of one projection and a layout that is not
+        16-byte aligned, each check naming the R that ran ("[R r]"); two
+        runs equal bit for bit; and the forward with its states giving y
+        and h_final bit for bit as the forward without."""
+        torch = self.torch
+        from repro_torch.kernels.ssm_scan import ops as scan_ops
+        from repro_torch.kernels.ssm_scan import (selective_scan,
+                                                  selective_scan_bwd,
+                                                  selective_scan_states,
+                                                  ssm_scan_ref_bwd)
+        name = SCAN_BWD["name"]
+        g = self.gen(13)
+
+        def check(what, ins, dh_final=True, R=0):
+            B, S, di = ins[0].shape
+            N = ins[4].shape[1]
+            tag = (f"[R {R} forced]" if R else
+                   f"[R {scan_ops.bwd_states_per_thread(B, di, N)}]")
+            y, h = selective_scan(*ins)
+            y1, h1, hs = selective_scan_states(*ins)
+            if not (torch.equal(y, y1) and torch.equal(h, h1)):
+                raise AssertionError(f"{name} {what}: the forward with its "
+                                     f"states differs from the forward")
+            dy = self.randn(g, (B, S, di), torch.float32)
+            dhf = (self.randn(g, (B, di, N), torch.float32) if dh_final
+                   else None)
+            b0 = scan_ops.bwd_launches
+            got = selective_scan_bwd(*ins[:5], hs, dy, dhf, R=R)
+            if scan_ops.bwd_launches != b0 + (S > 0):
+                raise AssertionError(f"{name} {what}: launches")
+            want = ssm_scan_ref_bwd(*ins, dy, dhf)
+            xd = "bf16" if ins[1].dtype == torch.bfloat16 else "f32"
+            for gname, a, b in zip(("ddt", "dx", "dB", "dC", "dA", "dh0"),
+                                   got, want):
+                if a.shape != b.shape or a.dtype != b.dtype:
+                    raise AssertionError(f"{name} {what}: {gname} is "
+                                         f"{a.dtype} {tuple(a.shape)}")
+                if not a.numel():                   # S = 0
+                    continue
+                tol = BWD_TOL["bfloat16" if gname == "dx" and xd == "bf16"
+                              else "float32"]
+                self.compare_rel(name, f"{gname} {tag} xr {xd} {what}", a, b,
+                                 tol)
+            return ins[:5], hs, dy, dhf, got
+
+        bf16 = torch.bfloat16
+        for B, S, di, xdtype, rank, arch in [
+                (1, 2048, 8192, bf16, 256, "falcon-mamba B=1 S=2048"),
+                (2, 4096, 8192, bf16, 256, "falcon-mamba train B=2 S=4096"),
+                (1, 2048, 3200, bf16, 100, "hymba B=1 S=2048"),
+                (2, 4096, 3200, bf16, 100, "hymba train B=2 S=4096"),
+                (1, 2048, 8192, None, 256, "falcon-mamba B=1 S=2048"),
+                (2, 4096, 3200, None, 100, "hymba train B=2 S=4096")]:
+            check(f"{arch} di={di} long memory, h0 and dh_final nonzero",
+                  self.scan_inputs(g, B, S, di, xdtype=xdtype, h0_scale=1.0,
+                                   proj_rank=rank, long_memory=True))
+        for R in scan_ops.BWD_PER_THREAD:
+            check("hymba ragged S=1000 di=3200", self.scan_inputs(
+                g, 2, 1000, 3200, xdtype=bf16, h0_scale=1.0, proj_rank=100,
+                long_memory=True), R=R)
+        check("N=8 B=2 S=1000 di=512", self.scan_inputs(
+            g, 2, 1000, 512, N=8, xdtype=bf16, h0_scale=1.0, proj_rank=8,
+            long_memory=True))
+        check("dh_final None S=777 di=3200", self.scan_inputs(
+            g, 1, 777, 3200, xdtype=bf16, h0_scale=1.0, long_memory=True),
+            dh_final=False)
+        # not 16-byte aligned: an odd di, and xr a view at an odd offset
+        check("odd di=3201", self.scan_inputs(
+            g, 1, 2048, 3201, xdtype=bf16, h0_scale=1.0, long_memory=True))
+        dt, _, Bm, Cm, A, h0 = self.scan_inputs(g, 1, 2048, 3200,
+                                                h0_scale=1.0,
+                                                long_memory=True)
+        xr = self.randn(g, (1, 2048, 3201), bf16)[..., 1:]
+        check("xr a view at offset 1 di=3200", (dt, xr, Bm, Cm, A, h0))
+        for S in (0, 1, 5):
+            check(f"S={S} di=3200", self.scan_inputs(
+                g, 1, S, 3200, xdtype=bf16, h0_scale=1.0, long_memory=True))
+        # two runs of one backward
+        ins, hs, dy, dhf, got = check(
+            "falcon-mamba train B=2 S=4096 di=8192 (determinism)",
+            self.scan_inputs(g, 2, 4096, 8192, xdtype=bf16, h0_scale=1.0,
+                             proj_rank=256, long_memory=True))
+        again = selective_scan_bwd(*ins, hs, dy, dhf)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{name}: two runs of one backward differ")
+        print(f"  {name:15s} two runs of one backward at B=2 S=4096 "
+              f"di=8192: equal bit for bit")
+
     def phase_model(self):
         for arch in ARCHS + tuple(CUT) + EMBEDS:
             self.check_model(arch)
@@ -1029,7 +1167,8 @@ class Smoke:
         from repro_torch.kernels.ssm_scan import ops as scan_ops
         return {FLASH["name"]: flash_ops,
                 FLASH_BWD["name"]: Counter(flash_ops, "bwd_launches"),
-                DECODE["name"]: decode_ops, SCAN["name"]: scan_ops}
+                DECODE["name"]: decode_ops, SCAN["name"]: scan_ops,
+                SCAN_BWD["name"]: Counter(scan_ops, "bwd_launches")}
 
     def serve_path(self, arch):
         """Serve ``arch`` at full width, check the run, trace one replica,
@@ -1094,11 +1233,10 @@ class Smoke:
         L = cfg.num_layers
         attn = cfg.family in ("dense", "moe", "hybrid")
         ssm = cfg.family in ("ssm", "hybrid")
-        want = {FLASH["name"]: L * (REQUESTS + REPLICAS) if attn else 0,
-                DECODE["name"]: (L * (REQUESTS * GEN + REPLICAS) if attn
-                                 else 0),
-                SCAN["name"]: L * (REQUESTS + REPLICAS) if ssm else 0,
-                FLASH_BWD["name"]: 0}
+        want = every_kernel({
+            FLASH["name"]: L * (REQUESTS + REPLICAS) if attn else 0,
+            DECODE["name"]: L * (REQUESTS * GEN + REPLICAS) if attn else 0,
+            SCAN["name"]: L * (REQUESTS + REPLICAS) if ssm else 0})
         if launches != want:
             raise AssertionError(f"{arch} launch counts {launches} != {want}")
         for i, o in enumerate(outs):
@@ -1253,8 +1391,8 @@ class Smoke:
         else:
             per_prefill, per_step = L, L
         counters = self.counters()
-        want = {FLASH["name"]: per_prefill, DECODE["name"]: per_step * GEN,
-                SCAN["name"]: 0, FLASH_BWD["name"]: 0}
+        want = every_kernel({FLASH["name"]: per_prefill,
+                             DECODE["name"]: per_step * GEN})
         first = None
         for B in EMBEDS_BATCHES:
             batch, toks = self.prompt_batch(cfg, B, PROMPT, 20 + B)
@@ -1363,33 +1501,58 @@ class Smoke:
 
     # -------------------------------------------------------------- train
     def phase_train(self):
-        """llama3-8b at full width cut to ``TRAIN_LAYERS`` layers, trained
-        through `launch/train.run`; then kernel path against plain path on
-        a 2-layer model; then a checkpoint round trip at smoke size."""
-        self.train_full()
-        self.train_against_plain()
+        """Each arch of ``TRAIN_RUNS`` trained through `launch/train.run`;
+        then kernel path against plain path on a 2-layer model of each;
+        then a checkpoint round trip at smoke size."""
+        self.train_summary = {}
+        for arch, layers in TRAIN_RUNS:
+            self.train_full(arch, layers)
+        for arch, _ in TRAIN_RUNS:
+            self.train_against_plain(arch)
         self.train_checkpoint_round_trip()
 
-    def train_full(self):
+    @staticmethod
+    def train_launches(cfg, steps, recompute):
+        """The kernel launches of ``steps`` train steps of ``cfg``: per
+        layer each forward kernel once and again in the remat recompute,
+        each backward kernel once."""
+        L = cfg.num_layers
+        attn = cfg.family in ("dense", "vlm", "moe", "hybrid")
+        ssm = cfg.family in ("ssm", "hybrid")
+        return every_kernel({
+            FLASH["name"]: steps * L * (1 + recompute) if attn else 0,
+            FLASH_BWD["name"]: steps * L if attn else 0,
+            SCAN["name"]: steps * L * (1 + recompute) if ssm else 0,
+            SCAN_BWD["name"]: steps * L if ssm else 0})
+
+    def train_full(self, arch, layers):
         """``TRAIN_STEPS`` AdamW steps of B ``TRAIN_BATCH`` x S
-        ``TRAIN_SEQ`` on llama3-8b (full width, ``TRAIN_LAYERS`` of 32
-        layers, bf16, seed-0 init), fed by SyntheticCorpus -> DataPipeline
-        -> the port's NexusBackend: loss and grad norm per step (finite),
-        step wall and device time, tokens/s, mfu, peak device memory and
-        host RSS, exact attention launches (the forward, its recompute
-        under the remat policy, the backward), and a torch.profiler trace
-        of step ``TRAIN_TRACED``."""
+        ``TRAIN_SEQ`` on ``arch`` (full width, ``layers`` of its layers or
+        all, bf16, seed-0 init), fed by SyntheticCorpus -> DataPipeline ->
+        the port's NexusBackend: loss and grad norm per step (finite),
+        step wall and device time, tokens/s, mfu (6 x the matmul params x
+        tokens, plus the causal, windowed attention's), peak device memory
+        and host RSS, exact launches of every kernel (the forwards, their
+        recompute under the remat policy, the backwards), and a
+        torch.profiler trace of step ``TRAIN_TRACED`` with the train
+        kernels' rows."""
         torch = self.torch
         from repro_torch.configs import registry
         from repro_torch.launch import train
         from repro_torch.models import serialize
         gc.collect()
         torch.cuda.empty_cache()
-        cfg = registry.get("llama3-8b").replace(num_layers=TRAIN_LAYERS)
+        cfg = registry.get(arch)
+        full_depth = cfg.num_layers
+        if layers:
+            cfg = cfg.replace(num_layers=layers)
         B, S, L = TRAIN_BATCH, TRAIN_SEQ, cfg.num_layers
         n_params = cfg.param_count()
-        n_matmul = n_params - cfg.vocab_size * cfg.d_model   # no embed gather
-        print(f"  {cfg.name} x{L}: {n_params} parameters "
+        # the embedding table is a gather, not a product, unless it is
+        # also the head
+        n_matmul = n_params - (0 if cfg.tie_embeddings
+                               else cfg.vocab_size * cfg.d_model)
+        print(f"  {cfg.name} x{L} of {full_depth}: {n_params} parameters "
               f"({2 * n_params / 1e9:.2f} GB in bf16; params, grads, f32 mu "
               f"and nu {12 * n_params / 1e9:.2f} GB), remat "
               f"{cfg.remat_policy!r}, B {B} x S {S}; before the phase "
@@ -1413,10 +1576,10 @@ class Smoke:
         self.launches[path] = launches
         peak = torch.cuda.max_memory_allocated()
         recompute = 0 if cfg.remat_policy == "none" else 1
-        want = {FLASH["name"]: TRAIN_STEPS * L * (1 + recompute),
-                FLASH_BWD["name"]: TRAIN_STEPS * L, DECODE["name"]: 0,
-                SCAN["name"]: 0}
-        pairs = S * (S + 1) // 2
+        want = self.train_launches(cfg, TRAIN_STEPS, recompute)
+        window = cfg.sliding_window or S
+        pairs = sum(min(i + 1, window) for i in range(S)) if cfg.num_heads \
+            and cfg.family != "ssm" else 0
         flops = 6 * n_matmul * B * S + 12 * B * cfg.num_heads \
             * cfg.head_dim * pairs * L
         for r in result["records"]:
@@ -1427,12 +1590,12 @@ class Smoke:
                   f"tokens/s, mfu {flops / r['wall_s'] / BF16_FLOPS_PER_S:.4f}"
                   f" (wall) {flops / dev_s / BF16_FLOPS_PER_S:.4f} (device)")
         print(f"  {path}: model FLOPs per step {flops:.4e} (6 x {n_matmul} "
-              f"matmul params x {B * S} tokens + causal attention 12 B H hd "
-              f"S(S+1)/2 L), mfu against {BF16_FLOPS_PER_S / 1e12:.0f} "
-              f"TFLOP/s dense bf16; peak device memory {peak / 1e9:.2f} GB; "
-              f"host RSS {rss.start / 2**30:.2f} GiB at the start, peak "
-              f"{rss.peak / 2**30:.2f} GiB; launches {launches} "
-              f"({nvidia_smi()})")
+              f"matmul params x {B * S} tokens + attention 12 B H hd x "
+              f"{pairs} visible pairs x L), mfu against "
+              f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s dense bf16; peak device "
+              f"memory {peak / 1e9:.2f} GB; host RSS {rss.start / 2**30:.2f} "
+              f"GiB at the start, peak {rss.peak / 2**30:.2f} GiB; launches "
+              f"{launches} ({nvidia_smi()})")
         steady = [r["wall_s"] for r in result["records"][1:]
                   if r["step"] != TRAIN_TRACED] or [result["records"][-1][
                       "wall_s"]]
@@ -1444,10 +1607,9 @@ class Smoke:
         for e in trace["rows"][:15]:
             print(f"    {e.self_device_time_total / 1e3:9.3f} ms "
                   f"{e.count:6d}x  {e.key[:90]}")
-        ours = [e for e in trace["rows"] if any(
-            k in e.key for k in ("attn_tc_kernel", "attn_kernel",
-                                 "dkdv_kernel", "dq_kernel", "prep_kernel"))]
-        print(f"  {path} step {TRAIN_TRACED}: the attention kernels "
+        ours = [e for e in trace["rows"]
+                if any(k in e.key for k in TRAIN_KERNELS)]
+        print(f"  {path} step {TRAIN_TRACED}: the port's kernels "
               f"{sum(e.self_device_time_total for e in ours) / 1e3:.3f} ms "
               f"of {trace['ms']:.1f} ms:")
         for e in ours:
@@ -1461,26 +1623,32 @@ class Smoke:
             raise AssertionError(f"{path}: not {TRAIN_STEPS} finite steps")
         if serialize.leaves(result["state"].params)[0].device.type != "cuda":
             raise AssertionError(f"{path}: the params are not on the card")
-        self.train_summary = {"records": result["records"], "peak": peak,
-                              "rss_peak": rss.peak, "flops": flops,
-                              "trace_ms": trace["ms"], "wall_ms": wall_ms}
+        self.train_summary[path] = {
+            "records": result["records"], "peak": peak, "rss_peak": rss.peak,
+            "flops": flops, "trace_ms": trace["ms"], "wall_ms": wall_ms}
         del result, trace
         gc.collect()
         torch.cuda.empty_cache()
 
-    def train_against_plain(self):
-        """A 2-layer full-width llama3-8b, B 1 x S ``TRAIN_SEQ``: one train
-        step on the kernel path and one on the plain path
+    def train_against_plain(self, arch):
+        """A 2-layer full-width model of ``arch``, B 1 x S ``TRAIN_SEQ``:
+        one train step on the kernel path and one on the plain path
         (``make_train_step(..., plain=True)``) from the same params and
         batch. The loss within 2e-2, and every gradient leaf, as the
         step's first moment (0.1 x the clipped gradient), within 5e-2 of
         its largest |value| (the bf16 tolerances of
-        tests/test_torch_train.py)."""
+        tests/test_torch_train.py). With a selective scan the config sets
+        ``inner_remat``: the plain path's chunked scan then keeps one
+        chunk's (B, 128, di, N) tensors at a time in its backward, not
+        every chunk's (tens of GB a layer at falcon-mamba-7b's width); the
+        kernel path does not read it."""
         torch = self.torch
         from repro_torch.configs import registry
         from repro_torch.models import Model, serialize
         from repro_torch.optim import adamw_init, make_train_step
-        cfg = registry.get("llama3-8b").replace(num_layers=2)
+        cfg = registry.get(arch).replace(num_layers=2)
+        if cfg.family in ("ssm", "hybrid"):
+            cfg = cfg.replace(inner_remat=True)
         model = Model(cfg)
         params = model.init_params(self.gen(0))
         toks = torch.randint(0, cfg.vocab_size, (1, TRAIN_SEQ + 1),
@@ -1509,11 +1677,10 @@ class Smoke:
             del state
         if any(self.launches[f"train {cfg.name} x2 plain"].values()):
             raise AssertionError("the plain path launched a kernel")
-        L = cfg.num_layers * (1 + (cfg.remat_policy != "none"))
-        want = {FLASH["name"]: L, FLASH_BWD["name"]: cfg.num_layers,
-                DECODE["name"]: 0, SCAN["name"]: 0}
+        want = self.train_launches(cfg, 1, cfg.remat_policy != "none")
         if self.launches[f"train {cfg.name} x2 kernel"] != want:
-            raise AssertionError(f"train kernel path: launches != {want}")
+            raise AssertionError(f"train {cfg.name} kernel path: launches != "
+                                 f"{want}")
         err = abs(float(out[False][0]["loss"]) - float(out[True][0]["loss"]))
         worst, bad = 0.0, []
         for name, a, b in zip(names, out[False][1], out[True][1]):
@@ -1527,8 +1694,8 @@ class Smoke:
               f"{worst:.3e} of its max (5e-2) over {len(names)} leaves "
               f"{'ok' if err <= 2e-2 and not bad else 'FAIL'}")
         if err > 2e-2 or bad:
-            raise AssertionError(f"train kernel vs plain: loss diff {err}, "
-                                 f"leaves {bad}")
+            raise AssertionError(f"train {cfg.name} kernel vs plain: loss "
+                                 f"diff {err}, leaves {bad}")
         del params, out
         gc.collect()
         torch.cuda.empty_cache()
@@ -1630,9 +1797,10 @@ class Smoke:
         runs[True] = self.run_core(scenario, payloads, scale, True,
                                    decoded=runs[False].pop("decoded"))
         L = cfg.num_layers
-        expect = {FLASH["name"]: L if scenario != "LLM-DECODE" else 0,
-                  DECODE["name"]: L if scenario in ("LLM-COLD", "LLM-DECODE")
-                  else 0, SCAN["name"]: 0, FLASH_BWD["name"]: 0}
+        expect = every_kernel({
+            FLASH["name"]: L if scenario != "LLM-DECODE" else 0,
+            DECODE["name"]: L if scenario in ("LLM-COLD", "LLM-DECODE")
+            else 0})
         self.launches[path] = runs[False]["launches"]
         if runs[False]["launches"] != expect:
             raise AssertionError(f"{path}: launches {runs[False]['launches']}"
@@ -1885,9 +2053,10 @@ class Smoke:
         body, token = direct if scenario == "LLM-DECODE" else (direct, None)
         L = serving._bundle(serving.SCENARIO_INPUTS[scenario][0],
                             "tiny")["cfg"].num_layers
-        expect = {FLASH["name"]: L if scenario != "LLM-DECODE" else 0,
-                  DECODE["name"]: L if scenario in ("LLM-COLD", "LLM-DECODE")
-                  else 0, SCAN["name"]: 0, FLASH_BWD["name"]: 0}
+        expect = every_kernel({
+            FLASH["name"]: L if scenario != "LLM-DECODE" else 0,
+            DECODE["name"]: L if scenario in ("LLM-COLD", "LLM-DECODE")
+            else 0})
         for system in SYSTEMS:
             node = WorkerNode(system, byte_scale=1.0)
             try:
@@ -2072,15 +2241,31 @@ class Smoke:
               f"no kernel launched")
 
     def node_full(self):
-        """llama3-8b LLM-PREFILL at full width under ``nexus`` with the
-        SharedCache on, sized to the invocation's real GET and PUT bytes:
-        two invocations of the full-scale workload on one node. The first
-        misses, prefetches its 16.06 GB params GET into the tenant arena
-        and fills the cache (a sha256 of the bytes and a copy into the
-        cache's arena); the second is served from the cache (the modeled
-        hit sleep, a copy out of the cache and one into the tenant arena).
-        Both durable outputs against the kernel-path core called directly
-        on the same payload bytes."""
+        """llama3-8b LLM-PREFILL at full width, cut to ``NODE_LAYERS`` of
+        its 32 layers, under ``nexus`` with the SharedCache on, sized to
+        the invocation's real GET and PUT bytes: two invocations of the
+        full-scale workload on one node. The first misses, prefetches its
+        3.85 GB params GET into the tenant arena and fills the cache (a
+        sha256 of the bytes and a copy into the cache's arena); the second
+        is served from the cache (the modeled hit sleep, a copy out of the
+        cache and one into the tenant arena). Both durable outputs against
+        the kernel-path core called directly on the same payload bytes.
+        The MLServe cores take the cut config as the role's full scale for
+        the run (``serving._bundle`` answers it for ("llm", "full")); the
+        full depth's core runs in the "mlserve cores" phase."""
+        from repro_torch.models import serving
+        bundle = serving._bundle
+        cfg = bundle("llm", "full")["cfg"].replace(num_layers=NODE_LAYERS)
+        cut = {"cfg": cfg, "structs": serving._structs_for(cfg)}
+        serving._bundle = (lambda role, scale="tiny": cut if
+                           (role, scale) == ("llm", "full")
+                           else bundle(role, scale))
+        try:
+            self.node_full_cut()
+        finally:
+            serving._bundle = bundle
+
+    def node_full_cut(self):
         torch = self.torch
         from repro_torch.core import arena, fabric
         from repro_torch.core.cache import CacheSpec, SharedCache
@@ -2092,7 +2277,7 @@ class Smoke:
         from repro_torch.core.workloads import ml_suite
         from repro_torch.models import serving
         name, system = "LLM-PREFILL", "nexus"
-        path = f"node full {name} {system}"
+        path = f"node full {name} {system} x{NODE_LAYERS}"
         with open("/proc/meminfo") as f:
             mem = {k: v.strip() for k, v in
                    (line.split(":", 1) for line in f)}
@@ -2223,8 +2408,7 @@ class Smoke:
             node.shutdown()
         del node
         gc.collect()
-        want = {FLASH["name"]: cfg.num_layers, DECODE["name"]: 0,
-                SCAN["name"]: 0, FLASH_BWD["name"]: 0}
+        want = every_kernel({FLASH["name"]: cfg.num_layers})
         direct = serving.llm_prefill(*payloads)
         for i, run in enumerate(runs, 1):
             res = run["res"]
@@ -2252,9 +2436,7 @@ class Smoke:
                 raise AssertionError(f"{label}: the durable output is not the "
                                      f"core's")
         print(f"  {path}: fetch[0] of the miss "
-              f"{runs[0]['res'].breakdown['fetch[0]']:.3f} s (the same GET "
-              f"without the cache: 101.0 s on an NVIDIA H100 80GB HBM3 at "
-              f"700 W), of the hit "
+              f"{runs[0]['res'].breakdown['fetch[0]']:.3f} s, of the hit "
               f"{runs[1]['res'].breakdown['fetch[0]']:.3f} s; latency "
               f"{runs[0]['res'].latency_s:.3f} -> "
               f"{runs[1]['res'].latency_s:.3f} s")
@@ -2355,7 +2537,8 @@ class Smoke:
         """The DES's zero-contention LLM-PREFILL under ``nexus`` (the
         settings of the reference's `TestDESParity`), cold and warm,
         per breakdown group, beside the full-width node run of the
-        worker-node phase (the miss is cold, the hit warm)."""
+        worker-node phase (``NODE_LAYERS`` layers; the miss is cold, the
+        hit warm)."""
         from repro_torch.core.calibrate import load_calibration
         from repro_torch.core.des import DensitySimulator
         from repro_torch.core.plan import (SYSTEMS, compile_plan,
@@ -2373,8 +2556,9 @@ class Smoke:
               f"I/O from the per-device bytes it declares "
               f"({[g.size_bytes for g in w.profile.gets]} B in, "
               f"{[p.size_bytes for p in w.profile.puts]} B out); the card "
-              f"prices nothing: the node run moved the real full-width "
-              f"bytes, and served its second params GET from the "
+              f"prices nothing: the node run moved the real bytes of the "
+              f"full width cut to {NODE_LAYERS} of 32 layers, and served "
+              f"its second params GET from the "
               f"SharedCache, which the DES run here leaves off. The gap is "
               f"a finding, not a check")
         for cold, res in zip((True, False), self.node_full_runs):
@@ -2583,7 +2767,20 @@ class Smoke:
                 1, TRAIN_SEQ, *hymba, "hymba-1.5b", window=2048)}
         self.timing[SCAN["name"]] = self.time_scan(8192, 256, "falcon-mamba-7b")
         self.also[SCAN["name"]] = {
-            "hymba-1.5b": self.time_scan(3200, 100, "hymba-1.5b")}
+            "hymba-1.5b": self.time_scan(3200, 100, "hymba-1.5b"),
+            "falcon-mamba-7b B=2 S=4096, with and without states":
+                self.time_scan_states(8192, 256, "falcon-mamba-7b"),
+            "hymba-1.5b B=2 S=4096, with and without states":
+                self.time_scan_states(3200, 100, "hymba-1.5b")}
+        self.timing[SCAN_BWD["name"]] = self.time_scan_bwd(
+            TRAIN_BATCH, TRAIN_SEQ, 8192, 256, "falcon-mamba-7b training "
+            "shape")
+        self.also[SCAN_BWD["name"]] = {
+            "hymba-1.5b B=2 S=4096": self.time_scan_bwd(
+                TRAIN_BATCH, TRAIN_SEQ, 3200, 100, "hymba-1.5b training "
+                "shape"),
+            "falcon-mamba-7b B=1 S=2048": self.time_scan_bwd(
+                1, PROMPT, 8192, 256, "falcon-mamba-7b")}
 
     @staticmethod
     def bound(nbytes, flops, peak=BF16_FLOPS_PER_S):
@@ -2781,6 +2978,89 @@ class Smoke:
               + f"; the rule picks R {R}, the fastest is R {fastest}")
         return row
 
+    def time_scan_states(self, di, rank, arch, B=TRAIN_BATCH, S=TRAIN_SEQ):
+        """The forward scan at a training shape (xr bf16, B and C views of
+        the projection) by graph replay, without its boundary states (the
+        serve paths' code) and with them (the train path's): what saving
+        them costs. Each beside its bound by bytes (as `time_scan`'s,
+        plus the states written)."""
+        from repro_torch.kernels.ssm_scan import ops as scan_ops
+        from repro_torch.kernels.ssm_scan import (selective_scan,
+                                                  selective_scan_states)
+        N = 16
+        g = self.gen(14)
+        sets = [self.scan_inputs(g, B, S, di, xdtype=self.torch.bfloat16,
+                                 proj_rank=rank, long_memory=True)
+                for _ in range(2)]
+        nbytes = (B * S * di * (4 + 2 + 4) + 2 * 4 * B * S * N
+                  + 4 * di * N + 2 * 4 * B * di * N)
+        states = 4 * B * -(-S // scan_ops.CHUNK) * di * N
+        row = {"ms": self.time_ms(lambda s: selective_scan(*s), sets, 20,
+                                  graph=True),
+               "states_ms": self.time_ms(lambda s: selective_scan_states(*s),
+                                         sets, 20, graph=True),
+               "bound_ms": self.bound(nbytes, 0)[0],
+               "states_bound_ms": self.bound(nbytes + states, 0)[0]}
+        print(f"  ssm_scan bf16 B={B} S={S} di={di} N={N} ({arch}): without "
+              f"states {row['ms']:.4f} ms (bound {row['bound_ms']:.4f} ms, "
+              f"bytes), with states {row['states_ms']:.4f} ms (bound "
+              f"{row['states_bound_ms']:.4f} ms, {states / 1e6:.1f} MB of "
+              f"states more) ({row['states_ms'] / row['ms'] - 1:+.1%})")
+        return row
+
+    def time_scan_bwd(self, B, S, di, rank, arch):
+        """The scan's backward as the train path calls it (xr bf16, B and C
+        views of the projection, the model's long-memory inputs, no
+        dh_final), on the forward's boundary states: the kernel by graph
+        replay (and eagerly), the plain backward (`ssm_scan_ref_bwd`)
+        eagerly; no PyTorch call computes it (library none). The bound is
+        the largest of: the bytes (dt, xr, dy read and d(dt), dx written
+        per (b, t, d); B, C read and dB, dC written per (b, t, n); the
+        saved states read; A read, dA and dh0 written), 20 f32 operations
+        per state and step at the f32 peak, and one exponential per state
+        and step on the special-function units (16 a clock per SM at the
+        1.98 GHz boost)."""
+        torch = self.torch
+        from repro_torch.kernels.ssm_scan import ops as scan_ops
+        from repro_torch.kernels.ssm_scan import (selective_scan_bwd,
+                                                  selective_scan_states,
+                                                  ssm_scan_ref_bwd)
+        N = 16
+        g = self.gen(15)
+        sets = []
+        for _ in range(2):
+            ins = self.scan_inputs(g, B, S, di, xdtype=torch.bfloat16,
+                                   proj_rank=rank, long_memory=True,
+                                   h0_scale=1.0)
+            hs = selective_scan_states(*ins)[2]
+            sets.append((ins, hs, self.randn(g, (B, S, di), torch.float32)))
+        steps = B * S * di * N
+        nc = -(-S // scan_ops.CHUNK)
+        nbytes = (B * S * di * (4 + 2 + 4 + 4 + 2) + 4 * 4 * B * S * N
+                  + 4 * B * nc * di * N + 3 * 4 * di * N + 4 * B * di * N)
+        sms = torch.cuda.get_device_properties(self.dev).multi_processor_count
+        sfu_ms = steps / (sms * 16 * SM_CLOCK_HZ) * 1e3
+        bms, by = self.bound(nbytes, 20 * steps, F32_FLOPS_PER_S)
+        if sfu_ms > bms:
+            bms, by = sfu_ms, "operations"
+
+        def kernel(s):
+            return selective_scan_bwd(*s[0][:5], s[1], s[2])
+
+        row = {"ms": self.time_ms(kernel, sets, 10, graph=True),
+               "eager_ms": self.time_ms(kernel, sets, 10),
+               "plain_ms": self.time_ms(
+                   lambda s: ssm_scan_ref_bwd(*s[0], s[2]), sets[:1], 1),
+               "library_ms": None, "bound_ms": bms, "bound_by": by,
+               "sfu_ms": sfu_ms,
+               "states_per_thread": scan_ops.bwd_states_per_thread(B, di, N)}
+        self.report(f"ssm_scan_bwd B={B} S={S} di={di} N={N} xr bf16 "
+                    f"[R {row['states_per_thread']}] ({arch}; "
+                    f"{nbytes / 1e6:.1f} MB, {steps / 1e9:.3f}e9 state-steps, "
+                    f"exponentials alone {sfu_ms:.4f} ms)", row)
+        del sets
+        return row
+
     def report(self, label, row):
         lib = row["library_ms"]
         print(f"  {label}: kernel {row['ms']:.4f} ms, bound "
@@ -2838,7 +3118,7 @@ def main() -> int:
     for arch in EMBEDS:
         phases.append((f"embeds and enc-dec {arch}",
                        lambda arch=arch: smoke.embeds_path(arch)))
-    phases.append(("train llama3-8b", smoke.phase_train))
+    phases.append(("train", smoke.phase_train))
     phases.append(("mlserve cores", smoke.phase_mlserve))
     phases.append(("worker node", smoke.phase_node))
     phases.append(("density", smoke.phase_density))

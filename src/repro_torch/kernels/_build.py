@@ -1,15 +1,16 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 Each kernel keeps one source, ``kernels/<name>/csrc/<name>.cu``, with a
-plain C interface; the attention backward's, ``flash_attention_bwd.cu``,
-sits beside the forward's in ``kernels/flash_attention/csrc/`` and
-builds as a library of its own; both include the shared header
-``hopper.cuh`` beside them. At first use a source is compiled for Hopper
-into a shared library under ``build/kernels/`` at the root of the
-checkout, named by a digest of its source, of every ``*.cuh`` header in
-its ``csrc/`` and of the flags, so an edited source or header is rebuilt,
-and loaded with `ctypes`. A source that includes no PyTorch header builds
-in seconds; a failed build raises with the compiler's output. ptxas
+plain C interface; the backwards' sources, ``flash_attention_bwd.cu`` and
+``ssm_scan_bwd.cu``, sit beside their forwards' in their packages'
+``csrc/`` and build as libraries of their own; both attention sources
+include the shared header ``hopper.cuh`` beside them. At first use a
+source is compiled for Hopper into a shared library under
+``build/kernels/`` at the root of the checkout, named by a digest of its
+source, of every ``*.cuh`` header in its ``csrc/`` and of the flags, so
+an edited source or header is rebuilt, and loaded with `ctypes`. A
+source that includes no PyTorch header builds in seconds; a failed
+build raises with the compiler's output. ptxas
 reports each kernel's registers and spills (``-Xptxas -v``): `LOGS` keeps
 the compiler's output of each build this process ran, and `ptxas_report`
 reads it.
@@ -32,9 +33,10 @@ from pathlib import Path
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
 NAMES = ("flash_attention", "flash_attention_bwd", "decode_attention",
-         "ssm_scan")
+         "ssm_scan", "ssm_scan_bwd")
 #: the kernels whose source lives in another kernel's package
-PACKAGES = {"flash_attention_bwd": "flash_attention"}
+PACKAGES = {"flash_attention_bwd": "flash_attention",
+            "ssm_scan_bwd": "ssm_scan"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -54,6 +54,14 @@
 // dt = 0 (and x, B, C = 0), so its decay is exactly 1 and h passes through
 // unchanged. B and C are read through their strides (on the model path
 // they are column slices of one projection).
+//
+// For training the forward also writes the state at each chunk boundary
+// (a template flag, STATES, so the serve paths run the code without it):
+// hs[b][c] is the state entering step c * CHUNK, hs[b][0] = h0. The
+// backward kernel (ssm_scan_bwd.cu) starts each chunk's recompute from
+// these states, so it never rebuilds a state by dividing by a decay that
+// may have underflowed. They cost (B, ceil(S / CHUNK), di, N) f32 of
+// writes, 1/CHUNK of the states the recurrence passes through.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -62,6 +70,7 @@ namespace {
 
 constexpr int THREADS = 128;          // one warp per scheduler of an SM
 constexpr int STAGE = 1024;           // (step, channel) pairs per chunk
+constexpr int CHUNK = 32;             // steps between two saved states (STATES)
 constexpr float LOG2E = 1.4426950408889634f;
 
 // exp(dt * A) with a = A * log2(e): one multiply and one MUFU.EX2
@@ -83,8 +92,10 @@ struct Args {
   const float* h0;        // (B, di, N), contiguous
   float* y;               // logical (B, S, di): strides y_sb, y_ss
   float* h_final;         // (B, di, N), contiguous
+  float* hs;              // (B, nc, di, N), contiguous: the states at the
+                          // chunk boundaries (STATES only)
   int64_t dt_sb, dt_ss, x_sb, x_ss, b_sb, b_ss, c_sb, c_ss, y_sb, y_ss;
-  int S, di;
+  int S, di, nc;          // nc = ceil(S / CHUNK)
   int vec;                // every row 16-byte aligned (8 for bf16 x), di % 4 == 0
 };
 
@@ -153,7 +164,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // Grid (ceil(di / CH), B): a block owns CH channels of one batch row and
 // walks all S steps in chunks of T, carrying h in registers.
 // R = 2: four blocks an SM (at most 128 registers a thread), else two.
-template <typename TX, int N, int R>
+template <typename TX, int N, int R, bool STATES>
 __global__ void __launch_bounds__(THREADS, R == 2 ? 4 : 2) ssm_scan_kernel(Args a) {
   using SH = Shape<N, R>;
   constexpr int G = SH::G, CH = SH::CH, T = SH::T, LQ = SH::LQ, LB = SH::LB;
@@ -172,6 +183,15 @@ __global__ void __launch_bounds__(THREADS, R == 2 ? 4 : 2) ssm_scan_kernel(Args 
   for (int j = 0; j < R; ++j) {
     A2[j] = active ? a.A[static_cast<int64_t>(d) * N + k * R + j] * LOG2E : 0.f;
     h[j] = active ? a.h0[h_at + j] : 0.f;
+  }
+  // the state entering step t0 (a multiple of CHUNK) into hs[b][t0 / CHUNK]
+  auto save = [&](int t0) {
+    const int64_t at = ((static_cast<int64_t>(b) * a.nc + t0 / CHUNK) * a.di + d) * N + k * R;
+#pragma unroll
+    for (int j = 0; j < R; ++j) a.hs[at + j] = h[j];
+  };
+  if constexpr (STATES) {
+    if (active && S > 0) save(0);
   }
 
   const float* dtp = a.dt + b * a.dt_sb;
@@ -323,6 +343,11 @@ __global__ void __launch_bounds__(THREADS, R == 2 ? 4 : 2) ssm_scan_kernel(Args 
         }
       }
       sm.y[buf][g + k][ch] = p[0];
+      if constexpr (STATES) {         // after steps up to t0 + g + G - 1
+        constexpr int EVERY = T < CHUNK ? T : CHUNK;
+        const int t_end = t0 + g + G;
+        if ((g + G) % EVERY == 0 && t_end % CHUNK == 0 && t_end < S && active) save(t_end);
+      }
     }
     if (next) settle(buf ^ 1);
     __syncthreads();
@@ -360,16 +385,21 @@ int choose_r(int B, int di, int N) {
   return sms > 0 && blocks(B, di, N, 4) < sms ? 2 : 4;
 }
 
-template <typename TX, int N, int R>
+template <typename TX, int N, int R, bool STATES>
 int launch(const Args& a, int B, cudaStream_t stream) {
   constexpr int CH = Shape<N, R>::CH;
   constexpr int SMEM = sizeof(Smem<TX, N, R>);   // above 48 KB at R = 2, x f32
   static const cudaError_t attr_rc = cudaFuncSetAttribute(
-      ssm_scan_kernel<TX, N, R>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+      ssm_scan_kernel<TX, N, R, STATES>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (attr_rc != cudaSuccess) return static_cast<int>(attr_rc);
   const dim3 grid((a.di + CH - 1) / CH, B);
-  ssm_scan_kernel<TX, N, R><<<grid, THREADS, SMEM, stream>>>(a);
+  ssm_scan_kernel<TX, N, R, STATES><<<grid, THREADS, SMEM, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename TX, int N, int R>
+int launch(const Args& a, int B, cudaStream_t st) {
+  return a.hs ? launch<TX, N, R, true>(a, B, st) : launch<TX, N, R, false>(a, B, st);
 }
 
 template <typename TX>
@@ -400,17 +430,19 @@ extern "C" int ssm_scan_states(int B, int di, int N) { return choose_r(B, di, N)
 // bfloat16 (x_dtype 1). dt, x, y: logical (B, S, di) with (batch, step)
 // element strides; Bm, Cm: logical (B, S, N) with (batch, step) strides;
 // the last dimension contiguous everywhere. A (di, N), h0 and h_final
-// (B, di, N): contiguous. R: states per thread (2, 4, 8 or 16, dividing
-// N), or 0 for ssm_scan_states' choice. One launch. Returns 0, a
-// cudaError_t, or -1 for arguments the kernel does not take (N other than
-// 8 or 16, R outside that set).
+// (B, di, N): contiguous. hs: null, or (B, ceil(S / chunk), di, N) f32
+// contiguous for the states at the chunk boundaries, where chunk must be
+// CHUNK. R: states per thread (2, 4, 8 or 16, dividing N), or 0 for
+// ssm_scan_states' choice. One launch. Returns 0, a cudaError_t, or -1
+// for arguments the kernel does not take (N other than 8 or 16, R
+// outside that set, another chunk).
 extern "C" int ssm_scan_fwd(int x_dtype, const void* dt, const void* x, const void* bm,
                             const void* cm, const void* A, const void* h0, void* y,
-                            void* h_final, int B, int S, int di, int N,
+                            void* h_final, void* hs, int chunk, int B, int S, int di, int N,
                             int64_t dt_sb, int64_t dt_ss, int64_t x_sb, int64_t x_ss,
                             int64_t b_sb, int64_t b_ss, int64_t c_sb, int64_t c_ss,
                             int64_t y_sb, int64_t y_ss, int R, void* stream) {
-  if (B <= 0 || S < 0 || di <= 0 || B > 65535) return -1;
+  if (B <= 0 || S < 0 || di <= 0 || B > 65535 || (hs && chunk != CHUNK)) return -1;
   if (R == 0) R = choose_r(B, di, N);
   Args a;
   a.dt = static_cast<const float*>(dt);
@@ -421,10 +453,11 @@ extern "C" int ssm_scan_fwd(int x_dtype, const void* dt, const void* x, const vo
   a.h0 = static_cast<const float*>(h0);
   a.y = static_cast<float*>(y);
   a.h_final = static_cast<float*>(h_final);
+  a.hs = static_cast<float*>(hs);
   a.dt_sb = dt_sb; a.dt_ss = dt_ss; a.x_sb = x_sb; a.x_ss = x_ss;
   a.b_sb = b_sb; a.b_ss = b_ss; a.c_sb = c_sb; a.c_ss = c_ss;
   a.y_sb = y_sb; a.y_ss = y_ss;
-  a.S = S; a.di = di;
+  a.S = S; a.di = di; a.nc = (S + CHUNK - 1) / CHUNK;
   const int xe = x_dtype == 1 ? 2 : 4;   // bytes per element of x
   // base and row strides of a (., ., 4-element quad) layout aligned to quad bytes
   auto rows = [](const void* p, int64_t sb, int64_t ss, int elem, int quad) {

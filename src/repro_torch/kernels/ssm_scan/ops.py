@@ -7,10 +7,19 @@ version in ``ref.py``. The kernel reads B and C through their strides
 in bf16 or f32, and masks the ragged tail of S instead of padding it.
 Each thread carries R of a channel's N states; `states_per_thread` says
 which R the kernel takes for a shape, and `selective_scan_at` forces it.
-``launches`` counts kernel launches. The kernel has no backward yet: on
-CUDA tensors that require grad (with grad enabled) the wrapper raises
-`NotImplementedError` rather than return a result autograd cannot
-differentiate.
+``launches`` counts kernel launches.
+
+`selective_scan` is differentiable. When grad is enabled and any input
+requires it, it runs as an autograd Function: on CUDA tensors its
+forward launches the forward kernel, which then also writes the state at
+every ``CHUNK``-th step (`selective_scan_states`), and its backward
+launches the hand-written backward (``csrc/ssm_scan_bwd.cu``, its own
+library, `selective_scan_bwd`) on those states; ``bwd_launches`` counts
+those. On CPU tensors the same Function runs `ssm_scan_ref` and
+`ssm_scan_ref_bwd`, so the CPU tests drive its wiring; a CUDA tensor
+never reaches the plain versions. Under ``torch.inference_mode``
+(prefill) nothing of that runs and the forward saves no states. A failed
+build or launch raises; nothing falls back.
 """
 from __future__ import annotations
 
@@ -20,13 +29,20 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import _launch as X
-from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref, ssm_scan_ref_bwd
 
 NAME = "ssm_scan"
+BWD_NAME = "ssm_scan_bwd"
 STATES = (8, 16)
 #: states per thread the kernel takes (R divides N)
 PER_THREAD = (2, 4, 8, 16)
+#: ... and the backward kernel
+BWD_PER_THREAD = (2, 4)
+#: steps between two states the forward saves for the backward (CHUNK in
+#: both sources; a library built with another value refuses the call)
+CHUNK = 32
 launches = 0
+bwd_launches = 0
 _count_lock = threading.Lock()
 
 
@@ -35,11 +51,25 @@ def _lib():
     fn = lib.ssm_scan_fwd
     if fn.argtypes is None:
         fn.restype = X.i32
-        fn.argtypes = ([X.i32] + [X.ptr] * 8 + [X.i32] * 4 + [X.i64] * 10
+        fn.argtypes = ([X.i32] + [X.ptr] * 9 + [X.i32] * 5 + [X.i64] * 10
                        + [X.i32, X.ptr])
         states = lib.ssm_scan_states
         states.restype = X.i32
         states.argtypes = [X.i32] * 3
+    return lib
+
+
+def _lib_bwd():
+    lib = _build.load(BWD_NAME)
+    fn = lib.ssm_scan_bwd
+    if fn.argtypes is None:
+        fn.restype = X.i32
+        fn.argtypes = ([X.i32] + [X.ptr] * 15 + [X.i32] * 5 + [X.i64] * 10
+                       + [X.i32, X.ptr])
+        lib.ssm_scan_bwd_states.restype = X.i32
+        lib.ssm_scan_bwd_states.argtypes = [X.i32] * 3
+        lib.ssm_scan_bwd_workspace.restype = X.i64
+        lib.ssm_scan_bwd_workspace.argtypes = [X.i32] * 5
     return lib
 
 
@@ -49,7 +79,14 @@ def states_per_thread(B: int, di: int, N: int) -> int:
     return _lib().ssm_scan_states(B, di, N)
 
 
-def _check(dt, xr, Bmat, Cmat, A, h0):
+def bwd_states_per_thread(B: int, di: int, N: int) -> int:
+    """The R the backward kernel takes for these sizes on this card."""
+    return _lib_bwd().ssm_scan_bwd_states(B, di, N)
+
+
+def _check(dt, xr, Bmat, Cmat, A, h0=None):
+    """Shapes, devices, dtypes and layouts the kernels take (h0 None: not
+    checked); returns the common device."""
     if dt.dim() != 3 or xr.shape != dt.shape:
         raise ValueError(f"{NAME}: dt {tuple(dt.shape)} and xr "
                          f"{tuple(xr.shape)} must be one (B, S, di)")
@@ -57,12 +94,14 @@ def _check(dt, xr, Bmat, Cmat, A, h0):
     N = A.shape[-1] if A.dim() == 2 else -1
     for name, t, shape in (("Bmat", Bmat, (B, S, N)), ("Cmat", Cmat, (B, S, N)),
                            ("A", A, (di, N)), ("h0", h0, (B, di, N))):
-        if tuple(t.shape) != shape:
+        if t is not None and tuple(t.shape) != shape:
             raise ValueError(f"{NAME}: {name} has shape {tuple(t.shape)}, "
                              f"expected {shape}")
     dev = dt.device
     for name, t in (("dt", dt), ("xr", xr), ("Bmat", Bmat), ("Cmat", Cmat),
                     ("A", A), ("h0", h0)):
+        if t is None:
+            continue
         if t.device != dev:
             raise ValueError(f"{NAME}: {name} on {t.device}, dt on {dev}")
         if t.dtype != torch.float32 and not (name == "xr"
@@ -72,42 +111,163 @@ def _check(dt, xr, Bmat, Cmat, A, h0):
         if t.numel() and t.stride(-1) != 1:
             raise ValueError(f"{NAME}: the last dimension of {name} must be "
                              f"contiguous")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{NAME}: device {dev} not supported")
     return dev
 
 
-def _scan(dt, xr, Bmat, Cmat, A, h0, R):
-    dev = _check(dt, xr, Bmat, Cmat, A, h0)
+def _forward(dt, xr, Bmat, Cmat, A, h0, R, states=False):
+    """One launch of the forward kernel on CUDA tensors: y, h_final and,
+    with ``states``, the state entering every ``CHUNK``-th step,
+    (B, ceil(S / CHUNK), di, N) f32 (its first entry h0)."""
     N = A.shape[1]
-    if R and (R not in PER_THREAD or N % R):
-        raise ValueError(f"{NAME}: R={R} not taken (one of {PER_THREAD} "
-                         f"dividing N={N})")
-    if dev.type == "cpu":
-        return ssm_scan_ref(dt, xr, Bmat, Cmat, A, h0)
-    if dev.type != "cuda":
-        raise ValueError(f"{NAME}: device {dev} not supported")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (dt, xr, Bmat, Cmat, A, h0)):
-        raise NotImplementedError(f"{NAME}: the backward kernel is not "
-                                  f"ported yet; the scan cannot be "
-                                  f"differentiated on the card")
     if N not in STATES:
         raise ValueError(f"{NAME}: state size {N} not in {STATES}")
     B, S, di = dt.shape
+    dev = dt.device
     A, h0 = A.contiguous(), h0.contiguous()
     y = torch.empty((B, S, di), dtype=torch.float32, device=dev)
     h_final = torch.empty((B, di, N), dtype=torch.float32, device=dev)
+    hs = (torch.empty((B, -(-S // CHUNK), di, N), dtype=torch.float32,
+                      device=dev) if states else None)
     rc = _lib().ssm_scan_fwd(
         X.DTYPE_CODES[xr.dtype], dt.data_ptr(), xr.data_ptr(), Bmat.data_ptr(),
         Cmat.data_ptr(), A.data_ptr(), h0.data_ptr(), y.data_ptr(),
-        h_final.data_ptr(), B, S, di, N, dt.stride(0), dt.stride(1),
-        xr.stride(0), xr.stride(1), Bmat.stride(0), Bmat.stride(1),
-        Cmat.stride(0), Cmat.stride(1), y.stride(0), y.stride(1), R,
-        X.stream(dev))
+        h_final.data_ptr(), None if hs is None else hs.data_ptr(), CHUNK, B,
+        S, di, N, dt.stride(0), dt.stride(1), xr.stride(0), xr.stride(1),
+        Bmat.stride(0), Bmat.stride(1), Cmat.stride(0), Cmat.stride(1),
+        y.stride(0), y.stride(1), R, X.stream(dev))
     X.raise_on(NAME, rc)
     global launches
     with _count_lock:
         launches += 1
-    return y, h_final
+    return (y, h_final, hs) if states else (y, h_final)
+
+
+def _check_r(R, N, taken):
+    if R and (R not in taken or N % R):
+        raise ValueError(f"{NAME}: R={R} not taken (one of {taken} dividing "
+                         f"N={N})")
+
+
+def selective_scan_states(dt, xr, Bmat, Cmat, A, h0):
+    """The forward kernel with its boundary states on CUDA tensors (one
+    launch, no autograd): (y, h_final, hs), hs[:, c] the state entering
+    step c * ``CHUNK``, as `selective_scan_bwd` reads it."""
+    if _check(dt, xr, Bmat, Cmat, A, h0).type != "cuda":
+        raise ValueError(f"{NAME}: the kernel runs on a CUDA device, not "
+                         f"{dt.device}")
+    return _forward(dt, xr, Bmat, Cmat, A, h0, 0, states=True)
+
+
+def selective_scan_bwd(dt, xr, Bmat, Cmat, A, hs, dy, dh_final=None, *,
+                       R: int = 0):
+    """The gradients of `selective_scan` at (dt, xr, Bmat, Cmat, A, h0),
+    given the forward's boundary states ``hs`` (`selective_scan_states`),
+    dy (B, S, di) f32 (made contiguous in its last dimension if it is not)
+    and dh_final (B, di, N) f32 or None (zero): (d(dt), dx in xr's dtype,
+    dB, dC, dA, dh0), one launch of the backward kernel (two kernels on
+    one stream) on CUDA tensors. R forces the states per thread (one of
+    ``BWD_PER_THREAD``; 0: `bwd_states_per_thread`). S = 0 launches
+    nothing: the gradients are zero and dh0 is dh_final."""
+    dev = _check(dt, xr, Bmat, Cmat, A)
+    if dev.type != "cuda":
+        raise ValueError(f"{BWD_NAME}: the kernel runs on a CUDA device, not "
+                         f"{dev}")
+    B, S, di = dt.shape
+    N = A.shape[1]
+    _check_r(R, N, BWD_PER_THREAD)
+    if N not in STATES:
+        raise ValueError(f"{BWD_NAME}: state size {N} not in {STATES}")
+    if dy.shape != dt.shape or dy.dtype != torch.float32 or dy.device != dev:
+        raise ValueError(f"{BWD_NAME}: dy must be ({B}, {S}, {di}) float32 "
+                         f"on {dev}")
+    if dy.numel() and dy.stride(-1) != 1:
+        dy = dy.contiguous()
+    want = (B, -(-S // CHUNK), di, N)
+    if (hs is None or tuple(hs.shape) != want or hs.dtype != torch.float32
+            or hs.device != dev or not hs.is_contiguous()):
+        raise ValueError(f"{BWD_NAME}: hs must be the forward's contiguous "
+                         f"{want} float32 boundary states on {dev}")
+    if dh_final is not None:
+        if (tuple(dh_final.shape) != (B, di, N) or dh_final.dtype
+                != torch.float32 or dh_final.device != dev):
+            raise ValueError(f"{BWD_NAME}: dh_final must be ({B}, {di}, {N}) "
+                             f"float32 on {dev}")
+        dh_final = dh_final.contiguous()
+    ddt = torch.empty((B, S, di), dtype=torch.float32, device=dev)
+    dx = torch.empty((B, S, di), dtype=xr.dtype, device=dev)
+    dB = torch.empty((B, S, N), dtype=torch.float32, device=dev)
+    dC = torch.empty((B, S, N), dtype=torch.float32, device=dev)
+    if S == 0:
+        dh0 = (torch.zeros((B, di, N), dtype=torch.float32, device=dev)
+               if dh_final is None else dh_final.clone())
+        return ddt, dx, dB, dC, torch.zeros_like(A, dtype=torch.float32), dh0
+    A = A.contiguous()
+    dA = torch.empty((di, N), dtype=torch.float32, device=dev)
+    dh0 = torch.empty((B, di, N), dtype=torch.float32, device=dev)
+    lib = _lib_bwd()
+    work = torch.empty(lib.ssm_scan_bwd_workspace(B, S, di, N, R),
+                       dtype=torch.float32, device=dev)
+    rc = lib.ssm_scan_bwd(
+        X.DTYPE_CODES[xr.dtype], dt.data_ptr(), xr.data_ptr(), Bmat.data_ptr(),
+        Cmat.data_ptr(), A.data_ptr(), hs.data_ptr(), dy.data_ptr(),
+        None if dh_final is None else dh_final.data_ptr(), ddt.data_ptr(),
+        dx.data_ptr(), dB.data_ptr(), dC.data_ptr(), dA.data_ptr(),
+        dh0.data_ptr(), work.data_ptr(), CHUNK, B, S, di, N, dt.stride(0),
+        dt.stride(1), xr.stride(0), xr.stride(1), Bmat.stride(0),
+        Bmat.stride(1), Cmat.stride(0), Cmat.stride(1), dy.stride(0),
+        dy.stride(1), R, X.stream(dev))
+    X.raise_on(BWD_NAME, rc)
+    global bwd_launches
+    with _count_lock:
+        bwd_launches += 1
+    return ddt, dx, dB, dC, dA, dh0
+
+
+class _SelectiveScan(torch.autograd.Function):
+    """The scan as one differentiable op: the kernel pair on CUDA tensors,
+    `ssm_scan_ref` and `ssm_scan_ref_bwd` on CPU tensors. An unused output
+    (h_final, on the training path) reaches the backward as None."""
+
+    @staticmethod
+    def forward(ctx, dt, xr, Bmat, Cmat, A, h0):
+        ctx.set_materialize_grads(False)
+        if dt.device.type == "cpu":
+            y, h_final = ssm_scan_ref(dt, xr, Bmat, Cmat, A, h0)
+            ctx.save_for_backward(dt, xr, Bmat, Cmat, A, h0)
+        else:
+            y, h_final, hs = _forward(dt, xr, Bmat, Cmat, A, h0, 0,
+                                      states=True)
+            ctx.save_for_backward(dt, xr, Bmat, Cmat, A, hs)
+        return y, h_final
+
+    @staticmethod
+    def backward(ctx, dy, dh_final):
+        dt, xr, Bmat, Cmat, A, start = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(dt.shape, dtype=torch.float32, device=dt.device)
+        if dt.device.type == "cpu":
+            grads = ssm_scan_ref_bwd(dt, xr, Bmat, Cmat, A, start, dy,
+                                     dh_final)
+        else:
+            grads = selective_scan_bwd(dt, xr, Bmat, Cmat, A, start, dy,
+                                       dh_final)
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad))
+
+
+def _scan(dt, xr, Bmat, Cmat, A, h0, R):
+    dev = _check(dt, xr, Bmat, Cmat, A, h0)
+    _check_r(R, A.shape[1], PER_THREAD)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (dt, xr, Bmat, Cmat, A, h0)):
+        if R:
+            raise ValueError(f"{NAME}: R is forced only without autograd")
+        return _SelectiveScan.apply(dt, xr, Bmat, Cmat, A, h0)
+    if dev.type == "cpu":
+        return ssm_scan_ref(dt, xr, Bmat, Cmat, A, h0)
+    return _forward(dt, xr, Bmat, Cmat, A, h0, R)
 
 
 def selective_scan(dt, xr, Bmat, Cmat, A, h0):

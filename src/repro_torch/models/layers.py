@@ -18,6 +18,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.decode_attention import decode_mha, decode_mha_ref
 from repro_torch.kernels.flash_attention import mha, mha_ref
@@ -129,7 +130,8 @@ def decode_attention(q, k_cache, v_cache, slot_pos, pos, *, window=0):
 
 
 def blocked_causal_attention(q, k, v, *, window=0, q_block=512,
-                             kv_block=512, q_offset=0, causal=True):
+                             kv_block=512, q_offset=0, causal=True,
+                             inner_remat=False):
     """Flash-style blocked attention in plain tensor ops, the reference's
     plain layer function, with Python loops over the blocks.
 
@@ -138,8 +140,12 @@ def blocked_causal_attention(q, k, v, *, window=0, q_block=512,
     from a first block that, as in the reference, does not shift with
     ``q_offset`` (the absolute position of q[:, 0]; k positions start at
     0). ``causal=False`` gives bidirectional attention. Sq and Sk are
-    padded to whole blocks and the padded keys masked. Returns
-    (B, Sq, H, hd) in q.dtype.
+    padded to whole blocks and the padded keys masked. With
+    ``inner_remat`` and grad enabled each q block's body and each kv
+    block's step run under ``torch.utils.checkpoint`` (the reference's
+    ``jax.checkpoint`` of ``q_step`` and ``kv_step``): the backward pass
+    recomputes them instead of keeping their scores; the values are the
+    same. Returns (B, Sq, H, hd) in q.dtype.
     """
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
@@ -159,8 +165,26 @@ def blocked_causal_attention(q, k, v, *, window=0, q_block=512,
     else:
         nk_needed = nk
     k_pos_base = torch.arange(kv_block, device=q.device)
-    outs = []
-    for qi in range(nq):
+    remat = inner_remat and torch.is_grad_enabled()
+
+    def kv_step(m, l, acc, q_i, q_pos, j):
+        k_pos = j * kv_block + k_pos_base
+        s = _gqa_scores(q_i, kb[:, j])                   # (B, K, G, qc, kc)
+        mask = (k_pos < Sk)[None, :]                     # kv padding
+        if causal:
+            mask = mask & (k_pos[None, :] <= q_pos[:, None])
+        if window > 0:
+            mask = mask & ((q_pos[:, None] - k_pos[None, :]) < window)
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bkgqs,bskd->bkgqd", p, vb[:, j].float())
+        return m_new, l, acc
+
+    def q_step(qi):
         q_i = qb[:, qi] * scale                          # (B, qc, K, G, hd)
         q_pos = q_offset + qi * q_block + torch.arange(q_block,
                                                        device=q.device)
@@ -173,23 +197,16 @@ def blocked_causal_attention(q, k, v, *, window=0, q_block=512,
         l = torch.zeros((B, K, G, q_block), device=q.device)
         acc = torch.zeros((B, K, G, q_block, hd), device=q.device)
         for j in range(first, first + nk_needed):
-            k_pos = j * kv_block + k_pos_base
-            s = _gqa_scores(q_i, kb[:, j])               # (B, K, G, qc, kc)
-            mask = (k_pos < Sk)[None, :]                 # kv padding
-            if causal:
-                mask = mask & (k_pos[None, :] <= q_pos[:, None])
-            if window > 0:
-                mask = mask & ((q_pos[:, None] - k_pos[None, :]) < window)
-            s = torch.where(mask, s, NEG_INF)
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            alpha = torch.exp(m - m_new)
-            p = torch.exp(s - m_new[..., None])
-            l = l * alpha + p.sum(dim=-1)
-            acc = acc * alpha[..., None] + torch.einsum(
-                "bkgqs,bskd->bkgqd", p, vb[:, j].float())
-            m = m_new
+            if remat:
+                m, l, acc = checkpoint(kv_step, m, l, acc, q_i, q_pos, j,
+                                       use_reentrant=False)
+            else:
+                m, l, acc = kv_step(m, l, acc, q_i, q_pos, j)
         out = acc / l.clamp_min(1e-30)[..., None]        # (B, K, G, qc, hd)
-        outs.append(out.permute(0, 3, 1, 2, 4).to(q.dtype))
+        return out.permute(0, 3, 1, 2, 4).to(q.dtype)
+
+    outs = [checkpoint(q_step, qi, use_reentrant=False) if remat
+            else q_step(qi) for qi in range(nq)]
     out = torch.cat(outs, dim=1).reshape(B, nq * q_block, H, hd)
     return out[:, :Sq]
 

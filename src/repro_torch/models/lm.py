@@ -21,10 +21,11 @@ enabled, each layer under the remat policy ``cfg.remat_policy``
 (`checkpoint_layer`: "none", "full", or "dots", which saves the outputs
 of the projection products as the reference's
 ``dots_with_no_batch_dims_saveable`` does), then `chunked_ce_loss`. On
-the card the attention's gradient is the hand-written backward kernel
-(`repro_torch.kernels.flash_attention.ops.mha`); the selective scan has
-no backward kernel yet, so the ssm and hybrid families refuse to train
-there and train on the CPU through the plain versions.
+the card the attention's gradient is its hand-written backward kernel
+(`repro_torch.kernels.flash_attention.ops.mha`) and the selective scan's
+is its own (`repro_torch.kernels.ssm_scan.ops.selective_scan`), so every
+family trains there; on the CPU the same autograd Functions run the
+plain versions.
 """
 from __future__ import annotations
 
@@ -331,17 +332,6 @@ def chunked_ce_loss(cfg, params, hidden, targets, chunk=LOSS_CHUNK):
     return tot / cnt.clamp_min(1.0)
 
 
-def check_trainable(cfg, device, plain=False) -> None:
-    """Raise where training has no kernel backward: the selective scan's
-    (the ssm and hybrid families) on the card's kernel path."""
-    if (cfg.family in ("ssm", "hybrid") and torch.device(device).type
-            == "cuda" and not plain):
-        raise NotImplementedError(
-            f"{cfg.name}: the ssm_scan backward kernel is not ported yet, so "
-            f"the {cfg.family} family cannot train on the card (it trains on "
-            f"the CPU through the plain versions)")
-
-
 def forward_train(cfg, params, batch, plain=False):
     """Returns (loss, metrics): the mean next-token cross-entropy of
     ``batch["targets"]`` plus the moe family's load-balancing loss, and
@@ -353,7 +343,6 @@ def forward_train(cfg, params, batch, plain=False):
         x = batch["inputs_embeds"].to(DTYPES[cfg.dtype])
     else:
         x = embed_tokens(cfg, params, batch["tokens"])
-    check_trainable(cfg, x.device, plain)
     hidden, aux = run_stack(cfg, params, x, plain=plain)
     loss = chunked_ce_loss(cfg, params, hidden, batch["targets"])
     return loss + aux, {"ce_loss": loss, "aux_loss": aux}

@@ -3,9 +3,11 @@
 The counterpart of ``repro.models.mamba``. Params keep the reference's
 leaf names and dtypes (A_log and D_skip in f32), so the codec writes the
 same bytes. Over a sequence `mamba_layer` runs the selective scan through
-the hand-written kernel (``repro_torch.kernels.ssm_scan``); on CPU
-tensors its wrapper runs the plain version, and ``plain=True`` runs
-`ssm_scan_chunked`, the reference's chunked scan, on any device. One
+the hand-written kernel (``repro_torch.kernels.ssm_scan``), which with
+grad is an autograd Function with its own backward kernel; on CPU
+tensors its wrapper runs the plain versions, and ``plain=True`` runs
+`ssm_scan_chunked`, the reference's chunked scan (checkpointed per chunk
+under ``cfg.inner_remat``, as the reference's), on any device. One
 decode step has no kernel in the reference, so none here either.
 """
 from __future__ import annotations
@@ -14,6 +16,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.ssm_scan import selective_scan
 from repro_torch.models.layers import dense_init
@@ -65,40 +68,53 @@ def _causal_conv(x, w, b, conv_state=None):
     return y, xx[:, xx.shape[1] - (c - 1):]               # last c-1 inputs
 
 
-def ssm_scan_chunked(dt, xr, Bmat, Cmat, A, h0, chunk=SCAN_CHUNK):
+def _chunk_step(h, dtc, xrc, bc, cc, A):
+    """One chunk of `ssm_scan_chunked`: (y (B, c, di), the state after
+    the chunk's last step) from the state before its first."""
+    da = dtc[..., None] * A                              # (B,c,di,N) <= 0
+    dbx = (dtc * xrc.float())[..., None] * bc[:, :, None, :]
+    L = da.shape[1]
+    k = 1
+    while k < L:
+        a_prev, b_prev = da[:, :L - k], dbx[:, :L - k]
+        a_cur, b_cur = da[:, k:], dbx[:, k:]
+        da = torch.cat([da[:, :k], a_prev + a_cur], dim=1)
+        dbx = torch.cat([dbx[:, :k], b_prev * torch.exp(a_cur) + b_cur],
+                        dim=1)
+        k *= 2
+    h_all = dbx + h[:, None] * torch.exp(da)
+    return torch.einsum("bsdn,bsn->bsd", h_all, cc), h_all[:, -1]
+
+
+def ssm_scan_chunked(dt, xr, Bmat, Cmat, A, h0, chunk=SCAN_CHUNK,
+                     inner_remat=False):
     """Selective scan h_t = exp(dt_t*A)*h_{t-1} + dt_t*B_t*x_t, emitting
     y_t = <h_t, C_t>, chunk by chunk: the model path's plain version.
 
     Inside a chunk a doubling scan with the reference's combine
     (a1 + a2, b1 * exp(a2) + b2) gives every step's state from the
     chunk's first; only (B, chunk, di, N) is ever materialised, never
-    (B, S, di, N). The last chunk may be short (no padding).
+    (B, S, di, N). The last chunk may be short (no padding). With
+    ``inner_remat`` and grad enabled each chunk runs under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its
+    chunk step): autograd keeps only each chunk's inputs and state, and
+    the backward pass recomputes the chunk's (B, chunk, di, N) tensors;
+    the values are the same.
 
     dt: (B, S, di) f32; xr: (B, S, di); Bmat, Cmat: (B, S, N) f32;
     A: (di, N) f32 negative; h0: (B, di, N) f32.
     Returns (y (B, S, di) f32, h_final (B, di, N) f32).
     """
     S = dt.shape[1]
+    remat = inner_remat and torch.is_grad_enabled()
     h = h0.float()
     ys = []
     for t0 in range(0, S, chunk):
-        dtc = dt[:, t0:t0 + chunk]
-        da = dtc[..., None] * A                          # (B,c,di,N) <= 0
-        dbx = ((dtc * xr[:, t0:t0 + chunk].float())[..., None]
-               * Bmat[:, t0:t0 + chunk, None, :])
-        L = da.shape[1]
-        k = 1
-        while k < L:
-            a_prev, b_prev = da[:, :L - k], dbx[:, :L - k]
-            a_cur, b_cur = da[:, k:], dbx[:, k:]
-            da = torch.cat([da[:, :k], a_prev + a_cur], dim=1)
-            dbx = torch.cat([dbx[:, :k], b_prev * torch.exp(a_cur) + b_cur],
-                            dim=1)
-            k *= 2
-        h_all = dbx + h[:, None] * torch.exp(da)
-        ys.append(torch.einsum("bsdn,bsn->bsd", h_all,
-                               Cmat[:, t0:t0 + chunk]))
-        h = h_all[:, -1]
+        ins = (h, dt[:, t0:t0 + chunk], xr[:, t0:t0 + chunk],
+               Bmat[:, t0:t0 + chunk], Cmat[:, t0:t0 + chunk], A)
+        y, h = (checkpoint(_chunk_step, *ins, use_reentrant=False) if remat
+                else _chunk_step(*ins))
+        ys.append(y)
     y = torch.cat(ys, dim=1) if ys else dt.new_zeros(dt.shape)
     return y, h
 
@@ -123,8 +139,11 @@ def mamba_layer(p, cfg, x, state=None, *, plain=False):
 
     h0 = (state["ssm"] if state is not None
           else torch.zeros((B, di, N), dtype=torch.float32, device=x.device))
-    scan = ssm_scan_chunked if plain else selective_scan
-    y, h_final = scan(dt, xr, Bmat, Cmat, A, h0)
+    if plain:
+        y, h_final = ssm_scan_chunked(dt, xr, Bmat, Cmat, A, h0,
+                                      inner_remat=cfg.inner_remat)
+    else:
+        y, h_final = selective_scan(dt, xr, Bmat, Cmat, A, h0)
     y = y + p["D_skip"] * xr.float()
     y = y.to(x.dtype) * F.silu(z)
     return y @ p["out_proj"], {"conv": conv_state.to(torch.bfloat16),

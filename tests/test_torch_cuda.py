@@ -20,7 +20,9 @@ from repro_torch.kernels.flash_attention import (mha, mha_bwd, mha_ref,
                                                  mha_ref_with_lse,
                                                  mha_with_lse)
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.kernels.ssm_scan import selective_scan, ssm_scan_ref
+from repro_torch.kernels.ssm_scan import (selective_scan, selective_scan_bwd,
+                                          selective_scan_states, ssm_scan_ref,
+                                          ssm_scan_ref_bwd)
 from repro_torch.kernels.ssm_scan import ops as scan_ops
 from repro_torch.models import Model, serving
 
@@ -1022,13 +1024,103 @@ def test_model_loss_backward_kernel_matches_plain(card, dtype):
         assert err <= 5 * tol * max(b.float().abs().max().item(), 1e-6)
 
 
+def _scan_bwd_inputs(gen, B, S, di, N, xdtype):
+    """Long-memory scan inputs (xr in xdtype, B and C views of one
+    projection, nonzero h0) and the cotangents dy and dh_final."""
+    dt, xr, Bm, Cm, A, h0 = _long_memory_scan_inputs(gen, B, S, di, N)
+    xr = xr.to(xdtype)
+    dy = _randn(gen, (B, S, di), torch.float32)
+    dhf = _randn(gen, (B, di, N), torch.float32)
+    return (dt, xr, Bm, Cm, A, h0), dy, dhf
+
+
+def _scan_grads_close(got, want, xdtype):
+    for name, a, b in zip(("ddt", "dx", "dB", "dC", "dA", "dh0"), got, want):
+        tol = BWD_TOL[torch.bfloat16] if name == "dx" and \
+            xdtype == torch.bfloat16 else BWD_TOL[torch.float32]
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= tol * max(b.float().abs().max().item(), 1e-30), name
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,di,N", [(2, 333, 300, 16), (1, 100, 512, 8)])
+def test_ssm_scan_bwd_matches_plain(card, xdtype, B, S, di, N):
+    """The backward kernel on the forward's boundary states against
+    `ssm_scan_ref_bwd`, each gradient within 1e-4 of its largest |value|
+    (dx in bf16 within 2e-2), at every R it takes; the forward with its
+    states gives y and h_final bit for bit as the forward without."""
+    gen = torch.Generator(device=card).manual_seed(30)
+    ins, dy, dhf = _scan_bwd_inputs(gen, B, S, di, N, xdtype)
+    y, h = selective_scan(*ins)
+    f0 = scan_ops.launches
+    y1, h1, hs = selective_scan_states(*ins)
+    assert scan_ops.launches == f0 + 1
+    assert torch.equal(y, y1) and torch.equal(h, h1)
+    want = ssm_scan_ref_bwd(*ins, dy, dhf)
+    for R in (0,) + scan_ops.BWD_PER_THREAD:
+        b0 = scan_ops.bwd_launches
+        got = selective_scan_bwd(*ins[:5], hs, dy, dhf, R=R)
+        torch.cuda.synchronize()
+        assert scan_ops.bwd_launches == b0 + 1
+        assert got[1].dtype == xdtype
+        _scan_grads_close(got, want, xdtype)
+
+
+def test_ssm_scan_bwd_is_deterministic_and_takes_no_dh_final(card):
+    """Two runs equal bit for bit; dh_final None is zero; S = 0 launches
+    nothing and passes dh_final to dh0."""
+    gen = torch.Generator(device=card).manual_seed(31)
+    ins, dy, dhf = _scan_bwd_inputs(gen, 2, 1000, 3200, 16, torch.bfloat16)
+    _, _, hs = selective_scan_states(*ins)
+    a = selective_scan_bwd(*ins[:5], hs, dy, dhf)
+    b = selective_scan_bwd(*ins[:5], hs, dy, dhf)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    _scan_grads_close(selective_scan_bwd(*ins[:5], hs, dy),
+                      ssm_scan_ref_bwd(*ins, dy, None), torch.bfloat16)
+    empty, dy0, dhf0 = _scan_bwd_inputs(gen, 1, 0, 64, 16, torch.float32)
+    _, _, hs0 = selective_scan_states(*empty)
+    b0 = scan_ops.bwd_launches
+    out = selective_scan_bwd(*empty[:5], hs0, dy0, dhf0)
+    assert scan_ops.bwd_launches == b0
+    assert torch.equal(out[5], dhf0) and not out[4].any()
+
+
 @pytest.mark.parametrize("arch", ["falcon-mamba-7b", "hymba-1.5b"])
 def test_ssm_families_refuse_to_train_on_the_card(card, arch):
-    """The selective scan has no backward kernel yet: forward_train on the
-    kernel path raises, it does not fall back to the plain scan."""
+    """The ssm and hybrid families train on the card: a smoke model's loss
+    and every gradient leaf on the kernel path against the plain path,
+    with one forward scan per layer and its recompute under the remat
+    policy, one backward scan per layer, and for the hybrid the
+    attention's kernels beside them; the plain path launches nothing."""
+    from repro_torch.models import serialize
     cfg = registry.get_smoke(arch)
     model = Model(cfg)
     params = model.init_params(torch.Generator(device=card).manual_seed(0))
-    toks = torch.zeros((1, 16), dtype=torch.int32, device=card)
-    with pytest.raises(NotImplementedError, match="ssm_scan"):
-        model.loss(params, {"tokens": toks, "targets": toks})
+    toks = torch.randint(0, cfg.vocab_size, (2, 65), dtype=torch.int32,
+                         device=card,
+                         generator=torch.Generator(device=card).manual_seed(1))
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    leaves = serialize.leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    out = {}
+    for plain in (False, True):
+        c0 = (scan_ops.launches, scan_ops.bwd_launches, flash_ops.launches,
+              flash_ops.bwd_launches)
+        loss, _ = model.loss(params, batch, plain=plain)
+        grads = torch.autograd.grad(loss, leaves)
+        out[plain] = (loss, grads, (scan_ops.launches - c0[0],
+                                    scan_ops.bwd_launches - c0[1],
+                                    flash_ops.launches - c0[2],
+                                    flash_ops.bwd_launches - c0[3]))
+    L = cfg.num_layers
+    fwd = L * (1 + (cfg.remat_policy != "none"))
+    attn = (fwd, L) if cfg.family == "hybrid" else (0, 0)
+    assert out[False][2] == (fwd, L) + attn
+    assert out[True][2] == (0, 0, 0, 0)
+    tol = BWD_TOL[getattr(torch, cfg.dtype)]
+    torch.testing.assert_close(out[False][0], out[True][0], atol=tol,
+                               rtol=tol)
+    for a, b in zip(out[False][1], out[True][1]):
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= 5 * tol * max(b.float().abs().max().item(), 1e-6)

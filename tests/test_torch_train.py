@@ -20,7 +20,10 @@ The attention's gradient on the card is the backward kernel
 (``csrc/flash_attention_bwd.cu``, tested on the card in
 tests/test_torch_cuda.py); `tiled_backward` repeats its three passes
 tile by tile here, and is held to the reference's autodiff and to the
-port's plain backward `mha_ref_bwd`.
+port's plain backward `mha_ref_bwd`. The selective scan's gradient is
+its autograd Function, which on CPU tensors runs the plain backward
+`ssm_scan_ref_bwd` (tests/test_torch_scan_bwd.py): the ssm and hybrid
+archs' gradients below go through it.
 """
 import dataclasses
 import math
@@ -46,6 +49,7 @@ from repro_torch.kernels.flash_attention import (mha, mha_bwd, mha_ref,
                                                  mha_ref_with_lse,
                                                  mha_with_lse)
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.ssm_scan import ops as scan_ops
 from repro_torch.launch import train
 from repro_torch.models import get_model, lm, moe, serialize
 from repro_torch.models.convert import params_from_numpy
@@ -791,16 +795,33 @@ def test_mha_is_differentiable_on_the_cpu():
 # ------------------------------------------------- families and driver
 
 @pytest.mark.parametrize("arch", ["falcon-mamba-7b", "hymba-1.5b"])
-def test_ssm_families_refuse_to_train_on_the_card(arch):
-    """The ssm_scan backward is not ported: on a CUDA device the kernel
-    path raises before running anything, and names it; on the CPU and on
-    the plain path it trains."""
-    cfg = registry.get_smoke(arch)
-    with pytest.raises(NotImplementedError, match="ssm_scan backward"):
-        lm.check_trainable(cfg, "cuda")
-    lm.check_trainable(cfg, "cuda", plain=True)
-    lm.check_trainable(cfg, "cpu")
-    lm.check_trainable(registry.get_smoke("llama3-8b"), "cuda")
+def test_ssm_families_refuse_to_train_on_the_card(arch, monkeypatch):
+    """The ssm and hybrid families train on the card: nothing refuses them
+    (``lm.check_trainable`` is gone with its refusal), and the scan's
+    wrapper takes its autograd Function whenever grad is on, whatever the
+    device. On CPU tensors one `forward_train` of the smoke config goes
+    through the Function: the plain forward once per layer and its
+    recompute under the remat policy, the plain backward once per layer."""
+    assert not hasattr(lm, "check_trainable")
+    counts = {"forward": 0, "backward": 0}
+    fwd, bwd = scan_ops.ssm_scan_ref, scan_ops.ssm_scan_ref_bwd
+
+    def spy(fn, key):
+        def call(*a, **k):
+            counts[key] += 1
+            return fn(*a, **k)
+        return call
+
+    monkeypatch.setattr(scan_ops, "ssm_scan_ref", spy(fwd, "forward"))
+    monkeypatch.setattr(scan_ops, "ssm_scan_ref_bwd", spy(bwd, "backward"))
+    _, _, port, pparams = _pair(arch)
+    _, pbatch = _batches(port.cfg, np.random.default_rng(3))
+    loss, _, grads = _port_loss_and_grads(port, pparams, pbatch)
+    L = port.cfg.num_layers
+    recompute = 0 if port.cfg.remat_policy == "none" else 1
+    assert counts == {"forward": L * (1 + recompute), "backward": L}
+    assert math.isfinite(float(loss))
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
 
 
 def test_train_driver_runs_and_resumes_on_the_cpu():
