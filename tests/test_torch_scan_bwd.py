@@ -11,13 +11,16 @@ seeds:
   port's `ssm_scan_ref`: each gradient within 1e-4 of its largest
   |value| in f32, and dx within 2e-2 where xr is bf16;
 * `design_scan_bwd` repeats the kernel's arithmetic in plain PyTorch:
-  the forward's states at every ``CHUNK``-th step, the chunks walked from
-  the last with their states recomputed from the saved one, the sums over
-  a channel's states per thread and then over its lanes, the sums over
-  channels per warp (the reduce-scatter's pairing), the warps and the
-  blocks added in the kernel's fixed order, and the masked tail of S and
-  di. It is held to ``jax.vjp`` at the same tolerances, and two runs give
-  the same bits;
+  the forward's states at every ``CHUNK``-th step (or 32nd), the
+  intervals and their sub-chunks walked from the last, each recomputed
+  once for its decays and rebuilt group by group from them, the sums over
+  a channel's states per thread and then over its lanes for a group of
+  steps (the reduce-scatter's pairing), the sums over channels per warp,
+  then over a block's warps in order, a cluster's blocks in rank order and
+  the clusters in order, and the masked tail of S and of di up to whole
+  clusters (block counts that are not a multiple of the cluster). It is
+  held to
+  ``jax.vjp`` at the same tolerances, and two runs give the same bits;
 * the autograd Function `_SelectiveScan` on CPU tensors: gradients only
   where ``needs_input_grad`` asks, a None dh_final, dx in xr's dtype, B
   and C as column views of one projection.
@@ -38,6 +41,7 @@ from repro_torch.kernels.ssm_scan import ops as scan_ops
 F32_TOL, BF16_DX_TOL = 1e-4, 2e-2
 GRADS = ("ddt", "dx", "dB", "dC", "dA", "dh0")
 THREADS, WARPS = 128, 4                   # the backward kernel's block
+MAX_CLUSTER = 8                           # ... and its largest cluster
 CHUNK = scan_ops.CHUNK
 LOG2E = 1.4426950408889634
 
@@ -161,16 +165,27 @@ def test_plain_backward_of_an_empty_sequence():
 # ------------------------------------------------------ the kernel's design
 
 def bwd_shape(N, R):
-    """(G, CH, W): lanes a channel, channels a block, channels a warp."""
+    """(G, CH, W, L): lanes a channel, channels a block, channels a warp,
+    steps a sub-chunk."""
     G = N // R
-    return G, THREADS // G, 32 // G
+    return G, THREADS // G, 32 // G, 32 // R
+
+
+def cluster_size(nblk):
+    """The blocks of a cluster: the largest power of two up to
+    ``MAX_CLUSTER`` and up to the blocks of a batch row."""
+    cl = 1
+    while cl * 2 <= min(MAX_CLUSTER, nblk):
+        cl *= 2
+    return cl
 
 
 def lanes_sum(x):
-    """x[..., G] summed as the butterfly over lane offsets 1, 2, ..., G/2
-    adds them: neighbours first."""
+    """x[..., G] summed as the reduce-scatter over a channel's G lanes adds
+    them: lanes paired from the top bit down, each half onto the other."""
     while x.shape[-1] > 1:
-        x = x[..., 0::2] + x[..., 1::2]
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
     return x[..., 0]
 
 
@@ -191,65 +206,98 @@ def in_order(x, dim):
     return s
 
 
-def design_scan_bwd(dt, xr, Bm, Cm, A, h0, dy, dh_final=None, *, R):
-    """The backward kernel's arithmetic at R states a thread, in f32:
-    (d(dt), dx in xr's dtype, dB, dC, dA, dh0)."""
+def design_scan_bwd(dt, xr, Bm, Cm, A, h0, dy, dh_final=None, *, R,
+                    chunk=CHUNK):
+    """The backward kernel's arithmetic at R states a thread on states
+    saved every ``chunk`` steps, in f32: (d(dt), dx in xr's dtype, dB, dC,
+    dA, dh0). Intervals of ``chunk`` steps from the last, each in
+    sub-chunks of L = 32 / R steps from the last (the states entering the
+    later ones from a pass over the interval's first steps), each
+    recomputed once for its decays and the state entering each group of G
+    steps, then walked back group by group on states rebuilt from those;
+    the sums in the kernel's order."""
     xdtype = xr.dtype
     dt, xr, Bm, Cm, A, h0, dy = (t.float() for t in
                                  (dt, xr, Bm, Cm, A, h0, dy))
     B, S, di = dt.shape
     N = A.shape[1]
-    G, CH, W = bwd_shape(N, R)
-    nc = -(-S // CHUNK)
-    ps, pd = nc * CHUNK - S, -di % CH             # the masked tail
+    G, CH, W, L = bwd_shape(N, R)
+    nc = -(-S // chunk)
+    nblk = -(-di // CH)
+    cl = cluster_size(nblk)
+    ncl = -(-nblk // cl)
+    # the masked tail of S, and of di up to whole clusters of blocks
+    ps, pd = nc * chunk - S, ncl * cl * CH - di
     dt, xr, dy = (F.pad(t, (0, pd, 0, ps)) for t in (dt, xr, dy))
     Bm, Cm = (F.pad(t, (0, 0, 0, ps)) for t in (Bm, Cm))
     A, h0 = F.pad(A, (0, 0, 0, pd)), F.pad(h0, (0, 0, 0, pd))
-    dp, nblk = di + pd, (di + pd) // CH
+    dp = di + pd
     A2 = A * LOG2E
 
-    def step(h, t):                               # the forward's operations
-        return (h * torch.exp2(dt[:, t, :, None] * A2)
-                + (dt[:, t] * xr[:, t])[..., None] * Bm[:, t, None, :])
+    def decay(t):
+        return torch.exp2(dt[:, t, :, None] * A2)
+
+    def step(h, a, t):                            # the forward's operations
+        return h * a + (dt[:, t] * xr[:, t])[..., None] * Bm[:, t, None, :]
 
     hs, h = [], h0                                # the forward's saved states
-    for t in range(nc * CHUNK):
-        if t % CHUNK == 0:
+    for t in range(nc * chunk):
+        if t % chunk == 0:
             hs.append(h)
-        h = step(h, t)
+        h = step(h, decay(t), t)
     carry = (torch.zeros_like(h0) if dh_final is None
              else F.pad(dh_final.float(), (0, 0, 0, pd)))
     dA = torch.zeros_like(h0)                     # per thread: (b, d, n)
     ddt, dx = torch.zeros_like(dt), torch.zeros_like(dt)
-    ws = torch.zeros((B, nblk, nc * CHUNK, 2 * N))
+    ws = torch.zeros((B, ncl, nc * chunk, 2 * N))  # one row per cluster
     for c in range(nc - 1, -1, -1):
-        rows = [hs[c]]                            # recomputed from the saved
-        for t in range(c * CHUNK, (c + 1) * CHUNK):
-            rows.append(step(rows[-1], t))
-        for tt in range(CHUNK - 1, -1, -1):
-            t = c * CHUNK + tt
-            hp, hc = rows[tt], rows[tt + 1]
-            da = torch.exp2(dt[:, t, :, None] * A2)
-            g = dy[:, t, :, None] * Cm[:, t, None, :] + carry
-            ah = da * hp
-            b_t = Bm[:, t, None, :]
-            per_state_dx = (g * b_t).view(B, dp, G, R)
-            per_state_ddt = (g * (A * ah + xr[:, t, :, None] * b_t)).view(
-                B, dp, G, R)
-            dx[:, t] = lanes_sum(in_order(per_state_dx, 3)) * dt[:, t]
-            ddt[:, t] = lanes_sum(in_order(per_state_ddt, 3))
-            dA = dA + g * dt[:, t, :, None] * ah
-            carry = da * g
-            for off, v in ((0, g * (dt[:, t] * xr[:, t])[..., None]),
-                           (N, dy[:, t, :, None] * hc)):
-                v = warp_sum(v.view(B, nblk, WARPS, W, N), 3)
-                ws[:, :, t, off:off + N] = in_order(v, 2)
-    dBC = in_order(ws, 1)[:, :S]                  # the blocks in order
+        t0 = c * chunk
+        starts, h = [hs[c]], hs[c]                # entering each sub-chunk
+        for t in range(t0, t0 + chunk - L):
+            h = step(h, decay(t), t)
+            if (t - t0) % L == L - 1:
+                starts.append(h)
+        for sub in range(chunk // L - 1, -1, -1):
+            s0 = t0 + sub * L
+            decays, entering, h = [], [], starts[sub]   # the recompute
+            for i in range(L):
+                if i % G == 0:
+                    entering.append(h)
+                decays.append(decay(s0 + i))
+                h = step(h, decays[-1], s0 + i)
+            for grp in range(L // G - 1, -1, -1):
+                states = [entering[grp]]          # h_{t-1}, then each h_t
+                for i in range(grp * G, grp * G + G):
+                    states.append(step(states[-1], decays[i], s0 + i))
+                sa, sx = [None] * G, [None] * G
+                for s in range(G - 1, -1, -1):
+                    i = grp * G + s
+                    t = s0 + i
+                    g = dy[:, t, :, None] * Cm[:, t, None, :] + carry
+                    pg = g * (decays[i] * states[s])
+                    dA = dA + pg * dt[:, t, :, None]
+                    sa[s] = in_order((pg * A).view(B, dp, G, R), 3)
+                    sx[s] = in_order((g * Bm[:, t, None, :]).view(
+                        B, dp, G, R), 3)
+                    carry = decays[i] * g
+                    for off, v in ((0, g * (dt[:, t] * xr[:, t])[..., None]),
+                                   (N, dy[:, t, :, None] * states[s + 1])):
+                        # the warp's channels, the block's warps in order,
+                        # then the cluster's blocks in rank order
+                        v = warp_sum(v.view(B, ncl, cl, WARPS, W, N), 4)
+                        ws[:, :, t, off:off + N] = in_order(in_order(v, 3), 2)
+                for s in range(G):                # the group's lane sums
+                    t = s0 + grp * G + s
+                    SA, SX = lanes_sum(sa[s]), lanes_sum(sx[s])
+                    ddt[:, t] = SA + xr[:, t] * SX
+                    dx[:, t] = dt[:, t] * SX
+    dBC = in_order(ws, 1)[:, :S]                  # the clusters in order
     return (ddt[:, :S, :di], dx[:, :S, :di].to(xdtype), dBC[..., :N],
             dBC[..., N:], in_order(dA, 0)[:di], carry[:, :di])
 
 
-# (B, S, di, N, R, xdtype, extra keywords of scan_inputs)
+# (B, S, di, N, R, xdtype, extra keywords of scan_inputs; "chunk": the
+# interval of the saved states, CHUNK where it is not given)
 DESIGN_CASES = {
     "N16 R4 ragged S=70 di=40": (1, 70, 40, 16, 4, torch.float32, {}),
     "N16 R2 B=2 S=64": (2, 64, 32, 16, 2, torch.float32, {}),
@@ -261,20 +309,32 @@ DESIGN_CASES = {
                          {"dh_final": False}),
     "long memory R4 S=200": (1, 200, 32, 16, 4, torch.bfloat16,
                              {"long_memory": True, "h0_scale": 1.0}),
+    "R2 di=176: 11 blocks, clusters of 8, 5 masked": (
+        1, 40, 176, 16, 2, torch.float32, {"long_memory": True}),
+    "R4 di=80: 3 blocks, clusters of 2, 1 masked": (
+        2, 50, 80, 16, 4, torch.bfloat16, {"h0_scale": 1.0}),
+    "R2 chunk 32: two sub-chunks an interval": (
+        1, 70, 48, 16, 2, torch.float32, {"chunk": 32, "rank": 2}),
+    "R4 chunk 32: four sub-chunks an interval": (
+        1, 100, 64, 16, 4, torch.bfloat16,
+        {"chunk": 32, "long_memory": True, "h0_scale": 1.0}),
+    "N8 R4 chunk 16 ragged": (2, 37, 136, 8, 4, torch.float32, {}),
 }
 
 
 @pytest.mark.parametrize("case", list(DESIGN_CASES))
 def test_design_scan_bwd_matches_jax_vjp(case):
     B, S, di, N, R, xdtype, kw = DESIGN_CASES[case]
+    kw = dict(kw)
+    chunk = kw.pop("chunk", CHUNK)
     d = scan_inputs(43, B, S, di, N, **kw)
     dhf = None if d["dhf"] is None else torch.from_numpy(d["dhf"])
     args = (*torch_args(d, xdtype), torch.from_numpy(d["dy"]), dhf)
-    got = design_scan_bwd(*args, R=R)
+    got = design_scan_bwd(*args, R=R, chunk=chunk)
     assert got[1].dtype == xdtype
     assert_grads(got, jax_grads(d, xdtype), xdtype)
     assert_grads(got, ssm_scan_ref_bwd(*args), xdtype)
-    again = design_scan_bwd(*args, R=R)
+    again = design_scan_bwd(*args, R=R, chunk=chunk)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
