@@ -52,14 +52,13 @@ Phases, each of which fails the run (exit 1) if it fails:
    (d(dt), dx, dB, dC, dA, dh0) within 1e-4 of its largest |value| (dx
    2e-2 with xr bf16): Falcon-Mamba-7B's and Hymba-1.5B's widths with the
    long-memory inputs at B 1 x S 2048 and B 2 x S 4096 (the training
-   shape), xr bf16 and f32, hymba's width at both R forced and both
-   state intervals (16 and 32), N = 8, a ragged S, S = 0, 1 and 5,
-   nonzero h0 and dh_final (and none), B and C views of one projection,
-   layouts that are not 16-byte aligned, block counts that are not a
-   multiple of the cluster (masked CTAs in the last cluster), each check
-   naming the design that ran (``[R r, chunk c, cluster k]``), two runs
-   bit for bit, and the forward with its states at both intervals bit
-   for bit the forward without;
+   shape), xr bf16 and f32, hymba's width at both R forced, N = 8, a
+   ragged S, S = 0, 1 and 5, nonzero h0 and dh_final (and none), B and C
+   views of one projection, layouts that are not 16-byte aligned, block
+   counts that are not a multiple of the cluster (masked CTAs in the last
+   cluster), each check naming the design that ran (``[R r, cluster
+   k]``), two runs bit for bit, and the forward with its states bit for
+   bit the forward without;
 3. each served model at full width, 2 layers: kernel path against plain
    path, prefill and one decode step (atol 0.3, rtol 0.05), prompt 2048
    (mixtral-8x22b 8192, past its window; internvl2-2b from random bf16
@@ -199,14 +198,13 @@ Phases, each of which fails the run (exit 1) if it fails:
    the library's (autograd of ``F.scaled_dot_product_attention``,
    eager). The scan is also timed at every R of ``SCAN_SWEEP`` beside
    the R its rule picks, and at the training shapes without and with its
-   boundary states at both intervals. The scan's backward is timed at
-   falcon-mamba-7b's and hymba-1.5b's training shapes (B 2 x S 4096) and
-   at B 1 x S 2048 beside its bound (bytes, f32 operations and
-   exponentials, the largest; one saved state counted every
-   ``BOUND_CHUNK`` steps) and the plain backward, then at every design
-   it takes (R and state interval), each line naming R, sub-chunk,
-   cluster, warps an SM and shared memory a CTA; no library call
-   computes it.
+   boundary states. The scan's backward is timed at falcon-mamba-7b's
+   and hymba-1.5b's training shapes (B 2 x S 4096) and at B 1 x S 2048
+   beside its bound (bytes, f32 operations and exponentials, the
+   largest; one saved state counted every ``BOUND_CHUNK`` steps) and the
+   plain backward, then at every R it takes, each line naming R,
+   sub-chunk, cluster, warps an SM and shared memory a CTA; no library
+   call computes it.
 
 Prints a JSON line of the kernels, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -234,8 +232,9 @@ BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 SM_CLOCK_HZ = 1.98e9            # H100 SXM boost; 16 MUFU.EX2 a clock an SM
 #: the scan backward's bound counts one saved state read every this many
-#: steps, the interval its first design read, whatever interval it saves:
-#: a design that saves more states pays for them inside its measured time
+#: steps, the interval its first design read, whatever interval it saves
+#: (``scan_ops.CHUNK``): a design that saves more states pays for them
+#: inside its measured time
 BOUND_CHUNK = 32
 ARCHS = ("llama3-8b", "falcon-mamba-7b", "hymba-1.5b", "qwen3-moe-30b-a3b",
          "yi-34b")
@@ -1012,14 +1011,13 @@ class Smoke:
         |value| within ``BWD_TOL`` (dx in xr's dtype): falcon-mamba-7b's
         and hymba-1.5b's widths with the model's long-memory inputs at B 1
         x S 2048 and at the training shape B 2 x S 4096, xr bf16 and f32,
-        hymba's width at every R and both state intervals, N 8, a ragged
-        S, S 0, 1 and 5, nonzero h0 and dh_final (and none), B and C as
-        column views of one projection, layouts that are not 16-byte
-        aligned, and block counts that are not a multiple of the cluster
-        (masked CTAs in the last cluster), each check naming the design
-        that ran ("[R r, chunk c, cluster k]"); two runs equal bit for
-        bit; and the forward with its states, at both intervals, giving y
-        and h_final bit for bit as the forward without."""
+        hymba's width at every R, N 8, a ragged S, S 0, 1 and 5, nonzero
+        h0 and dh_final (and none), B and C as column views of one
+        projection, layouts that are not 16-byte aligned, and block
+        counts that are not a multiple of the cluster (masked CTAs in the
+        last cluster), each check naming the design that ran ("[R r,
+        cluster k]"); two runs equal bit for bit; and the forward with its
+        states giving y and h_final bit for bit as the forward without."""
         torch = self.torch
         from repro_torch.kernels.ssm_scan import ops as scan_ops
         from repro_torch.kernels.ssm_scan import (selective_scan,
@@ -1029,15 +1027,14 @@ class Smoke:
         name = SCAN_BWD["name"]
         g = self.gen(13)
 
-        def check(what, ins, dh_final=True, R=0, chunk=scan_ops.CHUNK):
+        def check(what, ins, dh_final=True, R=0):
             B, S, di = ins[0].shape
             N = ins[4].shape[1]
-            cfg = scan_ops.bwd_config(B, di, N, R=R, chunk=chunk,
-                                      xdtype=ins[1].dtype)
+            cfg = scan_ops.bwd_config(B, di, N, R=R, xdtype=ins[1].dtype)
             tag = (f"[R {cfg['states_per_thread']}{' forced' if R else ''}, "
-                   f"chunk {chunk}, cluster {cfg['cluster']}]")
+                   f"cluster {cfg['cluster']}]")
             y, h = selective_scan(*ins)
-            y1, h1, hs = selective_scan_states(*ins, chunk=chunk)
+            y1, h1, hs = selective_scan_states(*ins)
             if not (torch.equal(y, y1) and torch.equal(h, h1)):
                 raise AssertionError(f"{name} {what}: the forward with its "
                                      f"states differs from the forward")
@@ -1045,7 +1042,7 @@ class Smoke:
             dhf = (self.randn(g, (B, di, N), torch.float32) if dh_final
                    else None)
             b0 = scan_ops.bwd_launches
-            got = selective_scan_bwd(*ins[:5], hs, dy, dhf, R=R, chunk=chunk)
+            got = selective_scan_bwd(*ins[:5], hs, dy, dhf, R=R)
             if scan_ops.bwd_launches != b0 + (S > 0):
                 raise AssertionError(f"{name} {what}: launches")
             want = ssm_scan_ref_bwd(*ins, dy, dhf)
@@ -1074,13 +1071,12 @@ class Smoke:
             check(f"{arch} di={di} long memory, h0 and dh_final nonzero",
                   self.scan_inputs(g, B, S, di, xdtype=xdtype, h0_scale=1.0,
                                    proj_rank=rank, long_memory=True))
-        # hymba's width at every R and both intervals (R 4: 100 blocks, 13
-        # clusters of 8, the last with 4 masked CTAs)
-        for chunk in scan_ops.CHUNKS:
-            for R in scan_ops.BWD_PER_THREAD:
-                check("hymba ragged S=1000 di=3200", self.scan_inputs(
-                    g, 2, 1000, 3200, xdtype=bf16, h0_scale=1.0,
-                    proj_rank=100, long_memory=True), R=R, chunk=chunk)
+        # hymba's width at every R (R 4: 100 blocks, 13 clusters of 8, the
+        # last with 4 masked CTAs)
+        for R in scan_ops.BWD_PER_THREAD:
+            check("hymba ragged S=1000 di=3200", self.scan_inputs(
+                g, 2, 1000, 3200, xdtype=bf16, h0_scale=1.0, proj_rank=100,
+                long_memory=True), R=R)
         check("N=8 B=2 S=1000 di=512", self.scan_inputs(
             g, 2, 1000, 512, N=8, xdtype=bf16, h0_scale=1.0, proj_rank=8,
             long_memory=True))
@@ -3007,10 +3003,9 @@ class Smoke:
     def time_scan_states(self, di, rank, arch, B=TRAIN_BATCH, S=TRAIN_SEQ):
         """The forward scan at a training shape (xr bf16, B and C views of
         the projection) by graph replay, without its boundary states (the
-        serve paths' code) and with them at each interval of
-        ``scan_ops.CHUNKS`` (the train path's saves ``scan_ops.CHUNK``):
-        what saving them costs. Each beside its bound by bytes (as
-        `time_scan`'s, plus the states written)."""
+        serve paths' code) and with them (the train path's): what saving
+        them costs. Each beside its bound by bytes (as `time_scan`'s,
+        plus the states written)."""
         from repro_torch.kernels.ssm_scan import ops as scan_ops
         from repro_torch.kernels.ssm_scan import (selective_scan,
                                                   selective_scan_states)
@@ -3021,24 +3016,19 @@ class Smoke:
                 for _ in range(2)]
         nbytes = (B * S * di * (4 + 2 + 4) + 2 * 4 * B * S * N
                   + 4 * di * N + 2 * 4 * B * di * N)
+        states = 4 * B * -(-S // scan_ops.CHUNK) * di * N
         row = {"ms": self.time_ms(lambda s: selective_scan(*s), sets, 20,
                                   graph=True),
-               "bound_ms": self.bound(nbytes, 0)[0]}
+               "states_ms": self.time_ms(lambda s: selective_scan_states(*s),
+                                         sets, 20, graph=True),
+               "bound_ms": self.bound(nbytes, 0)[0],
+               "states_bound_ms": self.bound(nbytes + states, 0)[0]}
         print(f"  ssm_scan bf16 B={B} S={S} di={di} N={N} ({arch}): without "
               f"states {row['ms']:.4f} ms (bound {row['bound_ms']:.4f} ms, "
-              f"bytes)")
-        for chunk in scan_ops.CHUNKS:
-            states = 4 * B * -(-S // chunk) * di * N
-            ms = self.time_ms(
-                lambda s, c=chunk: selective_scan_states(*s, chunk=c), sets,
-                20, graph=True)
-            bms = self.bound(nbytes + states, 0)[0]
-            row[f"states_{chunk}_ms"] = ms
-            row[f"states_{chunk}_bound_ms"] = bms
-            train = " (train path)" if chunk == scan_ops.CHUNK else ""
-            print(f"    with a state every {chunk} steps{train}: {ms:.4f} ms "
-                  f"(bound {bms:.4f} ms, {states / 1e6:.1f} MB of states "
-                  f"more) ({ms / row['ms'] - 1:+.1%})")
+              f"bytes), with a state every {scan_ops.CHUNK} steps "
+              f"{row['states_ms']:.4f} ms (bound "
+              f"{row['states_bound_ms']:.4f} ms, {states / 1e6:.1f} MB of "
+              f"states more) ({row['states_ms'] / row['ms'] - 1:+.1%})")
         return row
 
     def time_scan_bwd(self, B, S, di, rank, arch):
@@ -3050,12 +3040,11 @@ class Smoke:
         the largest of: the bytes (dt, xr, dy read and d(dt), dx written
         per (b, t, d); B, C read and dB, dC written per (b, t, n); one
         saved state read every ``BOUND_CHUNK`` steps, whatever interval
-        the design saves; A read, dA and dh0 written), 20 f32 operations
+        the kernel reads; A read, dA and dh0 written), 20 f32 operations
         per state and step at the f32 peak, and one exponential per state
         and step on the special-function units (16 a clock per SM at the
-        1.98 GHz boost). Then every design the kernel takes (each R of
-        ``BWD_PER_THREAD`` at each interval of ``CHUNKS``) by graph
-        replay beside the train path's, each named by its R, sub-chunk,
+        1.98 GHz boost). Then every R of ``BWD_PER_THREAD`` by graph
+        replay beside the rule's pick, each named by its R, sub-chunk,
         cluster, warps an SM and shared memory a CTA."""
         torch = self.torch
         from repro_torch.kernels.ssm_scan import ops as scan_ops
@@ -3069,8 +3058,7 @@ class Smoke:
             ins = self.scan_inputs(g, B, S, di, xdtype=torch.bfloat16,
                                    proj_rank=rank, long_memory=True,
                                    h0_scale=1.0)
-            hs = {c: selective_scan_states(*ins, chunk=c)[2]
-                  for c in scan_ops.CHUNKS}
+            hs = selective_scan_states(*ins)[2]
             sets.append((ins, hs, self.randn(g, (B, S, di), torch.float32)))
         steps = B * S * di * N
         nc = -(-S // BOUND_CHUNK)
@@ -3082,12 +3070,12 @@ class Smoke:
         if sfu_ms > bms:
             bms, by = sfu_ms, "operations"
 
-        def kernel(s, R=0, chunk=scan_ops.CHUNK):
-            return selective_scan_bwd(*s[0][:5], s[1][chunk], s[2], R=R,
-                                      chunk=chunk)
+        def kernel(s, R=0):
+            return selective_scan_bwd(*s[0][:5], s[1], s[2], R=R)
 
-        def design(cfg, chunk):
-            return (f"R {cfg['states_per_thread']}, chunk {chunk}, sub-chunk "
+        def design(cfg):
+            return (f"R {cfg['states_per_thread']}, a state every "
+                    f"{scan_ops.CHUNK} steps, sub-chunk "
                     f"{cfg['sub_chunk']}, cluster {cfg['cluster']}, "
                     f"{4 * cfg['ctas_per_sm']} warps an SM, "
                     f"{cfg['smem_bytes'] / 1024:.1f} KB a CTA")
@@ -3100,18 +3088,17 @@ class Smoke:
                "library_ms": None, "bound_ms": bms, "bound_by": by,
                "sfu_ms": sfu_ms, "chunk": scan_ops.CHUNK, **cfg}
         self.report(f"ssm_scan_bwd B={B} S={S} di={di} N={N} xr bf16 "
-                    f"[{design(cfg, scan_ops.CHUNK)}] ({arch}; "
+                    f"[{design(cfg)}] ({arch}; "
                     f"{nbytes / 1e6:.1f} MB, {steps / 1e9:.3f}e9 state-steps, "
                     f"exponentials alone {sfu_ms:.4f} ms)", row)
-        row["ms_by_design"] = {}
-        for chunk in scan_ops.CHUNKS:
-            for R in scan_ops.BWD_PER_THREAD:
-                ms = self.time_ms(lambda s, R=R, c=chunk: kernel(s, R, c),
-                                  sets, 10, graph=True)
-                row["ms_by_design"][f"R {R} chunk {chunk}"] = ms
-                cfg_rc = scan_ops.bwd_config(B, di, N, R=R, chunk=chunk)
-                print(f"    {design(cfg_rc, chunk)}: {ms:.4f} ms (graph "
-                      f"replay), share of bound {bms / ms:.3f}")
+        row["ms_by_states_per_thread"] = {}
+        for R in scan_ops.BWD_PER_THREAD:
+            ms = self.time_ms(lambda s, R=R: kernel(s, R), sets, 10,
+                              graph=True)
+            row["ms_by_states_per_thread"][R] = ms
+            print(f"    {design(scan_ops.bwd_config(B, di, N, R=R))}: "
+                  f"{ms:.4f} ms (graph replay), share of bound "
+                  f"{bms / ms:.3f}")
         del sets
         return row
 

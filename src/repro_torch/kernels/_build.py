@@ -17,10 +17,13 @@ reads it.
 
 `build` starts one nvcc per source, all together, and waits for all of
 them: ``chip_smoke.py`` calls it once so the kernels build in parallel.
-Nothing is built or imported from CUDA when this module is imported.
+`substitute` has `load` answer another library of a kernel for a while
+(a build of a changed copy of its source, for measurements). Nothing is
+built or imported from CUDA when this module is imported.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -132,3 +135,22 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build((name,))[name]))
             _libs[name] = lib
         return lib
+
+
+@contextlib.contextmanager
+def substitute(name: str, path: Path):
+    """Within the block, `load` answers the library at ``path`` for the
+    kernel ``name`` (a build of a changed copy of its source); after it,
+    the kernel's own library again."""
+    lib = ctypes.CDLL(str(path))
+    with _lock:
+        before = _libs.get(name)
+        _libs[name] = lib
+    try:
+        yield lib
+    finally:
+        with _lock:
+            if before is None:
+                _libs.pop(name, None)
+            else:
+                _libs[name] = before

@@ -1,32 +1,28 @@
-#!/usr/bin/env python
 """Where the selective scan's backward spends its time, on one NVIDIA GPU.
 
 Builds copies of ``csrc/ssm_scan_bwd.cu`` with one part of the kernel
 taken out each (the loads of the next interval, the stores of d(dt) and
-dx, the (dt, dt * x) pass, the recompute's recurrence, the reverse walk,
+dx, the (dt, dt * x) pass, the recompute's recurrence, the pass that
+gives R 4's second sub-chunk its entering state, the reverse walk,
 the cluster's barriers and sum, the block's sum over its warps, the
 shuffles of the dB | dC and of the lane sums), and times each against
 the kernel as it is, at falcon-mamba-7b's and hymba-1.5b's training
-shapes (B 2 x S 4096, xr bf16, the model's long-memory inputs), at both
-state intervals of ``ops.CHUNKS`` and both R. What a copy saves is what
-that part costs, to within what the others overlap. The copies compute
-wrong gradients; only their times are read. Times are CUDA-graph
-replays (``chip_smoke.Smoke.time_ms``).
+shapes (B 2 x S 4096, xr bf16, the model's long-memory inputs) and at
+every R the kernel takes. What a copy saves is what that part costs, to
+within what the others overlap. The copies compute wrong gradients; only
+their times are read. A cut whose lines the source no longer has raises.
+Times are CUDA-graph replays (``chip_smoke.Smoke.time_ms``). From the
+root of the repository:
 
-    python3 scripts/scan_bwd_ablation.py
+    PYTHONPATH=src python3 -m repro_torch.kernels.ssm_scan.ablation
 
 prints the card's name and power limit and one line per (shape, copy,
-interval, R). Needs the card and nvcc.
+R). Needs the card and nvcc.
 """
 from __future__ import annotations
 
-import ctypes
 import subprocess
 import sys
-from pathlib import Path
-
-ROOT = Path(__file__).resolve().parents[1]
-sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
 #: each copy: the lines taken out (text -> replacement) of the source
 CUTS = {
@@ -34,6 +30,7 @@ CUTS = {
     "no_store": [("    store(c, buf);\n", "")],
     "no_settle": [("    settle(buf);\n", "")],
     "no_recompute": [("          step(h, av, buf, i0 + i);\n", "")],
+    "no_prepass": [("        step(h, av, buf, i);\n", "")],
     "no_reverse": [("      for (int grp = L / G - 1; grp >= 0; --grp) {",
                     "      for (int grp = L / G - 1; grp >= L; --grp) {")],
     "no_cluster": [
@@ -58,10 +55,23 @@ SHAPES = ((2, 4096, 8192, 256, "falcon-mamba-7b"),
           (2, 4096, 3200, 100, "hymba-1.5b"))
 
 
+def copies(source: str) -> dict[str, str]:
+    """The source as is and each copy of ``CUTS``."""
+    out = {"as is": source}
+    for name, cuts in CUTS.items():
+        text = source
+        for old, new in cuts:
+            if old not in text:
+                raise RuntimeError(f"{name}: the source has no {old!r}")
+            text = text.replace(old, new)
+        out[name] = text
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
-        print("scan_bwd_ablation: no CUDA device", file=sys.stderr)
+        print("ablation: no CUDA device", file=sys.stderr)
         return 2
     import chip_smoke as cs
     from repro_torch.kernels import _build
@@ -71,19 +81,11 @@ def main() -> int:
         print(line, flush=True)
 
     log(cs.nvidia_smi())
-    source = _build.source("ssm_scan_bwd").read_text()
-    copies = {"as is": source}
-    for name, cuts in CUTS.items():
-        text = source
-        for old, new in cuts:
-            if old not in text:
-                raise RuntimeError(f"{name}: the source has no {old!r}")
-            text = text.replace(old, new)
-        copies[name] = text
-    work = ROOT / "build" / "ablation"
+    work = _build.BUILD_DIR.parent / "ablation"
     work.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for i, (name, text) in enumerate(copies.items()):
+    texts = copies(_build.source(scan_ops.BWD_NAME).read_text())
+    for i, (name, text) in enumerate(texts.items()):
         src = work / f"copy{i}.cu"
         src.write_text(text)
         lib = src.with_suffix(".so")
@@ -92,9 +94,9 @@ def main() -> int:
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
     libs = {}
     for name, (proc, lib) in procs.items():
-        log_text, _ = proc.communicate()
+        out, _ = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log_text}")
+            raise RuntimeError(f"nvcc failed for {name}:\n{out}")
         libs[name] = lib
 
     smoke = cs.Smoke(torch)
@@ -105,21 +107,17 @@ def main() -> int:
             ins = smoke.scan_inputs(g, B, S, di, xdtype=torch.bfloat16,
                                     proj_rank=rank, long_memory=True,
                                     h0_scale=1.0)
-            hs = {c: scan_ops.selective_scan_states(*ins, chunk=c)[2]
-                  for c in scan_ops.CHUNKS}
+            hs = scan_ops.selective_scan_states(*ins)[2]
             sets.append((ins, hs, smoke.randn(g, (B, S, di), torch.float32)))
         for name, lib in libs.items():
-            _build._libs["ssm_scan_bwd"] = ctypes.CDLL(str(lib))
-            for chunk in scan_ops.CHUNKS:
+            with _build.substitute(scan_ops.BWD_NAME, lib):
                 for R in scan_ops.BWD_PER_THREAD:
                     ms = smoke.time_ms(
-                        lambda s, c=chunk, r=R: scan_ops.selective_scan_bwd(
-                            *s[0][:5], s[1][c], s[2], R=r, chunk=c),
-                        sets, 10, graph=True)
-                    log(f"{arch} B={B} S={S} di={di} {name:16s} chunk {chunk}"
-                        f" R {R}: {ms:.4f} ms")
+                        lambda s, r=R: scan_ops.selective_scan_bwd(
+                            *s[0][:5], s[1], s[2], R=r), sets, 10, graph=True)
+                    log(f"{arch} B={B} S={S} di={di} {name:16s} R {R}: "
+                        f"{ms:.4f} ms")
         del sets
-    _build._libs.pop("ssm_scan_bwd", None)
     log(cs.nvidia_smi())
     return 0
 

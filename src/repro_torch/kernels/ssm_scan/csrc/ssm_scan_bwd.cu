@@ -27,10 +27,11 @@
 // Design:
 // * One CTA of 128 threads per (batch row, block of CH channels), each
 //   thread one channel and R of its N states (G = N / R lanes a channel).
-//   The CTA walks the intervals of SAVED steps between the forward's saved
-//   states (hs, one every SAVED steps) from the last, each in sub-chunks of
-//   L = 32 / R steps from the last. Shared memory stays at or under 56 KB
-//   and registers at 128 a thread, so 4 CTAs (16 warps) share an SM.
+//   The CTA walks the intervals of SAVED = 16 steps between the forward's
+//   saved states (hs, one every SAVED steps) from the last, each in
+//   sub-chunks of L = 32 / R steps from the last. Shared memory stays at or
+//   under 56 KB and registers at 128 a thread, so 4 CTAs (16 warps) share
+//   an SM.
 // * Loads in flight: an interval's dt, x, dy, B, C and its saved state are
 //   copied by cp.async (16 bytes, 8 for bf16 x or R = 2 states) into one of
 //   two buffers while the previous interval is walked; a layout that is not
@@ -44,9 +45,11 @@
 //   steps. The reverse walk rebuilds a group's G states in registers from
 //   that state and the kept decays (one fma each, the forward's own), then
 //   walks the group backwards carrying a_{t+1} g_{t+1} in registers. A
-//   state is never rebuilt by dividing by a decay. Where SAVED > L the
-//   states entering the later sub-chunks come from one more pass over the
-//   interval's first SAVED - L steps.
+//   state is never rebuilt by dividing by a decay. Where SAVED > L (R 4:
+//   two sub-chunks of 8 steps) the state entering the second comes from
+//   one more pass over the interval's first 8 steps, whose decays are
+//   computed again in the first's recompute: 1.5 exponentials a
+//   state-step at R 4, one at R 2.
 // * Sums in a fixed order, off the step's critical path. Over the N states
 //   of a channel: per thread over its R states in order, then over the G
 //   lanes by a reduce-scatter over the group's G steps at once (G - 1
@@ -86,6 +89,7 @@ constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 constexpr int MIN_BLOCKS = 4;         // CTAs an SM the registers allow: 16 warps
 constexpr int MAX_CLUSTER = 8;        // the portable cluster size
+constexpr int SAVED = 16;             // steps between two saved states: ssm_scan.cu's CHUNK
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -158,7 +162,7 @@ struct Args {
   int vec;                // every row 16-byte aligned (8 for bf16 x), di % 4 == 0
 };
 
-template <int N, int R, int SAVED>
+template <int N, int R>
 struct Shape {
   static_assert(N % R == 0 && R >= 2, "R divides N");
   static constexpr int G = N / R;                   // lanes a channel
@@ -171,9 +175,9 @@ struct Shape {
 };
 
 // Every array's size is a multiple of 16 bytes, so each starts aligned.
-template <typename TX, int N, int R, int SAVED>
+template <typename TX, int N, int R>
 struct __align__(16) Smem {
-  using SH = Shape<N, R, SAVED>;
+  using SH = Shape<N, R>;
   static constexpr int CH = SH::CH, L = SH::L, NSUB = SH::NSUB;
   float dt[2][SAVED][CH];   // an interval's dt as copied; dx (f32) in place after its walk
   float dy[2][SAVED][CH];   // ... its dy; d(dt) in place after its walk
@@ -219,14 +223,14 @@ __device__ __forceinline__ void st_row(float* p, const float (&v)[R]) {
 
 // Grid (ncl * cluster, B), clusters along x: the block's CH channels of
 // batch row b, interval by interval from the last.
-template <typename TX, int N, int R, int SAVED>
+template <typename TX, int N, int R>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) ssm_scan_bwd_kernel(Args a) {
-  using SH = Shape<N, R, SAVED>;
+  using SH = Shape<N, R>;
   constexpr int G = SH::G, CH = SH::CH, W = SH::W, M = 2 * R, LW = ilog2(W);
   constexpr int L = SH::L, NSUB = SH::NSUB, ROW = 2 * N;
   constexpr int QUADS = (SAVED * CH / 4 + THREADS - 1) / THREADS;   // quads of dt a thread copies
   extern __shared__ __align__(16) unsigned char smem[];
-  Smem<TX, N, R, SAVED>& sm = *reinterpret_cast<Smem<TX, N, R, SAVED>*>(smem);
+  Smem<TX, N, R>& sm = *reinterpret_cast<Smem<TX, N, R>*>(smem);
   cg::cluster_group cluster = cg::this_cluster();
   const int CL = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
@@ -608,14 +612,14 @@ int choose_r(int B, int di, int N) {
              ? 2 : 4;
 }
 
-template <typename TX, int N, int R, int SAVED>
-constexpr int smem_bytes() { return static_cast<int>(sizeof(Smem<TX, N, R, SAVED>)); }
+template <typename TX, int N, int R>
+constexpr int smem_bytes() { return static_cast<int>(sizeof(Smem<TX, N, R>)); }
 
-template <typename TX, int N, int R, int SAVED>
+template <typename TX, int N, int R>
 int launch(const Args& a, int B, int cl, cudaStream_t stream) {
-  constexpr int SMEM = smem_bytes<TX, N, R, SAVED>();
+  constexpr int SMEM = smem_bytes<TX, N, R>();
   static const cudaError_t attr_rc = cudaFuncSetAttribute(
-      ssm_scan_bwd_kernel<TX, N, R, SAVED>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+      ssm_scan_bwd_kernel<TX, N, R>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (attr_rc != cudaSuccess) return static_cast<int>(attr_rc);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(a.ncl * cl, B);
@@ -629,30 +633,31 @@ int launch(const Args& a, int B, int cl, cudaStream_t stream) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return static_cast<int>(cudaLaunchKernelEx(&cfg, ssm_scan_bwd_kernel<TX, N, R, SAVED>, a));
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, ssm_scan_bwd_kernel<TX, N, R>, a));
 }
 
-// The kernel of (x dtype, N, R, SAVED) as f(args...): launch, or its
-// shared memory and the CTAs an SM holds.
-template <typename TX, int N, int R, int SAVED>
+// The kernel of (x dtype, N, R): its shared memory and the CTAs an SM
+// holds.
+template <typename TX, int N, int R>
 int config(int* out) {
-  constexpr int SMEM = smem_bytes<TX, N, R, SAVED>();
-  cudaError_t rc = cudaFuncSetAttribute(ssm_scan_bwd_kernel<TX, N, R, SAVED>,
+  constexpr int SMEM = smem_bytes<TX, N, R>();
+  cudaError_t rc = cudaFuncSetAttribute(ssm_scan_bwd_kernel<TX, N, R>,
                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   int per_sm = 0;
   if (rc == cudaSuccess)
     rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, ssm_scan_bwd_kernel<TX, N, R, SAVED>, THREADS, SMEM);
+        &per_sm, ssm_scan_bwd_kernel<TX, N, R>, THREADS, SMEM);
   out[0] = SMEM;
   out[1] = per_sm;
   return static_cast<int>(rc);
 }
 
-template <typename TX, int SAVED>
+// The kernel of (x dtype, N, R) launched on a, or (a null) its config.
+template <typename TX>
 int dispatch(int N, int R, const Args* a, int B, int cl, cudaStream_t st, int* out) {
 #define SSM_BWD_CASE(NN, RR)                                                   \
   if (N == NN && R == RR)                                                      \
-    return a ? launch<TX, NN, RR, SAVED>(*a, B, cl, st) : config<TX, NN, RR, SAVED>(out);
+    return a ? launch<TX, NN, RR>(*a, B, cl, st) : config<TX, NN, RR>(out);
   SSM_BWD_CASE(16, 2)
   SSM_BWD_CASE(16, 4)
   SSM_BWD_CASE(8, 2)
@@ -661,12 +666,10 @@ int dispatch(int N, int R, const Args* a, int B, int cl, cudaStream_t st, int* o
   return -1;
 }
 
-int dispatch_all(int x_dtype, int chunk, int N, int R, const Args* a, int B, int cl,
-                 cudaStream_t st, int* out) {
-  if (x_dtype == 0 && chunk == 16) return dispatch<float, 16>(N, R, a, B, cl, st, out);
-  if (x_dtype == 0 && chunk == 32) return dispatch<float, 32>(N, R, a, B, cl, st, out);
-  if (x_dtype == 1 && chunk == 16) return dispatch<__nv_bfloat16, 16>(N, R, a, B, cl, st, out);
-  if (x_dtype == 1 && chunk == 32) return dispatch<__nv_bfloat16, 32>(N, R, a, B, cl, st, out);
+int dispatch_all(int x_dtype, int N, int R, const Args* a, int B, int cl, cudaStream_t st,
+                 int* out) {
+  if (x_dtype == 0) return dispatch<float>(N, R, a, B, cl, st, out);
+  if (x_dtype == 1) return dispatch<__nv_bfloat16>(N, R, a, B, cl, st, out);
   return -1;
 }
 
@@ -677,23 +680,22 @@ extern "C" int ssm_scan_bwd_states(int B, int di, int N) { return choose_r(B, di
 
 // Floats of the workspace ssm_scan_bwd needs at these sizes (R 0: its own
 // choice): the clusters' dB | dC rows, then the batch rows' dA.
-extern "C" int64_t ssm_scan_bwd_workspace(int B, int S, int di, int N, int R, int chunk) {
+extern "C" int64_t ssm_scan_bwd_workspace(int B, int S, int di, int N, int R) {
   if (R == 0) R = choose_r(B, di, N);
   const int nblk = blocks(di, N, R), cl = cluster_size(nblk);
   const int64_t ncl = (nblk + cl - 1) / cl;
-  const int64_t sp = static_cast<int64_t>((S + chunk - 1) / chunk) * chunk;
+  const int64_t sp = static_cast<int64_t>((S + SAVED - 1) / SAVED) * SAVED;
   return B * ncl * sp * 2 * N + static_cast<int64_t>(B) * di * N;
 }
 
 // The design the backward runs at these sizes: out[0..6] = R, steps a
 // sub-chunk, blocks a cluster, clusters a batch row, shared memory a CTA
 // (bytes), CTAs an SM, CTAs of the grid. Returns 0, a cudaError_t or -1.
-extern "C" int ssm_scan_bwd_config(int x_dtype, int B, int di, int N, int R, int chunk,
-                                   int* out) {
+extern "C" int ssm_scan_bwd_config(int x_dtype, int B, int di, int N, int R, int* out) {
   if (R == 0) R = choose_r(B, di, N);
   const int nblk = blocks(di, N, R), cl = cluster_size(nblk), ncl = (nblk + cl - 1) / cl;
   int occ[2] = {0, 0};
-  const int rc = dispatch_all(x_dtype, chunk, N, R, nullptr, B, cl, nullptr, occ);
+  const int rc = dispatch_all(x_dtype, N, R, nullptr, B, cl, nullptr, occ);
   out[0] = R;
   out[1] = 32 / R;
   out[2] = cl;
@@ -708,10 +710,10 @@ extern "C" int ssm_scan_bwd_config(int x_dtype, int B, int di, int N, int R, int
 // float32 (x_dtype 0) or bfloat16 (x_dtype 1). dt, x, dy: logical (B, S,
 // di) with (batch, step) element strides; bm, cm: logical (B, S, N) with
 // (batch, step) strides; the last dimension contiguous everywhere. A (di,
-// N); hs (B, ceil(S / chunk), di, N), as ssm_scan_fwd writes it with the
-// same chunk, 16 or 32; dh_final (B, di, N) or null. Outputs, contiguous:
+// N); hs (B, ceil(S / chunk), di, N), as ssm_scan_fwd writes it, where
+// chunk must be SAVED; dh_final (B, di, N) or null. Outputs, contiguous:
 // ddt and dx (B, S, di), dB and dC (B, S, N), dA (di, N), dh0 (B, di, N).
-// work: ssm_scan_bwd_workspace(B, S, di, N, R, chunk) floats. R: 2 or 4,
+// work: ssm_scan_bwd_workspace(B, S, di, N, R) floats. R: 2 or 4,
 // or 0 for ssm_scan_bwd_states' choice. Two kernels on one stream, the
 // first a cluster launch. Returns 0, a cudaError_t, or -1 for arguments
 // the kernels do not take.
@@ -722,7 +724,7 @@ extern "C" int ssm_scan_bwd(int x_dtype, const void* dt, const void* x, const vo
                             int N, int64_t dt_sb, int64_t dt_ss, int64_t x_sb, int64_t x_ss,
                             int64_t b_sb, int64_t b_ss, int64_t c_sb, int64_t c_ss,
                             int64_t dy_sb, int64_t dy_ss, int R, void* stream) {
-  if (B <= 0 || S <= 0 || di <= 0 || B > 65535 || (chunk != 16 && chunk != 32) ||
+  if (B <= 0 || S <= 0 || di <= 0 || B > 65535 || chunk != SAVED ||
       (x_dtype != 0 && x_dtype != 1))
     return -1;
   if (R == 0) R = choose_r(B, di, N);
@@ -741,7 +743,7 @@ extern "C" int ssm_scan_bwd(int x_dtype, const void* dt, const void* x, const vo
   a.dt_sb = dt_sb; a.dt_ss = dt_ss; a.x_sb = x_sb; a.x_ss = x_ss;
   a.b_sb = b_sb; a.b_ss = b_ss; a.c_sb = c_sb; a.c_ss = c_ss;
   a.dy_sb = dy_sb; a.dy_ss = dy_ss;
-  a.S = S; a.di = di; a.nc = (S + chunk - 1) / chunk;
+  a.S = S; a.di = di; a.nc = (S + SAVED - 1) / SAVED;
   const int nblk = blocks(di, N, R), cl = cluster_size(nblk);
   a.ncl = (nblk + cl - 1) / cl;
   const int xe = x_dtype == 1 ? 2 : 4;   // bytes per element of x
@@ -753,16 +755,16 @@ extern "C" int ssm_scan_bwd(int x_dtype, const void* dt, const void* x, const vo
   a.vec = di % 4 == 0 && rows(dt, dt_sb, dt_ss, 4, 16) && rows(x, x_sb, x_ss, xe, 4 * xe) &&
           rows(dy, dy_sb, dy_ss, 4, 16) && rows(bm, b_sb, b_ss, 4, 16) &&
           rows(cm, c_sb, c_ss, 4, 16) && rows(ddt, 0, di, 4, 16) && rows(dx, 0, di, xe, 4 * xe);
-  const int64_t rows_ws = static_cast<int64_t>(B) * a.ncl * a.nc * chunk * 2 * N;
+  const int64_t rows_ws = static_cast<int64_t>(B) * a.ncl * a.nc * SAVED * 2 * N;
   a.ws = static_cast<float*>(work);
   a.ws_a = a.ws + rows_ws;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int rc = dispatch_all(x_dtype, chunk, N, R, &a, B, cl, st, nullptr);
+  const int rc = dispatch_all(x_dtype, N, R, &a, B, cl, st, nullptr);
   if (rc != 0) return rc;
   const int64_t total = static_cast<int64_t>(B) * S * 2 * N + static_cast<int64_t>(di) * N;
   const int threads = 256;
   ssm_scan_bwd_sum_kernel<<<static_cast<unsigned>((total + threads - 1) / threads), threads, 0,
                             st>>>(a.ws, a.ws_a, static_cast<float*>(dB), static_cast<float*>(dC),
-                                  static_cast<float*>(dA), B, S, a.nc * chunk, a.ncl, di, N);
+                                  static_cast<float*>(dA), B, S, a.nc * SAVED, a.ncl, di, N);
   return static_cast<int>(cudaGetLastError());
 }

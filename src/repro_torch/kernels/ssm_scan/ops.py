@@ -15,9 +15,8 @@ forward launches the forward kernel, which then also writes the state at
 every ``CHUNK``-th step (`selective_scan_states`), and its backward
 launches the hand-written backward (``csrc/ssm_scan_bwd.cu``, its own
 library, `selective_scan_bwd`) on those states; ``bwd_launches`` counts
-those. Both kernels also take the other interval of ``CHUNKS`` (the
-``chunk`` keyword), for measurements; `bwd_config` says how the backward
-runs at a shape. On CPU tensors the same Function runs `ssm_scan_ref` and
+those. `bwd_config` says how the backward runs at a shape. On CPU
+tensors the same Function runs `ssm_scan_ref` and
 `ssm_scan_ref_bwd`, so the CPU tests drive its wiring; a CUDA tensor
 never reaches the plain versions. Under ``torch.inference_mode``
 (prefill) nothing of that runs and the forward saves no states. A failed
@@ -41,10 +40,11 @@ STATES = (8, 16)
 PER_THREAD = (2, 4, 8, 16)
 #: ... and the backward kernel
 BWD_PER_THREAD = (2, 4)
-#: the intervals (steps between two saved states) both kernels take
-CHUNKS = (16, 32)
-#: ... and the one the training path saves (the faster backward at the
-#: training shapes; at R 2 it walks each interval as one sub-chunk)
+#: steps between two states the forward saves for the backward (CHUNK in
+#: ssm_scan.cu, SAVED in ssm_scan_bwd.cu; a library built with another
+#: value refuses the call). Of 16 and 32, timed on an H100, 16 gave the
+#: faster backward at hymba-1.5b's training shape and at B 1 x S 2048; at
+#: falcon-mamba-7b's, 32 at R 2 was 2.8% faster and cheaper to save
 CHUNK = 16
 #: what `bwd_config` reports, in the order the C entry writes it
 BWD_CONFIG = ("states_per_thread", "sub_chunk", "cluster", "clusters_per_row",
@@ -77,9 +77,9 @@ def _lib_bwd():
         lib.ssm_scan_bwd_states.restype = X.i32
         lib.ssm_scan_bwd_states.argtypes = [X.i32] * 3
         lib.ssm_scan_bwd_workspace.restype = X.i64
-        lib.ssm_scan_bwd_workspace.argtypes = [X.i32] * 6
+        lib.ssm_scan_bwd_workspace.argtypes = [X.i32] * 5
         lib.ssm_scan_bwd_config.restype = X.i32
-        lib.ssm_scan_bwd_config.argtypes = [X.i32] * 6 + [X.ptr]
+        lib.ssm_scan_bwd_config.argtypes = [X.i32] * 5 + [X.ptr]
     return lib
 
 
@@ -94,22 +94,16 @@ def bwd_states_per_thread(B: int, di: int, N: int) -> int:
     return _lib_bwd().ssm_scan_bwd_states(B, di, N)
 
 
-def bwd_config(B: int, di: int, N: int, *, R: int = 0, chunk: int = CHUNK,
+def bwd_config(B: int, di: int, N: int, *, R: int = 0,
                xdtype=torch.bfloat16) -> dict:
     """How the backward kernel runs at these sizes on this card (R 0:
     its own choice): the keys of ``BWD_CONFIG`` (shared memory a CTA in
     bytes, the CTAs an SM holds, the blocks of a cluster, ...)."""
-    _check_chunk(chunk)
     out = (ctypes.c_int * len(BWD_CONFIG))()
     rc = _lib_bwd().ssm_scan_bwd_config(X.DTYPE_CODES[xdtype], B, di, N, R,
-                                        chunk, out)
+                                        out)
     X.raise_on(BWD_NAME, rc)
     return dict(zip(BWD_CONFIG, out))
-
-
-def _check_chunk(chunk):
-    if chunk not in CHUNKS:
-        raise ValueError(f"{NAME}: chunk={chunk} not one of {CHUNKS}")
 
 
 def _check(dt, xr, Bmat, Cmat, A, h0=None):
@@ -144,10 +138,10 @@ def _check(dt, xr, Bmat, Cmat, A, h0=None):
     return dev
 
 
-def _forward(dt, xr, Bmat, Cmat, A, h0, R, states=False, chunk=CHUNK):
+def _forward(dt, xr, Bmat, Cmat, A, h0, R, states=False):
     """One launch of the forward kernel on CUDA tensors: y, h_final and,
-    with ``states``, the state entering every ``chunk``-th step,
-    (B, ceil(S / chunk), di, N) f32 (its first entry h0)."""
+    with ``states``, the state entering every ``CHUNK``-th step,
+    (B, ceil(S / CHUNK), di, N) f32 (its first entry h0)."""
     N = A.shape[1]
     if N not in STATES:
         raise ValueError(f"{NAME}: state size {N} not in {STATES}")
@@ -156,12 +150,12 @@ def _forward(dt, xr, Bmat, Cmat, A, h0, R, states=False, chunk=CHUNK):
     A, h0 = A.contiguous(), h0.contiguous()
     y = torch.empty((B, S, di), dtype=torch.float32, device=dev)
     h_final = torch.empty((B, di, N), dtype=torch.float32, device=dev)
-    hs = (torch.empty((B, -(-S // chunk), di, N), dtype=torch.float32,
+    hs = (torch.empty((B, -(-S // CHUNK), di, N), dtype=torch.float32,
                       device=dev) if states else None)
     rc = _lib().ssm_scan_fwd(
         X.DTYPE_CODES[xr.dtype], dt.data_ptr(), xr.data_ptr(), Bmat.data_ptr(),
         Cmat.data_ptr(), A.data_ptr(), h0.data_ptr(), y.data_ptr(),
-        h_final.data_ptr(), None if hs is None else hs.data_ptr(), chunk, B,
+        h_final.data_ptr(), None if hs is None else hs.data_ptr(), CHUNK, B,
         S, di, N, dt.stride(0), dt.stride(1), xr.stride(0), xr.stride(1),
         Bmat.stride(0), Bmat.stride(1), Cmat.stride(0), Cmat.stride(1),
         y.stride(0), y.stride(1), R, X.stream(dev))
@@ -178,23 +172,20 @@ def _check_r(R, N, taken):
                          f"N={N})")
 
 
-def selective_scan_states(dt, xr, Bmat, Cmat, A, h0, *, chunk: int = CHUNK):
+def selective_scan_states(dt, xr, Bmat, Cmat, A, h0):
     """The forward kernel with its boundary states on CUDA tensors (one
     launch, no autograd): (y, h_final, hs), hs[:, c] the state entering
-    step c * ``chunk`` (one of ``CHUNKS``), as `selective_scan_bwd` reads
-    it."""
+    step c * ``CHUNK``, as `selective_scan_bwd` reads it."""
     if _check(dt, xr, Bmat, Cmat, A, h0).type != "cuda":
         raise ValueError(f"{NAME}: the kernel runs on a CUDA device, not "
                          f"{dt.device}")
-    _check_chunk(chunk)
-    return _forward(dt, xr, Bmat, Cmat, A, h0, 0, states=True, chunk=chunk)
+    return _forward(dt, xr, Bmat, Cmat, A, h0, 0, states=True)
 
 
 def selective_scan_bwd(dt, xr, Bmat, Cmat, A, hs, dy, dh_final=None, *,
-                       R: int = 0, chunk: int = CHUNK):
+                       R: int = 0):
     """The gradients of `selective_scan` at (dt, xr, Bmat, Cmat, A, h0),
-    given the forward's boundary states ``hs`` (`selective_scan_states`
-    with the same ``chunk``),
+    given the forward's boundary states ``hs`` (`selective_scan_states`),
     dy (B, S, di) f32 (made contiguous in its last dimension if it is not)
     and dh_final (B, di, N) f32 or None (zero): (d(dt), dx in xr's dtype,
     dB, dC, dA, dh0), one launch of the backward kernel (two kernels on
@@ -208,7 +199,6 @@ def selective_scan_bwd(dt, xr, Bmat, Cmat, A, hs, dy, dh_final=None, *,
     B, S, di = dt.shape
     N = A.shape[1]
     _check_r(R, N, BWD_PER_THREAD)
-    _check_chunk(chunk)
     if N not in STATES:
         raise ValueError(f"{BWD_NAME}: state size {N} not in {STATES}")
     if dy.shape != dt.shape or dy.dtype != torch.float32 or dy.device != dev:
@@ -216,7 +206,7 @@ def selective_scan_bwd(dt, xr, Bmat, Cmat, A, hs, dy, dh_final=None, *,
                          f"on {dev}")
     if dy.numel() and dy.stride(-1) != 1:
         dy = dy.contiguous()
-    want = (B, -(-S // chunk), di, N)
+    want = (B, -(-S // CHUNK), di, N)
     if (hs is None or tuple(hs.shape) != want or hs.dtype != torch.float32
             or hs.device != dev or not hs.is_contiguous()):
         raise ValueError(f"{BWD_NAME}: hs must be the forward's contiguous "
@@ -239,14 +229,14 @@ def selective_scan_bwd(dt, xr, Bmat, Cmat, A, hs, dy, dh_final=None, *,
     dA = torch.empty((di, N), dtype=torch.float32, device=dev)
     dh0 = torch.empty((B, di, N), dtype=torch.float32, device=dev)
     lib = _lib_bwd()
-    work = torch.empty(lib.ssm_scan_bwd_workspace(B, S, di, N, R, chunk),
+    work = torch.empty(lib.ssm_scan_bwd_workspace(B, S, di, N, R),
                        dtype=torch.float32, device=dev)
     rc = lib.ssm_scan_bwd(
         X.DTYPE_CODES[xr.dtype], dt.data_ptr(), xr.data_ptr(), Bmat.data_ptr(),
         Cmat.data_ptr(), A.data_ptr(), hs.data_ptr(), dy.data_ptr(),
         None if dh_final is None else dh_final.data_ptr(), ddt.data_ptr(),
         dx.data_ptr(), dB.data_ptr(), dC.data_ptr(), dA.data_ptr(),
-        dh0.data_ptr(), work.data_ptr(), chunk, B, S, di, N, dt.stride(0),
+        dh0.data_ptr(), work.data_ptr(), CHUNK, B, S, di, N, dt.stride(0),
         dt.stride(1), xr.stride(0), xr.stride(1), Bmat.stride(0),
         Bmat.stride(1), Cmat.stride(0), Cmat.stride(1), dy.stride(0),
         dy.stride(1), R, X.stream(dev))

@@ -1048,27 +1048,26 @@ def _scan_grads_close(got, want, xdtype):
 def test_ssm_scan_bwd_matches_plain(card, xdtype, B, S, di, N):
     """The backward kernel on the forward's boundary states against
     `ssm_scan_ref_bwd`, each gradient within 1e-4 of its largest |value|
-    (dx in bf16 within 2e-2), at every R it takes and both state
-    intervals, block counts that are not a multiple of the cluster among
-    them (di 300: 19 blocks at R 2, 10 at R 4; di 176: 11 and 6; hymba's
-    3200: 200 and 100); the forward with its states gives y and h_final
-    bit for bit as the forward without."""
+    (dx in bf16 within 2e-2), at every R it takes, block counts that are
+    not a multiple of the cluster among them (di 300: 19 blocks at R 2, 10
+    at R 4; di 176: 11 and 6; hymba's 3200: 200 and 100); the forward
+    with its states gives y and h_final bit for bit as the forward
+    without."""
     gen = torch.Generator(device=card).manual_seed(30)
     ins, dy, dhf = _scan_bwd_inputs(gen, B, S, di, N, xdtype)
     y, h = selective_scan(*ins)
+    f0 = scan_ops.launches
+    y1, h1, hs = selective_scan_states(*ins)
+    assert scan_ops.launches == f0 + 1
+    assert torch.equal(y, y1) and torch.equal(h, h1)
     want = ssm_scan_ref_bwd(*ins, dy, dhf)
-    for chunk in scan_ops.CHUNKS:
-        f0 = scan_ops.launches
-        y1, h1, hs = selective_scan_states(*ins, chunk=chunk)
-        assert scan_ops.launches == f0 + 1
-        assert torch.equal(y, y1) and torch.equal(h, h1)
-        for R in (0,) + scan_ops.BWD_PER_THREAD:
-            b0 = scan_ops.bwd_launches
-            got = selective_scan_bwd(*ins[:5], hs, dy, dhf, R=R, chunk=chunk)
-            torch.cuda.synchronize()
-            assert scan_ops.bwd_launches == b0 + 1
-            assert got[1].dtype == xdtype
-            _scan_grads_close(got, want, xdtype)
+    for R in (0,) + scan_ops.BWD_PER_THREAD:
+        b0 = scan_ops.bwd_launches
+        got = selective_scan_bwd(*ins[:5], hs, dy, dhf, R=R)
+        torch.cuda.synchronize()
+        assert scan_ops.bwd_launches == b0 + 1
+        assert got[1].dtype == xdtype
+        _scan_grads_close(got, want, xdtype)
 
 
 def test_ssm_scan_bwd_is_deterministic_and_takes_no_dh_final(card):

@@ -86,3 +86,27 @@ def test_ptxas_report_reads_registers_and_spills():
         ("_ZN2tc9dq_kernelILi64EEEvv", 168, 868, 864)]
     assert _build.ptxas_report("") == []
     assert ("-Xptxas", "-v") == _build.NVCC_FLAGS[-2:]
+
+
+def test_substitute_answers_another_library_for_a_while():
+    """`substitute` has `load` answer the library it was given (here the
+    C library, since nothing is compiled on the CPU) inside the block, and
+    give back the one it had after, without building anything."""
+    import ctypes.util
+    path = ctypes.util.find_library("c")
+    assert path
+    before = _build._libs.get("ssm_scan_bwd")
+    with _build.substitute("ssm_scan_bwd", path) as lib:
+        assert _build.load("ssm_scan_bwd") is lib
+    assert _build._libs.get("ssm_scan_bwd") is before
+
+
+def test_scan_bwd_ablation_cuts_apply_to_the_source():
+    """Every copy the scan backward's ablation builds finds the lines it
+    takes out in the source as it is, and differs from it."""
+    from repro_torch.kernels.ssm_scan import ablation
+    source = _build.source("ssm_scan_bwd").read_text()
+    texts = ablation.copies(source)
+    assert set(texts) == {"as is", *ablation.CUTS}
+    assert texts["as is"] == source
+    assert all(texts[name] != source for name in ablation.CUTS)

@@ -11,8 +11,8 @@ seeds:
   port's `ssm_scan_ref`: each gradient within 1e-4 of its largest
   |value| in f32, and dx within 2e-2 where xr is bf16;
 * `design_scan_bwd` repeats the kernel's arithmetic in plain PyTorch:
-  the forward's states at every ``CHUNK``-th step (or 32nd), the
-  intervals and their sub-chunks walked from the last, each recomputed
+  the forward's states at every ``CHUNK``-th step, the intervals and
+  their sub-chunks walked from the last, each recomputed
   once for its decays and rebuilt group by group from them, the sums over
   a channel's states per thread and then over its lanes for a group of
   steps (the reduce-scatter's pairing), the sums over channels per warp,
@@ -206,11 +206,10 @@ def in_order(x, dim):
     return s
 
 
-def design_scan_bwd(dt, xr, Bm, Cm, A, h0, dy, dh_final=None, *, R,
-                    chunk=CHUNK):
+def design_scan_bwd(dt, xr, Bm, Cm, A, h0, dy, dh_final=None, *, R):
     """The backward kernel's arithmetic at R states a thread on states
-    saved every ``chunk`` steps, in f32: (d(dt), dx in xr's dtype, dB, dC,
-    dA, dh0). Intervals of ``chunk`` steps from the last, each in
+    saved every ``CHUNK`` steps, in f32: (d(dt), dx in xr's dtype, dB, dC,
+    dA, dh0). Intervals of ``CHUNK`` steps from the last, each in
     sub-chunks of L = 32 / R steps from the last (the states entering the
     later ones from a pass over the interval's first steps), each
     recomputed once for its decays and the state entering each group of G
@@ -222,12 +221,12 @@ def design_scan_bwd(dt, xr, Bm, Cm, A, h0, dy, dh_final=None, *, R,
     B, S, di = dt.shape
     N = A.shape[1]
     G, CH, W, L = bwd_shape(N, R)
-    nc = -(-S // chunk)
+    nc = -(-S // CHUNK)
     nblk = -(-di // CH)
     cl = cluster_size(nblk)
     ncl = -(-nblk // cl)
     # the masked tail of S, and of di up to whole clusters of blocks
-    ps, pd = nc * chunk - S, ncl * cl * CH - di
+    ps, pd = nc * CHUNK - S, ncl * cl * CH - di
     dt, xr, dy = (F.pad(t, (0, pd, 0, ps)) for t in (dt, xr, dy))
     Bm, Cm = (F.pad(t, (0, 0, 0, ps)) for t in (Bm, Cm))
     A, h0 = F.pad(A, (0, 0, 0, pd)), F.pad(h0, (0, 0, 0, pd))
@@ -241,23 +240,23 @@ def design_scan_bwd(dt, xr, Bm, Cm, A, h0, dy, dh_final=None, *, R,
         return h * a + (dt[:, t] * xr[:, t])[..., None] * Bm[:, t, None, :]
 
     hs, h = [], h0                                # the forward's saved states
-    for t in range(nc * chunk):
-        if t % chunk == 0:
+    for t in range(nc * CHUNK):
+        if t % CHUNK == 0:
             hs.append(h)
         h = step(h, decay(t), t)
     carry = (torch.zeros_like(h0) if dh_final is None
              else F.pad(dh_final.float(), (0, 0, 0, pd)))
     dA = torch.zeros_like(h0)                     # per thread: (b, d, n)
     ddt, dx = torch.zeros_like(dt), torch.zeros_like(dt)
-    ws = torch.zeros((B, ncl, nc * chunk, 2 * N))  # one row per cluster
+    ws = torch.zeros((B, ncl, nc * CHUNK, 2 * N))  # one row per cluster
     for c in range(nc - 1, -1, -1):
-        t0 = c * chunk
+        t0 = c * CHUNK
         starts, h = [hs[c]], hs[c]                # entering each sub-chunk
-        for t in range(t0, t0 + chunk - L):
+        for t in range(t0, t0 + CHUNK - L):
             h = step(h, decay(t), t)
             if (t - t0) % L == L - 1:
                 starts.append(h)
-        for sub in range(chunk // L - 1, -1, -1):
+        for sub in range(CHUNK // L - 1, -1, -1):
             s0 = t0 + sub * L
             decays, entering, h = [], [], starts[sub]   # the recompute
             for i in range(L):
@@ -296,8 +295,7 @@ def design_scan_bwd(dt, xr, Bm, Cm, A, h0, dy, dh_final=None, *, R,
             dBC[..., N:], in_order(dA, 0)[:di], carry[:, :di])
 
 
-# (B, S, di, N, R, xdtype, extra keywords of scan_inputs; "chunk": the
-# interval of the saved states, CHUNK where it is not given)
+# (B, S, di, N, R, xdtype, extra keywords of scan_inputs)
 DESIGN_CASES = {
     "N16 R4 ragged S=70 di=40": (1, 70, 40, 16, 4, torch.float32, {}),
     "N16 R2 B=2 S=64": (2, 64, 32, 16, 2, torch.float32, {}),
@@ -313,28 +311,26 @@ DESIGN_CASES = {
         1, 40, 176, 16, 2, torch.float32, {"long_memory": True}),
     "R4 di=80: 3 blocks, clusters of 2, 1 masked": (
         2, 50, 80, 16, 4, torch.bfloat16, {"h0_scale": 1.0}),
-    "R2 chunk 32: two sub-chunks an interval": (
-        1, 70, 48, 16, 2, torch.float32, {"chunk": 32, "rank": 2}),
-    "R4 chunk 32: four sub-chunks an interval": (
+    "R2 ragged S=70 di=48 views": (
+        1, 70, 48, 16, 2, torch.float32, {"rank": 2}),
+    "R4 long memory S=100 bf16: two sub-chunks an interval": (
         1, 100, 64, 16, 4, torch.bfloat16,
-        {"chunk": 32, "long_memory": True, "h0_scale": 1.0}),
-    "N8 R4 chunk 16 ragged": (2, 37, 136, 8, 4, torch.float32, {}),
+        {"long_memory": True, "h0_scale": 1.0}),
+    "N8 R4 ragged S=37 di=136": (2, 37, 136, 8, 4, torch.float32, {}),
 }
 
 
 @pytest.mark.parametrize("case", list(DESIGN_CASES))
 def test_design_scan_bwd_matches_jax_vjp(case):
     B, S, di, N, R, xdtype, kw = DESIGN_CASES[case]
-    kw = dict(kw)
-    chunk = kw.pop("chunk", CHUNK)
     d = scan_inputs(43, B, S, di, N, **kw)
     dhf = None if d["dhf"] is None else torch.from_numpy(d["dhf"])
     args = (*torch_args(d, xdtype), torch.from_numpy(d["dy"]), dhf)
-    got = design_scan_bwd(*args, R=R, chunk=chunk)
+    got = design_scan_bwd(*args, R=R)
     assert got[1].dtype == xdtype
     assert_grads(got, jax_grads(d, xdtype), xdtype)
     assert_grads(got, ssm_scan_ref_bwd(*args), xdtype)
-    again = design_scan_bwd(*args, R=R, chunk=chunk)
+    again = design_scan_bwd(*args, R=R)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
