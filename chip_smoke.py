@@ -79,7 +79,8 @@ Phases, each of which fails the run (exit 1) if it fails:
    sharing one params copy: durable completions, prefetches, exact
    kernel launch counts (every count set to 0 just before the path and
    read just after), the first request replayed through the plain path,
-   peak device memory under 1.5x the params (one copy); for the MoE, one
+   peak device memory under 1.5x the params (one copy), the params' bytes
+   equal to the dry run's at a mesh of one device; for the MoE, one
    decode token through ``moe_dense`` allocating less than an eighth of
    one (E, D, F) expert weight leaf (the weights are read in place,
    never copied); each server is freed before the next path starts;
@@ -103,7 +104,13 @@ Phases, each of which fails the run (exit 1) if it fails:
    4096, through ``repro_torch.launch.train.run`` (a SyntheticCorpus in
    the port's object store, the DataPipeline's prefetch through its
    NexusBackend): loss and grad norm per step, step wall and device time,
-   tokens/s, mfu against 989 TFLOP/s, peak device memory and host RSS,
+   tokens/s, mfu against 989 TFLOP/s, beside it the mfu by
+   ``repro_torch.models.flops.model_flops`` (the reference's convention)
+   and the ratio of the two FLOP counts, the train state that
+   ``train.run`` returns against the dry run's state bytes
+   (``repro_torch.launch.dryrun`` at a mesh of one device: the
+   allocator's requested bytes equal exactly, its allocated bytes the
+   state's blocks), peak device memory and host RSS,
    exact launches of the attention and scan kernels (each forward, its
    recompute under the remat policy and each backward, per layer and
    step), a torch.profiler trace of step 2 with the port's kernels'
@@ -116,13 +123,14 @@ Phases, each of which fails the run (exit 1) if it fails:
    wall time of prefill and of a decode step, device time, device idle
    share, top device ops;
    then the MLServe serving cores (``repro_torch.models.serving``): the
-   scenarios LLM-COLD, LLM-PREFILL and LLM-DECODE (llama3-8b) and EMB
-   (granite-8b), from seed payloads built once per role,
+   scenarios LLM-COLD (tiny scale only), LLM-PREFILL and LLM-DECODE
+   (llama3-8b) and EMB (granite-8b), from seed payloads built once per
+   role,
    through the kernels and then ``plain=True`` on the inputs the kernel
    run decoded (the payloads are not decoded twice): at tiny
    scale (the SMOKE configs, hd 32) with every payload and output length
    equal to ``calibration.json``, and at full published width (llama3-8b
-   32 layers, 16.06 GB of params in one payload or 4 shards, a 2.15 GB
+   32 layers, 16.06 GB of params in one payload, a 2.15 GB
    decode state of 8 x 2048 slots; granite-8b 36 layers, tied head, B 32
    x S 512) with every length equal to ``role_sizes(cfg, 1)``; kernel
    against plain (logits and float cache leaves atol 0.3, rtol 0.05,
@@ -174,7 +182,12 @@ Phases, each of which fails the run (exit 1) if it fails:
    completed, goodput, p50/p99, shed and mean utilisation (modeled
    virtual time), at least 3 policies with distinct (goodput, p99); and
    PlanCheck (``repro_torch.core.analysis``): ``run_matrix()`` clean, and
-   every seeded corruption of ``mutate`` caught with its own code;
+   every seeded corruption of ``mutate`` caught with its own code; then
+   the dry run (``repro_torch.launch.dryrun``) on this machine's host, no
+   kernel launching: every runnable (arch x shape) cell on both
+   production meshes (16x16 and 2x16x16), its per-device argument and
+   output bytes against the card's memory and its analytic and counted
+   FLOPs per device, and ``repro_torch.core.calibrate --check`` true;
 6. each kernel timed at the serve shapes (the attention kernels at
    llama3-8b's, hymba-1.5b's, qwen3-moe-30b-a3b's, yi-34b's and
    qwen2-72b's (decode B 1 and 8) and mixtral-8x22b's (prefill S 8192 with its window, decode on
@@ -267,14 +280,18 @@ BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 LSE_TOL = 1e-4
 SCAN_TOL = 1e-4                 # f32, as tests/test_kernels.py::TestSsmScan
 SCAN_SWEEP = (2, 4, 8)          # states per thread timed in phase 6
-#: the MLServe scenarios driven on the card, by role
-MLSERVE = {"llm": ("LLM-COLD", "LLM-PREFILL", "LLM-DECODE"), "emb": ("EMB",)}
+#: the MLServe scenarios driven on the card, by scale and role. Full
+#: width leaves LLM-COLD out (its kernels are LLM-PREFILL's and
+#: LLM-DECODE's on the same 16 GB of params; what it adds there is the
+#: host join of its 4 weight shards, ~20 s), to pay for the dry-run checks
+MLSERVE = {"tiny": {"llm": ("LLM-COLD", "LLM-PREFILL", "LLM-DECODE"),
+                    "emb": ("EMB",)},
+           "full": {"llm": ("LLM-PREFILL", "LLM-DECODE"), "emb": ("EMB",)}}
 #: the MLServe scenarios the worker node runs at tiny scale, by role
-NODE_TINY = {**MLSERVE, "moe": ("MOE",)}
+NODE_TINY = {**MLSERVE["tiny"], "moe": ("MOE",)}
 #: the scenarios and variants the FaultInjector runs on the card
 FAULTED = ("LLM-PREFILL", "LLM-DECODE")
 FAULTED_SYSTEMS = ("nexus", "baseline")
-MLSERVE_SCALES = ("tiny", "full")
 #: the five systems of the paper's Fig 6 (``SYSTEMS_ORDER`` of
 #: benchmarks/density.py), each searched by the density phase
 DENSITY_SYSTEMS = ("baseline", "nexus-tcp", "nexus-prefetch-only",
@@ -1192,6 +1209,49 @@ class Smoke:
                 DECODE["name"]: decode_ops, SCAN["name"]: scan_ops,
                 SCAN_BWD["name"]: Counter(scan_ops, "bwd_launches")}
 
+    @staticmethod
+    def dry_run(arch, shape, layers=None):
+        """`repro_torch.launch.dryrun.run_cell` of ``arch`` (cut to
+        ``layers`` layers, if given) at ``shape`` on a mesh of one
+        device."""
+        from repro_torch.launch import dryrun
+        from repro_torch.launch.mesh import make_debug_mesh
+        return dryrun.run_cell(arch, shape, extra=(
+            {"num_layers": layers} if layers else None),
+            mesh=make_debug_mesh())
+
+    def held(self):
+        """(allocated, requested) bytes of the caching allocator, after a
+        collection and with cuBLAS's workspaces freed: each allocation
+        counted at its block's size, and at the size it asked for."""
+        torch = self.torch
+        gc.collect()
+        clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+        if clear is not None:
+            clear()
+        return (torch.cuda.memory_allocated(),
+                torch.cuda.memory_stats()["requested_bytes.all.current"])
+
+    def block_sizes(self, tensors):
+        """(the sum of the caching allocator's blocks under the tensors'
+        storages, their count, how many are 512 B or more over their
+        storage), from the allocator's snapshot (a block's address is its
+        segment's plus the sizes of the blocks before it)."""
+        blocks = {}
+        for seg in self.torch.cuda.memory_snapshot():
+            addr = seg["address"]
+            for b in seg["blocks"]:
+                if b["state"] == "active_allocated":
+                    blocks[addr] = b["size"]
+                addr += b["size"]
+        ptrs = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in tensors}
+        missing = [hex(p) for p in ptrs if p not in blocks]
+        if missing:
+            raise AssertionError(f"no allocator block at {missing[:4]}")
+        return (sum(blocks[p] for p in ptrs), len(ptrs),
+                sum(blocks[p] - n >= 512 for p, n in ptrs.items()))
+
     def serve_path(self, arch):
         """Serve ``arch`` at full width, check the run, trace one replica,
         and free the server before the next path. An arch of ``ARCHS``
@@ -1247,6 +1307,14 @@ class Smoke:
         if n_params != cfg.param_count() or leaves[0].device.type != "cuda":
             raise AssertionError(f"{arch}: the params on the card are not "
                                  f"the full model")
+        dry = self.dry_run(arch, "decode_32k", layers)
+        dry_params = dry["memory"]["arguments_B"]["params"]
+        print(f"  {arch}: the dry run's params at a mesh of one device "
+              f"{dry_params} B, the params on the card {param_bytes} B "
+              f"(serialize.tree_nbytes)")
+        if dry_params != param_bytes:
+            raise AssertionError(f"{arch}: the dry run counts {dry_params} B "
+                                 f"of params, the card holds {param_bytes}")
         if peak > 1.5 * param_bytes:
             raise AssertionError(f"{arch}: peak {peak} bytes for "
                                  f"{param_bytes} bytes of params: more than "
@@ -1406,6 +1474,14 @@ class Smoke:
         if n_params != cfg.param_count() or leaves[0].device.type != "cuda":
             raise AssertionError(f"{arch}: the params on the card are not "
                                  f"the full model")
+        dry = self.dry_run(arch, "decode_32k")
+        dry_params = dry["memory"]["arguments_B"]["params"]
+        print(f"  {arch}: the dry run's params at a mesh of one device "
+              f"{dry_params} B, the params on the card {param_bytes} B "
+              f"(serialize.tree_nbytes)")
+        if dry_params != param_bytes:
+            raise AssertionError(f"{arch}: the dry run counts {dry_params} B "
+                                 f"of params, the card holds {param_bytes}")
         del leaves
         L = cfg.num_layers
         if cfg.is_encoder_decoder:      # encoder, decoder and cross layers
@@ -1559,9 +1635,10 @@ class Smoke:
         torch.profiler trace of step ``TRAIN_TRACED`` with the train
         kernels' rows."""
         torch = self.torch
-        from repro_torch.configs import registry
+        from repro_torch.configs import InputShape, registry
         from repro_torch.launch import train
         from repro_torch.models import serialize
+        from repro_torch.models.flops import model_flops
         gc.collect()
         torch.cuda.empty_cache()
         cfg = registry.get(arch)
@@ -1586,6 +1663,7 @@ class Smoke:
                     else contextlib.nullcontext())
 
         counters = self.counters()
+        before = self.held()
         torch.cuda.reset_peak_memory_stats()
         for mod in counters.values():
             mod.launches = 0
@@ -1594,6 +1672,7 @@ class Smoke:
                                ckpt_every=TRAIN_STEPS + 1, device="cuda",
                                step_context=step_context)
         launches = {n: m.launches for n, m in counters.items()}
+        state = result.pop("state")
         path = f"train {cfg.name} x{L}"
         self.launches[path] = launches
         peak = torch.cuda.max_memory_allocated()
@@ -1643,14 +1722,71 @@ class Smoke:
                 math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
                 for r in result["records"]):
             raise AssertionError(f"{path}: not {TRAIN_STEPS} finite steps")
-        if serialize.leaves(result["state"].params)[0].device.type != "cuda":
+        if serialize.leaves(state.params)[0].device.type != "cuda":
             raise AssertionError(f"{path}: the params are not on the card")
+        shape = InputShape("train", S, B, "train")
+        mf = model_flops(cfg, shape)["total"]
+        dev_ms = 1e3 * sum(r["device_s"] for r in result["records"][1:]
+                           if r["step"] != TRAIN_TRACED) / max(1, sum(
+                               1 for r in result["records"][1:]
+                               if r["step"] != TRAIN_TRACED))
+        print(f"  {path}: model_flops(cfg, {shape}) total {mf:.4e} "
+              f"(repro_torch.models.flops) against the count above "
+              f"{flops:.4e}: ratio {mf / flops:.4f}; mfu by model_flops "
+              f"{mf / (wall_ms / 1e3) / BF16_FLOPS_PER_S:.4f} (wall) "
+              f"{mf / (dev_ms / 1e3) / BF16_FLOPS_PER_S:.4f} (device), by "
+              f"the count above {flops / (wall_ms / 1e3) / BF16_FLOPS_PER_S:.4f}"
+              f" (wall) {flops / (dev_ms / 1e3) / BF16_FLOPS_PER_S:.4f} "
+              f"(device), over the untraced steps' mean wall {wall_ms:.1f} ms "
+              f"and device {dev_ms:.1f} ms ({nvidia_smi()})")
         self.train_summary[path] = {
             "records": result["records"], "peak": peak, "rss_peak": rss.peak,
-            "flops": flops, "trace_ms": trace["ms"], "wall_ms": wall_ms}
+            "flops": flops, "model_flops": mf, "trace_ms": trace["ms"],
+            "wall_ms": wall_ms, "device_ms": dev_ms}
         del result, trace
+        self.train_state_bytes(path, cfg, arch, layers, state, before)
+        del state
         gc.collect()
         torch.cuda.empty_cache()
+
+    def train_state_bytes(self, path, cfg, arch, layers, state, before):
+        """The dry run's train-state bytes of ``cfg`` (``arch`` cut to
+        ``layers``) at B ``TRAIN_BATCH`` x S ``TRAIN_SEQ`` on a mesh of one
+        device against what the card holds with only ``state`` alive, less
+        what it held before `train.run` (``before``, from `held`): the
+        requested bytes equal exactly, and the allocated bytes are the
+        state's blocks, each its leaf rounded up by the allocator."""
+        from repro_torch.configs import InputShape
+        from repro_torch.launch import dryrun
+        from repro_torch.launch.sharding import leaves_with_paths
+        shape = InputShape("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+        rec = self.dry_run(arch, shape, layers)
+        dry = rec["memory"]["arguments_B"]["state"]
+        dry_leaves = len(leaves_with_paths(dryrun.step_args(
+            cfg, shape)["state"]))
+        alloc, req = self.held()
+        held, asked = alloc - before[0], req - before[1]
+        leaves = [t for _, t in leaves_with_paths(state)]
+        blocks, n_blocks, wide = self.block_sizes(leaves)
+        print(f"  {path}: train state by the dry run {dry} B in "
+              f"{dry_leaves} leaves ({rec['mesh']}, {rec['step']}; its "
+              f"FLOPs {rec['flops_per_device']:.4e}, {rec['flops_by']}); "
+              f"on the card {asked} B requested, {held} B allocated in "
+              f"{len(leaves)} leaves, {n_blocks} blocks of {blocks} B: "
+              f"{held - dry} B over the dry run, "
+              f"{(held - dry) / n_blocks:.1f} B a block, {wide} blocks "
+              f"512 B or more over their leaf ({nvidia_smi()})")
+        self.train_summary[path].update(state_dry=dry, state_held=held,
+                                        state_asked=asked,
+                                        state_leaves=len(leaves))
+        if asked != dry or len(leaves) != dry_leaves:
+            raise AssertionError(f"{path}: the card holds {asked} B in "
+                                 f"{len(leaves)} leaves beside the state, "
+                                 f"the dry run counts {dry} B in "
+                                 f"{dry_leaves}")
+        if held != blocks:
+            raise AssertionError(f"{path}: {held} B allocated, the state's "
+                                 f"blocks are {blocks} B")
 
     def train_against_plain(self, arch):
         """A 2-layer full-width model of ``arch``, B 1 x S ``TRAIN_SEQ``:
@@ -1762,8 +1898,8 @@ class Smoke:
         torch = self.torch
         from repro_torch.core import calibrate
         from repro_torch.models import serving
-        for scale in MLSERVE_SCALES:
-            for role, scenarios in MLSERVE.items():
+        for scale, roles in MLSERVE.items():
+            for role, scenarios in roles.items():
                 serving._bundle.cache_clear()
                 gc.collect()
                 torch.cuda.empty_cache()
@@ -2632,6 +2768,61 @@ class Smoke:
         if any(self.launches["fleet and plancheck"].values()):
             raise AssertionError("fleet and plancheck: a kernel ran")
 
+    def phase_dryrun(self):
+        """The dry run (`repro_torch.launch.dryrun`) of every runnable cell
+        on both production meshes,
+        on this machine's host, no kernel launching: per cell the
+        per-device argument and output bytes against the card's memory,
+        the analytic and the counted FLOPs per device; the largest
+        argument bytes per shape; then `calibrate.main(["--check"])`,
+        which must find the committed calibration regenerated exactly."""
+        import io
+        torch = self.torch
+        from repro_torch.core import calibrate
+        from repro_torch.launch import dryrun
+        counters = self.counters()
+        for mod in counters.values():
+            mod.launches = 0
+        total = torch.cuda.get_device_properties(0).total_memory
+        cells = dryrun.cells_to_run()
+        largest = {}
+        t0 = time.monotonic()
+        for arch, shape, multi in cells:
+            t = time.monotonic()
+            rec = dryrun.run_cell(arch, shape, multi)
+            arg, out = rec["memory"]["argument_B"], rec["memory"]["output_B"]
+            print(f"  dry run {arch} {shape} {rec['mesh']}: argument_B {arg} "
+                  f"({arg / total:.4f} of the card), output_B {out} "
+                  f"({out / total:.4f}); FLOPs per device "
+                  f"{rec['model_flops_per_device']:.4e} model, "
+                  f"{rec['flops_per_device']:.4e} counted ({rec['flops_by']})"
+                  f"; {time.monotonic() - t:.2f}s")
+            if arg > largest.get(shape, (0,))[0]:
+                largest[shape] = (arg, arch, rec["mesh"])
+        passes = time.monotonic() - t0
+        for shape, (arg, arch, mesh) in largest.items():
+            print(f"  dry run {shape}: the largest argument_B {arg} B "
+                  f"({arch}, {mesh}), {arg / total:.4f} of the card's "
+                  f"{total} B ({torch.cuda.get_device_name(0)})")
+        archs = sorted({a for a, _, _ in cells})
+        print(f"  dry run: {len(cells)} cells of {len(archs)} archs "
+              f"({', '.join(archs)}) on both meshes in {passes:.1f}s")
+        buf = io.StringIO()
+        t = time.monotonic()
+        try:
+            with contextlib.redirect_stdout(buf):
+                same = calibrate.main(["--check"])
+        except SystemExit:
+            same = False
+        print(f"  calibrate --check: {buf.getvalue().splitlines()[-1]} "
+              f"({time.monotonic() - t:.1f}s)")
+        self.launches["dry run"] = {n: m.launches
+                                    for n, m in counters.items()}
+        if not same:
+            raise AssertionError("the calibration does not regenerate")
+        if any(self.launches["dry run"].values()):
+            raise AssertionError("dry run: a kernel ran")
+
     def fleet_policies(self):
         import multiprocessing
         from concurrent.futures import ProcessPoolExecutor
@@ -3005,10 +3196,12 @@ class Smoke:
         the projection) by graph replay, without its boundary states (the
         serve paths' code) and with them (the train path's): what saving
         them costs. Each beside its bound by bytes (as `time_scan`'s,
-        plus the states written)."""
+        plus the states written) and the plain version of both,
+        `ssm_scan_ref` (eager, one call)."""
         from repro_torch.kernels.ssm_scan import ops as scan_ops
         from repro_torch.kernels.ssm_scan import (selective_scan,
                                                   selective_scan_states)
+        from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
         N = 16
         g = self.gen(14)
         sets = [self.scan_inputs(g, B, S, di, xdtype=self.torch.bfloat16,
@@ -3022,13 +3215,16 @@ class Smoke:
                "states_ms": self.time_ms(lambda s: selective_scan_states(*s),
                                          sets, 20, graph=True),
                "bound_ms": self.bound(nbytes, 0)[0],
-               "states_bound_ms": self.bound(nbytes + states, 0)[0]}
+               "states_bound_ms": self.bound(nbytes + states, 0)[0],
+               "plain_ms": self.time_ms(lambda s: ssm_scan_ref(*s), sets[:1],
+                                        1)}
         print(f"  ssm_scan bf16 B={B} S={S} di={di} N={N} ({arch}): without "
               f"states {row['ms']:.4f} ms (bound {row['bound_ms']:.4f} ms, "
               f"bytes), with a state every {scan_ops.CHUNK} steps "
               f"{row['states_ms']:.4f} ms (bound "
               f"{row['states_bound_ms']:.4f} ms, {states / 1e6:.1f} MB of "
-              f"states more) ({row['states_ms'] / row['ms'] - 1:+.1%})")
+              f"states more) ({row['states_ms'] / row['ms'] - 1:+.1%}); "
+              f"plain ssm_scan_ref {row['plain_ms']:.4f} ms")
         return row
 
     def time_scan_bwd(self, B, S, di, rank, arch):
@@ -3164,6 +3360,7 @@ def main() -> int:
     phases.append(("worker node", smoke.phase_node))
     phases.append(("density", smoke.phase_density))
     phases.append(("fleet and plancheck", smoke.phase_fleet))
+    phases.append(("dry run", smoke.phase_dryrun))
     phases.append(("timing", smoke.phase_timing))
     for name, fn in phases:
         print(f"== {name}", flush=True)

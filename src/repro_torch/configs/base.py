@@ -1,8 +1,11 @@
-"""Config system: the model config and the registry of the port.
+"""Config system: model configs, input shapes, the registry and the cells.
 
-``ModelConfig`` is a copy of ``repro.configs.base.ModelConfig`` (same
-fields, same defaults, same derived values). The registry holds the
-architectures the port runs so far; any other raises.
+``ModelConfig``, ``InputShape``, ``SHAPES``, ``ARCH_IDS``,
+`cell_is_runnable` and `all_cells` are copies of the reference's
+``repro.configs.base`` (same fields, defaults, values and order). The
+registry resolves an arch id ("qwen2-72b") or module name ("qwen2_72b")
+to its ``CONFIG`` (the published dims) or ``SMOKE`` (a reduced config of
+the same family for CPU tests); any other name raises.
 """
 from __future__ import annotations
 
@@ -102,18 +105,39 @@ class ModelConfig:
         return model_registry.param_count(self, active_only=True)
 
 
-#: the architectures the port runs so far
+@dataclass(frozen=True)
+class InputShape:
+    """One (named) input-shape regime from the assignment."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                       # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+# The four assigned LM shape regimes (identical across the 10 archs).
+SHAPES: dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
 ARCH_IDS = [
-    "llama3-8b",
-    "falcon-mamba-7b",
-    "hymba-1.5b",
-    "qwen3-moe-30b-a3b",
-    "granite-8b",
-    "yi-34b",
     "qwen2-72b",
-    "mixtral-8x22b",
+    "llama3-8b",
+    "yi-34b",
+    "granite-8b",
+    "falcon-mamba-7b",
     "internvl2-2b",
+    "qwen3-moe-30b-a3b",
+    "mixtral-8x22b",
     "seamless-m4t-large-v2",
+    "hymba-1.5b",
 ]
 
 
@@ -127,8 +151,8 @@ class _Registry:
 
     def _load(self, arch_id: str):
         if arch_id not in ARCH_IDS and arch_id not in map(_module_name, ARCH_IDS):
-            raise KeyError(f"architecture {arch_id!r} is not ported yet "
-                           f"(the port has {', '.join(ARCH_IDS)})")
+            raise KeyError(f"architecture {arch_id!r} is not ported "
+                           f"(the registry has {', '.join(ARCH_IDS)})")
         key = _module_name(arch_id)
         if key not in self._cache:
             self._cache[key] = importlib.import_module(
@@ -146,3 +170,16 @@ class _Registry:
 
 
 registry = _Registry()
+
+
+def cell_is_runnable(cfg: ModelConfig, shape: InputShape) -> tuple[bool, str]:
+    """Whether an (arch x shape) dry-run cell runs: long_500k needs
+    sub-quadratic attention."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, "skip(full-attn): long_500k needs sub-quadratic attention"
+    return True, ""
+
+
+def all_cells() -> list[tuple[str, str]]:
+    """All 40 nominal (arch_id, shape_name) cells in assignment order."""
+    return [(a, s) for a in ARCH_IDS for s in SHAPES]

@@ -98,14 +98,15 @@ def _empty_stacked(layer, n):
 def init_stack(init_layer, generator, cfg, n, dtype, device):
     """``n`` layers of ``init_layer`` drawn one at a time into a stacked
     tree, so peak memory is the stack plus one layer; on the meta device
-    the tree of structs."""
+    the tree of structs, from one layer's shapes."""
     stacked = None
     for i in range(n):
         layer = init_layer(generator, cfg, dtype, device)
         if stacked is None:
             stacked = _empty_stacked(layer, n)
-        if device.type != "meta":
-            _stack_into(stacked, layer, i)
+        if device.type == "meta":
+            break
+        _stack_into(stacked, layer, i)
     return stacked
 
 

@@ -86,7 +86,7 @@ def _chunk_step(h, dtc, xrc, bc, cc, A):
     return torch.einsum("bsdn,bsn->bsd", h_all, cc), h_all[:, -1]
 
 
-def ssm_scan_chunked(dt, xr, Bmat, Cmat, A, h0, chunk=SCAN_CHUNK,
+def ssm_scan_chunked(dt, xr, Bmat, Cmat, A, h0, chunk=None,
                      inner_remat=False):
     """Selective scan h_t = exp(dt_t*A)*h_{t-1} + dt_t*B_t*x_t, emitting
     y_t = <h_t, C_t>, chunk by chunk: the model path's plain version.
@@ -94,7 +94,8 @@ def ssm_scan_chunked(dt, xr, Bmat, Cmat, A, h0, chunk=SCAN_CHUNK,
     Inside a chunk a doubling scan with the reference's combine
     (a1 + a2, b1 * exp(a2) + b2) gives every step's state from the
     chunk's first; only (B, chunk, di, N) is ever materialised, never
-    (B, S, di, N). The last chunk may be short (no padding). With
+    (B, S, di, N). ``chunk`` defaults to ``SCAN_CHUNK``, read at the
+    call. The last chunk may be short (no padding). With
     ``inner_remat`` and grad enabled each chunk runs under
     ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its
     chunk step): autograd keeps only each chunk's inputs and state, and
@@ -106,6 +107,7 @@ def ssm_scan_chunked(dt, xr, Bmat, Cmat, A, h0, chunk=SCAN_CHUNK,
     Returns (y (B, S, di) f32, h_final (B, di, N) f32).
     """
     S = dt.shape[1]
+    chunk = chunk or SCAN_CHUNK
     remat = inner_remat and torch.is_grad_enabled()
     h = h0.float()
     ys = []

@@ -30,8 +30,8 @@ print("MODULES", " ".join(sorted(n for n in sys.modules
 """
 
 #: the copies of the node's planes, of the density simulator, of the
-#: fleet model and of PlanCheck, and the training modules, which must be
-#: in the probe's graph
+#: fleet model and of PlanCheck, the training modules, and the FLOPs
+#: model and the dry run's modules, which must be in the probe's graph
 PLANES = ("repro_torch.core.cache", "repro_torch.core.faults",
           "repro_torch.core.workloads", "repro_torch.core.analysis.verify",
           "repro_torch.core.backend", "repro_torch.core.runtime",
@@ -41,7 +41,18 @@ PLANES = ("repro_torch.core.cache", "repro_torch.core.faults",
           "repro_torch.core.analysis.driver",
           "repro_torch.core.analysis.__main__",
           "repro_torch.optim.adamw", "repro_torch.checkpoint.ckpt",
-          "repro_torch.data.pipeline", "repro_torch.launch.train")
+          "repro_torch.data.pipeline", "repro_torch.launch.train",
+          "repro_torch.models.flops", "repro_torch.launch.mesh",
+          "repro_torch.launch.sharding", "repro_torch.launch.specs",
+          "repro_torch.launch.dryrun")
+
+_ENV_PROBE = """
+import os
+before = dict(os.environ)
+import repro_torch.launch.dryrun
+print("CHANGED", sorted(k for k in set(before) | set(os.environ)
+                        if before.get(k) != os.environ.get(k)))
+"""
 
 
 def test_port_imports_no_jax_and_no_reference():
@@ -53,6 +64,17 @@ def test_port_imports_no_jax_and_no_reference():
     assert int(lines["IMPORTED"]) >= 20
     assert lines["BAD"] == "[]"
     assert set(PLANES) <= set(lines["MODULES"].split())
+
+
+def test_dryrun_import_sets_no_environment():
+    """The reference's dry run sets XLA_FLAGS when imported; the port's
+    sets nothing."""
+    env = {"PYTHONPATH": f"{ROOT / 'src'}", "PATH": "/usr/bin:/bin"}
+    out = subprocess.run([sys.executable, "-c", _ENV_PROBE], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.splitlines()[-1] == "CHANGED []"
 
 
 @pytest.fixture

@@ -15,6 +15,7 @@ the cores are held against the reference's cores on the reference's own
 * MoE routing: a different expert is excused only at a router margin
   within 2e-2 (`test_torch_model.RoutingSpy`).
 """
+import dataclasses
 import functools
 
 import jax
@@ -117,17 +118,33 @@ class TokenSpy:
 # ------------------------------------------------------- calibrate copy
 
 def test_calibrate_constants_equal_reference():
-    """Every name the port's read side keeps equals the reference's; the
-    derivation's names (the machine profiles, the phase list, the format
-    version) stay with the reference."""
+    """Every constant of the port's copy equals the reference's, the
+    derivation's too: the machine profiles field for field, the phase
+    list and the format version."""
     for name in ("ML_ROLES", "SERVING_SHAPES", "ROLE_SHARDS",
-                 "LLM_WEIGHT_SHARDS", "MOE_SHARDS", "SCALES"):
+                 "LLM_WEIGHT_SHARDS", "MOE_SHARDS", "SCALES", "PHASES",
+                 "CALIBRATION_VERSION"):
         assert getattr(calibrate, name) == getattr(ref_calibrate, name), name
     assert fabric.GHZ_MCYC_PER_S == ref_fabric.GHZ_MCYC_PER_S
     assert set(calibrate.SCALES) == set(ref_calibrate.MACHINES)
-    for name in ("MachineProfile", "MACHINES", "PHASES",
-                 "CALIBRATION_VERSION"):
-        assert not hasattr(calibrate, name), name
+    assert calibrate.MACHINES.keys() == ref_calibrate.MACHINES.keys()
+    for scale, machine in calibrate.MACHINES.items():
+        assert (dataclasses.asdict(machine)
+                == dataclasses.asdict(ref_calibrate.MACHINES[scale]))
+    assert ([f.name for f in dataclasses.fields(calibrate.MachineProfile)]
+            == [f.name for f in
+                dataclasses.fields(ref_calibrate.MachineProfile)])
+
+
+@pytest.mark.parametrize("scale", list(calibrate.MACHINES))
+def test_machine_profile_prices_as_reference(scale):
+    """`seconds` and `mcycles` equal as floats, compute- and
+    memory-bound."""
+    machine, ref = calibrate.MACHINES[scale], ref_calibrate.MACHINES[scale]
+    for flops_, hbm in ((0.0, 0.0), (1e9, 1.0), (1.0, 1e9),
+                        (3.7e13, 2.1e10), (123456.789, 98765.4321)):
+        assert machine.seconds(flops_, hbm) == ref.seconds(flops_, hbm)
+        assert machine.mcycles(flops_, hbm) == ref.mcycles(flops_, hbm)
 
 
 @pytest.mark.parametrize("shards", [1, 2, 3, 4, 7])
@@ -147,6 +164,20 @@ def test_calibration_json_is_byte_identical():
     assert calibrate.load_calibration() is calibrate.load_calibration()
     with pytest.raises(KeyError, match="no calibration for huge/llm"):
         calibrate.model_entry("huge", "llm")
+
+
+def test_derive_calibration_equals_committed(tmp_path, capsys):
+    """The port's derivation regenerates the committed calibration: equal
+    as data, byte for byte through `dump_calibration`, and `--check`
+    passes."""
+    cal = calibrate.derive_calibration()
+    assert cal == calibrate.load_calibration()
+    path = calibrate.dump_calibration(cal, str(tmp_path / "cal.json"))
+    with open(path, "rb") as a, open(calibrate.CALIBRATION_PATH, "rb") as b:
+        assert a.read() == b.read()
+    assert calibrate.main(["--check"]) is True
+    assert ("matches committed calibration.json: True"
+            in capsys.readouterr().out)
 
 
 @pytest.mark.parametrize("scale,role", PAIRS)
