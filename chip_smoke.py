@@ -123,14 +123,13 @@ Phases, each of which fails the run (exit 1) if it fails:
    wall time of prefill and of a decode step, device time, device idle
    share, top device ops;
    then the MLServe serving cores (``repro_torch.models.serving``): the
-   scenarios LLM-COLD (tiny scale only), LLM-PREFILL and LLM-DECODE
-   (llama3-8b) and EMB (granite-8b), from seed payloads built once per
-   role,
+   scenarios LLM-COLD, LLM-PREFILL and LLM-DECODE (llama3-8b) and EMB
+   (granite-8b), from seed payloads built once per role,
    through the kernels and then ``plain=True`` on the inputs the kernel
    run decoded (the payloads are not decoded twice): at tiny
    scale (the SMOKE configs, hd 32) with every payload and output length
    equal to ``calibration.json``, and at full published width (llama3-8b
-   32 layers, 16.06 GB of params in one payload, a 2.15 GB
+   32 layers, 16.06 GB of params in one payload or 4 shards, a 2.15 GB
    decode state of 8 x 2048 slots; granite-8b 36 layers, tied head, B 32
    x S 512) with every length equal to ``role_sizes(cfg, 1)``; kernel
    against plain (logits and float cache leaves atol 0.3, rtol 0.05,
@@ -280,18 +279,14 @@ BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 LSE_TOL = 1e-4
 SCAN_TOL = 1e-4                 # f32, as tests/test_kernels.py::TestSsmScan
 SCAN_SWEEP = (2, 4, 8)          # states per thread timed in phase 6
-#: the MLServe scenarios driven on the card, by scale and role. Full
-#: width leaves LLM-COLD out (its kernels are LLM-PREFILL's and
-#: LLM-DECODE's on the same 16 GB of params; what it adds there is the
-#: host join of its 4 weight shards, ~20 s), to pay for the dry-run checks
-MLSERVE = {"tiny": {"llm": ("LLM-COLD", "LLM-PREFILL", "LLM-DECODE"),
-                    "emb": ("EMB",)},
-           "full": {"llm": ("LLM-PREFILL", "LLM-DECODE"), "emb": ("EMB",)}}
+#: the MLServe scenarios driven on the card, by role
+MLSERVE = {"llm": ("LLM-COLD", "LLM-PREFILL", "LLM-DECODE"), "emb": ("EMB",)}
 #: the MLServe scenarios the worker node runs at tiny scale, by role
-NODE_TINY = {**MLSERVE["tiny"], "moe": ("MOE",)}
+NODE_TINY = {**MLSERVE, "moe": ("MOE",)}
 #: the scenarios and variants the FaultInjector runs on the card
 FAULTED = ("LLM-PREFILL", "LLM-DECODE")
 FAULTED_SYSTEMS = ("nexus", "baseline")
+MLSERVE_SCALES = ("tiny", "full")
 #: the five systems of the paper's Fig 6 (``SYSTEMS_ORDER`` of
 #: benchmarks/density.py), each searched by the density phase
 DENSITY_SYSTEMS = ("baseline", "nexus-tcp", "nexus-prefetch-only",
@@ -1210,15 +1205,28 @@ class Smoke:
                 SCAN_BWD["name"]: Counter(scan_ops, "bwd_launches")}
 
     @staticmethod
-    def dry_run(arch, shape, layers=None):
-        """`repro_torch.launch.dryrun.run_cell` of ``arch`` (cut to
-        ``layers`` layers, if given) at ``shape`` on a mesh of one
-        device."""
+    def dry_cell(arch, shape, layers=None):
+        """`repro_torch.launch.dryrun.build_cell` of ``arch`` (cut to
+        ``layers`` layers, if given) at ``shape`` on a mesh of one device:
+        the step's inputs and their bytes, without a meta pass (the
+        passes run in the host's "dry run" phase only)."""
         from repro_torch.launch import dryrun
         from repro_torch.launch.mesh import make_debug_mesh
-        return dryrun.run_cell(arch, shape, extra=(
+        return dryrun.build_cell(arch, shape, extra=(
             {"num_layers": layers} if layers else None),
             mesh=make_debug_mesh())
+
+    def check_dry_params(self, arch, layers, param_bytes):
+        """The dry run's param bytes of ``arch`` (cut to ``layers``) at a
+        mesh of one device equal to the params on the card."""
+        dry_params = self.dry_cell(arch, "decode_32k",
+                                   layers).argument_bytes()["params"]
+        print(f"  {arch}: the dry run's params at a mesh of one device "
+              f"{dry_params} B, the params on the card {param_bytes} B "
+              f"(serialize.tree_nbytes)")
+        if dry_params != param_bytes:
+            raise AssertionError(f"{arch}: the dry run counts {dry_params} B "
+                                 f"of params, the card holds {param_bytes}")
 
     def held(self):
         """(allocated, requested) bytes of the caching allocator, after a
@@ -1307,14 +1315,7 @@ class Smoke:
         if n_params != cfg.param_count() or leaves[0].device.type != "cuda":
             raise AssertionError(f"{arch}: the params on the card are not "
                                  f"the full model")
-        dry = self.dry_run(arch, "decode_32k", layers)
-        dry_params = dry["memory"]["arguments_B"]["params"]
-        print(f"  {arch}: the dry run's params at a mesh of one device "
-              f"{dry_params} B, the params on the card {param_bytes} B "
-              f"(serialize.tree_nbytes)")
-        if dry_params != param_bytes:
-            raise AssertionError(f"{arch}: the dry run counts {dry_params} B "
-                                 f"of params, the card holds {param_bytes}")
+        self.check_dry_params(arch, layers, param_bytes)
         if peak > 1.5 * param_bytes:
             raise AssertionError(f"{arch}: peak {peak} bytes for "
                                  f"{param_bytes} bytes of params: more than "
@@ -1474,14 +1475,7 @@ class Smoke:
         if n_params != cfg.param_count() or leaves[0].device.type != "cuda":
             raise AssertionError(f"{arch}: the params on the card are not "
                                  f"the full model")
-        dry = self.dry_run(arch, "decode_32k")
-        dry_params = dry["memory"]["arguments_B"]["params"]
-        print(f"  {arch}: the dry run's params at a mesh of one device "
-              f"{dry_params} B, the params on the card {param_bytes} B "
-              f"(serialize.tree_nbytes)")
-        if dry_params != param_bytes:
-            raise AssertionError(f"{arch}: the dry run counts {dry_params} B "
-                                 f"of params, the card holds {param_bytes}")
+        self.check_dry_params(arch, None, param_bytes)
         del leaves
         L = cfg.num_layers
         if cfg.is_encoder_decoder:      # encoder, decoder and cross layers
@@ -1744,33 +1738,30 @@ class Smoke:
             "flops": flops, "model_flops": mf, "trace_ms": trace["ms"],
             "wall_ms": wall_ms, "device_ms": dev_ms}
         del result, trace
-        self.train_state_bytes(path, cfg, arch, layers, state, before)
+        self.train_state_bytes(path, arch, layers, state, before)
         del state
         gc.collect()
         torch.cuda.empty_cache()
 
-    def train_state_bytes(self, path, cfg, arch, layers, state, before):
-        """The dry run's train-state bytes of ``cfg`` (``arch`` cut to
-        ``layers``) at B ``TRAIN_BATCH`` x S ``TRAIN_SEQ`` on a mesh of one
+    def train_state_bytes(self, path, arch, layers, state, before):
+        """The dry run's train-state bytes of ``arch`` (cut to ``layers``)
+        at B ``TRAIN_BATCH`` x S ``TRAIN_SEQ`` on a mesh of one
         device against what the card holds with only ``state`` alive, less
         what it held before `train.run` (``before``, from `held`): the
         requested bytes equal exactly, and the allocated bytes are the
         state's blocks, each its leaf rounded up by the allocator."""
         from repro_torch.configs import InputShape
-        from repro_torch.launch import dryrun
         from repro_torch.launch.sharding import leaves_with_paths
         shape = InputShape("train", TRAIN_SEQ, TRAIN_BATCH, "train")
-        rec = self.dry_run(arch, shape, layers)
-        dry = rec["memory"]["arguments_B"]["state"]
-        dry_leaves = len(leaves_with_paths(dryrun.step_args(
-            cfg, shape)["state"]))
+        cell = self.dry_cell(arch, shape, layers)
+        dry = cell.argument_bytes()["state"]
+        dry_leaves = len(leaves_with_paths(cell.args["state"]))
         alloc, req = self.held()
         held, asked = alloc - before[0], req - before[1]
         leaves = [t for _, t in leaves_with_paths(state)]
         blocks, n_blocks, wide = self.block_sizes(leaves)
         print(f"  {path}: train state by the dry run {dry} B in "
-              f"{dry_leaves} leaves ({rec['mesh']}, {rec['step']}; its "
-              f"FLOPs {rec['flops_per_device']:.4e}, {rec['flops_by']}); "
+              f"{dry_leaves} leaves ({cell.mesh.name}, {cell.step}); "
               f"on the card {asked} B requested, {held} B allocated in "
               f"{len(leaves)} leaves, {n_blocks} blocks of {blocks} B: "
               f"{held - dry} B over the dry run, "
@@ -1898,8 +1889,8 @@ class Smoke:
         torch = self.torch
         from repro_torch.core import calibrate
         from repro_torch.models import serving
-        for scale, roles in MLSERVE.items():
-            for role, scenarios in roles.items():
+        for scale in MLSERVE_SCALES:
+            for role, scenarios in MLSERVE.items():
                 serving._bundle.cache_clear()
                 gc.collect()
                 torch.cuda.empty_cache()

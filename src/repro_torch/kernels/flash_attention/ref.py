@@ -18,7 +18,9 @@ import math
 import torch
 
 NEG_INF = -1e30
-#: the most f32 scores one block of query rows may hold (1 GiB)
+#: the most f32 scores one block of query rows may hold (1 GiB). The dry
+#: run's meta passes set it past any cell for their duration
+#: (`repro_torch.launch.dryrun.one_block`).
 SCORE_ELEMS = 1 << 28
 
 

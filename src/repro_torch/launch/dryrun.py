@@ -139,7 +139,13 @@ def build_cell(arch: str, shape_name, multi_pod: bool = False,
 def one_block():
     """The plain attention's query rows and the plain scan's steps in one
     block each: the blocks bound a device's memory, which meta tensors do
-    not use, and each block costs Python time."""
+    not use, and each block costs Python time.
+
+    It sets two module globals for the whole process while it is open, so
+    a meta pass runs only where nothing else runs the plain path: this
+    module's command line, or a host phase with no model on a device. A
+    check beside a device run reads the bytes without a pass
+    (`build_cell` and `Cell.argument_bytes`)."""
     saved = attention_ref.SCORE_ELEMS, mamba.SCAN_CHUNK
     attention_ref.SCORE_ELEMS = mamba.SCAN_CHUNK = 1 << 62
     try:

@@ -21,6 +21,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.kernels.ssm_scan import selective_scan
 from repro_torch.models.layers import dense_init
 
+#: steps a chunk of `ssm_scan_chunked` takes. The dry run's meta passes
+#: set it past any sequence for their duration
+#: (`repro_torch.launch.dryrun.one_block`), so it is read at each call.
 SCAN_CHUNK = 128
 
 

@@ -7,7 +7,9 @@ compared normalised: one entry per dim, each None or a tuple of axis
 names. The reference's dry run reads per-device argument bytes from XLA;
 here they are summed on the test side over the reference's
 ``jax.eval_shape`` structs under the reference's specs, and held equal to
-the port's ``memory.argument_B`` on every runnable cell and mesh.
+the port's ``memory.argument_B`` on every runnable cell and mesh; its
+output bytes likewise, over ``jax.eval_shape`` of the reference's steps
+under their out shardings, against the port's ``memory.output_B``.
 """
 import functools
 import math
@@ -23,6 +25,7 @@ from repro.launch import specs as ref_SP
 from repro.launch.mesh import data_axes as ref_data_axes
 from repro.models import get_model as ref_get_model
 from repro.optim import adamw_init as ref_adamw_init
+from repro.optim import make_train_step as ref_make_train_step
 from repro_torch.configs import (ARCH_IDS, SHAPES, all_cells,
                                  cell_is_runnable, registry)
 from repro_torch.launch import dryrun
@@ -119,6 +122,40 @@ def _ref_arguments(arch, shape_name, mesh):
 
 def _batch_rule(path, shape, mesh):
     return ref_SH.batch_spec(path, shape, mesh)
+
+
+@functools.lru_cache(maxsize=4)
+def _ref_outputs(arch, shape_name):
+    """``jax.eval_shape`` of the reference's step, as its dry run lowers
+    it: (state, metrics) for train, (logits, cache) else."""
+    cfg, shape = ref_registry.get(arch), REF_SHAPES[shape_name]
+    model = ref_get_model(cfg)
+    params = _ref_params(arch)
+    if shape.kind == "train":
+        return jax.eval_shape(ref_make_train_step(model), _ref_state(arch),
+                              ref_SP.train_batch_specs(cfg, shape))
+    if shape.kind == "prefill":
+        return jax.eval_shape(lambda p, b: model.prefill(p, b), params,
+                              ref_SP.prefill_batch_specs(cfg, shape))
+    return jax.eval_shape(lambda p, c, t: model.decode_step(p, c, t), params,
+                          ref_SP.decode_cache_specs(cfg, shape),
+                          ref_SP.decode_token_spec(cfg, shape))
+
+
+def _ref_output_bytes(arch, shape_name, mesh):
+    """Per-device bytes of the reference's step outputs under its out
+    shardings: the state's specs and replicated metrics (train); the
+    guarded logits rule and the cache's rule of the step's kind."""
+    first, second = _ref_outputs(arch, shape_name)
+    kind = REF_SHAPES[shape_name].kind
+    if kind == "train":
+        return (_ref_bytes(_ref_flat(first),
+                           lambda p, s: _ref_state_spec(p, s, mesh), mesh)
+                + _ref_bytes(_ref_flat(second), lambda p, s: (), mesh))
+    logits = _ref_bytes([("logits", first)], lambda p, s: ref_SH._guard(
+        (ref_data_axes(mesh), None, "model"), s, mesh), mesh)
+    return logits + _ref_bytes(_ref_flat(second), lambda p, s:
+                               ref_SH.cache_spec(p, s, mesh, kind), mesh)
 
 
 # ------------------------------------------------------------------- mesh
@@ -222,6 +259,18 @@ def test_argument_bytes_equal_reference(arch, shape_name, mesh_name):
     want = _ref_arguments(arch, shape_name, FakeMesh(MESHES[mesh_name]))
     assert cell.mesh.name == mesh_name
     assert cell.argument_bytes() == want
+
+
+@pytest.mark.parametrize("arch,shape_name,mesh_name", CELL_MESHES)
+def test_output_bytes_equal_reference(arch, shape_name, mesh_name):
+    """``memory.output_B`` (the meta pass's outputs, depth extrapolated)
+    equals the sum over the reference's eval_shape outputs under its out
+    shardings: a leaf missing from or extra in the port's train state or
+    cache would show here."""
+    rec = dryrun.run_cell(arch, shape_name, mesh_name == "2x16x16")
+    want = _ref_output_bytes(arch, shape_name, FakeMesh(MESHES[mesh_name]))
+    assert rec["mesh"] == mesh_name
+    assert rec["memory"]["output_B"] == want
 
 
 class TestShardingRules:
