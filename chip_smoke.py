@@ -39,7 +39,9 @@ Phases, each of which fails the run (exit 1) if it fails:
    check naming the body that ran (bf16 hd 64/128: wgmma; else SIMT), and
    the forward's lse against the plain row lse (``LSE_TOL``), at llama's
    training shape (B 2 x S 4096 and B
-   1 x S 2048, causal), hymba's heads at S 4096 with its 2048 window,
+   1 x S 2048, causal) and a mesh rank's local heads of it (H 16 K 4
+   and H 8 K 2, which the forward checks hold too), hymba's heads at
+   S 4096 with its 2048 window,
    seamless's cross shape (2048 queries against 1500 keys,
    bidirectional), the group sizes 1, 2, 5, 6, 7 and 8, hd 16 and 32, a
    dout that is a transposed view, and two runs bit for bit; the
@@ -118,7 +120,20 @@ Phases, each of which fails the run (exit 1) if it fails:
    leaf on the kernel path against the plain path (B 1 x S 4096; the
    scan's plain side under ``inner_remat``); and at llama3-8b smoke a
    checkpoint through the port's AsyncCheckpointer restored with
-   ``--resume`` semantics, equal bit for bit;
+   ``--resume`` semantics, equal bit for bit; then ("train (mesh)")
+   llama3-8b at full width cut to 4 of its 32 layers, B 2 x S 4096, 3
+   AdamW steps through ``train.run(mesh="debug")`` on 2 and on 4 ranks
+   that it spawns itself (``repro_torch.launch.ranks.spawn``: a card
+   each over NCCL where the machine has that many, else every rank on
+   card 0 over gloo, passed explicitly; a line names the backend and
+   the cards), against the same 3 steps on one rank: each step's loss
+   within 2e-2 and grad norm within 5e-2 of it, each post-step params
+   leaf, over every rank's shard of it, within 5e-2 of its largest
+   |value|, each rank's
+   train state against the dry run's state bytes on that debug mesh
+   exactly in requested bytes, exact launches of both attention kernels
+   on each rank's local heads (H 16 K 4 at 2 ranks, H 8 K 2 at 4), step
+   wall and device time and the time inside collectives;
 5. one replica of each served arch traced with torch.profiler: host
    wall time of prefill and of a decode step, device time, device idle
    share, top device ops;
@@ -205,7 +220,9 @@ Phases, each of which fails the run (exit 1) if it fails:
    for the kernel's time; the eager times are printed beside them. The
    plain versions are timed eagerly. The attention backward is timed on
    the forward's lse at llama's training shape (B 2 x S 4096), at B 1 x
-   S 2048 and at hymba's heads (hd 64, window 2048, S 4096) beside its
+   S 2048, at hymba's heads (hd 64, window 2048, S 4096) and at a mesh
+   rank's llama heads (H 16 K 4 and H 8 K 2, B 2 x S 4096; the forward
+   too) beside its
    bound by operations (2.5x the forward's FLOPs), the plain backward and
    the library's (autograd of ``F.scaled_dot_product_attention``,
    eager). The scan is also timed at every R of ``SCAN_SWEEP`` beside
@@ -219,7 +236,10 @@ Phases, each of which fails the run (exit 1) if it fails:
    call computes it.
 
 Prints a JSON line of the kernels, the card's name and power limit, and
-as its last line ``{"ok": true, "device": {...}}``. Without a CUDA
+as its last line ``{"ok": true, "device": {...}}``. Phase names as
+arguments run those phases alone, with no kernels line (``python3
+chip_smoke.py build "train (mesh)"`` on a machine with four cards runs
+the mesh phase over NCCL). Without a CUDA
 device, or outside a checkout of the repository, it exits 2 and prints
 no result. Imports nothing of JAX and nothing of the JAX package.
 """
@@ -229,7 +249,9 @@ import contextlib
 import gc
 import json
 import math
+import os
 import resource
+import shutil
 import subprocess
 import sys
 import time
@@ -304,6 +326,15 @@ FLEET_POLICIES = ("round_robin", "random", "least_loaded", "jbsq",
 TRAIN_RUNS = (("llama3-8b", 8), ("hymba-1.5b", None), ("falcon-mamba-7b", 8))
 TRAIN_BATCH, TRAIN_SEQ = 2, 4096
 TRAIN_STEPS, TRAIN_TRACED = 4, 2
+#: the "train (mesh)" phase: llama3-8b at full width cut to MESH_LAYERS of
+#: its 32 layers, B TRAIN_BATCH x S TRAIN_SEQ, MESH_STEPS AdamW steps
+#: through ``train.run(mesh="debug")`` on each count of MESH_RANKS ranks
+#: (a card each over NCCL where the machine has that many, else all on
+#: card 0 over gloo), each rank within MESH_TIMEOUT_S seconds
+MESH_LAYERS, MESH_STEPS, MESH_RANKS, MESH_TIMEOUT_S = 4, 3, (2, 4), 420
+#: the bf16 tolerances of tests/test_torch_train.py: the loss within 2e-2,
+#: each leaf within 5e-2 of its largest |value|
+MESH_LOSS_TOL, MESH_LEAF_TOL = 2e-2, 5e-2
 #: the kernels of the train paths, as they appear in a trace
 TRAIN_KERNELS = ("attn_tc_kernel", "attn_kernel", "dkdv_kernel", "dq_kernel",
                  "prep_kernel", "ssm_scan_kernel", "ssm_scan_bwd_kernel",
@@ -691,6 +722,11 @@ class Smoke:
             ((1, 1024, 1024, 64, 8, 128), True, 0, "qwen2 H64/K8 G8"),
             ((2, 300, 300, 4, 2, 16), True, 48, "hd 16 H4/K2 window=48"),
             ((2, 512, 512, 8, 4, 32), False, 0, "hd 32 H8/K4 bidirectional"),
+            # a rank's local heads of llama3-8b on the mesh: model 2, 4
+            ((2, 4096, 4096, 16, 4, 128), True, 0,
+             "llama mesh rank H16/K4 (model 2) B=2 S=4096"),
+            ((2, 4096, 4096, 8, 2, 128), True, 0,
+             "llama mesh rank H8/K2 (model 4) B=2 S=4096"),
         ]
         for dname, tol in BWD_TOL.items():
             dtype = getattr(torch, dname)
@@ -765,6 +801,8 @@ class Smoke:
             6, 1, 16, " H6/K1/hd16 G6")
         internvl2 = (16, 8, 128, " internvl2 H16/K8/hd128 G2")
         seamless = (16, 16, 64, " seamless H16/K16/hd64 G1")
+        llama_tp2 = (16, 4, 128, " llama mesh rank H16/K4 (model 2)")
+        llama_tp4 = (8, 2, 128, " llama mesh rank H8/K2 (model 4)")
         for dname, tol in TOL.items():
             dtype = getattr(torch, dname)
             g = self.gen(1)
@@ -786,6 +824,9 @@ class Smoke:
                     (llama, 8, 2048, True, 0, "causal S=2048 (decode seed)"),
                     (llama, 32, 512, True, 0, "causal S=512 (granite EMB)"),
                     (yi, 1, 2048, True, 0, "causal S=2048"),
+                    # a rank's local heads of llama3-8b on the mesh
+                    (llama_tp2, 2, 4096, True, 0, "causal S=4096"),
+                    (llama_tp4, 2, 4096, True, 0, "causal S=4096"),
                     (mixtral, 1, 8192, True, 4096, "window=4096 S=8192"),
                     (internvl2, 1, 2048, True, 0, "causal S=2048"),
                     (seamless, 1, 2048, False, 0,
@@ -1882,6 +1923,123 @@ class Smoke:
         if restored["start_step"] != 2 or int(b["step"]) != 2 or not same:
             raise AssertionError(f"{path}: the restored state differs")
 
+    def phase_train_mesh(self):
+        """llama3-8b at full width, ``MESH_LAYERS`` of its layers, trained
+        ``MESH_STEPS`` steps through ``train.run(mesh="debug")`` on each
+        count of ``MESH_RANKS`` ranks (`mesh_rank`, spawned by
+        ``repro_torch.launch.ranks.spawn``), against the same steps on one
+        rank of the card: every step's loss and grad norm, and each
+        post-step params leaf over every rank's shard of it, within the
+        bf16 tolerances of
+        tests/test_torch_train.py; each rank's train state on the card
+        against the dry run's state bytes on that debug mesh, exactly in
+        requested bytes; exact launches of both attention kernels on each
+        rank's local heads; step wall and device time and the time inside
+        collectives."""
+        torch = self.torch
+        import tempfile
+        from repro_torch.configs import registry
+        from repro_torch.launch import train
+        from repro_torch.launch.sharding import leaves_with_paths
+        cards = torch.cuda.device_count()
+        cfg = registry.get("llama3-8b").replace(num_layers=MESH_LAYERS)
+        B, S, L = TRAIN_BATCH, TRAIN_SEQ, MESH_LAYERS
+        gc.collect()
+        torch.cuda.empty_cache()
+        counters = self.counters()
+        for mod in counters.values():
+            mod.launches = 0
+        one = train.run(cfg, steps=MESH_STEPS, batch=B, seq=S,
+                        ckpt_every=MESH_STEPS + 1, device="cuda")
+        path = f"train (mesh) {cfg.name} x{L} one rank"
+        self.launches[path] = {n: m.launches for n, m in counters.items()}
+        for r in one["records"]:
+            print(f"  {path} step {r['step']}: loss {r['loss']:.6f} "
+                  f"grad_norm {r['grad_norm']:.6f}; wall "
+                  f"{r['wall_s'] * 1e3:.1f} ms, device "
+                  f"{r['device_s'] * 1e3:.1f} ms ({nvidia_smi()})")
+        tmp = tempfile.mkdtemp(prefix="mesh-")
+        reference = str(Path(tmp) / "one_rank_params.pt")
+        torch.save({"/".join(map(str, p)): t.cpu() for p, t in
+                    leaves_with_paths(one["state"].params)}, reference)
+        records = one["records"]
+        del one
+        gc.collect()
+        torch.cuda.empty_cache()
+        os.environ["PYTHONPATH"] = os.pathsep.join(
+            [str(ROOT), str(SRC), os.environ.get("PYTHONPATH", "")])
+        try:
+            for n in MESH_RANKS:
+                self.train_mesh(n, cards, cfg, reference, records)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    def train_mesh(self, n, cards, cfg, reference, one_records):
+        """One spawn of `mesh_rank` on ``n`` ranks; checks and prints."""
+        from repro_torch.launch.ranks import spawn
+        nccl = cards >= n
+        backend = "nccl" if nccl else "gloo"
+        print(f"  train (mesh) {n} ranks: {cards} card(s) on this machine: "
+              f"backend {backend}, "
+              f"{'one card a rank' if nccl else 'every rank on card 0'}; "
+              f"mesh debug (1, {n}), llama3-8b x{cfg.num_layers} of 32, "
+              f"B {TRAIN_BATCH} x S {TRAIN_SEQ}, {MESH_STEPS} steps",
+              flush=True)
+        t0 = time.monotonic()
+        ranks = spawn("chip_smoke:mesh_rank", n, {
+            "layers": cfg.num_layers, "shared": not nccl,
+            "reference": reference}, backend=backend,
+            timeout_s=MESH_TIMEOUT_S, echo=True)
+        print(f"  train (mesh) {n} ranks: spawn to the last rank's end "
+              f"{time.monotonic() - t0:.1f} s")
+        want = {FLASH["name"]: 2 * cfg.num_layers * MESH_STEPS,
+                FLASH_BWD["name"]: cfg.num_layers * MESH_STEPS}
+        bad = []
+        for r, res in enumerate(ranks):
+            path = f"train (mesh) {cfg.name} x{cfg.num_layers} {n} ranks " \
+                   f"rank {r}"
+            self.launches[path] = every_kernel(res["launches"])
+            for rec, ref in zip(res["records"], one_records):
+                c = rec["collectives"]
+                dev_c = (f"{c['device_s'] * 1e3:.1f} ms device" if
+                         c["device_s"] is not None else "no device events "
+                         "(gloo through host memory)")
+                print(f"  {path} step {rec['step']}: loss {rec['loss']:.6f} "
+                      f"(one rank {ref['loss']:.6f}) grad_norm "
+                      f"{rec['grad_norm']:.6f} ({ref['grad_norm']:.6f}); "
+                      f"wall {rec['wall_s'] * 1e3:.1f} ms, device "
+                      f"{rec['device_s'] * 1e3:.1f} ms; collectives "
+                      f"{c['calls']}, {c['bytes'] / 1e9:.3f} GB, "
+                      f"{c['host_s'] * 1e3:.1f} ms host, {dev_c}")
+                if abs(rec["loss"] - ref["loss"]) > MESH_LOSS_TOL or abs(
+                        rec["grad_norm"] - ref["grad_norm"]) > \
+                        MESH_LEAF_TOL * ref["grad_norm"]:
+                    bad.append((path, rec["step"], "loss or grad norm"))
+            print(f"  {path}: seconds {res['seconds']} (imports, "
+                  f"train.run, bytes and params checks)")
+            print(f"  {path} on {res['device']}: heads {res['heads']}; "
+                  f"launches {res['launches']} (want {want}); train state "
+                  f"{res['requested']} B requested on the card, dry run "
+                  f"{res['dry']} B ({res['mesh']}); state bytes by rank "
+                  f"{res['state_bytes']}; model-axis gathers "
+                  f"{res['gathers'] or 'none'}; peak device memory "
+                  f"{res['peak'] / 1e9:.2f} GB; {res['note']} "
+                  f"({nvidia_smi()})")
+            if res["launches"] != want:
+                bad.append((path, "launches", res["launches"]))
+            if res["requested"] != res["dry"]:
+                bad.append((path, "state bytes", res["requested"],
+                            res["dry"]))
+        worst = ranks[0]["params_worst"]
+        print(f"  train (mesh) {n} ranks: post-step params (every rank's "
+              f"shards) against one rank's: worst leaf {worst[1]:.3e} of its largest |value| "
+              f"({worst[0]}; tolerance {MESH_LEAF_TOL}) over "
+              f"{ranks[0]['params_leaves']} leaves")
+        if worst[1] > MESH_LEAF_TOL:
+            bad.append(("params", worst))
+        if bad:
+            raise AssertionError(f"train (mesh) {n} ranks: {bad}")
+
     def phase_mlserve(self):
         """The MLServe cores at tiny scale, then at full width: each role's
         scenarios from their seed payloads, kernel path against plain path
@@ -2921,6 +3079,13 @@ class Smoke:
             "mixtral-8x22b S=8192": self.time_flash(
                 48, 8, 128, 4096, "mixtral-8x22b", S=8192),
             "internvl2-2b": self.time_flash(16, 8, 128, 0, "internvl2-2b"),
+            # a rank's local heads of llama3-8b's training on the mesh
+            "llama3-8b mesh rank H16/K4 (model 2) B=2 S=4096":
+                self.time_flash(16, 4, 128, 0, "llama3-8b mesh rank, model "
+                                "2", B=TRAIN_BATCH, S=TRAIN_SEQ),
+            "llama3-8b mesh rank H8/K2 (model 4) B=2 S=4096":
+                self.time_flash(8, 2, 128, 0, "llama3-8b mesh rank, model 4",
+                                B=TRAIN_BATCH, S=TRAIN_SEQ),
             "seamless-m4t-large-v2 encoder": self.time_flash(
                 16, 16, 64, 0, "seamless-m4t-large-v2 encoder",
                 causal=False),
@@ -2968,7 +3133,13 @@ class Smoke:
             "llama3-8b B=1 S=2048": self.time_flash_bwd(
                 1, 2048, *llama, "llama3-8b"),
             "hymba-1.5b S=4096 window=2048": self.time_flash_bwd(
-                1, TRAIN_SEQ, *hymba, "hymba-1.5b", window=2048)}
+                1, TRAIN_SEQ, *hymba, "hymba-1.5b", window=2048),
+            "llama3-8b mesh rank H16/K4 (model 2) B=2 S=4096":
+                self.time_flash_bwd(TRAIN_BATCH, TRAIN_SEQ, 16, 4, 128,
+                                    "llama3-8b mesh rank, model 2"),
+            "llama3-8b mesh rank H8/K2 (model 4) B=2 S=4096":
+                self.time_flash_bwd(TRAIN_BATCH, TRAIN_SEQ, 8, 2, 128,
+                                    "llama3-8b mesh rank, model 4")}
         self.timing[SCAN["name"]] = self.time_scan(8192, 256, "falcon-mamba-7b")
         self.also[SCAN["name"]] = {
             "hymba-1.5b": self.time_scan(3200, 100, "hymba-1.5b"),
@@ -3318,6 +3489,77 @@ class Smoke:
         return json.dumps({"kernels": rows})
 
 
+def mesh_rank(layers, shared, reference):
+    """One rank of `Smoke.phase_train_mesh` (a process of its own, in a
+    process group that ``repro_torch.launch.ranks.spawn`` set up): the
+    steps through ``train.run(mesh="debug")`` (``shared``: every rank on
+    card 0 over gloo, passed explicitly; else NCCL on
+    ``cuda:{LOCAL_RANK}``) with the attention kernels' launches counted
+    from 0, the requested bytes the card holds with only the train state
+    alive and the dry run's, then each params leaf against one rank's
+    (``reference``) as a whole: its largest error over its largest
+    |value|, each a max over every rank's shard."""
+    t0 = time.monotonic()
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import InputShape, registry
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import collectives as C
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_debug_mesh
+    cfg = registry.get("llama3-8b").replace(num_layers=layers)
+    flash_ops.launches = flash_ops.bwd_launches = 0
+    t1 = time.monotonic()
+    res = train.run(cfg, steps=MESH_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                    ckpt_every=MESH_STEPS + 1,
+                    device="cuda" if shared else None,
+                    backend="gloo" if shared else None, mesh="debug")
+    launches = {FLASH["name"]: flash_ops.launches,
+                FLASH_BWD["name"]: flash_ops.bwd_launches}
+    t2 = time.monotonic()
+    state, tp, mesh = res.pop("state"), res["tp"], res["mesh"]
+    gc.collect()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    requested = torch.cuda.memory_stats(mesh.device)[
+        "requested_bytes.all.current"]
+    cell = dryrun.build_cell("llama3-8b", InputShape(
+        "train", TRAIN_SEQ, TRAIN_BATCH, "train"), extra={
+            "num_layers": layers}, mesh=make_debug_mesh(mesh.size))
+    h0, h1 = tp.split(cfg.num_heads)
+    k0, k1 = tp.split(cfg.num_kv_heads)
+    out = {"records": res["records"], "launches": launches,
+           "requested": requested, "dry": cell.argument_bytes()["state"],
+           "mesh": f"{cell.mesh.name}, {cell.step}",
+           "state_bytes": res["state_bytes"], "gathers": tp.gathers,
+           "peak": torch.cuda.max_memory_allocated(mesh.device),
+           "device": str(mesh.device), "note": C.backend_note(mesh),
+           "heads": f"q [{h0}, {h1}) of {cfg.num_heads}, kv [{k0}, {k1}) "
+                    f"of {cfg.num_kv_heads}"}
+    want = torch.load(reference, mmap=True, weights_only=True)
+    worst = ("", 0.0)
+    for p, leaf in SH.leaves_with_paths(state.params):
+        path = "/".join(map(str, p))
+        b = SH.local_shard(want[path], tp.specs[path], mesh).to(
+            leaf.device).float()
+        # [max |error|, max |value|] of this shard, then of the whole leaf
+        # over every rank: the whole leaf held as gathered, no gather
+        m = C.all_reduce(torch.stack([(leaf.float() - b).abs().max(),
+                                      b.abs().max()]), mesh,
+                         mesh.axis_names, "max")
+        worst = max(worst, (path, (m[0] / m[1].clamp_min(1e-30)).item()),
+                    key=lambda w: w[1])
+    out["params_worst"], out["params_leaves"] = worst, len(
+        SH.leaves_with_paths(state.params))
+    out["seconds"] = {"start": t1 - t0, "train.run": t2 - t1,
+                      "checks": time.monotonic() - t2}
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3347,12 +3589,16 @@ def main() -> int:
         phases.append((f"embeds and enc-dec {arch}",
                        lambda arch=arch: smoke.embeds_path(arch)))
     phases.append(("train", smoke.phase_train))
+    phases.append(("train (mesh)", smoke.phase_train_mesh))
     phases.append(("mlserve cores", smoke.phase_mlserve))
     phases.append(("worker node", smoke.phase_node))
     phases.append(("density", smoke.phase_density))
     phases.append(("fleet and plancheck", smoke.phase_fleet))
     phases.append(("dry run", smoke.phase_dryrun))
     phases.append(("timing", smoke.phase_timing))
+    only = sys.argv[1:]                 # phase names: run just those
+    if only:
+        phases = [(n, fn) for n, fn in phases if n in only]
     for name, fn in phases:
         print(f"== {name}", flush=True)
         t0 = time.monotonic()
@@ -3369,7 +3615,8 @@ def main() -> int:
         print(f"chip_smoke: FAILED phases: {', '.join(failed)}",
               file=sys.stderr)
         return 1
-    print(smoke.kernels_line())
+    if not only:
+        print(smoke.kernels_line())
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

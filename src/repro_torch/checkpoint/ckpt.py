@@ -19,6 +19,13 @@ little-endian bytes (bf16 as its 16-bit words), the same manifest JSON
 and the ``LATEST`` pointer. Restore returns CPU tensors (numpy has no
 bf16); with a backend the shards are prefetched through
 `NexusBackend.prefetch`.
+
+On a mesh (a ``tp``, `repro_torch.launch.sharding.Sharded`, of more than
+one rank) the state is each rank's shards: `AsyncCheckpointer.save`
+gathers each leaf whole and rank 0 writes exactly what the one-device
+path writes for that state; `restore_to_mesh` reads on rank 0 and
+broadcasts each leaf, every rank keeping its shard, so a sharded run
+resumes from a one-device checkpoint and the other way round.
 """
 from __future__ import annotations
 
@@ -27,10 +34,12 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.backend import NexusBackend
 from repro_torch.core.hints import InputHint, OutputHint
 from repro_torch.core.storage import ObjectStore
+from repro_torch.launch import sharding as SH
 from repro_torch.models import serialize
 from repro_torch.optim.adamw import TrainState, state_fields
 
@@ -109,7 +118,14 @@ class AsyncCheckpointer:
         self._lock = threading.Lock()
         self.saves = 0
 
-    def save(self, step: int, state) -> None:
+    def save(self, step: int, state, tp=None) -> None:
+        """Hand ``state``'s leaves to the backend; with ``tp`` (a mesh
+        of more than one rank) every rank must call it: each leaf is
+        gathered whole, one at a time, and rank 0 writes."""
+        if tp is not None and tp.mesh.size > 1:
+            state = _gathered(state, tp)
+            if tp.mesh.rank != 0:
+                return
         flat = _flatten(state)
         manifest = {"step": step, "leaves": {}}
         tickets = []
@@ -154,6 +170,49 @@ class AsyncCheckpointer:
             th.join(timeout)
             if th.is_alive():
                 raise TimeoutError("checkpoint commit did not finish")
+
+
+def _gathered(state, tp):
+    """The whole state on rank 0 (on the host), None elsewhere, gathered
+    leaf by leaf."""
+    specs = tp.state_specs(state)
+    rank0 = tp.mesh.rank == 0
+
+    def one(path, leaf):
+        whole = SH.gather_full(leaf, specs[path], tp.mesh)
+        return whole.cpu() if rank0 else None
+    whole = SH.map_leaves(state, one)
+    return whole if rank0 else None
+
+
+def restore_to_mesh(store: ObjectStore, bucket: str, state, tp,
+                    step: int | None = None,
+                    backend: NexusBackend | None = None):
+    """`restore_checkpoint` on rank 0 of ``tp``'s mesh, each leaf
+    broadcast and cut to this rank's shard (`sharding.broadcast_shard`),
+    in the dtype and on the device of ``state``'s (this rank's shards,
+    whose structure the checkpoint must have). Every rank calls it;
+    returns (step, state) on every rank, or raises KeyError on every
+    rank when rank 0 finds no checkpoint."""
+    mesh = tp.mesh
+    found, flat = [None], None
+    if mesh.rank == 0:
+        try:
+            found[0], flat = restore_checkpoint(store, bucket, step, backend)
+        except KeyError:
+            pass
+    if mesh.size > 1:
+        dist.broadcast_object_list(found, src=0)
+    if found[0] is None:
+        raise KeyError("no checkpoint")
+    specs = tp.state_specs(state)
+
+    def one(path, leaf):
+        shape = tp.shape(path.split("/", 1)[1]) if "/" in path else ()
+        whole = flat[path].to(leaf.dtype) if flat is not None else None
+        return SH.broadcast_shard(whole, shape, leaf.dtype, specs[path],
+                                  mesh).to(leaf.device)
+    return found[0], SH.map_leaves(state, one)
 
 
 def restore_checkpoint(store: ObjectStore, bucket: str,

@@ -250,14 +250,20 @@ def _project_qkv(p, cfg, x):
     return q, k, v
 
 
-def attention_layer(p, cfg, x, *, use_rope=True, causal=True, plain=False):
+def attention_layer(p, cfg, x, *, use_rope=True, causal=True, plain=False,
+                    tp=None):
     """Self-attention over a full sequence (prefill, encoder), positions
     from 0, a window from ``cfg.sliding_window``; ``causal=False`` is
     bidirectional (the encoder's), ``use_rope=False`` leaves q and k
     unrotated (the enc-dec archs add sinusoid positions to x instead).
+    With ``tp`` (a `repro_torch.launch.sharding.Sharded` on a mesh of
+    more than one rank) the layer runs on this rank's heads
+    (`_attention_on_mesh`).
 
     Returns (out, (k, v)) so callers can build a KV cache.
     """
+    if tp is not None:
+        return _attention_on_mesh(p, cfg, x, tp, use_rope, causal, plain)
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x)
     if use_rope:
@@ -268,6 +274,62 @@ def attention_layer(p, cfg, x, *, use_rope=True, causal=True, plain=False):
     out = attend(q, k, v, causal=causal, window=cfg.sliding_window)
     out = out.reshape(B, S, cfg.num_heads * cfg.head_dim)
     return out @ p["wo"], (k, v)
+
+
+def _kv_for_heads(k, v, h0, h1, G, k0):
+    """k, v (B, S, Kl, hd) of kv heads k0.. for the q heads [h0, h1):
+    as they are where those q heads are whole groups or share one kv
+    head, else one kv head per q head (the kernels map q head j to kv
+    head j // (Hl / Kl))."""
+    aligned = h0 % G == 0 and h1 % G == 0
+    if aligned or k.shape[2] == 1:
+        return k, v
+    idx = torch.tensor([h // G - k0 for h in range(h0, h1)],
+                       device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _attention_on_mesh(p, cfg, x, tp, use_rope, causal, plain):
+    """`attention_layer` on this rank's q heads [h0, h1) of H (its
+    ``model`` share) and the kv heads they read: column-parallel q/k/v
+    (and QKV bias) on x entering the split (`Sharded.copy`), q/k norms
+    replicated, the attention kernel on the local heads, row-parallel
+    ``wo`` summed over ``model`` (`Sharded.reduce`). The FSDP dims of
+    each weight are gathered over the data axes where it is read."""
+    B, S, _ = x.shape
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    G = H // K
+    h0, h1 = tp.split(H)
+    k0, k1 = h0 // G, (h1 - 1) // G + 1
+
+    def cols(name, lo, hi):
+        leaf = p[name]
+        return tp.weight(leaf, f"layers/attn/{name}", leaf.dim() - 1,
+                         lo * hd, hi * hd)
+
+    xp = tp.copy(x)
+    q, k, v = xp @ cols("wq", h0, h1), xp @ cols("wk", k0, k1), \
+        xp @ cols("wv", k0, k1)
+    if cfg.attn_bias:
+        q = q + cols("bq", h0, h1)
+        k = k + cols("bk", k0, k1)
+        v = v + cols("bv", k0, k1)
+    q = q.reshape(B, S, h1 - h0, hd)
+    k = k.reshape(B, S, k1 - k0, hd)
+    v = v.reshape(B, S, k1 - k0, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, tp.copy(p["q_norm"]), cfg.norm_eps)
+        k = rms_norm(k, tp.copy(p["k_norm"]), cfg.norm_eps)
+    if use_rope:
+        positions = torch.arange(S, device=x.device)[None, :]
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    k, v = _kv_for_heads(k, v, h0, h1, G, k0)
+    attend = mha_ref if plain else mha
+    out = attend(q, k, v, causal=causal, window=cfg.sliding_window)
+    out = out.reshape(B, S, (h1 - h0) * hd)
+    wo = tp.weight(p["wo"], "layers/attn/wo", 0, h0 * hd, h1 * hd)
+    return tp.reduce(out @ wo), (k, v)
 
 
 def attention_decode_layer(p, cfg, x, k_cache, v_cache, slot_pos, pos, *,
@@ -344,5 +406,15 @@ def init_mlp(generator, d_model, d_ff, dtype, device=None):
     }
 
 
-def mlp_layer(p, x):
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+def mlp_layer(p, x, tp=None):
+    """SwiGLU. With ``tp`` (`attention_layer`'s) on this rank's
+    ``model`` share of the d_ff columns: column-parallel gate and up,
+    row-parallel down summed over ``model``."""
+    if tp is None:
+        return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    f0, f1 = tp.split(tp.shape("layers/mlp/w_down", p["w_down"].dim())[0])
+    xp = tp.copy(x)
+    gate = tp.weight(p["w_gate"], "layers/mlp/w_gate", 1, f0, f1)
+    up = tp.weight(p["w_up"], "layers/mlp/w_up", 1, f0, f1)
+    down = tp.weight(p["w_down"], "layers/mlp/w_down", 0, f0, f1)
+    return tp.reduce((F.silu(xp @ gate) * (xp @ up)) @ down)

@@ -154,18 +154,19 @@ def _fuse(cfg, lp, attn_out, m_out):
                   + L.rms_norm(m_out, lp["bn_mamba"], cfg.norm_eps))
 
 
-def _seq_sublayers(cfg, lp, x, plain=False, train=False):
+def _seq_sublayers(cfg, lp, x, plain=False, train=False, tp=None):
     """One layer over a full sequence. Returns (x, cache_out, aux): the
     layer's ``k``/``v`` and/or ``conv``/``ssm``, and the moe family's
     load-balancing loss (None for the others). In ``train`` mode a
     ``moe_impl`` of "local" runs `moe_sorted`, as the reference's
-    training does."""
+    training does. With ``tp`` (the dense family on a mesh) attention
+    and MLP run on this rank's share (`layers.attention_layer`)."""
     fam = cfg.family
     cache_out, aux = {}, None
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     if fam in DENSE + ("moe",):
         attn_out, (cache_out["k"], cache_out["v"]) = L.attention_layer(
-            lp["attn"], cfg, h, plain=plain)
+            lp["attn"], cfg, h, plain=plain, tp=tp)
         x = x + attn_out
     elif fam == "ssm":
         m_out, st = M.mamba_layer(lp["mamba"], cfg, h, plain=plain)
@@ -184,7 +185,7 @@ def _seq_sublayers(cfg, lp, x, plain=False, train=False):
         else:
             moe_out, aux = MOE.moe_layer(lp["moe"], cfg, h2)
         return x + moe_out, cache_out, aux
-    return x + L.mlp_layer(lp["mlp"], h2), cache_out, aux
+    return x + L.mlp_layer(lp["mlp"], h2, tp), cache_out, aux
 
 
 def _decode_sublayers(cfg, lp, x, cache, i, slot_pos, pos, plain=False):
@@ -239,19 +240,20 @@ def checkpoint_layer(policy, fn, *args):
     return checkpoint(fn, *args, use_reentrant=False, context_fn=contexts)
 
 
-def run_stack(cfg, params, x, cache=None, plain=False):
+def run_stack(cfg, params, x, cache=None, plain=False, tp=None):
     """Run the layer stack over a full sequence. With ``cache`` (prefill)
     each layer's slice of it is written; without (training) nothing is,
-    and each layer runs under `checkpoint_layer`. Returns the
-    final-normed hidden states and, in training, the sum of the layers'
-    moe losses (a 0-d f32 tensor; None in prefill)."""
+    and each layer runs under `checkpoint_layer` (on a mesh, ``tp``,
+    its weights' gathers inside it, so the recompute gathers again).
+    Returns the final-normed hidden states and, in training, the sum of
+    the layers' moe losses (a 0-d f32 tensor; None in prefill)."""
     aux = (torch.zeros((), dtype=torch.float32, device=x.device)
            if cache is None else None)
     for i in range(cfg.num_layers):
         lp = layer_params(params["layers"], i)
         if cache is None:
             x, aux_l = checkpoint_layer(cfg.remat_policy, _train_layer, cfg,
-                                        lp, x, plain)
+                                        lp, x, plain, tp)
             if aux_l is not None:
                 aux = aux + aux_l
             continue
@@ -265,8 +267,8 @@ def run_stack(cfg, params, x, cache=None, plain=False):
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
-def _train_layer(cfg, lp, x, plain):
-    x, _, aux = _seq_sublayers(cfg, lp, x, plain=plain, train=True)
+def _train_layer(cfg, lp, x, plain, tp=None):
+    x, _, aux = _seq_sublayers(cfg, lp, x, plain=plain, train=True, tp=tp)
     return x, aux
 
 
@@ -292,12 +294,29 @@ def run_stack_decode(cfg, params, x, cache, pos, plain=False):
 
 # ------------------------------------------------------------------ top-level
 
-def _lm_head(cfg, params):
-    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+def _lm_head(cfg, params, tp=None):
+    """The (D, V) head; with ``tp`` this rank's vocab columns [v0, v1)
+    (``tp.split(V)``), whole along D."""
+    if tp is None:
+        return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    v0, v1 = tp.split(cfg.vocab_size)
+    if cfg.tie_embeddings:
+        return tp.weight(params["embed"], "embed", 0, v0, v1).T
+    return tp.weight(params["lm_head"], "lm_head", 1, v0, v1)
 
 
-def embed_tokens(cfg, params, tokens):
-    return params["embed"][tokens]
+def embed_tokens(cfg, params, tokens, tp=None):
+    """The tokens' rows of the embedding; with ``tp`` vocab-parallel:
+    this rank looks up the tokens in its rows [v0, v1), zero elsewhere,
+    and the sum over ``model`` is the embedding."""
+    if tp is None:
+        return params["embed"][tokens]
+    v0, v1 = tp.split(cfg.vocab_size)
+    rows = tp.weight(params["embed"], "embed", 0, v0, v1)
+    local = tokens.long() - v0
+    inside = (local >= 0) & (local < v1 - v0)
+    e = rows[local.clamp(0, v1 - v0 - 1)]
+    return tp.reduce(torch.where(inside[..., None], e, torch.zeros_like(e)))
 
 
 def _chunk_nll(h, t, head):
@@ -310,14 +329,37 @@ def _chunk_nll(h, t, head):
     return ((lse - gold) * valid).sum(), valid.sum()
 
 
-def chunked_ce_loss(cfg, params, hidden, targets, chunk=LOSS_CHUNK):
+def _chunk_nll_on_mesh(h, t, head, tp, v0):
+    """`_chunk_nll` on this rank's vocab columns [v0, v0 + Vl): the row
+    max over ``model`` (no gradient), the sum of exponentials summed over
+    ``model`` (`Sharded.reduce`), the gold logit from the rank whose
+    columns hold it."""
+    logits = (h @ head).float()                         # (B, chunk, Vl)
+    vl = logits.shape[-1]
+    m = tp.max(logits.detach().amax(dim=-1))
+    lse = m + tp.reduce(torch.exp(logits - m[..., None]).sum(dim=-1)).log()
+    local = t.long() - v0
+    inside = (local >= 0) & (local < vl)
+    gold = logits.gather(-1, local.clamp(0, vl - 1)[..., None])[..., 0]
+    gold = tp.reduce(torch.where(inside, gold, torch.zeros_like(gold)))
+    valid = (t >= 0).float()
+    return ((lse - gold) * valid).sum(), valid.sum()
+
+
+def chunked_ce_loss(cfg, params, hidden, targets, chunk=LOSS_CHUNK, tp=None):
     """Cross-entropy without materialising the full (B, S, V) logits:
     ``chunk`` positions at a time, targets padded with -1, logsumexp in
     f32, as the reference's. Each chunk is checkpointed when grad is
     enabled, so its f32 logits are recomputed in the backward pass
-    rather than kept."""
+    rather than kept. With ``tp`` the head is vocab-parallel
+    (`_chunk_nll_on_mesh`) and the count of valid targets is summed over
+    the data axes before the division: the result is this rank's share
+    of the global batch's mean, and the shares sum to it."""
     B, S, D = hidden.shape
-    head = _lm_head(cfg, params)
+    head = _lm_head(cfg, params, tp)
+    if tp is not None:
+        v0 = tp.split(cfg.vocab_size)[0]
+        hidden = tp.copy(hidden)
     chunk = min(chunk, S)
     pad = (-S) % chunk
     if pad:
@@ -325,28 +367,60 @@ def chunked_ce_loss(cfg, params, hidden, targets, chunk=LOSS_CHUNK):
         targets = torch.nn.functional.pad(targets, (0, pad), value=-1)
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    fn, extra = ((_chunk_nll, ()) if tp is None
+                 else (_chunk_nll_on_mesh, (tp, v0)))
     for c0 in range(0, hidden.shape[1], chunk):
         h, t = hidden[:, c0:c0 + chunk], targets[:, c0:c0 + chunk]
-        nll, n = (checkpoint(_chunk_nll, h, t, head, use_reentrant=False)
-                  if torch.is_grad_enabled() else _chunk_nll(h, t, head))
+        nll, n = (checkpoint(fn, h, t, head, *extra, use_reentrant=False)
+                  if torch.is_grad_enabled() else fn(h, t, head, *extra))
         tot, cnt = tot + nll, cnt + n
+    if tp is not None:
+        cnt = tp.sum_data(cnt)
     return tot / cnt.clamp_min(1.0)
 
 
-def forward_train(cfg, params, batch, plain=False):
+def check_mesh(cfg, tp) -> None:
+    """Exit for a config the port does not yet train on a mesh of more
+    than one rank, naming the ROADMAP item that brings it."""
+    if tp is None:
+        return
+    if cfg.is_encoder_decoder or cfg.embed_input:
+        raise SystemExit(f"{cfg.name}: the reference trains no enc-dec or "
+                         f"vlm config on a mesh (its driver refuses them)")
+    item = {"moe": "ROADMAP Queue 1 item 9c (moe under the mesh)",
+            "ssm": "ROADMAP Queue 1 item 9b (ssm and hybrid under the mesh)",
+            "hybrid": "ROADMAP Queue 1 item 9b (ssm and hybrid under the "
+                      "mesh)"}.get(cfg.family)
+    if item:
+        raise SystemExit(f"{cfg.name}: the {cfg.family} family does not "
+                         f"train on a mesh of {tp.mesh.size} ranks yet; "
+                         f"{item}")
+
+
+def forward_train(cfg, params, batch, plain=False, tp=None):
     """Returns (loss, metrics): the mean next-token cross-entropy of
     ``batch["targets"]`` plus the moe family's load-balancing loss, and
     ``{"ce_loss", "aux_loss"}``. batch: ``tokens`` (or with
     ``cfg.embed_input`` ``inputs_embeds``) and ``targets``. Runs with
-    grad as the caller has it (never under inference mode), no cache."""
+    grad as the caller has it (never under inference mode), no cache.
+
+    ``tp`` (a `repro_torch.launch.sharding.Sharded` on a mesh of more
+    than one rank; the dense family only, `check_mesh`): ``params``
+    are this rank's shards and ``batch`` its slice of the global batch;
+    the loss is this rank's share of the global batch's mean (the shares
+    over the data axes sum to it, and every rank of ``model`` holds the
+    same), and ``ce_loss`` is the global mean."""
     check_supported(cfg)
+    check_mesh(cfg, tp)
     if cfg.embed_input:
         x = batch["inputs_embeds"].to(DTYPES[cfg.dtype])
     else:
-        x = embed_tokens(cfg, params, batch["tokens"])
-    hidden, aux = run_stack(cfg, params, x, plain=plain)
-    loss = chunked_ce_loss(cfg, params, hidden, batch["targets"])
-    return loss + aux, {"ce_loss": loss, "aux_loss": aux}
+        x = embed_tokens(cfg, params, batch["tokens"], tp)
+    hidden, aux = run_stack(cfg, params, x, plain=plain, tp=tp)
+    loss = chunked_ce_loss(cfg, params, hidden, batch["targets"], tp=tp)
+    metrics = {"ce_loss": loss if tp is None else tp.sum_data(loss),
+               "aux_loss": aux}
+    return loss + aux, metrics
 
 
 @torch.inference_mode()

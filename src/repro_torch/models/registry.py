@@ -36,9 +36,13 @@ class Model:
             generator = torch.Generator(device=self.device).manual_seed(0)
         return self._mod.init_params(generator, self.cfg, device=self.device)
 
-    def loss(self, params, batch, plain=False):
-        """(loss, metrics) of one batch, differentiable in ``params``."""
-        return self._mod.forward_train(self.cfg, params, batch, plain=plain)
+    def loss(self, params, batch, plain=False, tp=None):
+        """(loss, metrics) of one batch, differentiable in ``params``;
+        ``tp`` places the step on a mesh (`lm.forward_train`)."""
+        if tp is None:
+            return self._mod.forward_train(self.cfg, params, batch,
+                                           plain=plain)
+        return lm.forward_train(self.cfg, params, batch, plain=plain, tp=tp)
 
     def prefill(self, params, batch, cache_len=None, plain=False):
         return self._mod.prefill(self.cfg, params, batch,

@@ -19,6 +19,11 @@ f32 a bounded chunk of a leaf at a time.
 
 `compress_grads` / `decompress_grads` are the int8 error-feedback
 quantization of the reference (round half to even, as ``jnp.round``).
+
+On a mesh of more than one rank (`make_train_step`'s ``mesh``) the
+state holds this rank's shards: the gradient of a leaf the data axes do
+not split is summed over them, `global_norm` counts each shard once over
+the mesh, and the update stays elementwise on the local shards.
 """
 from __future__ import annotations
 
@@ -28,7 +33,9 @@ from typing import Any
 
 import torch
 
-from repro_torch.models import serialize
+from repro_torch.launch import collectives as C
+from repro_torch.launch.sharding import Sharded
+from repro_torch.models import registry, serialize
 
 B1, B2, EPS = 0.9, 0.95, 1e-8
 #: elements of one leaf squared and summed at a time in `global_norm`
@@ -91,10 +98,27 @@ def _square_sum(x) -> torch.Tensor:
     return total
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's f32 sum of squares."""
+def leaf_paths(tree, prefix: str = "") -> list[str]:
+    """The '/'-joined paths of ``tree``'s leaves, in `serialize.leaves`
+    order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in leaf_paths(tree[k], f"{prefix}{k}/")]
+    return [prefix[:-1]]
+
+
+def global_norm(tree, tp: Sharded | None = None) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's f32 sum of squares.
+    With ``tp`` the leaves are this rank's shards: each shard is counted
+    on the first rank that holds it and the sum taken over the mesh."""
     leaves = serialize.leaves(tree)
-    return torch.sqrt(sum(_square_sum(x) for x in leaves))
+    if tp is None:
+        return torch.sqrt(sum(_square_sum(x) for x in leaves))
+    total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    for path, x in zip(leaf_paths(tree), leaves):
+        if tp.holds_first_copy(path):
+            total = total + _square_sum(x)
+    return torch.sqrt(C.all_reduce(total, tp.mesh, tp.mesh.axis_names))
 
 
 def compress_grads(grads, err):
@@ -120,10 +144,13 @@ def decompress_grads(q, scales):
 
 
 def adamw_update(state: TrainState, grads, lr, *, b1=B1, b2=B2, eps=EPS,
-                 weight_decay=0.1, clip_norm=1.0) -> TrainState:
+                 weight_decay=0.1, clip_norm=1.0,
+                 grad_norm=None) -> TrainState:
     """One AdamW step, in place (see the module docstring). ``lr`` a
-    float or a 0-d tensor; returns the state at ``step + 1``."""
-    gnorm = global_norm(grads)
+    float or a 0-d tensor; ``grad_norm`` the gradients' global norm
+    where the caller has it (on a mesh it is a collective); returns the
+    state at ``step + 1``."""
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp_max(clip_norm / torch.clamp_min(gnorm, 1e-12), 1.0)
     step = state.step + 1
     bc1 = 1 - b1 ** step.float()
@@ -146,19 +173,31 @@ def adamw_update(state: TrainState, grads, lr, *, b1=B1, b2=B2, eps=EPS,
 
 
 def make_train_step(model, *, base_lr=3e-4, warmup=100, total=10_000,
-                    weight_decay=0.1, clip_norm=1.0, plain=False):
+                    weight_decay=0.1, clip_norm=1.0, plain=False, mesh=None):
     """Returns train_step(state, batch) -> (state, metrics): the loss and
     its gradient in every params leaf (``model.loss``, through the kernels
     unless ``plain``), then `adamw_update` at the learning rate of step
-    ``state.step + 1``. The state is updated in place."""
+    ``state.step + 1``. The state is updated in place.
+
+    ``mesh`` (a `RankMesh` of more than one rank): the state is this
+    rank's shards (`sharding.state_to_mesh`) and the batch its slice; the
+    step is the reference's jitted step under its state and batch
+    shardings, with the loss and grad norm of the global batch. The
+    returned function's ``tp`` is the `Sharded` placement (its
+    ``gathers`` count the model-axis gathers of weights split inside a
+    head), None on one device; a mesh of one rank is the one-device
+    step."""
     lr_fn = cosine_schedule(base_lr, warmup, total)
+    tp = (Sharded(mesh, registry.param_structs(model.cfg))
+          if mesh is not None and mesh.size > 1 else None)
 
     def train_step(state: TrainState, batch):
         leaves = serialize.leaves(state.params)
         for p in leaves:
             p.requires_grad_(True)
         try:
-            loss, metrics = model.loss(state.params, batch, plain=plain)
+            loss, metrics = model.loss(state.params, batch, plain=plain,
+                                       tp=tp)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         finally:
             for p in leaves:
@@ -166,14 +205,18 @@ def make_train_step(model, *, base_lr=3e-4, warmup=100, total=10_000,
         # a leaf the loss does not read (a vlm's embedding) has grad 0
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
+        if tp is not None:         # each data rank's is its batch's share
+            grads = [tp.reduce_grad(path, g) for path, g in
+                     zip(leaf_paths(state.params), grads)]
         grads = serialize.unflatten(state.params, grads)
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, tp)
         new_state = adamw_update(state, grads, lr_fn(state.step + 1),
                                  weight_decay=weight_decay,
-                                 clip_norm=clip_norm)
+                                 clip_norm=clip_norm, grad_norm=gnorm)
         metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["loss"] = loss.detach()
+        metrics["loss"] = loss.detach() if tp is None else tp.sum_data(loss)
         metrics["grad_norm"] = gnorm
         return new_state, metrics
 
+    train_step.tp = tp
     return train_step

@@ -1,0 +1,203 @@
+"""The train driver on a mesh (``repro_torch.launch.train --mesh``), its
+collectives (``launch/collectives.py``), placement (``launch/sharding.py``)
+and the checkpoints of a sharded run, on gloo CPU ranks spawned by
+``repro_torch.launch.ranks.spawn`` (each with its own time limit) and in
+one ``python -m torch.distributed.run`` subprocess."""
+import math
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.checkpoint.ckpt import _items, save_checkpoint
+from repro_torch.configs import registry
+from repro_torch.core.storage import ObjectStore
+from repro_torch.launch import mesh as mesh_mod
+from repro_torch.launch import train
+from repro_torch.launch.ranks import spawn
+from tests._torch_mesh import RANK_TIMEOUT_S
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def test_prod_mesh_on_a_world_of_one_exits_naming_its_ranks():
+    for kind, n in (("prod", 256), ("multipod", 512)):
+        with pytest.raises(SystemExit, match=f"needs {n} ranks"):
+            train.main(["--arch", "llama3-8b", "--smoke", "--mesh", kind,
+                        "--device", "cpu", "--steps", "1"])
+
+
+def test_other_families_exit_on_a_mesh_of_two_naming_their_item():
+    """moe, ssm and hybrid smoke configs on a (1, 2) mesh exit with the
+    ROADMAP item that brings them; the dense family trains."""
+    out = spawn("tests._torch_mesh:driver_refusals", 2, {"archs": [
+        "qwen3-moe-30b-a3b", "falcon-mamba-7b", "hymba-1.5b", "granite-8b"]},
+        timeout_s=RANK_TIMEOUT_S)
+    for rank in out:
+        assert "item 9c" in rank["qwen3-moe-30b-a3b"]
+        assert "item 9b" in rank["falcon-mamba-7b"]
+        assert "item 9b" in rank["hymba-1.5b"]
+        assert rank["granite-8b"] is None
+
+
+@pytest.fixture(scope="module")
+def checkpoints():
+    """A one-device run's checkpoint at step 2, and the (1, 2) mesh's
+    run (`driver_checkpoints`) that saves its own and resumes from it."""
+    cfg = registry.get_smoke("llama3-8b")
+    one = train.run(cfg, steps=2, batch=2, seq=64, ckpt_every=2,
+                    device="cpu")
+    objects = dict(one["runtime"][0].list_bucket("ckpts"))
+    ranks = spawn("tests._torch_mesh:driver_checkpoints", 2,
+                  {"restore_objects": objects}, timeout_s=RANK_TIMEOUT_S)
+    return one, ranks
+
+
+def test_sharded_checkpoint_is_the_one_device_checkpoint_of_its_state(
+        checkpoints):
+    """Rank 0 writes, object for object and byte for byte, what
+    `save_checkpoint` writes for the gathered state; it restores on one
+    device into that state, bit for bit."""
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.optim.adamw import TrainState
+
+    _, ranks = checkpoints
+    got, whole = ranks[0]["objects"], ranks[0]["whole"]
+    state = TrainState(step=whole["step"], params={}, mu={}, nu={})
+    for key, leaf in whole.items():
+        *parents, name = key.split("/")
+        if parents:
+            node = getattr(state, parents[0])
+            for p in parents[1:]:
+                node = node.setdefault(p, {})
+            node[name] = leaf
+    store = ObjectStore()
+    save_checkpoint(store, "ckpts", 2, state)
+    want = dict(store.list_bucket("ckpts"))
+    assert list(sorted(got)) == list(sorted(want))
+    assert all(got[k] == want[k] for k in want)
+    step, flat = restore_checkpoint(store, "ckpts")
+    assert step == 2 and list(flat) == list(whole)
+    assert all(torch.equal(flat[k], whole[k]) for k in whole)
+
+
+def test_one_device_checkpoint_restores_onto_the_mesh(checkpoints):
+    """The mesh run resumes from the one-device run's checkpoint: its
+    shards, gathered, are that state bit for bit."""
+    one, ranks = checkpoints
+    want = dict(_items(one["state"]))
+    for rank in ranks:
+        assert rank["start_step"] == 2
+    got = ranks[0]["restored"]
+    assert list(got) == list(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k])
+
+
+def test_mesh_run_tracks_the_one_device_run(checkpoints):
+    """The (1, 2) mesh's two steps against the one-device driver's on the
+    same corpus: losses within the bf16 tolerance of
+    tests/test_torch_train.py (2e-2), every rank the same loss, each
+    rank's state bytes the same, and the step's collectives counted."""
+    one, ranks = checkpoints
+    for rank in ranks:
+        for a, b in zip(rank["records"], one["records"]):
+            assert abs(a["loss"] - b["loss"]) <= 2e-2
+            assert math.isfinite(a["grad_norm"])
+            assert a["collectives"]["calls"]["all_reduce"] > 0
+        assert rank["state_bytes"] == ranks[0]["state_bytes"]
+    assert [r["loss"] for r in ranks[0]["records"]] == \
+        [r["loss"] for r in ranks[1]["records"]]
+
+
+def test_ranks_never_share_a_card_unasked(monkeypatch):
+    """Two local ranks and one card: `rank_device` exits, unless the
+    caller shares the card explicitly."""
+    from repro_torch import device as D
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    with pytest.raises(SystemExit, match="2 ranks on this host and 1"):
+        D.rank_device("cuda")
+    assert D.rank_device("cuda", shared=True) == torch.device("cuda")
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "1")
+    monkeypatch.setenv("LOCAL_RANK", "0")
+    assert D.rank_device("cuda") == torch.device("cuda", 0)
+
+
+def test_rank_mesh_coordinates_are_row_major():
+    m = mesh_mod.RankMesh(("pod", "data", "model"), (2, 2, 4), rank=13)
+    assert m.coords == {"pod": 1, "data": 1, "model": 1}
+    assert m.index(("pod", "data")) == 3 and m.index("model") == 1
+
+
+def collectives_rank():
+    """On a (2, 2) gloo mesh: the forward and backward of `gather`,
+    `copy_to` and `reduce_from`, and `reduce_scatter` along dim 1."""
+    from repro_torch.launch import collectives as C
+    from repro_torch.launch.mesh import rank_mesh
+
+    mesh = rank_mesh(("data", "model"), (2, 2), backend="gloo")
+    r = float(mesh.rank)
+    x = torch.full((2, 3), r, requires_grad=True)
+    g = C.gather(x, mesh, "model", 1)                 # (2, 6)
+    (g * torch.arange(6.0)).sum().backward()
+    out = {"gather": g.detach(), "gather_grad": x.grad.clone()}
+    y = torch.full((3,), r, requires_grad=True)
+    (C.copy_to(y, mesh, "data") * 2).sum().backward()
+    out["copy_grad"] = y.grad.clone()
+    z = torch.full((3,), r, requires_grad=True)
+    s = C.reduce_from(z, mesh, "data")
+    (s * 3).sum().backward()
+    out["reduce"], out["reduce_grad"] = s.detach(), z.grad.clone()
+    out["scatter"] = C.reduce_scatter(torch.arange(8.0).reshape(2, 4) + r,
+                                      mesh, "model", 1)
+    out["coords"] = mesh.coords
+    return out
+
+
+def test_collectives_forward_and_backward():
+    out = spawn("tests.test_torch_mesh_driver:collectives_rank", 4,
+                timeout_s=RANK_TIMEOUT_S)
+    for rank, o in enumerate(out):
+        d, m = o["coords"]["data"], o["coords"]["model"]
+        peers = [2 * d, 2 * d + 1]                    # the model group
+        want = torch.cat([torch.full((2, 3), float(p)) for p in peers], 1)
+        assert torch.equal(o["gather"], want)
+        # every model rank's loss reads this rank's columns: summed
+        cols = torch.arange(6.0).reshape(1, 6)[:, 3 * m:3 * m + 3]
+        assert torch.equal(o["gather_grad"], 2 * cols.expand(2, 3))
+        assert torch.equal(o["copy_grad"], torch.full((3,), 4.0))
+        ranks_d = [m, 2 + m]                          # the data group
+        assert torch.equal(o["reduce"], torch.full((3,), float(sum(ranks_d))))
+        assert torch.equal(o["reduce_grad"], torch.full((3,), 3.0))
+        total = 2 * (torch.arange(8.0).reshape(2, 4)) + sum(peers)
+        assert torch.equal(o["scatter"], total[:, 2 * m:2 * m + 2])
+
+
+def test_torch_distributed_run_trains_on_two_cpu_ranks():
+    """``python -m torch.distributed.run --nproc-per-node 2 -m
+    repro_torch.launch.train --mesh debug --device cpu``: two ranks over
+    gloo, rank 0 printing the mesh, each rank's state bytes and 2 steps."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(ROOT / "src"),
+                                         env.get("PYTHONPATH", "")])
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
+         "--arch", "llama3-8b", "--smoke", "--mesh", "debug", "--device",
+         "cpu", "--steps", "2", "--batch", "2", "--seq", "32"],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=150)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "mesh 1x2" in proc.stdout and "state bytes by rank" in proc.stdout
+    steps = [line for line in proc.stdout.splitlines()
+             if line.startswith("step ")]
+    assert len(steps) == 2, proc.stdout
+    assert all(np.isfinite(float(s.split("loss=")[1].split()[0]))
+               for s in steps)
+

@@ -854,7 +854,14 @@ def test_train_driver_refuses_embeddings_archs():
 
 
 def test_train_driver_has_no_mesh_flag():
-    """The reference's flags but ``--mesh``: one device, no sharding."""
-    with pytest.raises(SystemExit):
-        train.main(["--arch", "llama3-8b", "--smoke", "--mesh", "debug",
-                    "--device", "cpu"])
+    """Without ``--mesh`` the driver trains on one device; ``--mesh
+    debug`` on one process (no process group, a mesh of one rank) is
+    that same one-device step: the losses bit for bit, no mesh, no
+    sharding. Sharded runs: tests/test_torch_mesh_*.py."""
+    args = ["--arch", "llama3-8b", "--smoke", "--steps", "2", "--batch",
+            "2", "--seq", "32", "--device", "cpu"]
+    a = train.main(args)
+    b = train.main(args + ["--mesh", "debug"])
+    assert a["mesh"] is None and b["mesh"] is None and b["tp"] is None
+    assert [r["loss"] for r in a["records"]] == \
+        [r["loss"] for r in b["records"]]
