@@ -127,9 +127,10 @@ Phases, each of which fails the run (exit 1) if it fails:
    each over NCCL where the machine has that many, else every rank on
    card 0 over gloo, passed explicitly; a line names the backend and
    the cards), against the same 3 steps on one rank: each step's loss
-   within 2e-2 and grad norm within 5e-2 of it, each post-step params
-   leaf, over every rank's shard of it, within 5e-2 of its largest
-   |value|, each rank's
+   within 2e-2 and grad norm within 5e-2 of it, leaf by leaf over every
+   rank's shard: each first-moment leaf within 5e-2 of its largest
+   |value|, each params leaf's update from init within 5e-1 of one
+   rank's in norm; each rank's
    train state against the dry run's state bytes on that debug mesh
    exactly in requested bytes, exact launches of both attention kernels
    on each rank's local heads (H 16 K 4 at 2 ranks, H 8 K 2 at 4), step
@@ -143,10 +144,11 @@ Phases, each of which fails the run (exit 1) if it fails:
    through the kernels and then ``plain=True`` on the inputs the kernel
    run decoded (the payloads are not decoded twice): at tiny
    scale (the SMOKE configs, hd 32) with every payload and output length
-   equal to ``calibration.json``, and at full published width (llama3-8b
-   32 layers, 16.06 GB of params in one payload or 4 shards, a 2.15 GB
-   decode state of 8 x 2048 slots; granite-8b 36 layers, tied head, B 32
-   x S 512) with every length equal to ``role_sizes(cfg, 1)``; kernel
+   equal to ``calibration.json``, and at full published width cut to
+   half depth (llama3-8b 16 of 32 layers, 9.08 GB of params in one
+   payload or 4 shards, a 1.07 GB decode state of 8 x 2048 slots;
+   granite-8b 18 of 36 layers, tied head, B 32 x S 512) with every
+   length equal to ``role_sizes(cfg, 1)`` of the cut config; kernel
    against plain (logits and float cache leaves atol 0.3, rtol 0.05,
    integer leaves exactly, greedy tokens wherever the top-2 margin
    exceeds 0.3), exact launch counts, and per scenario the payload bytes,
@@ -236,10 +238,7 @@ Phases, each of which fails the run (exit 1) if it fails:
    call computes it.
 
 Prints a JSON line of the kernels, the card's name and power limit, and
-as its last line ``{"ok": true, "device": {...}}``. Phase names as
-arguments run those phases alone, with no kernels line (``python3
-chip_smoke.py build "train (mesh)"`` on a machine with four cards runs
-the mesh phase over NCCL). Without a CUDA
+as its last line ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or outside a checkout of the repository, it exits 2 and prints
 no result. Imports nothing of JAX and nothing of the JAX package.
 """
@@ -309,6 +308,9 @@ NODE_TINY = {**MLSERVE, "moe": ("MOE",)}
 FAULTED = ("LLM-PREFILL", "LLM-DECODE")
 FAULTED_SYSTEMS = ("nexus", "baseline")
 MLSERVE_SCALES = ("tiny", "full")
+#: the layers each role's full-width config keeps in the "mlserve cores"
+#: phase (half of llama3-8b's 32 and of granite-8b's 36)
+MLSERVE_FULL_LAYERS = {"llm": 16, "emb": 18}
 #: the five systems of the paper's Fig 6 (``SYSTEMS_ORDER`` of
 #: benchmarks/density.py), each searched by the density phase
 DENSITY_SYSTEMS = ("baseline", "nexus-tcp", "nexus-prefetch-only",
@@ -333,8 +335,14 @@ TRAIN_STEPS, TRAIN_TRACED = 4, 2
 #: card 0 over gloo), each rank within MESH_TIMEOUT_S seconds
 MESH_LAYERS, MESH_STEPS, MESH_RANKS, MESH_TIMEOUT_S = 4, 3, (2, 4), 420
 #: the bf16 tolerances of tests/test_torch_train.py: the loss within 2e-2,
-#: each leaf within 5e-2 of its largest |value|
-MESH_LOSS_TOL, MESH_LEAF_TOL = 2e-2, 5e-2
+#: each gradient leaf (here each first-moment leaf, 0.1 x the clipped
+#: gradient of step 3 plus 0.09 and 0.081 x steps 2 and 1) within 5e-2 of
+#: its largest |value| (2.1-2.2e-2 on an H100); each params leaf's
+#: update (params - init) within MESH_UPDATE_TOL of one rank's update in
+#: norm: a bf16 param moves only where it is small, by a few ulps, so
+#: its rounding follows the last bits of the gradient (0.14-0.15 on an
+#: H100, ``embed``); a skipped update reads 1, an unrelated one ~1.4
+MESH_LOSS_TOL, MESH_LEAF_TOL, MESH_UPDATE_TOL = 2e-2, 5e-2, 5e-1
 #: the kernels of the train paths, as they appear in a trace
 TRAIN_KERNELS = ("attn_tc_kernel", "attn_kernel", "dkdv_kernel", "dq_kernel",
                  "prep_kernel", "ssm_scan_kernel", "ssm_scan_bwd_kernel",
@@ -1959,9 +1967,16 @@ class Smoke:
                   f"{r['wall_s'] * 1e3:.1f} ms, device "
                   f"{r['device_s'] * 1e3:.1f} ms ({nvidia_smi()})")
         tmp = tempfile.mkdtemp(prefix="mesh-")
-        reference = str(Path(tmp) / "one_rank_params.pt")
-        torch.save({"/".join(map(str, p)): t.cpu() for p, t in
-                    leaves_with_paths(one["state"].params)}, reference)
+        reference = str(Path(tmp) / "one_rank_state.pt")
+        t0 = time.monotonic()
+        torch.save({f"{name}/" + "/".join(map(str, p)): t.cpu()
+                    for name in ("params", "mu") for p, t in
+                    leaves_with_paths(getattr(one["state"], name))},
+                   reference)
+        print(f"  {path}: params and first moments saved for the ranks, "
+              f"{os.path.getsize(reference) / 1e9:.2f} GB in "
+              f"{time.monotonic() - t0:.1f} s, "
+              f"{shutil.disk_usage(tmp).free / 1e9:.0f} GB left there")
         records = one["records"]
         del one
         gc.collect()
@@ -2030,54 +2045,69 @@ class Smoke:
             if res["requested"] != res["dry"]:
                 bad.append((path, "state bytes", res["requested"],
                             res["dry"]))
-        worst = ranks[0]["params_worst"]
-        print(f"  train (mesh) {n} ranks: post-step params (every rank's "
-              f"shards) against one rank's: worst leaf {worst[1]:.3e} of its largest |value| "
-              f"({worst[0]}; tolerance {MESH_LEAF_TOL}) over "
-              f"{ranks[0]['params_leaves']} leaves")
-        if worst[1] > MESH_LEAF_TOL:
-            bad.append(("params", worst))
+        first = ranks[0]
+        upd, mu = first["update_worst"], first["mu_worst"]
+        print(f"  train (mesh) {n} ranks: against one rank's, leaf by leaf "
+              f"over every rank's shards: first moments' worst leaf "
+              f"{mu[1]:.3e} of its largest |value| ({mu[0]}; tolerance "
+              f"{MESH_LEAF_TOL}); params' update (params - init) worst "
+              f"leaf {upd[1]:.3e} of one rank's update in norm ({upd[0]}; "
+              f"tolerance {MESH_UPDATE_TOL}), {first['moved']} of "
+              f"{first['leaves']} leaves moved on one rank, the rest "
+              f"equal to init on both")
+        if mu[1] > MESH_LEAF_TOL:
+            bad.append(("first moments", mu))
+        if upd[1] > MESH_UPDATE_TOL:
+            bad.append(("params update", upd))
         if bad:
             raise AssertionError(f"train (mesh) {n} ranks: {bad}")
 
     def phase_mlserve(self):
-        """The MLServe cores at tiny scale, then at full width: each role's
-        scenarios from their seed payloads, kernel path against plain path
-        on the same bytes."""
+        """The MLServe cores at tiny scale, then at full width cut to
+        ``MLSERVE_FULL_LAYERS``: each role's scenarios from their seed
+        payloads, kernel path against plain path on the same bytes."""
         torch = self.torch
-        from repro_torch.core import calibrate
         from repro_torch.models import serving
         for scale in MLSERVE_SCALES:
             for role, scenarios in MLSERVE.items():
                 serving._bundle.cache_clear()
                 gc.collect()
                 torch.cuda.empty_cache()
-                cfg = serving._bundle(role, scale)["cfg"]
-                sizes = serving.role_sizes(cfg, devices=1)
-                if scale == "tiny":
-                    entry = calibrate.model_entry("tiny", role)
-                    if sizes != {k: entry[k] for k in sizes}:
-                        raise AssertionError(f"tiny {role}: role_sizes is not "
-                                             f"calibration.json's entry")
-                print(f"  before {scale} {role} ({cfg.name}, {cfg.num_layers} "
-                      f"layers): {torch.cuda.memory_allocated() / 2**30:.2f} "
-                      f"GiB allocated on the card")
-                counters = self.counters()
-                for mod in counters.values():
-                    mod.launches = 0
-                t0 = time.perf_counter()
-                seeded = serving.seed_role(role, scenarios, scale=scale)
-                print(f"  {scale} {role}: seed payloads of "
-                      f"{', '.join(scenarios)} built in "
-                      f"{time.perf_counter() - t0:.1f}s")
-                if "LLM-DECODE" in scenarios:    # the decode state's prefill
-                    self.launches[f"mlserve {scale} LLM-DECODE seed"] = {
-                        name: mod.launches for name, mod in counters.items()}
-                for scenario in scenarios:
-                    self.mlserve_scenario(scenario, scale, cfg, sizes,
-                                          seeded.pop(scenario))
-                    gc.collect()
+                with (cut_bundle(role, MLSERVE_FULL_LAYERS[role])
+                      if scale == "full" else contextlib.nullcontext()):
+                    self.mlserve_role(role, scenarios, scale)
         serving._bundle.cache_clear()
+
+    def mlserve_role(self, role, scenarios, scale):
+        """One role's scenarios at one scale from payloads seeded once."""
+        torch = self.torch
+        from repro_torch.core import calibrate
+        from repro_torch.models import serving
+        cfg = serving._bundle(role, scale)["cfg"]
+        sizes = serving.role_sizes(cfg, devices=1)
+        if scale == "tiny":
+            entry = calibrate.model_entry("tiny", role)
+            if sizes != {k: entry[k] for k in sizes}:
+                raise AssertionError(f"tiny {role}: role_sizes is not "
+                                     f"calibration.json's entry")
+        print(f"  before {scale} {role} ({cfg.name}, {cfg.num_layers} "
+              f"layers): {torch.cuda.memory_allocated() / 2**30:.2f} "
+              f"GiB allocated on the card")
+        counters = self.counters()
+        for mod in counters.values():
+            mod.launches = 0
+        t0 = time.perf_counter()
+        seeded = serving.seed_role(role, scenarios, scale=scale)
+        print(f"  {scale} {role}: seed payloads of "
+              f"{', '.join(scenarios)} built in "
+              f"{time.perf_counter() - t0:.1f}s")
+        if "LLM-DECODE" in scenarios:    # the decode state's prefill
+            self.launches[f"mlserve {scale} LLM-DECODE seed"] = {
+                name: mod.launches for name, mod in counters.items()}
+        for scenario in scenarios:
+            self.mlserve_scenario(scenario, scale, cfg, sizes,
+                                  seeded.pop(scenario))
+            gc.collect()
 
     def mlserve_scenario(self, scenario, scale, cfg, sizes, payloads):
         """Run one scenario's core through the kernels and through the
@@ -2145,7 +2175,7 @@ class Smoke:
             self.codec_split(payloads[1], serving._bundle("llm", scale))
 
     def codec_split(self, kv, bundle):
-        """Where the codec's time goes, on the 2.15 GB decode state: decode
+        """Where the codec's time goes, on the decode state: decode
         = the host copy of each leaf (``loads`` onto the CPU) + the copy
         onto the card; encode = the copy back + the host's bytes
         (``dumps`` of the tree on the CPU)."""
@@ -2558,19 +2588,9 @@ class Smoke:
         cache and one into the tenant arena). Both durable outputs against
         the kernel-path core called directly on the same payload bytes.
         The MLServe cores take the cut config as the role's full scale for
-        the run (``serving._bundle`` answers it for ("llm", "full")); the
-        full depth's core runs in the "mlserve cores" phase."""
-        from repro_torch.models import serving
-        bundle = serving._bundle
-        cfg = bundle("llm", "full")["cfg"].replace(num_layers=NODE_LAYERS)
-        cut = {"cfg": cfg, "structs": serving._structs_for(cfg)}
-        serving._bundle = (lambda role, scale="tiny": cut if
-                           (role, scale) == ("llm", "full")
-                           else bundle(role, scale))
-        try:
+        the run (`cut_bundle`)."""
+        with cut_bundle("llm", NODE_LAYERS):
             self.node_full_cut()
-        finally:
-            serving._bundle = bundle
 
     def node_full_cut(self):
         torch = self.torch
@@ -3489,6 +3509,65 @@ class Smoke:
         return json.dumps({"kernels": rows})
 
 
+@contextlib.contextmanager
+def cut_bundle(role, layers):
+    """``serving._bundle`` answers ``role`` at full scale with its
+    full-width config cut to ``layers`` layers while the block runs."""
+    from repro_torch.models import serving
+    bundle = serving._bundle
+    cfg = bundle(role, "full")["cfg"].replace(num_layers=layers)
+    cut = {"cfg": cfg, "structs": serving._structs_for(cfg)}
+    serving._bundle = (lambda r, scale="tiny": cut if
+                       (r, scale) == (role, "full") else bundle(r, scale))
+    try:
+        yield
+    finally:
+        serving._bundle = bundle
+
+
+def against_one_rank(model, state, tp, mesh, reference):
+    """This rank's post-step ``state`` leaf by leaf against one rank's
+    (``reference``: its params and first moments, saved whole), each leaf
+    whole over every rank's shard: the first moment's largest error over
+    its largest |value|, and the params' update from init (drawn again
+    from the run's seed) against one rank's update in norm; the worst
+    leaf of each, and how many leaves moved on one rank."""
+    import torch
+    from repro_torch.launch import collectives as C
+    from repro_torch.launch import sharding as SH
+    want = torch.load(reference, mmap=True, weights_only=True)
+    init = dict(SH.leaves_with_paths(model.init_params(
+        torch.Generator(device=mesh.device).manual_seed(0))))
+    mu = dict(SH.leaves_with_paths(state.mu))
+    upd_worst, mu_worst, moved = ("", 0.0), ("", 0.0), 0
+    for p, leaf in SH.leaves_with_paths(state.params):
+        path = "/".join(map(str, p))
+
+        def mine(t):
+            return SH.local_shard(t, tp.specs[path], mesh).to(
+                mesh.device).float()
+        # each leaf whole over every rank's shard, no gather: the sums of
+        # squares of (update - one rank's update) and of one rank's
+        # update, the largest first-moment error and |value|
+        b, i = mine(want[f"params/{path}"]), mine(init.pop(p))
+        m, m1 = mu[p], mine(want[f"mu/{path}"])
+        s = C.all_reduce(torch.stack([(leaf.float() - b).square().sum(),
+                                      (b - i).square().sum()]), mesh,
+                         mesh.axis_names)
+        x = C.all_reduce(torch.stack([(m - m1).abs().max(),
+                                      m1.abs().max()]), mesh,
+                         mesh.axis_names, "max")
+        del b, i, m1
+        moved += bool(s[1] > 0)
+        upd = (s[0].sqrt() / s[1].sqrt()).item() if s[1] > 0 else (
+            0.0 if s[0] == 0 else math.inf)
+        upd_worst = max(upd_worst, (path, upd), key=lambda w: w[1])
+        mu_worst = max(mu_worst, (path, (x[0] / x[1].clamp_min(
+            1e-30)).item()), key=lambda w: w[1])
+    return {"update_worst": upd_worst, "mu_worst": mu_worst,
+            "moved": moved, "leaves": len(mu)}
+
+
 def mesh_rank(layers, shared, reference):
     """One rank of `Smoke.phase_train_mesh` (a process of its own, in a
     process group that ``repro_torch.launch.ranks.spawn`` set up): the
@@ -3496,9 +3575,10 @@ def mesh_rank(layers, shared, reference):
     card 0 over gloo, passed explicitly; else NCCL on
     ``cuda:{LOCAL_RANK}``) with the attention kernels' launches counted
     from 0, the requested bytes the card holds with only the train state
-    alive and the dry run's, then each params leaf against one rank's
-    (``reference``) as a whole: its largest error over its largest
-    |value|, each a max over every rank's shard."""
+    alive and the dry run's, then, leaf by leaf against one rank's
+    (``reference``), each over every rank's shard: the first moment's
+    largest error over its largest |value|, and the params' update from
+    init (drawn again from the run's seed) in norm."""
     t0 = time.monotonic()
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3507,7 +3587,6 @@ def mesh_rank(layers, shared, reference):
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.launch import collectives as C
     from repro_torch.launch import dryrun
-    from repro_torch.launch import sharding as SH
     from repro_torch.launch import train
     from repro_torch.launch.mesh import make_debug_mesh
     cfg = registry.get("llama3-8b").replace(num_layers=layers)
@@ -3540,21 +3619,7 @@ def mesh_rank(layers, shared, reference):
            "device": str(mesh.device), "note": C.backend_note(mesh),
            "heads": f"q [{h0}, {h1}) of {cfg.num_heads}, kv [{k0}, {k1}) "
                     f"of {cfg.num_kv_heads}"}
-    want = torch.load(reference, mmap=True, weights_only=True)
-    worst = ("", 0.0)
-    for p, leaf in SH.leaves_with_paths(state.params):
-        path = "/".join(map(str, p))
-        b = SH.local_shard(want[path], tp.specs[path], mesh).to(
-            leaf.device).float()
-        # [max |error|, max |value|] of this shard, then of the whole leaf
-        # over every rank: the whole leaf held as gathered, no gather
-        m = C.all_reduce(torch.stack([(leaf.float() - b).abs().max(),
-                                      b.abs().max()]), mesh,
-                         mesh.axis_names, "max")
-        worst = max(worst, (path, (m[0] / m[1].clamp_min(1e-30)).item()),
-                    key=lambda w: w[1])
-    out["params_worst"], out["params_leaves"] = worst, len(
-        SH.leaves_with_paths(state.params))
+    out.update(against_one_rank(res["model"], state, tp, mesh, reference))
     out["seconds"] = {"start": t1 - t0, "train.run": t2 - t1,
                       "checks": time.monotonic() - t2}
     return out
@@ -3596,9 +3661,6 @@ def main() -> int:
     phases.append(("fleet and plancheck", smoke.phase_fleet))
     phases.append(("dry run", smoke.phase_dryrun))
     phases.append(("timing", smoke.phase_timing))
-    only = sys.argv[1:]                 # phase names: run just those
-    if only:
-        phases = [(n, fn) for n, fn in phases if n in only]
     for name, fn in phases:
         print(f"== {name}", flush=True)
         t0 = time.monotonic()
@@ -3615,8 +3677,7 @@ def main() -> int:
         print(f"chip_smoke: FAILED phases: {', '.join(failed)}",
               file=sys.stderr)
         return 1
-    if not only:
-        print(smoke.kernels_line())
+    print(smoke.kernels_line())
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -217,10 +217,6 @@ def main(argv=None) -> dict:
     ap.add_argument("--mesh", default=None, choices=MESHES,
                     help="train on the reference's mesh, one process a "
                          "rank (torch.distributed.run); one device without")
-    ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
-                    help="the process group's backend (NCCL on the card, "
-                         "gloo on the CPU by default); gloo with a --device "
-                         "puts every rank on that device")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -230,8 +226,7 @@ def main(argv=None) -> dict:
     try:
         return run(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
                    ckpt_every=args.ckpt_every, transport=args.transport,
-                   resume=args.resume, device=args.device, mesh=args.mesh,
-                   backend=args.backend)
+                   resume=args.resume, device=args.device, mesh=args.mesh)
     finally:
         if args.mesh is not None and dist.is_initialized():
             dist.destroy_process_group()

@@ -40,13 +40,15 @@ B, S = 2, 64
 #: the meshes, (data, model), each held to the reference's
 MESHES = ((1, 2), (1, 4), (2, 2))
 SEED, BATCH_SEED = 0, 8
-#: the tolerances of tests/test_torch_train.py's f32 cases and of its
-#: test_train_step_matches_reference: the loss and grad norm at rtol
-#: 1e-5, each first-moment leaf (0.1 x the clipped gradient) within 1e-4
-#: of its largest |value|, each param within 2 lr of the reference's (a
-#: first Adam step is lr sign(g), which may flip where g ~ 0)
-LOSS_RTOL, LEAF_TOL = 1e-5, 1e-4
-LR1 = 3e-4 / 100                  # cosine_schedule(3e-4, 100, ...)(1)
+#: the tolerances of tests/test_torch_train.py's f32 cases: the loss and
+#: grad norm at rtol 1e-5, each first-moment leaf (0.1 x the clipped
+#: gradient) within 1e-4 of its largest |value|. Each params leaf's
+#: update (params - init) within UPDATE_TOL of the reference's update in
+#: norm: a first Adam step is lr sign(g), which flips elementwise where
+#: g ~ 0 (up to 0.12 of the largest update in one element), but the
+#: worst leaf over every case here reads 4.0e-3 in norm (qwen2-72b's
+#: ``bk``), and a skipped update reads 1
+LOSS_RTOL, LEAF_TOL, UPDATE_TOL = 1e-5, 1e-4, 2e-2
 REF_TIMEOUT_S, RANK_TIMEOUT_S = 240, 150
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -245,14 +247,18 @@ def runs(request, tmp_path_factory):
     return ref, port, _port_one_device(arch, ref["params"], ref["batch"])
 
 
-def _close_leaves(got: dict, want: dict, what: str) -> None:
+def _close_leaves(got: dict, want: dict, what: str, init=None) -> None:
     assert list(got) == list(want), what
     for key, b in want.items():
         a = got[key]
         assert a.shape == b.shape, (what, key)
         if what == "params":
-            err = float(np.abs(a - b).max())
-            assert err <= 2 * LR1, (what, key, err)
+            # the step's update against the reference's update, leaf by
+            # leaf: (a - init) - (b - init) is a - b
+            upd = float(np.linalg.norm(b.astype(np.float64) - init[key]))
+            assert upd > 0, (what, key, "the reference's step left it")
+            err = float(np.linalg.norm(a.astype(np.float64) - b)) / upd
+            assert err <= UPDATE_TOL, (what, key, err)
         else:
             err = float(np.abs(a - b).max()) / max(float(np.abs(b).max()),
                                                    1e-30)
@@ -280,7 +286,8 @@ class MeshCases:
         ref, port, _ = runs
         got = port[shape][0]
         for what in ("params", "mu"):
-            _close_leaves(got[what], ref["meshes"][shape][what], what)
+            _close_leaves(got[what], ref["meshes"][shape][what], what,
+                          ref["params"])
 
     def test_shard_shapes_match_reference(self, runs, shape):
         ref, port, _ = runs
@@ -315,7 +322,7 @@ class MeshCases:
                                    [one["loss"], one["grad_norm"]],
                                    rtol=LOSS_RTOL)
         for what in ("params", "mu"):
-            _close_leaves(got[what], one[what], what)
+            _close_leaves(got[what], one[what], what, runs[0]["params"])
 
     def test_head_split_gathers_are_counted(self, runs, shape):
         """At ``model`` 4 the smoke's K 2 x hd 32 = 64 k/v columns are 16
@@ -406,6 +413,7 @@ def one_step(arch, overrides, shape=None):
     mesh = (rank_mesh(("data", "model"), shape, backend="gloo")
             if shape else None)
     step = make_train_step(model, mesh=mesh)
+    init = {k: v.numpy().copy() for k, v in _flat(params).items()}
     state = adamw_init(params)
     if mesh is not None:
         state = SH.state_to_mesh(state, step.tp)
@@ -414,7 +422,8 @@ def one_step(arch, overrides, shape=None):
     state, metrics = step(state, batch)
     out = {"loss": float(metrics["loss"]),
            "grad_norm": float(metrics["grad_norm"]),
-           "gathers": dict(step.tp.gathers) if mesh is not None else {}}
+           "gathers": dict(step.tp.gathers) if mesh is not None else {},
+           "init": init}
     if mesh is not None:
         state = SH.state_from_mesh(state, step.tp)
     out["params"] = {k: v.numpy() for k, v in _flat(state.params).items()}

@@ -26,8 +26,9 @@ from tests._torch_mesh import (LOSS_RTOL, RANK_TIMEOUT_S, _close_leaves,
 def test_heads_that_do_not_split_evenly(arch, overrides, shape, gathered):
     """Where a rank's q heads are not whole shards (or not whole kv
     groups) the step still equals the port's one-device step: loss and
-    grad norm at rtol 1e-5, params within 2 lr and first moments within
-    1e-4 of their largest |value|; every rank counts its gathers."""
+    grad norm at rtol 1e-5, each params leaf's update within 2e-2 of the
+    one-device update in norm and first moments within 1e-4 of their
+    largest |value|; every rank counts its gathers."""
     one = one_step(arch, overrides)
     ranks = spawn("tests._torch_mesh:one_step", shape[0] * shape[1], {
         "arch": arch, "overrides": overrides, "shape": shape},
@@ -39,7 +40,7 @@ def test_heads_that_do_not_split_evenly(arch, overrides, shape, gathered):
         assert sorted(r["gathers"]) == sorted(f"layers/attn/{n}"
                                               for n in gathered)
     for what in ("params", "mu"):
-        _close_leaves(ranks[0][what], one[what], what)
+        _close_leaves(ranks[0][what], one[what], what, one["init"])
 
 
 @pytest.mark.parametrize("policy, shape", [("none", (2, 2)),
@@ -63,4 +64,4 @@ def test_remat_policies_on_a_mesh(policy, shape):
         assert r["gathers"] == ({} if shape[1] == 2 else {
             f"layers/attn/{n}": 2 * passes for n in ("wk", "wv")})
     for what in ("params", "mu"):
-        _close_leaves(ranks[0][what], one[what], what)
+        _close_leaves(ranks[0][what], one[what], what, one["init"])
