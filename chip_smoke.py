@@ -41,7 +41,8 @@ Phases, each of which fails the run (exit 1) if it fails:
    training shape (B 2 x S 4096 and B
    1 x S 2048, causal) and a mesh rank's local heads of it (H 16 K 4
    and H 8 K 2, which the forward checks hold too), hymba's heads at
-   S 4096 with its 2048 window,
+   S 4096 with its 2048 window and a mesh rank's of them at model 4 (H 6
+   and H 7 at G 1, B 2, which the forward checks hold too),
    seamless's cross shape (2048 queries against 1500 keys,
    bidirectional), the group sizes 1, 2, 5, 6, 7 and 8, hd 16 and 32, a
    dout that is a transposed view, and two runs bit for bit; the
@@ -54,7 +55,9 @@ Phases, each of which fails the run (exit 1) if it fails:
    (d(dt), dx, dB, dC, dA, dh0) within 1e-4 of its largest |value| (dx
    2e-2 with xr bf16): Falcon-Mamba-7B's and Hymba-1.5B's widths with the
    long-memory inputs at B 1 x S 2048 and B 2 x S 4096 (the training
-   shape), xr bf16 and f32, hymba's width at both R forced, N = 8, a
+   shape), and a mesh rank's channels of them at B 2 x S 4096 (d_inner
+   4096 and 800, which the forward checks hold too), xr bf16 and f32,
+   hymba's width at both R forced, N = 8, a
    ragged S, S = 0, 1 and 5, nonzero h0 and dh_final (and none), B and C
    views of one projection, layouts that are not 16-byte aligned, block
    counts that are not a multiple of the cluster (masked CTAs in the last
@@ -71,12 +74,13 @@ Phases, each of which fails the run (exit 1) if it fails:
    MoE routing of the plain path held to the kernel path's where a
    token's 2nd and 3rd router probabilities lie within 2e-2
    (``RoutePin``; a flip at a larger margin fails);
-4. the serve driver (``repro_torch.launch.serve.main``) for each ported
-   arch at full published width (llama3-8b 32 layers, falcon-mamba-7b
-   64, hymba-1.5b 32, qwen3-moe-30b-a3b 48 with 128 experts top-8,
-   30.53e9 parameters; yi-34b 60, 34.39e9 parameters, 68.8 GB), and
-   (``repro_torch.launch.serve.run``) qwen2-72b at full width cut to 32
-   of its 80 layers and mixtral-8x22b cut to 12 of 56 with prompt 8192;
+4. the serve driver (``repro_torch.launch.serve.main``) for llama3-8b,
+   falcon-mamba-7b and hymba-1.5b at full published width and depth (32,
+   64 and 32 layers), and (``repro_torch.launch.serve.run``) at full
+   width cut in depth: qwen3-moe-30b-a3b to 24 of its 48 layers (128
+   experts top-8), yi-34b to 30 of 60, qwen2-72b to 32 of 80 and
+   mixtral-8x22b to 12 of 56 with prompt 8192 (each cut named on its
+   phase line);
    prompt 2048, 8 requests x 16 tokens, 2 replicas
    sharing one params copy: durable completions, prefetches, exact
    kernel launch counts (every count set to 0 just before the path and
@@ -121,20 +125,23 @@ Phases, each of which fails the run (exit 1) if it fails:
    scan's plain side under ``inner_remat``); and at llama3-8b smoke a
    checkpoint through the port's AsyncCheckpointer restored with
    ``--resume`` semantics, equal bit for bit; then ("train (mesh)")
-   llama3-8b at full width cut to 4 of its 32 layers, B 2 x S 4096, 3
-   AdamW steps through ``train.run(mesh="debug")`` on 2 and on 4 ranks
-   that it spawns itself (``repro_torch.launch.ranks.spawn``: a card
-   each over NCCL where the machine has that many, else every rank on
-   card 0 over gloo, passed explicitly; a line names the backend and
-   the cards), against the same 3 steps on one rank: each step's loss
-   within 2e-2 and grad norm within 5e-2 of it, leaf by leaf over every
-   rank's shard: each first-moment leaf within 5e-2 of its largest
-   |value|, each params leaf's update from init within 5e-1 of one
-   rank's in norm; each rank's
-   train state against the dry run's state bytes on that debug mesh
-   exactly in requested bytes, exact launches of both attention kernels
-   on each rank's local heads (H 16 K 4 at 2 ranks, H 8 K 2 at 4), step
-   wall and device time and the time inside collectives;
+   at full width, B 2 x S 4096, 3 AdamW steps through
+   ``train.run(mesh="debug")`` on ranks that it spawns itself
+   (``repro_torch.launch.ranks.spawn``: a card each over NCCL where the
+   machine has that many, else every rank on card 0 over gloo, passed
+   explicitly; a line names the backend and the cards): llama3-8b cut to
+   4 of its 32 layers on 2 and on 4 ranks, falcon-mamba-7b cut to 2 of 64 on 2
+   ranks and hymba-1.5b cut to 4 of 32 on 4 ranks, each against the
+   same 3 steps on one rank: each step's loss within 2e-2 and grad norm
+   within 5e-2 of it, leaf by leaf over every rank's shard: each
+   first-moment leaf within 5e-2 of its largest |value|, each params
+   leaf's update from init within 5e-1 of one rank's in norm; each
+   rank's train state against the dry run's state bytes on that debug
+   mesh exactly in requested bytes, exact launches of the attention and
+   scan kernels on each rank's local heads and channels (llama H 16 K 4
+   and H 8 K 2; falcon d_inner 4096; hymba d_inner 800 and
+   6 or 7 q heads at G 1), the model-axis gathers by path, step wall and
+   device time and the time inside collectives;
 5. one replica of each served arch traced with torch.profiler: host
    wall time of prefill and of a decode step, device time, device idle
    share, top device ops;
@@ -224,13 +231,16 @@ Phases, each of which fails the run (exit 1) if it fails:
    the forward's lse at llama's training shape (B 2 x S 4096), at B 1 x
    S 2048, at hymba's heads (hd 64, window 2048, S 4096) and at a mesh
    rank's llama heads (H 16 K 4 and H 8 K 2, B 2 x S 4096; the forward
-   too) beside its
+   too) and hymba heads (H 6 and 7 at G 1, window 2048; the forward too)
+   beside its
    bound by operations (2.5x the forward's FLOPs), the plain backward and
    the library's (autograd of ``F.scaled_dot_product_attention``,
    eager). The scan is also timed at every R of ``SCAN_SWEEP`` beside
    the R its rule picks, and at the training shapes without and with its
-   boundary states. The scan's backward is timed at falcon-mamba-7b's
-   and hymba-1.5b's training shapes (B 2 x S 4096) and at B 1 x S 2048
+   boundary states, also at a mesh rank's channels (d_inner 4096 and
+   800). The scan's backward is timed at falcon-mamba-7b's and
+   hymba-1.5b's training shapes (B 2 x S 4096), at a mesh rank's
+   channels of them, and at B 1 x S 2048
    beside its bound (bytes, f32 operations and exponentials, the
    largest; one saved state counted every ``BOUND_CHUNK`` steps) and the
    plain backward, then at every R it takes, each line naming R,
@@ -269,15 +279,18 @@ SM_CLOCK_HZ = 1.98e9            # H100 SXM boost; 16 MUFU.EX2 a clock an SM
 #: (``scan_ops.CHUNK``): a design that saves more states pays for them
 #: inside its measured time
 BOUND_CHUNK = 32
-ARCHS = ("llama3-8b", "falcon-mamba-7b", "hymba-1.5b", "qwen3-moe-30b-a3b",
-         "yi-34b")
+ARCHS = ("llama3-8b", "falcon-mamba-7b", "hymba-1.5b")
 PROMPT, REQUESTS, GEN, REPLICAS = 2048, 8, 16, 2
-#: the archs served at full width with their depth cut to fit one card:
-#: (layers, prompt). qwen2-72b (80 layers, ~145 GB in bf16) keeps 32;
-#: mixtral-8x22b (56 layers, 140.6e9 params) keeps 12, and its prompt of
-#: 8192 is twice its 4096 window, so the window masks in prefill and its
-#: ring cache evicts in every decode step
-CUT = {"qwen2-72b": (32, PROMPT), "mixtral-8x22b": (12, 8192)}
+#: the archs served at full width with their depth cut: (layers, prompt).
+#: qwen3-moe-30b-a3b keeps 24 of its 48 layers and yi-34b 30 of its 60 (both
+#: fit the card whole; the cuts pay for the "train (mesh)" phase's ssm and
+#: hybrid runs within the script's time); qwen2-72b (80 layers, ~145 GB in
+#: bf16) keeps 32 and mixtral-8x22b (56 layers, 140.6e9 params) 12, to
+#: fit one card, and mixtral's prompt of 8192 is twice its 4096 window, so
+#: the window masks in prefill and its ring cache evicts in every decode
+#: step
+CUT = {"qwen3-moe-30b-a3b": (24, PROMPT), "yi-34b": (30, PROMPT),
+       "qwen2-72b": (32, PROMPT), "mixtral-8x22b": (12, 8192)}
 #: the archs that take precomputed embeddings, which the serve driver
 #: refuses as the reference's does: driven through the `Model` facade at
 #: full width and depth, at these batch sizes
@@ -328,12 +341,18 @@ FLEET_POLICIES = ("round_robin", "random", "least_loaded", "jbsq",
 TRAIN_RUNS = (("llama3-8b", 8), ("hymba-1.5b", None), ("falcon-mamba-7b", 8))
 TRAIN_BATCH, TRAIN_SEQ = 2, 4096
 TRAIN_STEPS, TRAIN_TRACED = 4, 2
-#: the "train (mesh)" phase: llama3-8b at full width cut to MESH_LAYERS of
-#: its 32 layers, B TRAIN_BATCH x S TRAIN_SEQ, MESH_STEPS AdamW steps
-#: through ``train.run(mesh="debug")`` on each count of MESH_RANKS ranks
-#: (a card each over NCCL where the machine has that many, else all on
-#: card 0 over gloo), each rank within MESH_TIMEOUT_S seconds
-MESH_LAYERS, MESH_STEPS, MESH_RANKS, MESH_TIMEOUT_S = 4, 3, (2, 4), 420
+#: the "train (mesh)" phase: each arch at full width cut to its layers,
+#: B TRAIN_BATCH x S TRAIN_SEQ, MESH_STEPS AdamW steps through
+#: ``train.run(mesh="debug")`` on each of its counts of ranks (a card each
+#: over NCCL where the machine has that many, else all on card 0 over
+#: gloo), each rank within MESH_TIMEOUT_S seconds: llama3-8b 4 of 32
+#: layers on 2 and on 4 ranks (the dense family: 16 and 8 q heads a rank);
+#: falcon-mamba-7b 2 of 64 on 2 ranks (the scan at d_inner 4096 a rank);
+#: hymba-1.5b 4 of 32 on 4 ranks (d_inner 800 a rank, 6 or 7 of its 25
+#: heads at G 1, its odd vocab of 32001 replicated over ``model``)
+MESH_RUNS = (("llama3-8b", 4, (2, 4)), ("falcon-mamba-7b", 2, (2,)),
+             ("hymba-1.5b", 4, (4,)))
+MESH_STEPS, MESH_TIMEOUT_S = 3, 420
 #: the bf16 tolerances of tests/test_torch_train.py: the loss within 2e-2,
 #: each gradient leaf (here each first-moment leaf, 0.1 x the clipped
 #: gradient of step 3 plus 0.09 and 0.081 x steps 2 and 1) within 5e-2 of
@@ -735,6 +754,11 @@ class Smoke:
              "llama mesh rank H16/K4 (model 2) B=2 S=4096"),
             ((2, 4096, 4096, 8, 2, 128), True, 0,
              "llama mesh rank H8/K2 (model 4) B=2 S=4096"),
+            # a rank's local heads of hymba-1.5b on the mesh (model 4)
+            ((2, 4096, 4096, 6, 6, 64), True, 2048,
+             "hymba mesh rank H6/K6 G1 (model 4) window=2048 B=2 S=4096"),
+            ((2, 4096, 4096, 7, 7, 64), True, 2048,
+             "hymba mesh rank H7/K7 G1 (model 4) window=2048 B=2 S=4096"),
         ]
         for dname, tol in BWD_TOL.items():
             dtype = getattr(torch, dname)
@@ -811,6 +835,10 @@ class Smoke:
         seamless = (16, 16, 64, " seamless H16/K16/hd64 G1")
         llama_tp2 = (16, 4, 128, " llama mesh rank H16/K4 (model 2)")
         llama_tp4 = (8, 2, 128, " llama mesh rank H8/K2 (model 4)")
+        # hymba's 25 heads over model 4: 6, 6, 6 and 7 q heads a rank,
+        # never whole groups of 5, so one kv head a q head (G 1)
+        hymba_tp4 = [(H, H, 64, f" hymba mesh rank H{H}/K{H} G1 (model 4)")
+                     for H in (6, 7)]
         for dname, tol in TOL.items():
             dtype = getattr(torch, dname)
             g = self.gen(1)
@@ -835,6 +863,8 @@ class Smoke:
                     # a rank's local heads of llama3-8b on the mesh
                     (llama_tp2, 2, 4096, True, 0, "causal S=4096"),
                     (llama_tp4, 2, 4096, True, 0, "causal S=4096"),
+                    *[(h, 2, 4096, True, 2048, "window=2048 S=4096")
+                      for h in hymba_tp4],
                     (mixtral, 1, 8192, True, 4096, "window=4096 S=8192"),
                     (internvl2, 1, 2048, True, 0, "causal S=2048"),
                     (seamless, 1, 2048, False, 0,
@@ -1036,6 +1066,14 @@ class Smoke:
             check(f"{arch} long memory di={di}", ins)
         for R in scan_ops.PER_THREAD:
             check("hymba long memory di=3200", ins, R=R)
+        # a mesh rank's channels at the training shape: falcon-mamba-7b's
+        # 8192 over model 2, hymba-1.5b's 3200 over model 4
+        for di, rank, arch in ((4096, 256, "falcon-mamba mesh rank (model "
+                                "2)"), (800, 100, "hymba mesh rank (model "
+                                                  "4)")):
+            check(f"{arch} B=2 S=4096 long memory di={di}", self.scan_inputs(
+                g, 2, 4096, di, xdtype=torch.bfloat16, h0_scale=1.0,
+                proj_rank=rank, long_memory=True))
         check("N=8 B=2 S=1000 di=512", self.scan_inputs(
             g, 2, 1000, 512, N=8, xdtype=torch.bfloat16, h0_scale=1.0,
             proj_rank=8, long_memory=True))
@@ -1128,7 +1166,12 @@ class Smoke:
                 (1, 2048, 3200, bf16, 100, "hymba B=1 S=2048"),
                 (2, 4096, 3200, bf16, 100, "hymba train B=2 S=4096"),
                 (1, 2048, 8192, None, 256, "falcon-mamba B=1 S=2048"),
-                (2, 4096, 3200, None, 100, "hymba train B=2 S=4096")]:
+                (2, 4096, 3200, None, 100, "hymba train B=2 S=4096"),
+                # a mesh rank's channels: falcon over model 2, hymba over 4
+                (2, 4096, 4096, bf16, 256,
+                 "falcon-mamba mesh rank (model 2) B=2 S=4096"),
+                (2, 4096, 800, bf16, 100,
+                 "hymba mesh rank (model 4) B=2 S=4096")]:
             check(f"{arch} di={di} long memory, h0 and dh_final nonzero",
                   self.scan_inputs(g, B, S, di, xdtype=xdtype, h0_scale=1.0,
                                    proj_rank=rank, long_memory=True))
@@ -1244,7 +1287,10 @@ class Smoke:
             if not (ok and torch.isfinite(a).all()):
                 raise AssertionError(f"{arch} {what}: kernel path disagrees")
 
-    def counters(self):
+    @staticmethod
+    def counters():
+        """Each kernel's launch count, by name, as an object whose
+        ``launches`` reads and sets it."""
         from repro_torch.kernels.decode_attention import ops as decode_ops
         from repro_torch.kernels.flash_attention import ops as flash_ops
         from repro_torch.kernels.ssm_scan import ops as scan_ops
@@ -1800,7 +1846,7 @@ class Smoke:
         requested bytes equal exactly, and the allocated bytes are the
         state's blocks, each its leaf rounded up by the allocator."""
         from repro_torch.configs import InputShape
-        from repro_torch.launch.sharding import leaves_with_paths
+        from repro_torch.parallel.placement import leaves_with_paths
         shape = InputShape("train", TRAIN_SEQ, TRAIN_BATCH, "train")
         cell = self.dry_cell(arch, shape, layers)
         dry = cell.argument_bytes()["state"]
@@ -1932,88 +1978,88 @@ class Smoke:
             raise AssertionError(f"{path}: the restored state differs")
 
     def phase_train_mesh(self):
-        """llama3-8b at full width, ``MESH_LAYERS`` of its layers, trained
-        ``MESH_STEPS`` steps through ``train.run(mesh="debug")`` on each
-        count of ``MESH_RANKS`` ranks (`mesh_rank`, spawned by
+        """Each arch of ``MESH_RUNS`` at full width, cut to its layers,
+        trained ``MESH_STEPS`` steps through ``train.run(mesh="debug")``
+        on each of its counts of ranks (`mesh_rank`, spawned by
         ``repro_torch.launch.ranks.spawn``), against the same steps on one
         rank of the card: every step's loss and grad norm, and each
         post-step params leaf over every rank's shard of it, within the
-        bf16 tolerances of
-        tests/test_torch_train.py; each rank's train state on the card
-        against the dry run's state bytes on that debug mesh, exactly in
-        requested bytes; exact launches of both attention kernels on each
-        rank's local heads; step wall and device time and the time inside
-        collectives."""
+        bf16 tolerances of tests/test_torch_train.py; each rank's train
+        state on the card against the dry run's state bytes on that debug
+        mesh, exactly in requested bytes; exact launches of the family's
+        attention and scan kernels on each rank's local heads and
+        channels; the model-axis gathers by path; step wall and device
+        time and the time inside collectives."""
         torch = self.torch
         import tempfile
         from repro_torch.configs import registry
         from repro_torch.launch import train
-        from repro_torch.launch.sharding import leaves_with_paths
+        from repro_torch.parallel.placement import leaves_with_paths
         cards = torch.cuda.device_count()
-        cfg = registry.get("llama3-8b").replace(num_layers=MESH_LAYERS)
-        B, S, L = TRAIN_BATCH, TRAIN_SEQ, MESH_LAYERS
-        gc.collect()
-        torch.cuda.empty_cache()
-        counters = self.counters()
-        for mod in counters.values():
-            mod.launches = 0
-        one = train.run(cfg, steps=MESH_STEPS, batch=B, seq=S,
-                        ckpt_every=MESH_STEPS + 1, device="cuda")
-        path = f"train (mesh) {cfg.name} x{L} one rank"
-        self.launches[path] = {n: m.launches for n, m in counters.items()}
-        for r in one["records"]:
-            print(f"  {path} step {r['step']}: loss {r['loss']:.6f} "
-                  f"grad_norm {r['grad_norm']:.6f}; wall "
-                  f"{r['wall_s'] * 1e3:.1f} ms, device "
-                  f"{r['device_s'] * 1e3:.1f} ms ({nvidia_smi()})")
-        tmp = tempfile.mkdtemp(prefix="mesh-")
-        reference = str(Path(tmp) / "one_rank_state.pt")
-        t0 = time.monotonic()
-        torch.save({f"{name}/" + "/".join(map(str, p)): t.cpu()
-                    for name in ("params", "mu") for p, t in
-                    leaves_with_paths(getattr(one["state"], name))},
-                   reference)
-        print(f"  {path}: params and first moments saved for the ranks, "
-              f"{os.path.getsize(reference) / 1e9:.2f} GB in "
-              f"{time.monotonic() - t0:.1f} s, "
-              f"{shutil.disk_usage(tmp).free / 1e9:.0f} GB left there")
-        records = one["records"]
-        del one
-        gc.collect()
-        torch.cuda.empty_cache()
         os.environ["PYTHONPATH"] = os.pathsep.join(
             [str(ROOT), str(SRC), os.environ.get("PYTHONPATH", "")])
-        try:
-            for n in MESH_RANKS:
-                self.train_mesh(n, cards, cfg, reference, records)
-        finally:
-            shutil.rmtree(tmp, ignore_errors=True)
+        for arch, layers, counts in MESH_RUNS:
+            cfg = registry.get(arch).replace(num_layers=layers)
+            B, S, L = TRAIN_BATCH, TRAIN_SEQ, layers
+            gc.collect()
+            torch.cuda.empty_cache()
+            counters = self.counters()
+            for mod in counters.values():
+                mod.launches = 0
+            one = train.run(cfg, steps=MESH_STEPS, batch=B, seq=S,
+                            ckpt_every=MESH_STEPS + 1, device="cuda")
+            path = f"train (mesh) {cfg.name} x{L} one rank"
+            self.launches[path] = {n: m.launches for n, m in counters.items()}
+            for r in one["records"]:
+                print(f"  {path} step {r['step']}: loss {r['loss']:.6f} "
+                      f"grad_norm {r['grad_norm']:.6f}; wall "
+                      f"{r['wall_s'] * 1e3:.1f} ms, device "
+                      f"{r['device_s'] * 1e3:.1f} ms ({nvidia_smi()})")
+            tmp = tempfile.mkdtemp(prefix="mesh-")
+            reference = str(Path(tmp) / "one_rank_state.pt")
+            t0 = time.monotonic()
+            with no_crc32():          # a file the ranks read once, at once
+                torch.save({f"{name}/" + "/".join(map(str, p)): t.cpu()
+                            for name in ("params", "mu") for p, t in
+                            leaves_with_paths(getattr(one["state"], name))},
+                           reference)
+            print(f"  {path}: params and first moments saved for the "
+                  f"ranks, {os.path.getsize(reference) / 1e9:.2f} GB in "
+                  f"{time.monotonic() - t0:.1f} s, "
+                  f"{shutil.disk_usage(tmp).free / 1e9:.0f} GB left there")
+            records = one["records"]
+            del one
+            gc.collect()
+            torch.cuda.empty_cache()
+            try:
+                for n in counts:
+                    self.train_mesh(n, cards, cfg, reference, records)
+            finally:
+                shutil.rmtree(tmp, ignore_errors=True)
 
     def train_mesh(self, n, cards, cfg, reference, one_records):
         """One spawn of `mesh_rank` on ``n`` ranks; checks and prints."""
         from repro_torch.launch.ranks import spawn
         nccl = cards >= n
         backend = "nccl" if nccl else "gloo"
+        arch, L = cfg.name, cfg.num_layers
         print(f"  train (mesh) {n} ranks: {cards} card(s) on this machine: "
               f"backend {backend}, "
               f"{'one card a rank' if nccl else 'every rank on card 0'}; "
-              f"mesh debug (1, {n}), llama3-8b x{cfg.num_layers} of 32, "
-              f"B {TRAIN_BATCH} x S {TRAIN_SEQ}, {MESH_STEPS} steps",
-              flush=True)
+              f"mesh debug (1, {n}), {arch} x{L}, B {TRAIN_BATCH} x S "
+              f"{TRAIN_SEQ}, {MESH_STEPS} steps", flush=True)
         t0 = time.monotonic()
         ranks = spawn("chip_smoke:mesh_rank", n, {
-            "layers": cfg.num_layers, "shared": not nccl,
+            "arch": arch, "layers": L, "shared": not nccl,
             "reference": reference}, backend=backend,
             timeout_s=MESH_TIMEOUT_S, echo=True)
-        print(f"  train (mesh) {n} ranks: spawn to the last rank's end "
-              f"{time.monotonic() - t0:.1f} s")
-        want = {FLASH["name"]: 2 * cfg.num_layers * MESH_STEPS,
-                FLASH_BWD["name"]: cfg.num_layers * MESH_STEPS}
+        print(f"  train (mesh) {arch} x{L} {n} ranks: spawn to the last "
+              f"rank's end {time.monotonic() - t0:.1f} s")
+        want = self.train_launches(cfg, MESH_STEPS, 1)
         bad = []
         for r, res in enumerate(ranks):
-            path = f"train (mesh) {cfg.name} x{cfg.num_layers} {n} ranks " \
-                   f"rank {r}"
-            self.launches[path] = every_kernel(res["launches"])
+            path = f"train (mesh) {arch} x{L} {n} ranks rank {r}"
+            self.launches[path] = res["launches"]
             for rec, ref in zip(res["records"], one_records):
                 c = rec["collectives"]
                 dev_c = (f"{c['device_s'] * 1e3:.1f} ms device" if
@@ -2032,7 +2078,7 @@ class Smoke:
                     bad.append((path, rec["step"], "loss or grad norm"))
             print(f"  {path}: seconds {res['seconds']} (imports, "
                   f"train.run, bytes and params checks)")
-            print(f"  {path} on {res['device']}: heads {res['heads']}; "
+            print(f"  {path} on {res['device']}: {res['local']}; "
                   f"launches {res['launches']} (want {want}); train state "
                   f"{res['requested']} B requested on the card, dry run "
                   f"{res['dry']} B ({res['mesh']}); state bytes by rank "
@@ -2047,20 +2093,20 @@ class Smoke:
                             res["dry"]))
         first = ranks[0]
         upd, mu = first["update_worst"], first["mu_worst"]
-        print(f"  train (mesh) {n} ranks: against one rank's, leaf by leaf "
-              f"over every rank's shards: first moments' worst leaf "
-              f"{mu[1]:.3e} of its largest |value| ({mu[0]}; tolerance "
-              f"{MESH_LEAF_TOL}); params' update (params - init) worst "
-              f"leaf {upd[1]:.3e} of one rank's update in norm ({upd[0]}; "
-              f"tolerance {MESH_UPDATE_TOL}), {first['moved']} of "
-              f"{first['leaves']} leaves moved on one rank, the rest "
+        print(f"  train (mesh) {arch} x{L} {n} ranks: against one rank's, "
+              f"leaf by leaf over every rank's shards: first moments' worst "
+              f"leaf {mu[1]:.3e} of its largest |value| ({mu[0]}; "
+              f"tolerance {MESH_LEAF_TOL}); params' update (params - init) "
+              f"worst leaf {upd[1]:.3e} of one rank's update in norm "
+              f"({upd[0]}; tolerance {MESH_UPDATE_TOL}), {first['moved']} "
+              f"of {first['leaves']} leaves moved on one rank, the rest "
               f"equal to init on both")
         if mu[1] > MESH_LEAF_TOL:
             bad.append(("first moments", mu))
         if upd[1] > MESH_UPDATE_TOL:
             bad.append(("params update", upd))
         if bad:
-            raise AssertionError(f"train (mesh) {n} ranks: {bad}")
+            raise AssertionError(f"train (mesh) {arch} {n} ranks: {bad}")
 
     def phase_mlserve(self):
         """The MLServe cores at tiny scale, then at full width cut to
@@ -3106,6 +3152,10 @@ class Smoke:
             "llama3-8b mesh rank H8/K2 (model 4) B=2 S=4096":
                 self.time_flash(8, 2, 128, 0, "llama3-8b mesh rank, model 4",
                                 B=TRAIN_BATCH, S=TRAIN_SEQ),
+            **{f"hymba-1.5b mesh rank H{H}/K{H} G1 (model 4) B=2 S=4096 "
+               f"window=2048": self.time_flash(
+                   H, H, 64, 2048, "hymba-1.5b mesh rank, model 4",
+                   B=TRAIN_BATCH, S=TRAIN_SEQ) for H in (6, 7)},
             "seamless-m4t-large-v2 encoder": self.time_flash(
                 16, 16, 64, 0, "seamless-m4t-large-v2 encoder",
                 causal=False),
@@ -3159,14 +3209,24 @@ class Smoke:
                                     "llama3-8b mesh rank, model 2"),
             "llama3-8b mesh rank H8/K2 (model 4) B=2 S=4096":
                 self.time_flash_bwd(TRAIN_BATCH, TRAIN_SEQ, 8, 2, 128,
-                                    "llama3-8b mesh rank, model 4")}
+                                    "llama3-8b mesh rank, model 4"),
+            **{f"hymba-1.5b mesh rank H{H}/K{H} G1 (model 4) B=2 S=4096 "
+               f"window=2048": self.time_flash_bwd(
+                   TRAIN_BATCH, TRAIN_SEQ, H, H, 64, "hymba-1.5b mesh rank, "
+                   "model 4", window=2048) for H in (6, 7)}}
         self.timing[SCAN["name"]] = self.time_scan(8192, 256, "falcon-mamba-7b")
         self.also[SCAN["name"]] = {
             "hymba-1.5b": self.time_scan(3200, 100, "hymba-1.5b"),
             "falcon-mamba-7b B=2 S=4096, with and without states":
                 self.time_scan_states(8192, 256, "falcon-mamba-7b"),
             "hymba-1.5b B=2 S=4096, with and without states":
-                self.time_scan_states(3200, 100, "hymba-1.5b")}
+                self.time_scan_states(3200, 100, "hymba-1.5b"),
+            "falcon-mamba-7b mesh rank di=4096 (model 2) B=2 S=4096, with "
+            "and without states": self.time_scan_states(
+                4096, 256, "falcon-mamba-7b mesh rank, model 2"),
+            "hymba-1.5b mesh rank di=800 (model 4) B=2 S=4096, with and "
+            "without states": self.time_scan_states(
+                800, 100, "hymba-1.5b mesh rank, model 4")}
         self.timing[SCAN_BWD["name"]] = self.time_scan_bwd(
             TRAIN_BATCH, TRAIN_SEQ, 8192, 256, "falcon-mamba-7b training "
             "shape")
@@ -3175,7 +3235,13 @@ class Smoke:
                 TRAIN_BATCH, TRAIN_SEQ, 3200, 100, "hymba-1.5b training "
                 "shape"),
             "falcon-mamba-7b B=1 S=2048": self.time_scan_bwd(
-                1, PROMPT, 8192, 256, "falcon-mamba-7b")}
+                1, PROMPT, 8192, 256, "falcon-mamba-7b"),
+            "falcon-mamba-7b mesh rank di=4096 (model 2) B=2 S=4096":
+                self.time_scan_bwd(TRAIN_BATCH, TRAIN_SEQ, 4096, 256,
+                                   "falcon-mamba-7b mesh rank, model 2"),
+            "hymba-1.5b mesh rank di=800 (model 4) B=2 S=4096":
+                self.time_scan_bwd(TRAIN_BATCH, TRAIN_SEQ, 800, 100,
+                                   "hymba-1.5b mesh rank, model 4")}
 
     @staticmethod
     def bound(nbytes, flops, peak=BF16_FLOPS_PER_S):
@@ -3525,6 +3591,26 @@ def cut_bundle(role, layers):
         serving._bundle = bundle
 
 
+@contextlib.contextmanager
+def no_crc32():
+    """``torch.save`` without the zip records' CRC-32 while the block runs
+    (where the installed torch has the switch): computing it bounds the
+    save of the mesh phase's reference at ~0.8 GB/s."""
+    try:
+        from torch.utils.serialization import config
+    except ImportError:
+        config = None
+    save = getattr(config, "save", None)
+    old = getattr(save, "compute_crc32", None)
+    if old is not None:
+        save.compute_crc32 = False
+    try:
+        yield
+    finally:
+        if old is not None:
+            save.compute_crc32 = old
+
+
 def against_one_rank(model, state, tp, mesh, reference):
     """This rank's post-step ``state`` leaf by leaf against one rank's
     (``reference``: its params and first moments, saved whole), each leaf
@@ -3533,18 +3619,18 @@ def against_one_rank(model, state, tp, mesh, reference):
     from the run's seed) against one rank's update in norm; the worst
     leaf of each, and how many leaves moved on one rank."""
     import torch
-    from repro_torch.launch import collectives as C
-    from repro_torch.launch import sharding as SH
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel import placement as P
     want = torch.load(reference, mmap=True, weights_only=True)
-    init = dict(SH.leaves_with_paths(model.init_params(
+    init = dict(P.leaves_with_paths(model.init_params(
         torch.Generator(device=mesh.device).manual_seed(0))))
-    mu = dict(SH.leaves_with_paths(state.mu))
+    mu = dict(P.leaves_with_paths(state.mu))
     upd_worst, mu_worst, moved = ("", 0.0), ("", 0.0), 0
-    for p, leaf in SH.leaves_with_paths(state.params):
+    for p, leaf in P.leaves_with_paths(state.params):
         path = "/".join(map(str, p))
 
         def mine(t):
-            return SH.local_shard(t, tp.specs[path], mesh).to(
+            return P.local_shard(t, tp.specs[path], mesh).to(
                 mesh.device).float()
         # each leaf whole over every rank's shard, no gather: the sums of
         # squares of (update - one rank's update) and of one rank's
@@ -3568,36 +3654,37 @@ def against_one_rank(model, state, tp, mesh, reference):
             "moved": moved, "leaves": len(mu)}
 
 
-def mesh_rank(layers, shared, reference):
+def mesh_rank(arch, layers, shared, reference):
     """One rank of `Smoke.phase_train_mesh` (a process of its own, in a
     process group that ``repro_torch.launch.ranks.spawn`` set up): the
-    steps through ``train.run(mesh="debug")`` (``shared``: every rank on
-    card 0 over gloo, passed explicitly; else NCCL on
-    ``cuda:{LOCAL_RANK}``) with the attention kernels' launches counted
-    from 0, the requested bytes the card holds with only the train state
-    alive and the dry run's, then, leaf by leaf against one rank's
-    (``reference``), each over every rank's shard: the first moment's
-    largest error over its largest |value|, and the params' update from
-    init (drawn again from the run's seed) in norm."""
+    steps of ``arch`` at full width, ``layers`` of its layers, through
+    ``train.run(mesh="debug")`` (``shared``: every rank on card 0 over
+    gloo, passed explicitly; else NCCL on ``cuda:{LOCAL_RANK}``) with
+    every kernel's launches counted from 0, the requested bytes the card
+    holds with only the train state alive and the dry run's, then, leaf
+    by leaf against one rank's (``reference``), each over every rank's
+    shard: the first moment's largest error over its largest |value|,
+    and the params' update from init (drawn again from the run's seed)
+    in norm."""
     t0 = time.monotonic()
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.configs import InputShape, registry
-    from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.launch import collectives as C
     from repro_torch.launch import dryrun
     from repro_torch.launch import train
     from repro_torch.launch.mesh import make_debug_mesh
-    cfg = registry.get("llama3-8b").replace(num_layers=layers)
-    flash_ops.launches = flash_ops.bwd_launches = 0
+    from repro_torch.parallel import collectives as C
+    cfg = registry.get(arch).replace(num_layers=layers)
+    counters = Smoke.counters()
+    for mod in counters.values():
+        mod.launches = 0
     t1 = time.monotonic()
     res = train.run(cfg, steps=MESH_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                     ckpt_every=MESH_STEPS + 1,
                     device="cuda" if shared else None,
                     backend="gloo" if shared else None, mesh="debug")
-    launches = {FLASH["name"]: flash_ops.launches,
-                FLASH_BWD["name"]: flash_ops.bwd_launches}
+    launches = {n: m.launches for n, m in counters.items()}
     t2 = time.monotonic()
     state, tp, mesh = res.pop("state"), res["tp"], res["mesh"]
     gc.collect()
@@ -3606,19 +3693,31 @@ def mesh_rank(layers, shared, reference):
         clear()
     requested = torch.cuda.memory_stats(mesh.device)[
         "requested_bytes.all.current"]
-    cell = dryrun.build_cell("llama3-8b", InputShape(
+    cell = dryrun.build_cell(arch, InputShape(
         "train", TRAIN_SEQ, TRAIN_BATCH, "train"), extra={
             "num_layers": layers}, mesh=make_debug_mesh(mesh.size))
-    h0, h1 = tp.split(cfg.num_heads)
-    k0, k1 = tp.split(cfg.num_kv_heads)
+    local = []
+    if cfg.num_heads:
+        h0, h1 = tp.split(cfg.num_heads)
+        G = cfg.num_heads // cfg.num_kv_heads
+        k0, k1 = h0 // G, (h1 - 1) // G + 1
+        aligned = (h0 % G == 0 and h1 % G == 0) or k1 - k0 == 1
+        local.append(f"q heads [{h0}, {h1}) of {cfg.num_heads}, kv "
+                     f"[{k0}, {k1}) of {cfg.num_kv_heads}"
+                     + ("" if aligned else ", one kv head a q head (G 1)"))
+    if cfg.family in ("ssm", "hybrid"):
+        c0, c1 = tp.split(cfg.d_inner)
+        local.append(f"d_inner channels [{c0}, {c1}) of {cfg.d_inner}")
+    v0, v1 = tp.split(cfg.vocab_size)
+    local.append(f"vocab [{v0}, {v1}) of {cfg.vocab_size}, embed spec "
+                 f"{tp.specs['embed']}")
     out = {"records": res["records"], "launches": launches,
            "requested": requested, "dry": cell.argument_bytes()["state"],
            "mesh": f"{cell.mesh.name}, {cell.step}",
            "state_bytes": res["state_bytes"], "gathers": tp.gathers,
            "peak": torch.cuda.max_memory_allocated(mesh.device),
            "device": str(mesh.device), "note": C.backend_note(mesh),
-           "heads": f"q [{h0}, {h1}) of {cfg.num_heads}, kv [{k0}, {k1}) "
-                    f"of {cfg.num_kv_heads}"}
+           "local": "; ".join(local)}
     out.update(against_one_rank(res["model"], state, tp, mesh, reference))
     out["seconds"] = {"start": t1 - t0, "train.run": t2 - t1,
                       "checks": time.monotonic() - t2}
@@ -3648,7 +3747,9 @@ def main() -> int:
               ("kernels vs plain", smoke.phase_kernels),
               ("model kernel vs plain", smoke.phase_model)]
     for arch in ARCHS + tuple(CUT):
-        phases.append((f"serve and trace {arch}",
+        cut = (f" (cut to {CUT[arch][0]} layers, prompt {CUT[arch][1]})"
+               if arch in CUT else "")
+        phases.append((f"serve and trace {arch}{cut}",
                        lambda arch=arch: smoke.serve_path(arch)))
     for arch in EMBEDS:
         phases.append((f"embeds and enc-dec {arch}",

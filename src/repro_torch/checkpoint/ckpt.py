@@ -20,8 +20,8 @@ and the ``LATEST`` pointer. Restore returns CPU tensors (numpy has no
 bf16); with a backend the shards are prefetched through
 `NexusBackend.prefetch`.
 
-On a mesh (a ``tp``, `repro_torch.launch.sharding.Sharded`, of more than
-one rank) the state is each rank's shards: `AsyncCheckpointer.save`
+On a mesh (a ``tp``, `repro_torch.parallel.placement.Sharded`, of more
+than one rank) the state is each rank's shards: `AsyncCheckpointer.save`
 gathers each leaf whole and rank 0 writes exactly what the one-device
 path writes for that state; `restore_to_mesh` reads on rank 0 and
 broadcasts each leaf, every rank keeping its shard, so a sharded run
@@ -39,9 +39,9 @@ import torch.distributed as dist
 from repro_torch.core.backend import NexusBackend
 from repro_torch.core.hints import InputHint, OutputHint
 from repro_torch.core.storage import ObjectStore
-from repro_torch.launch import sharding as SH
 from repro_torch.models import serialize
 from repro_torch.optim.adamw import TrainState, state_fields
+from repro_torch.parallel import placement as P
 
 #: a leaf's dtype as the manifest names it (numpy's names) -> torch dtype,
 #: and the numpy dtype its raw words are read as
@@ -179,9 +179,9 @@ def _gathered(state, tp):
     rank0 = tp.mesh.rank == 0
 
     def one(path, leaf):
-        whole = SH.gather_full(leaf, specs[path], tp.mesh)
+        whole = P.gather_full(leaf, specs[path], tp.mesh)
         return whole.cpu() if rank0 else None
-    whole = SH.map_leaves(state, one)
+    whole = P.map_leaves(state, one)
     return whole if rank0 else None
 
 
@@ -189,7 +189,7 @@ def restore_to_mesh(store: ObjectStore, bucket: str, state, tp,
                     step: int | None = None,
                     backend: NexusBackend | None = None):
     """`restore_checkpoint` on rank 0 of ``tp``'s mesh, each leaf
-    broadcast and cut to this rank's shard (`sharding.broadcast_shard`),
+    broadcast and cut to this rank's shard (`placement.broadcast_shard`),
     in the dtype and on the device of ``state``'s (this rank's shards,
     whose structure the checkpoint must have). Every rank calls it;
     returns (step, state) on every rank, or raises KeyError on every
@@ -210,9 +210,9 @@ def restore_to_mesh(store: ObjectStore, bucket: str, state, tp,
     def one(path, leaf):
         shape = tp.shape(path.split("/", 1)[1]) if "/" in path else ()
         whole = flat[path].to(leaf.dtype) if flat is not None else None
-        return SH.broadcast_shard(whole, shape, leaf.dtype, specs[path],
+        return P.broadcast_shard(whole, shape, leaf.dtype, specs[path],
                                   mesh).to(leaf.device)
-    return found[0], SH.map_leaves(state, one)
+    return found[0], P.map_leaves(state, one)
 
 
 def restore_checkpoint(store: ObjectStore, bucket: str,

@@ -28,7 +28,6 @@ import numpy as np
 from repro_torch.core.backend import NexusBackend
 from repro_torch.core.hints import InputHint
 from repro_torch.core.storage import ObjectStore
-from repro_torch.launch.sharding import batch_spec
 
 
 @dataclass(frozen=True)
@@ -124,13 +123,14 @@ class DataPipeline:
 
     # ------------------------------------------------------------ public
 
-    def next_batch(self, mesh=None) -> dict[str, np.ndarray]:
+    def next_batch(self, mesh=None, axes=None) -> dict[str, np.ndarray]:
         """Returns {'tokens': (B, S) int32, 'targets': (B, S) int32}.
 
-        With ``mesh`` (a `RankMesh`) every rank builds the same global
-        batch from the same corpus and keeps its rows under
-        `batch_spec`, as the reference ``device_put``s the global batch
-        on its mesh."""
+        With ``mesh`` (a `RankMesh`) and ``axes`` (the mesh axes the
+        batch dim is split over, from the caller's batch spec; None: not
+        split) every rank builds the same global batch from the same
+        corpus and keeps its rows, as the reference ``device_put``s the
+        global batch on its mesh."""
         need = self.batch * (self.seq_len + 1)
         with self._lock:
             while self._buffer.size < need:
@@ -140,11 +140,9 @@ class DataPipeline:
                                    self._buffer[need:])
         grid = chunk.reshape(self.batch, self.seq_len + 1)
         self.batches_served += 1
-        if mesh is not None:
-            axes = batch_spec("tokens", grid.shape, mesh)[0]
-            if axes is not None:
-                rows = grid.shape[0] // mesh.axes_size(axes)
-                grid = grid[mesh.index(axes) * rows:][:rows]
+        if mesh is not None and axes is not None:
+            rows = grid.shape[0] // mesh.axes_size(axes)
+            grid = grid[mesh.index(axes) * rows:][:rows]
         return {"tokens": np.ascontiguousarray(grid[:, :-1]),
                 "targets": np.ascontiguousarray(grid[:, 1:])}
 

@@ -68,6 +68,7 @@ from repro_torch.models import flops as FL
 from repro_torch.models import get_model
 from repro_torch.models import mamba
 from repro_torch.optim import adamw_init, make_train_step
+from repro_torch.parallel.placement import leaves_with_paths
 
 STEPS = {"train": "train_step", "prefill": "prefill_step",
          "decode": "serve_step"}
@@ -157,7 +158,7 @@ def one_block():
 def run_step(cfg: ModelConfig, shape: InputShape, args: dict):
     """The step on ``args`` on the plain path; returns its outputs:
     (state, metrics) for train, (logits, cache) else."""
-    device = next(leaf for _, leaf in SH.leaves_with_paths(args)).device
+    device = next(leaf for _, leaf in leaves_with_paths(args)).device
     model = get_model(cfg, device=device)
     if shape.kind == "train":
         step = make_train_step(model, plain=True)

@@ -30,7 +30,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.device import rank_device
-from repro_torch.launch.collectives import Stats
+from repro_torch.parallel.collectives import Stats
+from repro_torch.parallel.placement import axes_of
 
 #: the driver's ``--mesh`` choices, as the reference's
 MESHES = ("debug", "prod", "multipod")
@@ -56,13 +57,6 @@ class Mesh:
     def name(self) -> str:
         """``16x16``, ``2x16x16``, ``1x1``."""
         return "x".join(map(str, self.sizes))
-
-
-def axes_of(axes) -> tuple[str, ...]:
-    """A spec entry (None, an axis name or a tuple of them) as a tuple."""
-    if axes is None:
-        return ()
-    return (axes,) if isinstance(axes, str) else tuple(axes)
 
 
 @dataclass(frozen=True, eq=False)

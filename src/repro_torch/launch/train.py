@@ -12,10 +12,11 @@ checkpointing through the backend's writeback path -> restore on start
 process a rank: ``debug`` is (1, n) over every rank there is, ``prod``
 16x16 and ``multipod`` 2x16x16 (which need 256 and 512 ranks). Each rank
 holds its shards of the train state under the reference's rules
-(``launch/sharding.py``) and its slice of the global batch; the step is
-tensor-parallel over ``model`` and FSDP over the data axes (the dense
-family: ``lm.check_mesh``). Without ``--mesh`` (or on a world of one)
-the step is the one-device step. `run` takes a config directly, so a
+(``launch/sharding.py``, which `run` turns into the placement that the
+step, the pipeline and the checkpoints take) and its slice of the global
+batch; the step is tensor-parallel over ``model`` and FSDP over the data
+axes (the dense, ssm and hybrid families: ``lm.check_mesh``). Without
+``--mesh`` (or on a world of one) the step is the one-device step. `run` takes a config directly, so a
 caller can train a config cut in depth without a flag for it, as
 `serve.run` serves one.
 
@@ -44,12 +45,14 @@ from repro_torch.core.storage import ObjectStore, RemoteStorage
 from repro_torch.data import DataPipeline, SyntheticCorpus
 from repro_torch.data.pipeline import CorpusSpec
 from repro_torch.device import resolve_device
-from repro_torch.launch import collectives as C
 from repro_torch.launch import sharding as SH
 from repro_torch.launch.mesh import MESHES, RankMesh, join_mesh
 from repro_torch.models import get_model
+from repro_torch.models.registry import param_structs
 from repro_torch.optim import adamw_init, make_train_step
 from repro_torch.optim.adamw import TrainState, state_fields
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel import placement as P
 
 
 def build_runtime(transport: str = "tcp"):
@@ -93,9 +96,9 @@ def run(cfg, *, steps: int = 20, batch: int = 8, seq: int = 256,
     rank's shards (``state_bytes`` has every rank's bytes), each record
     adds the step's collectives (calls, bytes, host seconds, device
     seconds under NCCL), ``tp`` is the step's `Sharded` placement (its
-    ``gathers`` count the model-axis gathers of weights split inside a
-    head), and rank 0 prints; checkpoints gather to rank 0 and restore
-    from it.
+    ``gathers`` count the model-axis gathers of weights whose rank's
+    range is not its own shard), and rank 0 prints; checkpoints gather
+    to rank 0 and restore from it.
     """
     if cfg.is_encoder_decoder or cfg.embed_input:
         raise SystemExit("train driver covers token-LM archs; "
@@ -115,17 +118,18 @@ def run(cfg, *, steps: int = 20, batch: int = 8, seq: int = 256,
     pipeline = DataPipeline(corpus, backend_, batch=batch, seq_len=seq)
     ckpt = AsyncCheckpointer(backend_, bucket="ckpts")
 
-    step_fn = make_train_step(model, mesh=mesh)
-    tp = step_fn.tp
+    tp = (SH.placement(mesh, param_structs(cfg))
+          if mesh is not None else None)
+    step_fn = make_train_step(model, tp=tp)
     params = model.init_params(torch.Generator(device=dev).manual_seed(0))
     if tp is not None:                   # every rank draws the same params
-        params = SH.params_to_mesh(params, tp)
+        params = P.params_to_mesh(params, tp)
     state = adamw_init(params)
     del params
-    state_bytes = [SH.state_bytes(state)]
+    state_bytes = [P.state_bytes(state)]
     if tp is not None:
         state_bytes = [None] * mesh.size
-        dist.all_gather_object(state_bytes, SH.state_bytes(state))
+        dist.all_gather_object(state_bytes, P.state_bytes(state))
         if rank0:
             print(f"mesh {mesh.name} {mesh.axis_names} over {mesh.size} "
                   f"ranks, collectives {C.backend_note(mesh)}; rank 0 on "
@@ -148,9 +152,13 @@ def run(cfg, *, steps: int = 20, batch: int = 8, seq: int = 256,
             if rank0:
                 print("no checkpoint found; starting fresh")
 
+    # the mesh axes the batch dim is split over (the reference's batch
+    # rule), whose rows each rank keeps
+    rows = (SH.batch_spec("tokens", (batch, seq), mesh)[0]
+            if mesh is not None else None)
     records = []
     for step in range(start_step, start_step + steps):
-        batch_np = pipeline.next_batch(mesh)
+        batch_np = pipeline.next_batch(mesh, rows)
         tensors = {k: torch.from_numpy(v).to(dev)
                    for k, v in batch_np.items()}
         ctx = step_context(step) if step_context else contextlib.nullcontext()
@@ -196,8 +204,8 @@ def run(cfg, *, steps: int = 20, batch: int = 8, seq: int = 256,
         print(f"done; {ckpt.saves} async checkpoints committed, "
               f"pipeline overlap {pipeline.overlap_efficiency():.0%}")
         if tp is not None:
-            print(f"model-axis gathers of weights split inside a head: "
-                  f"{tp.gathers or 'none'}", flush=True)
+            print(f"model-axis gathers of weights whose rank's range is "
+                  f"not its shard: {tp.gathers or 'none'}", flush=True)
     return {"state": state, "records": records, "pipeline": pipeline,
             "checkpointer": ckpt, "runtime": (store, backend_, acct),
             "start_step": start_step, "model": model, "mesh": mesh,

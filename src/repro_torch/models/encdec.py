@@ -30,8 +30,9 @@ import torch
 
 from repro_torch.models import kv_cache as kvc
 from repro_torch.models import layers as L
-from repro_torch.models.lm import (DTYPES, _lm_head, checkpoint_layer,
-                                   chunked_ce_loss, init_stack, layer_params)
+from repro_torch.models.lm import (DTYPES, _lm_head, check_mesh,
+                                   checkpoint_layer, chunked_ce_loss,
+                                   init_stack, layer_params)
 
 
 # ------------------------------------------------------------------- params
@@ -157,10 +158,13 @@ def decode_seq(cfg, params, tgt_tokens, enc_out, cache=None, plain=False):
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
-def forward_train(cfg, params, batch, plain=False):
+def forward_train(cfg, params, batch, plain=False, tp=None):
     """Returns (loss, metrics) for ``batch["src_embeds"]`` (B, Ss, D),
     ``batch["tgt_tokens"]`` and ``batch["targets"]`` (B, St); the aux loss
-    is 0, as in the reference."""
+    is 0, as in the reference. A mesh placement ``tp`` of more than one
+    rank exits (`lm.check_mesh`), as the reference's driver refuses an
+    enc-dec config."""
+    check_mesh(cfg, tp)
     enc_out = encode(cfg, params, batch["src_embeds"], plain=plain)
     hidden = decode_seq(cfg, params, batch["tgt_tokens"], enc_out,
                         plain=plain)

@@ -256,7 +256,7 @@ def attention_layer(p, cfg, x, *, use_rope=True, causal=True, plain=False,
     from 0, a window from ``cfg.sliding_window``; ``causal=False`` is
     bidirectional (the encoder's), ``use_rope=False`` leaves q and k
     unrotated (the enc-dec archs add sinusoid positions to x instead).
-    With ``tp`` (a `repro_torch.launch.sharding.Sharded` on a mesh of
+    With ``tp`` (a `repro_torch.parallel.placement.Sharded` on a mesh of
     more than one rank) the layer runs on this rank's heads
     (`_attention_on_mesh`).
 

@@ -159,8 +159,10 @@ def _seq_sublayers(cfg, lp, x, plain=False, train=False, tp=None):
     layer's ``k``/``v`` and/or ``conv``/``ssm``, and the moe family's
     load-balancing loss (None for the others). In ``train`` mode a
     ``moe_impl`` of "local" runs `moe_sorted`, as the reference's
-    training does. With ``tp`` (the dense family on a mesh) attention
-    and MLP run on this rank's share (`layers.attention_layer`)."""
+    training does. With ``tp`` (on a mesh) attention, the Mamba block and
+    the MLP run on this rank's share (`layers.attention_layer`,
+    `mamba.mamba_layer`), each branch summed over ``model`` before
+    hymba's fusion."""
     fam = cfg.family
     cache_out, aux = {}, None
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
@@ -169,13 +171,13 @@ def _seq_sublayers(cfg, lp, x, plain=False, train=False, tp=None):
             lp["attn"], cfg, h, plain=plain, tp=tp)
         x = x + attn_out
     elif fam == "ssm":
-        m_out, st = M.mamba_layer(lp["mamba"], cfg, h, plain=plain)
+        m_out, st = M.mamba_layer(lp["mamba"], cfg, h, plain=plain, tp=tp)
         cache_out.update(st)
         return x + m_out, cache_out, aux           # mamba block has no MLP
     else:                                          # hybrid
         attn_out, (cache_out["k"], cache_out["v"]) = L.attention_layer(
-            lp["attn"], cfg, h, plain=plain)
-        m_out, st = M.mamba_layer(lp["mamba"], cfg, h, plain=plain)
+            lp["attn"], cfg, h, plain=plain, tp=tp)
+        m_out, st = M.mamba_layer(lp["mamba"], cfg, h, plain=plain, tp=tp)
         cache_out.update(st)
         x = x + _fuse(cfg, lp, attn_out, m_out)
     h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
@@ -387,14 +389,10 @@ def check_mesh(cfg, tp) -> None:
     if cfg.is_encoder_decoder or cfg.embed_input:
         raise SystemExit(f"{cfg.name}: the reference trains no enc-dec or "
                          f"vlm config on a mesh (its driver refuses them)")
-    item = {"moe": "ROADMAP Queue 1 item 9c (moe under the mesh)",
-            "ssm": "ROADMAP Queue 1 item 9b (ssm and hybrid under the mesh)",
-            "hybrid": "ROADMAP Queue 1 item 9b (ssm and hybrid under the "
-                      "mesh)"}.get(cfg.family)
-    if item:
-        raise SystemExit(f"{cfg.name}: the {cfg.family} family does not "
-                         f"train on a mesh of {tp.mesh.size} ranks yet; "
-                         f"{item}")
+    if cfg.family == "moe":
+        raise SystemExit(f"{cfg.name}: the moe family does not train on a "
+                         f"mesh of {tp.mesh.size} ranks yet; ROADMAP Queue 1 "
+                         f"item 9c (moe under the mesh)")
 
 
 def forward_train(cfg, params, batch, plain=False, tp=None):
@@ -404,9 +402,10 @@ def forward_train(cfg, params, batch, plain=False, tp=None):
     ``cfg.embed_input`` ``inputs_embeds``) and ``targets``. Runs with
     grad as the caller has it (never under inference mode), no cache.
 
-    ``tp`` (a `repro_torch.launch.sharding.Sharded` on a mesh of more
-    than one rank; the dense family only, `check_mesh`): ``params``
-    are this rank's shards and ``batch`` its slice of the global batch;
+    ``tp`` (a `repro_torch.parallel.placement.Sharded` on a mesh of more
+    than one rank; the dense, ssm and hybrid families, `check_mesh`):
+    ``params`` are this rank's shards and ``batch`` its slice of the
+    global batch;
     the loss is this rank's share of the global batch's mean (the shares
     over the data axes sum to it, and every rank of ``model`` holds the
     same), and ``ce_loss`` is the global mean."""

@@ -9,6 +9,11 @@ tensors its wrapper runs the plain versions, and ``plain=True`` runs
 `ssm_scan_chunked`, the reference's chunked scan (checkpointed per chunk
 under ``cfg.inner_remat``, as the reference's), on any device. One
 decode step has no kernel in the reference, so none here either.
+
+On a mesh (``tp``, a `repro_torch.parallel.placement.Sharded` of more
+than one rank) `mamba_layer` runs on this rank's ``model`` share of the
+d_inner channels, the scan and its backward kernel on those channels
+alone.
 """
 from __future__ import annotations
 
@@ -124,35 +129,77 @@ def ssm_scan_chunked(dt, xr, Bmat, Cmat, A, h0, chunk=None,
     return y, h
 
 
-def mamba_layer(p, cfg, x, state=None, *, plain=False):
+def _same(t):
+    return t
+
+
+def mamba_layer(p, cfg, x, state=None, *, plain=False, tp=None):
     """Full-sequence Mamba block. x: (B, S, D).
 
     state: {'conv': (B,c-1,di), 'ssm': (B,di,N)} or None.
     Returns (y (B,S,D), new_state) with the conv state in bf16.
+
+    With ``tp`` (training on a mesh; no state) the block runs on this
+    rank's channels [c0, c1) of d_inner (``tp.split``; the reference's
+    hints put ``xr`` and ``dt`` over ``model`` on d_inner) and the new
+    state holds those channels only. ``in_proj``'s columns are
+    ``[x | z]``, so a rank's channels are a range of each half, never its
+    own shard: one gather of the leaf over ``model`` a pass (counted),
+    both ranges cut from it, on x entering the split (`Sharded.copy`).
+    The conv, its bias, ``dt_proj``, ``dt_bias``, ``A_log`` and
+    ``D_skip`` are this rank's own shards. ``x_proj`` is row-parallel:
+    the partial products summed over ``model`` give every rank the whole
+    dt_r, B and C, which then enter channel-split work through
+    `Sharded.copy`, so their gradients (the scan's dB and dC, d(dt_r)
+    through ``dt_proj``: sums over this rank's channels) are summed over
+    ``model`` there, not in the kernel. The scan runs on (B, S, di / M)
+    with the whole (B, S, N) B and C; ``out_proj`` is row-parallel,
+    summed over ``model``. Without ``tp`` every fetch is the leaf itself
+    and the sums are the identity.
     """
     B, S, _ = x.shape
     di, N, R = cfg.d_inner, cfg.ssm_state, cfg.dt_rank
-    xr, z = (x @ p["in_proj"]).chunk(2, dim=-1)          # (B,S,di) each
+    if tp is None:
+        c0, c1 = 0, di
+
+        def chan(name, dim):
+            return p[name]
+        copy = reduce = _same
+        xr, z = (x @ p["in_proj"]).chunk(2, dim=-1)      # (B,S,di) each
+    else:
+        c0, c1 = tp.split(di)
+
+        def chan(name, dim):
+            """This rank's channels of a leaf along its d_inner ``dim``."""
+            return tp.weight(p[name], f"layers/mamba/{name}", dim, c0, c1)
+        copy, reduce = tp.copy, tp.reduce
+        xp = copy(x)
+        w_x, w_z = tp.weight_ranges(p["in_proj"], "layers/mamba/in_proj", 1,
+                                    ((c0, c1), (di + c0, di + c1)))
+        xr, z = xp @ w_x, xp @ w_z                       # (B,S,di/M) each
     conv_in = state["conv"] if state is not None else None
-    xr, conv_state = _causal_conv(xr, p["conv_w"], p["conv_b"], conv_in)
+    xr, conv_state = _causal_conv(xr, chan("conv_w", 1), chan("conv_b", 0),
+                                  conv_in)
     xr = F.silu(xr)
 
-    proj = (xr @ p["x_proj"]).float()                    # (B,S,R+2N)
+    proj = copy(reduce((xr @ chan("x_proj", 0)).float()))  # (B,S,R+2N)
     dt_r, Bmat, Cmat = proj.split([R, N, N], dim=-1)     # strided views
-    dt = softplus(dt_r @ p["dt_proj"].float() + p["dt_bias"].float())
-    A = -torch.exp(p["A_log"])                           # (di,N) negative
+    dt = softplus(dt_r @ chan("dt_proj", 1).float()
+                  + chan("dt_bias", 0).float())
+    A = -torch.exp(chan("A_log", 0))                     # (di,N) negative
 
     h0 = (state["ssm"] if state is not None
-          else torch.zeros((B, di, N), dtype=torch.float32, device=x.device))
+          else torch.zeros((B, c1 - c0, N), dtype=torch.float32,
+                           device=x.device))
     if plain:
         y, h_final = ssm_scan_chunked(dt, xr, Bmat, Cmat, A, h0,
                                       inner_remat=cfg.inner_remat)
     else:
         y, h_final = selective_scan(dt, xr, Bmat, Cmat, A, h0)
-    y = y + p["D_skip"] * xr.float()
+    y = y + chan("D_skip", 0) * xr.float()
     y = y.to(x.dtype) * F.silu(z)
-    return y @ p["out_proj"], {"conv": conv_state.to(torch.bfloat16),
-                               "ssm": h_final}
+    return reduce(y @ chan("out_proj", 0)), {
+        "conv": conv_state.to(torch.bfloat16), "ssm": h_final}
 
 
 def mamba_decode_step(p, cfg, x, state):

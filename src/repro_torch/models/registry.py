@@ -38,11 +38,10 @@ class Model:
 
     def loss(self, params, batch, plain=False, tp=None):
         """(loss, metrics) of one batch, differentiable in ``params``;
-        ``tp`` places the step on a mesh (`lm.forward_train`)."""
-        if tp is None:
-            return self._mod.forward_train(self.cfg, params, batch,
-                                           plain=plain)
-        return lm.forward_train(self.cfg, params, batch, plain=plain, tp=tp)
+        ``tp`` places the step on a mesh (the family's
+        ``forward_train``)."""
+        return self._mod.forward_train(self.cfg, params, batch, plain=plain,
+                                       tp=tp)
 
     def prefill(self, params, batch, cache_len=None, plain=False):
         return self._mod.prefill(self.cfg, params, batch,

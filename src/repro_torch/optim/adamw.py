@@ -20,8 +20,9 @@ f32 a bounded chunk of a leaf at a time.
 `compress_grads` / `decompress_grads` are the int8 error-feedback
 quantization of the reference (round half to even, as ``jnp.round``).
 
-On a mesh of more than one rank (`make_train_step`'s ``mesh``) the
-state holds this rank's shards: the gradient of a leaf the data axes do
+On a mesh of more than one rank (`make_train_step`'s ``tp``, a
+`repro_torch.parallel.placement.Sharded` its caller builds) the state
+holds this rank's shards: the gradient of a leaf the data axes do
 not split is summed over them, `global_norm` counts each shard once over
 the mesh, and the update stays elementwise on the local shards.
 """
@@ -33,9 +34,9 @@ from typing import Any
 
 import torch
 
-from repro_torch.launch import collectives as C
-from repro_torch.launch.sharding import Sharded
-from repro_torch.models import registry, serialize
+from repro_torch.models import serialize
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel.placement import Sharded
 
 B1, B2, EPS = 0.9, 0.95, 1e-8
 #: elements of one leaf squared and summed at a time in `global_norm`
@@ -173,23 +174,21 @@ def adamw_update(state: TrainState, grads, lr, *, b1=B1, b2=B2, eps=EPS,
 
 
 def make_train_step(model, *, base_lr=3e-4, warmup=100, total=10_000,
-                    weight_decay=0.1, clip_norm=1.0, plain=False, mesh=None):
+                    weight_decay=0.1, clip_norm=1.0, plain=False, tp=None):
     """Returns train_step(state, batch) -> (state, metrics): the loss and
     its gradient in every params leaf (``model.loss``, through the kernels
     unless ``plain``), then `adamw_update` at the learning rate of step
     ``state.step + 1``. The state is updated in place.
 
-    ``mesh`` (a `RankMesh` of more than one rank): the state is this
-    rank's shards (`sharding.state_to_mesh`) and the batch its slice; the
-    step is the reference's jitted step under its state and batch
-    shardings, with the loss and grad norm of the global batch. The
-    returned function's ``tp`` is the `Sharded` placement (its
-    ``gathers`` count the model-axis gathers of weights split inside a
-    head), None on one device; a mesh of one rank is the one-device
-    step."""
+    ``tp`` (a `Sharded` placement on a mesh of more than one rank, which
+    the caller builds: ``repro_torch.launch.sharding.placement``): the
+    state is this rank's shards (`placement.state_to_mesh`) and the batch
+    its slice; the step is the reference's jitted step under its state
+    and batch shardings, with the loss and grad norm of the global batch.
+    The returned function's ``tp`` is that placement (its ``gathers``
+    count the model-axis gathers of weights whose rank's range is not its
+    own shard), None on one device."""
     lr_fn = cosine_schedule(base_lr, warmup, total)
-    tp = (Sharded(mesh, registry.param_structs(model.cfg))
-          if mesh is not None and mesh.size > 1 else None)
 
     def train_step(state: TrainState, batch):
         leaves = serialize.leaves(state.params)

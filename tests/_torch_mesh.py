@@ -17,9 +17,10 @@ norm, post-step params and first moments, and each state leaf's
 
 The port's side (`port_rank`) runs on ranks spawned by
 ``repro_torch.launch.ranks.spawn``, each a process of its own, from the
-same params (``models.convert``) and batch: ``state_to_mesh``, this
-rank's ``batch_spec`` slice, one ``make_train_step(model, mesh=...)``
-step, ``state_from_mesh``.
+same params (``models.convert``) and batch: the placement
+(``launch.sharding.placement``), ``state_to_mesh``, this rank's
+``batch_spec`` slice, one ``make_train_step(model, tp=...)`` step,
+``state_from_mesh``.
 
 Everything runs in f32 (the smoke configs with ``dtype`` and
 ``param_dtype`` replaced), B 2 x S 64: B splits over ``data`` 2.
@@ -76,7 +77,7 @@ def _flat(tree, prefix=""):
 
 # ------------------------------------------------------------ the reference
 
-def _reference_main(archs, out) -> None:
+def _reference_main(archs, out, overrides=None, meshes=MESHES) -> None:
     import jax
     import jax.numpy as jnp
     from jax.sharding import AxisType
@@ -88,13 +89,13 @@ def _reference_main(archs, out) -> None:
 
     result = {}
     for arch in archs:
-        cfg = _f32(registry.get_smoke(arch))
+        cfg = _f32(registry.get_smoke(arch)).replace(**(overrides or {}))
         model = get_model(cfg)
         params = model.init_params(jax.random.PRNGKey(SEED))
         batch = batch_np(cfg.vocab_size)
         rec = {"params": _flat(jax.tree.map(np.asarray, params)),
                "batch": batch, "meshes": {}}
-        for shape in MESHES:
+        for shape in meshes:
             n = shape[0] * shape[1]
             mesh = jax.make_mesh(shape, ("data", "model"),
                                  axis_types=(AxisType.Auto,) * 2,
@@ -133,16 +134,19 @@ def _reference_main(archs, out) -> None:
         pickle.dump(result, f)
 
 
-def reference_steps(archs, tmp: Path) -> dict:
-    """The reference's sharded step for ``archs`` on every mesh of
-    `MESHES`, in a subprocess with 4 host devices."""
+def reference_steps(archs, tmp: Path, overrides=None,
+                    meshes=MESHES) -> dict:
+    """The reference's sharded step for ``archs`` (their smoke configs
+    with ``overrides``) on every mesh of ``meshes``, in a subprocess with
+    4 host devices."""
     out = tmp / "reference.pkl"
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=4")
     env["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT / "src"), str(ROOT), env.get("PYTHONPATH", "")])
     code = (f"from tests._torch_mesh import _reference_main; "
-            f"_reference_main({list(archs)!r}, {str(out)!r})")
+            f"_reference_main({list(archs)!r}, {str(out)!r}, "
+            f"{overrides!r}, {tuple(meshes)!r})")
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                           capture_output=True, text=True,
                           timeout=REF_TIMEOUT_S)
@@ -164,9 +168,10 @@ def _unflat(flat: dict) -> dict:
     return out
 
 
-def port_rank(arch, params, batch, meshes):
+def port_rank(arch, params, batch, meshes, overrides=None, plain=False):
     """On each mesh of ``meshes`` (all of this world's size), one sharded
-    step of ``arch`` (smoke, f32) from ``params`` (flat numpy) on
+    step of ``arch`` (smoke, f32, with ``overrides``; through the kernels'
+    plain versions with ``plain``) from ``params`` (flat numpy) on
     ``batch``: the loss, grad norm, this rank's shard shapes and state
     bytes, the model-axis gathers, and on rank 0 the whole post-step
     params and first moments."""
@@ -176,28 +181,32 @@ def port_rank(arch, params, batch, meshes):
     from repro_torch.launch import sharding as SH
     from repro_torch.launch.mesh import rank_mesh
     from repro_torch.models import get_model
+    from repro_torch.models.registry import param_structs
     from repro_torch.models.convert import params_from_numpy
     from repro_torch.optim import adamw_init, make_train_step
+    from repro_torch.parallel import placement as P
 
-    model = get_model(_f32(registry.get_smoke(arch)), device="cpu")
+    model = get_model(_f32(registry.get_smoke(arch)).replace(
+        **(overrides or {})), device="cpu")
     out = {}
     for shape in meshes:
         mesh = rank_mesh(("data", "model"), shape, backend="gloo")
-        step = make_train_step(model, mesh=mesh)
-        state = SH.state_to_mesh(adamw_init(params_from_numpy(
+        step = make_train_step(model, plain=plain, tp=SH.placement(
+            mesh, param_structs(model.cfg)))
+        state = P.state_to_mesh(adamw_init(params_from_numpy(
             _unflat(params))), step.tp)
-        tensors = {k: SH.local_shard(torch.from_numpy(v), SH.batch_spec(
+        tensors = {k: P.local_shard(torch.from_numpy(v), SH.batch_spec(
             k, v.shape, mesh), mesh) for k, v in batch.items()}
         state, metrics = step(state, tensors)
         rec = {"loss": float(metrics["loss"]),
                "grad_norm": float(metrics["grad_norm"]),
                "shard_shapes": {p: tuple(t.shape) for p, t in
-                                SH.leaves_with_paths(state)},
-               "state_bytes": SH.state_bytes(state),
+                                P.leaves_with_paths(state)},
+               "state_bytes": P.state_bytes(state),
                "gathers": dict(step.tp.gathers)}
         rec["shard_shapes"] = {"/".join(map(str, p)): s for p, s in
                                rec["shard_shapes"].items()}
-        full = SH.state_from_mesh(state, step.tp)
+        full = P.state_from_mesh(state, step.tp)
         if mesh.rank == 0:
             rec["params"] = {k: v.numpy() for k, v in _flat(
                 full.params).items()}
@@ -208,8 +217,9 @@ def port_rank(arch, params, batch, meshes):
 
 # ---------------------------------------------------------------- the cases
 
-def _port_one_device(arch, params, batch):
-    """The port's own one-device step from the same params and batch."""
+def port_one_device(arch, params, batch, overrides=None, plain=False):
+    """The port's own one-device step from the same params and batch
+    (``overrides`` and ``plain`` as `port_rank`'s)."""
     import torch
 
     from repro_torch.configs import registry
@@ -217,8 +227,9 @@ def _port_one_device(arch, params, batch):
     from repro_torch.models.convert import params_from_numpy
     from repro_torch.optim import adamw_init, make_train_step
 
-    model = get_model(_f32(registry.get_smoke(arch)), device="cpu")
-    state, metrics = make_train_step(model)(
+    model = get_model(_f32(registry.get_smoke(arch)).replace(
+        **(overrides or {})), device="cpu")
+    state, metrics = make_train_step(model, plain=plain)(
         adamw_init(params_from_numpy(_unflat(params))),
         {k: torch.from_numpy(v) for k, v in batch.items()})
     return {"loss": float(metrics["loss"]),
@@ -227,24 +238,33 @@ def _port_one_device(arch, params, batch):
             "mu": {k: v.numpy() for k, v in _flat(state.mu).items()}}
 
 
-@pytest.fixture(scope="module")
-def runs(request, tmp_path_factory):
-    """The module's ``ARCH``: the reference's step on every mesh (one
-    subprocess), the port's on 2 ranks ((1, 2)) and on 4 ((1, 4) and
-    (2, 2)), and the port's one-device step."""
+def mesh_runs(arch, tmp: Path, overrides=None, meshes=MESHES,
+              plain=False):
+    """``arch``'s smoke with ``overrides``: the reference's step on every
+    mesh of ``meshes`` (one subprocess), the port's on the ranks of each
+    world size among them (``plain`` as `port_rank`'s), and the port's
+    one-device step, all from the reference's params and batch."""
     from repro_torch.launch.ranks import spawn
 
-    arch = request.module.ARCH
-    ref = reference_steps([arch], tmp_path_factory.mktemp("ref"))[arch]
+    ref = reference_steps([arch], tmp, overrides, meshes)[arch]
     port = {}
-    for world in (2, 4):
-        meshes = [m for m in MESHES if m[0] * m[1] == world]
+    for world in sorted({m[0] * m[1] for m in meshes}):
+        group = [m for m in meshes if m[0] * m[1] == world]
         res = spawn("tests._torch_mesh:port_rank", world, {
             "arch": arch, "params": ref["params"], "batch": ref["batch"],
-            "meshes": meshes}, timeout_s=RANK_TIMEOUT_S)
-        for shape in meshes:
+            "meshes": group, "overrides": overrides, "plain": plain},
+            timeout_s=RANK_TIMEOUT_S)
+        for shape in group:
             port[shape] = [r[shape] for r in res]
-    return ref, port, _port_one_device(arch, ref["params"], ref["batch"])
+    return ref, port, port_one_device(arch, ref["params"], ref["batch"],
+                                      overrides, plain)
+
+
+@pytest.fixture(scope="module")
+def runs(request, tmp_path_factory):
+    """The module's ``ARCH``: `mesh_runs` on every mesh of `MESHES` (the
+    port on 2 ranks for (1, 2) and on 4 for (1, 4) and (2, 2))."""
+    return mesh_runs(request.module.ARCH, tmp_path_factory.mktemp("ref"))
 
 
 def _close_leaves(got: dict, want: dict, what: str, init=None) -> None:
@@ -325,19 +345,26 @@ class MeshCases:
             _close_leaves(got[what], one[what], what, runs[0]["params"])
 
     def test_head_split_gathers_are_counted(self, runs, shape):
-        """At ``model`` 4 the smoke's K 2 x hd 32 = 64 k/v columns are 16
-        a rank, half a head: every rank gathers wk and wv (and the QKV
-        biases) over ``model``, in each layer's forward and its remat
-        recompute; at ``model`` 2 each rank holds one whole kv head."""
+        """Every rank counts the model-axis gathers its family's layers
+        make (`want_gathers`), in each layer's forward and its remat
+        recompute."""
         from repro_torch.configs import registry
 
         _, port, _ = runs
-        cfg = registry.get_smoke(self.ARCH)
-        names = ("wk", "wv") + (("bk", "bv") if cfg.attn_bias else ())
-        want = ({} if shape[1] == 2 else
-                {f"layers/attn/{n}": 2 * cfg.num_layers for n in names})
+        want = self.want_gathers(registry.get_smoke(self.ARCH), shape)
         assert [r["gathers"] for r in port[shape]] == [want] * len(
             port[shape])
+
+    @staticmethod
+    def want_gathers(cfg, shape) -> dict:
+        """The dense family: at ``model`` 4 the smoke's K 2 x hd 32 = 64
+        k/v columns are 16 a rank, half a head: every rank gathers wk and
+        wv (and the QKV biases) over ``model``, in each layer's forward
+        and its remat recompute; at ``model`` 2 each rank holds one whole
+        kv head."""
+        names = ("wk", "wv") + (("bk", "bv") if cfg.attn_bias else ())
+        return ({} if shape[1] == 2 else
+                {f"layers/attn/{n}": 2 * cfg.num_layers for n in names})
 
 
 # ------------------------------------------------------ the driver's ranks
@@ -367,14 +394,14 @@ def driver_checkpoints(restore_objects):
     and each step's records."""
     from repro_torch.configs import registry
     from repro_torch.checkpoint.ckpt import _items
-    from repro_torch.launch import sharding as SH
     from repro_torch.launch import train
+    from repro_torch.parallel.placement import state_from_mesh
 
     cfg = registry.get_smoke("llama3-8b")
     res = train.run(cfg, steps=2, batch=2, seq=64, ckpt_every=2,
                     device="cpu", mesh="debug", backend="gloo")
     store = res["runtime"][0]
-    whole = SH.state_from_mesh(res["state"], res["tp"])
+    whole = state_from_mesh(res["state"], res["tp"])
     out = {"records": res["records"], "state_bytes": res["state_bytes"]}
     if res["mesh"].rank == 0:
         out["objects"] = dict(store.list_bucket("ckpts"))
@@ -385,25 +412,28 @@ def driver_checkpoints(restore_objects):
     back = train.run(cfg, steps=0, batch=2, seq=64, resume=True,
                      device="cpu", mesh="debug", backend="gloo",
                      runtime=runtime)
-    restored = SH.state_from_mesh(back["state"], back["tp"])
+    restored = state_from_mesh(back["state"], back["tp"])
     out["start_step"] = back["start_step"]
     if res["mesh"].rank == 0:
         out["restored"] = dict(_items(restored))
     return out
 
 
-def one_step(arch, overrides, shape=None):
+def one_step(arch, overrides, shape=None, plain=False):
     """One f32 step of ``arch``'s smoke config with ``overrides``, seeded
-    params and `batch_np`'s batch: on a (data, model) ``shape`` mesh of
-    this world's ranks (rank 0 returns the params gathered whole, every
-    rank its model-axis gathers), or on one device without ``shape``."""
+    params and `batch_np`'s batch, through the kernels' plain versions
+    with ``plain``: on a (data, model) ``shape`` mesh of this world's
+    ranks (rank 0 returns the params gathered whole, every rank its
+    model-axis gathers), or on one device without ``shape``."""
     import torch
 
     from repro_torch.configs import registry
     from repro_torch.launch import sharding as SH
     from repro_torch.launch.mesh import rank_mesh
     from repro_torch.models import get_model
+    from repro_torch.models.registry import param_structs
     from repro_torch.optim import adamw_init, make_train_step
+    from repro_torch.parallel import placement as P
 
     cfg = _f32(registry.get_smoke(arch)).replace(**overrides)
     model = get_model(cfg, device="cpu")
@@ -412,12 +442,13 @@ def one_step(arch, overrides, shape=None):
         cfg.vocab_size).items()}
     mesh = (rank_mesh(("data", "model"), shape, backend="gloo")
             if shape else None)
-    step = make_train_step(model, mesh=mesh)
+    step = make_train_step(model, plain=plain, tp=SH.placement(
+        mesh, param_structs(cfg)) if mesh is not None else None)
     init = {k: v.numpy().copy() for k, v in _flat(params).items()}
     state = adamw_init(params)
     if mesh is not None:
-        state = SH.state_to_mesh(state, step.tp)
-        batch = {k: SH.local_shard(v, SH.batch_spec(k, v.shape, mesh), mesh)
+        state = P.state_to_mesh(state, step.tp)
+        batch = {k: P.local_shard(v, SH.batch_spec(k, v.shape, mesh), mesh)
                  for k, v in batch.items()}
     state, metrics = step(state, batch)
     out = {"loss": float(metrics["loss"]),
@@ -425,7 +456,7 @@ def one_step(arch, overrides, shape=None):
            "gathers": dict(step.tp.gathers) if mesh is not None else {},
            "init": init}
     if mesh is not None:
-        state = SH.state_from_mesh(state, step.tp)
+        state = P.state_from_mesh(state, step.tp)
     out["params"] = {k: v.numpy() for k, v in _flat(state.params).items()}
     out["mu"] = {k: v.numpy() for k, v in _flat(state.mu).items()}
     return out

@@ -17,11 +17,11 @@ from repro_torch.configs import (ARCH_IDS, SHAPES, InputShape, all_cells,
 from repro_torch.kernels.flash_attention import ref as attention_ref
 from repro_torch.launch import dryrun
 from repro_torch.launch import mesh as M
-from repro_torch.launch import sharding as SH
 from repro_torch.launch import specs as SP
 from repro_torch.models import Model, mamba
 from repro_torch.models import kv_cache as kvc
 from repro_torch.optim import adamw_init
+from repro_torch.parallel import placement as P
 
 RUNNABLE = [(a, s) for a, s in all_cells()
             if cell_is_runnable(registry.get(a), SHAPES[s])[0]]
@@ -123,7 +123,7 @@ def test_record_of_a_cell():
     cfg = registry.get("llama3-8b").replace(num_layers=2)
     n = cfg.param_count()
     params = SP.param_specs(cfg)
-    f32 = sum(x.numel() for _, x in SH.leaves_with_paths(params)
+    f32 = sum(x.numel() for _, x in P.leaves_with_paths(params)
               if x.dtype == torch.float32)
     assert one["memory"]["arguments_B"]["state"] == 2 * (n - f32) \
         + 4 * f32 + 8 * n + 4

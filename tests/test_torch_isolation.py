@@ -30,8 +30,9 @@ print("MODULES", " ".join(sorted(n for n in sys.modules
 """
 
 #: the copies of the node's planes, of the density simulator, of the
-#: fleet model and of PlanCheck, the training modules, and the FLOPs
-#: model and the dry run's modules, which must be in the probe's graph
+#: fleet model and of PlanCheck, the training modules, the FLOPs model
+#: and the dry run's modules, and the mesh layer (``parallel``), which
+#: must be in the probe's graph
 PLANES = ("repro_torch.core.cache", "repro_torch.core.faults",
           "repro_torch.core.workloads", "repro_torch.core.analysis.verify",
           "repro_torch.core.backend", "repro_torch.core.runtime",
@@ -44,7 +45,8 @@ PLANES = ("repro_torch.core.cache", "repro_torch.core.faults",
           "repro_torch.data.pipeline", "repro_torch.launch.train",
           "repro_torch.models.flops", "repro_torch.launch.mesh",
           "repro_torch.launch.sharding", "repro_torch.launch.specs",
-          "repro_torch.launch.dryrun")
+          "repro_torch.launch.dryrun", "repro_torch.parallel.collectives",
+          "repro_torch.parallel.placement")
 
 _ENV_PROBE = """
 import os

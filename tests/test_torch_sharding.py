@@ -33,6 +33,7 @@ from repro_torch.launch import mesh as M
 from repro_torch.launch import sharding as SH
 from repro_torch.launch import specs as SP
 from repro_torch.optim import adamw_init
+from repro_torch.parallel import placement as P
 
 
 class FakeMesh:
@@ -63,7 +64,7 @@ def _ref_flat(tree):
 
 
 def _port_flat(tree):
-    return {SH._path_str(p): leaf for p, leaf in SH.leaves_with_paths(tree)}
+    return {P.path_str(p): leaf for p, leaf in P.leaves_with_paths(tree)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -280,8 +281,8 @@ class TestShardingRules:
         fake = FakeMesh(MESHES["2x16x16"])
         for arch in ARCH_IDS:
             structs = SP.param_specs(registry.get(arch))
-            for path, leaf in SH.leaves_with_paths(structs):
-                path = SH._path_str(path)
+            for path, leaf in P.leaves_with_paths(structs):
+                path = P.path_str(path)
                 spec = SH.param_spec(path, tuple(leaf.shape), fake)
                 assert len(spec) == leaf.dim()
                 for dim, axes in zip(leaf.shape, spec):
