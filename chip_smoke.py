@@ -43,6 +43,8 @@ Phases, each of which fails the run (exit 1) if it fails:
    and H 8 K 2, which the forward checks hold too), hymba's heads at
    S 4096 with its 2048 window and a mesh rank's of them at model 4 (H 6
    and H 7 at G 1, B 2, which the forward checks hold too),
+   qwen3-moe-30b-a3b's mesh rank's heads at model 2 (H 16 over K 2, G 8,
+   hd 128, B 2 x S 4096, which the forward checks hold too),
    seamless's cross shape (2048 queries against 1500 keys,
    bidirectional), the group sizes 1, 2, 5, 6, 7 and 8, hd 16 and 32, a
    dout that is a transposed view, and two runs bit for bit; the
@@ -131,17 +133,26 @@ Phases, each of which fails the run (exit 1) if it fails:
    machine has that many, else every rank on card 0 over gloo, passed
    explicitly; a line names the backend and the cards): llama3-8b cut to
    4 of its 32 layers on 2 and on 4 ranks, falcon-mamba-7b cut to 2 of 64 on 2
-   ranks and hymba-1.5b cut to 4 of 32 on 4 ranks, each against the
-   same 3 steps on one rank: each step's loss within 2e-2 and grad norm
-   within 5e-2 of it, leaf by leaf over every rank's shard: each
+   ranks, hymba-1.5b cut to 4 of 32 on 4 ranks and qwen3-moe-30b-a3b
+   cut to 2 of 48 on 2 ranks (64 of its 128 experts a rank), each
+   against the same 3 steps on one rank (every one-rank run first, then
+   one spawn a count of ranks, which trains its archs in turn: the
+   ranks' start-up once a count, the cut that pays for the moe run
+   with the plain scans' below): each step's loss within 2e-2 and grad
+   norm (and the moe family's load-balancing loss) within 5e-2 of it,
+   leaf by leaf over every rank's shard: each
    first-moment leaf within 5e-2 of its largest |value|, each params
    leaf's update from init within 5e-1 of one rank's in norm; each
    rank's train state against the dry run's state bytes on that debug
    mesh exactly in requested bytes, exact launches of the attention and
    scan kernels on each rank's local heads and channels (llama H 16 K 4
    and H 8 K 2; falcon d_inner 4096; hymba d_inner 800 and
-   6 or 7 q heads at G 1), the model-axis gathers by path, step wall and
-   device time and the time inside collectives;
+   6 or 7 q heads at G 1; qwen3 H 16 K 2), the model-axis gathers by
+   path, step wall and device time and the time inside collectives; for
+   the moe run each layer's assignments kept and dropped, and those
+   whose expert differs from one rank's with the largest router margin
+   among them (at most 2e-2; the ranks then take one rank's experts
+   there, as phase 3's ``RoutePin``);
 5. one replica of each served arch traced with torch.profiler: host
    wall time of prefill and of a decode step, device time, device idle
    share, top device ops;
@@ -231,19 +242,24 @@ Phases, each of which fails the run (exit 1) if it fails:
    the forward's lse at llama's training shape (B 2 x S 4096), at B 1 x
    S 2048, at hymba's heads (hd 64, window 2048, S 4096) and at a mesh
    rank's llama heads (H 16 K 4 and H 8 K 2, B 2 x S 4096; the forward
-   too) and hymba heads (H 6 and 7 at G 1, window 2048; the forward too)
+   too), hymba heads (H 6 and 7 at G 1, window 2048; the forward too)
+   and qwen3-moe-30b-a3b heads (H 16 K 2 at G 8; the forward too)
    beside its
    bound by operations (2.5x the forward's FLOPs), the plain backward and
    the library's (autograd of ``F.scaled_dot_product_attention``,
    eager). The scan is also timed at every R of ``SCAN_SWEEP`` beside
    the R its rule picks, and at the training shapes without and with its
    boundary states, also at a mesh rank's channels (d_inner 4096 and
-   800). The scan's backward is timed at falcon-mamba-7b's and
+   800; the plain scan timed at the two training shapes only). The
+   scan's backward is timed at falcon-mamba-7b's and
    hymba-1.5b's training shapes (B 2 x S 4096), at a mesh rank's
    channels of them, and at B 1 x S 2048
    beside its bound (bytes, f32 operations and exponentials, the
-   largest; one saved state counted every ``BOUND_CHUNK`` steps) and the
-   plain backward, then at every R it takes, each line naming R,
+   largest; one saved state counted every ``BOUND_CHUNK`` steps) and,
+   at falcon-mamba-7b's training shape only, the plain backward (~1-3 s
+   a call: the plain scans' shapes are the cut that, with the mesh
+   ranks' start-up, pays for the moe mesh run), then at every R it
+   takes, each line naming R,
    sub-chunk, cluster, warps an SM and shared memory a CTA; no library
    call computes it.
 
@@ -345,13 +361,16 @@ TRAIN_STEPS, TRAIN_TRACED = 4, 2
 #: B TRAIN_BATCH x S TRAIN_SEQ, MESH_STEPS AdamW steps through
 #: ``train.run(mesh="debug")`` on each of its counts of ranks (a card each
 #: over NCCL where the machine has that many, else all on card 0 over
-#: gloo), each rank within MESH_TIMEOUT_S seconds: llama3-8b 4 of 32
+#: gloo), the ranks of one spawn, which trains every arch of its count,
+#: within MESH_TIMEOUT_S seconds: llama3-8b 4 of 32
 #: layers on 2 and on 4 ranks (the dense family: 16 and 8 q heads a rank);
 #: falcon-mamba-7b 2 of 64 on 2 ranks (the scan at d_inner 4096 a rank);
 #: hymba-1.5b 4 of 32 on 4 ranks (d_inner 800 a rank, 6 or 7 of its 25
-#: heads at G 1, its odd vocab of 32001 replicated over ``model``)
+#: heads at G 1, its odd vocab of 32001 replicated over ``model``);
+#: qwen3-moe-30b-a3b 2 of 48 on 2 ranks (64 of its 128 experts a rank,
+#: H 16 over K 2 at G 8 and the q/k norms)
 MESH_RUNS = (("llama3-8b", 4, (2, 4)), ("falcon-mamba-7b", 2, (2,)),
-             ("hymba-1.5b", 4, (4,)))
+             ("hymba-1.5b", 4, (4,)), ("qwen3-moe-30b-a3b", 2, (2,)))
 MESH_STEPS, MESH_TIMEOUT_S = 3, 420
 #: the bf16 tolerances of tests/test_torch_train.py: the loss within 2e-2,
 #: each gradient leaf (here each first-moment leaf, 0.1 x the clipped
@@ -599,6 +618,67 @@ class RoutePin:
             self.moe._route = route
 
 
+class RouteLog:
+    """The MoE router's choices call by call, through `moe._top_k` (which
+    the one-device `_route` and the mesh's `_route_on_mesh` both call):
+    each call's layer (by its router's storage, first seen in layer
+    order), the assignments it keeps and drops under the capacity
+    (reckoned from the experts' counts: on a (1, n) mesh every rank
+    routes the whole batch) and, against another run's experts call by
+    call (``want``), the assignments whose expert differs and the
+    largest router margin (k-th less (k+1)-th probability) among their
+    tokens; it then pins those tokens to ``want``'s experts, with this
+    run's own probabilities of them as gates (so the router's gradient
+    stays this run's), as `RoutePin` and tests/test_torch_train.py's
+    `PinnedRouting` do: the same experts make the same slots, so both
+    runs keep and drop the same assignments. ``experts`` keeps each
+    call's (T, k) experts as uint8 on the host, for a later run's
+    ``want``."""
+
+    def __init__(self, torch, moe, want=None):
+        self.torch, self.moe, self.want = torch, moe, want
+        self.layers, self.calls, self.experts = {}, [], []
+
+    @contextlib.contextmanager
+    def run(self):
+        torch, top_k = self.torch, self.moe._top_k
+
+        def spy(router, cfg, xf):
+            probs, gates, idx = top_k(router, cfg, xf)
+            E, k = cfg.num_experts, cfg.num_experts_per_tok
+            call = {"layer": self.layers.setdefault(router.data_ptr(),
+                                                    len(self.layers)),
+                    "moved": 0, "margin": 0.0}
+            if self.want is not None:
+                ref = self.want[len(self.calls)].to(idx.device, torch.long)
+                moved = ~(idx[:, :, None] == ref[:, None, :]).any(-1)
+                call["moved"] = int(moved.sum())
+                if call["moved"]:
+                    flip = moved.any(-1)[:, None]
+                    top = probs.detach().topk(k + 1, dim=-1).values
+                    call["margin"] = float((top[:, k - 1] - top[:, k])[
+                        flip[:, 0]].max())
+                    pinned = probs.gather(-1, ref)
+                    pinned = pinned / pinned.sum(-1, keepdim=True).clamp_min(
+                        1e-9)
+                    idx = torch.where(flip, ref, idx)
+                    gates = torch.where(flip, pinned, gates)
+            else:
+                self.experts.append(idx.to(torch.uint8).cpu())
+            counts = torch.bincount(idx.reshape(-1), minlength=E)
+            cap = max(int(idx.numel() / E * cfg.capacity_factor), 8)
+            call["kept"] = int(counts.clamp_max(cap).sum())
+            call["dropped"] = idx.numel() - call["kept"]
+            self.calls.append(call)
+            return probs, gates, idx
+
+        self.moe._top_k = spy
+        try:
+            yield self
+        finally:
+            self.moe._top_k = top_k
+
+
 class Smoke:
     def __init__(self, torch):
         self.torch = torch
@@ -759,6 +839,9 @@ class Smoke:
              "hymba mesh rank H6/K6 G1 (model 4) window=2048 B=2 S=4096"),
             ((2, 4096, 4096, 7, 7, 64), True, 2048,
              "hymba mesh rank H7/K7 G1 (model 4) window=2048 B=2 S=4096"),
+            # a rank's local heads of qwen3-moe-30b-a3b on the mesh
+            ((2, 4096, 4096, 16, 2, 128), True, 0,
+             "qwen3 mesh rank H16/K2 G8 (model 2) B=2 S=4096"),
         ]
         for dname, tol in BWD_TOL.items():
             dtype = getattr(torch, dname)
@@ -839,6 +922,7 @@ class Smoke:
         # never whole groups of 5, so one kv head a q head (G 1)
         hymba_tp4 = [(H, H, 64, f" hymba mesh rank H{H}/K{H} G1 (model 4)")
                      for H in (6, 7)]
+        qwen3_tp2 = (16, 2, 128, " qwen3 mesh rank H16/K2 G8 (model 2)")
         for dname, tol in TOL.items():
             dtype = getattr(torch, dname)
             g = self.gen(1)
@@ -865,6 +949,7 @@ class Smoke:
                     (llama_tp4, 2, 4096, True, 0, "causal S=4096"),
                     *[(h, 2, 4096, True, 2048, "window=2048 S=4096")
                       for h in hymba_tp4],
+                    (qwen3_tp2, 2, 4096, True, 0, "causal S=4096"),
                     (mixtral, 1, 8192, True, 4096, "window=4096 S=8192"),
                     (internvl2, 1, 2048, True, 0, "causal S=2048"),
                     (seamless, 1, 2048, False, 0,
@@ -1980,81 +2065,150 @@ class Smoke:
     def phase_train_mesh(self):
         """Each arch of ``MESH_RUNS`` at full width, cut to its layers,
         trained ``MESH_STEPS`` steps through ``train.run(mesh="debug")``
-        on each of its counts of ranks (`mesh_rank`, spawned by
-        ``repro_torch.launch.ranks.spawn``), against the same steps on one
-        rank of the card: every step's loss and grad norm, and each
-        post-step params leaf over every rank's shard of it, within the
-        bf16 tolerances of tests/test_torch_train.py; each rank's train
-        state on the card against the dry run's state bytes on that debug
-        mesh, exactly in requested bytes; exact launches of the family's
-        attention and scan kernels on each rank's local heads and
-        channels; the model-axis gathers by path; step wall and device
-        time and the time inside collectives."""
+        on each of its counts of ranks, against the same steps on one
+        rank of the card (`one_rank_run`): every step's loss and grad
+        norm, and each post-step params leaf over every rank's shard of
+        it, within the bf16 tolerances of tests/test_torch_train.py; each
+        rank's train state on the card against the dry run's state bytes
+        on that debug mesh, exactly in requested bytes; exact launches of
+        the family's attention and scan kernels on each rank's local
+        heads and channels; the model-axis gathers by path; step wall and
+        device time and the time inside collectives. The moe family also:
+        each step's load-balancing loss against one rank's (within
+        ``MESH_LEAF_TOL`` of it), and its routing (`RouteLog`) on one
+        rank and on each rank: assignments kept and dropped a layer,
+        those whose expert differs from one rank's, and the largest
+        router margin among them (at most ``ROUTE_TOL``). Every one-rank
+        run comes first; then one spawn of `mesh_ranks` a count of ranks
+        trains each of its archs in turn (the ranks' start-up once a
+        count, not once a run)."""
         torch = self.torch
         import tempfile
-        from repro_torch.configs import registry
-        from repro_torch.launch import train
-        from repro_torch.parallel.placement import leaves_with_paths
         cards = torch.cuda.device_count()
         os.environ["PYTHONPATH"] = os.pathsep.join(
             [str(ROOT), str(SRC), os.environ.get("PYTHONPATH", "")])
-        for arch, layers, counts in MESH_RUNS:
-            cfg = registry.get(arch).replace(num_layers=layers)
-            B, S, L = TRAIN_BATCH, TRAIN_SEQ, layers
-            gc.collect()
-            torch.cuda.empty_cache()
-            counters = self.counters()
-            for mod in counters.values():
-                mod.launches = 0
-            one = train.run(cfg, steps=MESH_STEPS, batch=B, seq=S,
-                            ckpt_every=MESH_STEPS + 1, device="cuda")
-            path = f"train (mesh) {cfg.name} x{L} one rank"
-            self.launches[path] = {n: m.launches for n, m in counters.items()}
-            for r in one["records"]:
-                print(f"  {path} step {r['step']}: loss {r['loss']:.6f} "
-                      f"grad_norm {r['grad_norm']:.6f}; wall "
-                      f"{r['wall_s'] * 1e3:.1f} ms, device "
-                      f"{r['device_s'] * 1e3:.1f} ms ({nvidia_smi()})")
-            tmp = tempfile.mkdtemp(prefix="mesh-")
-            reference = str(Path(tmp) / "one_rank_state.pt")
-            t0 = time.monotonic()
-            with no_crc32():          # a file the ranks read once, at once
-                torch.save({f"{name}/" + "/".join(map(str, p)): t.cpu()
-                            for name in ("params", "mu") for p, t in
-                            leaves_with_paths(getattr(one["state"], name))},
-                           reference)
-            print(f"  {path}: params and first moments saved for the "
-                  f"ranks, {os.path.getsize(reference) / 1e9:.2f} GB in "
-                  f"{time.monotonic() - t0:.1f} s, "
-                  f"{shutil.disk_usage(tmp).free / 1e9:.0f} GB left there")
-            records = one["records"]
-            del one
-            gc.collect()
-            torch.cuda.empty_cache()
-            try:
+        tmp = tempfile.mkdtemp(prefix="mesh-")
+        by_count = {}
+        try:
+            for arch, layers, counts in MESH_RUNS:
+                run = self.one_rank_run(arch, layers, tmp)
                 for n in counts:
-                    self.train_mesh(n, cards, cfg, reference, records)
-            finally:
-                shutil.rmtree(tmp, ignore_errors=True)
+                    by_count.setdefault(n, []).append(run)
+            bad = []
+            for n in sorted(by_count):
+                bad += self.train_mesh(n, cards, by_count[n])
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        if bad:
+            raise AssertionError(f"train (mesh): {bad}")
 
-    def train_mesh(self, n, cards, cfg, reference, one_records):
-        """One spawn of `mesh_rank` on ``n`` ranks; checks and prints."""
+    def one_rank_run(self, arch, layers, tmp):
+        """``MESH_STEPS`` steps of ``arch`` cut to ``layers`` on one rank
+        of the card, its launches and, for the moe family, its routing;
+        its params and first moments (and routing) saved under ``tmp``
+        for the ranks. Returns what `train_mesh` takes."""
+        torch = self.torch
+        from repro_torch.configs import registry
+        from repro_torch.launch import train
+        from repro_torch.models import moe
+        from repro_torch.parallel.placement import leaves_with_paths
+        cfg = registry.get(arch).replace(num_layers=layers)
+        gc.collect()
+        torch.cuda.empty_cache()
+        counters = self.counters()
+        for mod in counters.values():
+            mod.launches = 0
+        log = RouteLog(torch, moe)
+        t0 = time.monotonic()
+        with log.run() if cfg.family == "moe" else contextlib.nullcontext():
+            one = train.run(cfg, steps=MESH_STEPS, batch=TRAIN_BATCH,
+                            seq=TRAIN_SEQ, ckpt_every=MESH_STEPS + 1,
+                            device="cuda")
+        path = f"train (mesh) {arch} x{layers} one rank"
+        print(f"  {path}: train.run {time.monotonic() - t0:.1f} s")
+        self.launches[path] = {n: m.launches for n, m in counters.items()}
+        for r in one["records"]:
+            print(f"  {path} step {r['step']}: loss {r['loss']:.6f} "
+                  f"grad_norm {r['grad_norm']:.6f} aux_loss "
+                  f"{r['aux_loss']:.6e}; wall "
+                  f"{r['wall_s'] * 1e3:.1f} ms, device "
+                  f"{r['device_s'] * 1e3:.1f} ms ({nvidia_smi()})")
+        self.print_routing(path, log.calls, layers)
+        run = {"cfg": cfg, "records": one["records"], "routes": None,
+               "reference": str(Path(tmp) / f"{arch}-state.pt")}
+        if log.experts:
+            run["routes"] = str(Path(tmp) / f"{arch}-routes.pt")
+            torch.save(log.experts, run["routes"])
+        t0 = time.monotonic()
+        with no_crc32():              # a file the ranks read once, at once
+            torch.save({f"{name}/" + "/".join(map(str, p)): t.cpu()
+                        for name in ("params", "mu") for p, t in
+                        leaves_with_paths(getattr(one["state"], name))},
+                       run["reference"])
+        print(f"  {path}: params and first moments saved for the ranks, "
+              f"{os.path.getsize(run['reference']) / 1e9:.2f} GB in "
+              f"{time.monotonic() - t0:.1f} s, "
+              f"{shutil.disk_usage(tmp).free / 1e9:.0f} GB left there")
+        del one
+        gc.collect()
+        torch.cuda.empty_cache()
+        return run
+
+    @staticmethod
+    def print_routing(path, calls, layers):
+        """Each step's forward calls of the router (a `RouteLog`'s): the
+        assignments each layer keeps and drops, and those whose expert
+        differs from one rank's with their largest margin; each layer's
+        remat recompute must route as its forward did."""
+        if not calls:
+            return
+        per_step = len(calls) // MESH_STEPS
+        for step in range(MESH_STEPS):
+            run = calls[step * per_step:(step + 1) * per_step]
+            fwd = {}
+            for c in run:
+                if c["layer"] in fwd and c != fwd[c["layer"]]:
+                    raise AssertionError(f"{path}: the recompute of layer "
+                                         f"{c['layer']} routed otherwise")
+                fwd.setdefault(c["layer"], c)
+            print(f"  {path} step {step} routing: " + "; ".join(
+                f"layer {l}: kept {c['kept']}, dropped {c['dropped']}, "
+                f"moved {c['moved']} (margin {c['margin']:.3e})"
+                for l, c in sorted(fwd.items()))
+                  + f" ({len(run)} router calls, {layers} layers)")
+
+    def train_mesh(self, n, cards, runs):
+        """One spawn of `mesh_ranks` on ``n`` ranks for the one-rank
+        ``runs`` (`one_rank_run`'s); prints and returns the checks that
+        failed."""
         from repro_torch.launch.ranks import spawn
         nccl = cards >= n
         backend = "nccl" if nccl else "gloo"
-        arch, L = cfg.name, cfg.num_layers
+        names = ", ".join(f"{r['cfg'].name} x{r['cfg'].num_layers}"
+                          for r in runs)
         print(f"  train (mesh) {n} ranks: {cards} card(s) on this machine: "
               f"backend {backend}, "
               f"{'one card a rank' if nccl else 'every rank on card 0'}; "
-              f"mesh debug (1, {n}), {arch} x{L}, B {TRAIN_BATCH} x S "
+              f"mesh debug (1, {n}), {names} in turn, B {TRAIN_BATCH} x S "
               f"{TRAIN_SEQ}, {MESH_STEPS} steps", flush=True)
         t0 = time.monotonic()
-        ranks = spawn("chip_smoke:mesh_rank", n, {
-            "arch": arch, "layers": L, "shared": not nccl,
-            "reference": reference}, backend=backend,
+        ranks = spawn("chip_smoke:mesh_ranks", n, {
+            "runs": [{"arch": r["cfg"].name, "layers": r["cfg"].num_layers,
+                      "reference": r["reference"], "routes": r["routes"]}
+                     for r in runs], "shared": not nccl}, backend=backend,
             timeout_s=MESH_TIMEOUT_S, echo=True)
-        print(f"  train (mesh) {arch} x{L} {n} ranks: spawn to the last "
+        print(f"  train (mesh) {n} ranks ({names}): spawn to the last "
               f"rank's end {time.monotonic() - t0:.1f} s")
+        bad = []
+        for i, run in enumerate(runs):
+            bad += self.check_mesh_run(n, run, [res[i] for res in ranks])
+        return bad
+
+    def check_mesh_run(self, n, run, ranks):
+        """One arch's results on ``n`` ranks against its one-rank
+        ``run``: prints them and returns the checks that failed."""
+        cfg, one_records = run["cfg"], run["records"]
+        arch, L = cfg.name, cfg.num_layers
         want = self.train_launches(cfg, MESH_STEPS, 1)
         bad = []
         for r, res in enumerate(ranks):
@@ -2067,15 +2221,25 @@ class Smoke:
                          "(gloo through host memory)")
                 print(f"  {path} step {rec['step']}: loss {rec['loss']:.6f} "
                       f"(one rank {ref['loss']:.6f}) grad_norm "
-                      f"{rec['grad_norm']:.6f} ({ref['grad_norm']:.6f}); "
+                      f"{rec['grad_norm']:.6f} ({ref['grad_norm']:.6f}) "
+                      f"aux_loss {rec['aux_loss']:.6e} "
+                      f"({ref['aux_loss']:.6e}); "
                       f"wall {rec['wall_s'] * 1e3:.1f} ms, device "
                       f"{rec['device_s'] * 1e3:.1f} ms; collectives "
                       f"{c['calls']}, {c['bytes'] / 1e9:.3f} GB, "
                       f"{c['host_s'] * 1e3:.1f} ms host, {dev_c}")
                 if abs(rec["loss"] - ref["loss"]) > MESH_LOSS_TOL or abs(
                         rec["grad_norm"] - ref["grad_norm"]) > \
-                        MESH_LEAF_TOL * ref["grad_norm"]:
-                    bad.append((path, rec["step"], "loss or grad norm"))
+                        MESH_LEAF_TOL * ref["grad_norm"] or abs(
+                        rec["aux_loss"] - ref["aux_loss"]) > \
+                        MESH_LEAF_TOL * ref["aux_loss"]:
+                    bad.append((path, rec["step"], "loss, grad norm or "
+                                "aux loss"))
+            if res["routing"] is not None:
+                self.print_routing(path, res["routing"], L)
+                margin = max(c["margin"] for c in res["routing"])
+                if margin > ROUTE_TOL:
+                    bad.append((path, "a route moved at margin", margin))
             print(f"  {path}: seconds {res['seconds']} (imports, "
                   f"train.run, bytes and params checks)")
             print(f"  {path} on {res['device']}: {res['local']}; "
@@ -2102,11 +2266,10 @@ class Smoke:
               f"of {first['leaves']} leaves moved on one rank, the rest "
               f"equal to init on both")
         if mu[1] > MESH_LEAF_TOL:
-            bad.append(("first moments", mu))
+            bad.append((arch, n, "first moments", mu))
         if upd[1] > MESH_UPDATE_TOL:
-            bad.append(("params update", upd))
-        if bad:
-            raise AssertionError(f"train (mesh) {arch} {n} ranks: {bad}")
+            bad.append((arch, n, "params update", upd))
+        return bad
 
     def phase_mlserve(self):
         """The MLServe cores at tiny scale, then at full width cut to
@@ -3156,6 +3319,9 @@ class Smoke:
                f"window=2048": self.time_flash(
                    H, H, 64, 2048, "hymba-1.5b mesh rank, model 4",
                    B=TRAIN_BATCH, S=TRAIN_SEQ) for H in (6, 7)},
+            "qwen3-moe-30b-a3b mesh rank H16/K2 G8 (model 2) B=2 S=4096":
+                self.time_flash(16, 2, 128, 0, "qwen3-moe-30b-a3b mesh rank, "
+                                "model 2", B=TRAIN_BATCH, S=TRAIN_SEQ),
             "seamless-m4t-large-v2 encoder": self.time_flash(
                 16, 16, 64, 0, "seamless-m4t-large-v2 encoder",
                 causal=False),
@@ -3213,7 +3379,10 @@ class Smoke:
             **{f"hymba-1.5b mesh rank H{H}/K{H} G1 (model 4) B=2 S=4096 "
                f"window=2048": self.time_flash_bwd(
                    TRAIN_BATCH, TRAIN_SEQ, H, H, 64, "hymba-1.5b mesh rank, "
-                   "model 4", window=2048) for H in (6, 7)}}
+                   "model 4", window=2048) for H in (6, 7)},
+            "qwen3-moe-30b-a3b mesh rank H16/K2 G8 (model 2) B=2 S=4096":
+                self.time_flash_bwd(TRAIN_BATCH, TRAIN_SEQ, 16, 2, 128,
+                                    "qwen3-moe-30b-a3b mesh rank, model 2")}
         self.timing[SCAN["name"]] = self.time_scan(8192, 256, "falcon-mamba-7b")
         self.also[SCAN["name"]] = {
             "hymba-1.5b": self.time_scan(3200, 100, "hymba-1.5b"),
@@ -3221,27 +3390,32 @@ class Smoke:
                 self.time_scan_states(8192, 256, "falcon-mamba-7b"),
             "hymba-1.5b B=2 S=4096, with and without states":
                 self.time_scan_states(3200, 100, "hymba-1.5b"),
+            # the plain scans (~1-3 s a call) are timed at the training
+            # shapes only: the cut that pays for the mesh phase's moe run
             "falcon-mamba-7b mesh rank di=4096 (model 2) B=2 S=4096, with "
             "and without states": self.time_scan_states(
-                4096, 256, "falcon-mamba-7b mesh rank, model 2"),
+                4096, 256, "falcon-mamba-7b mesh rank, model 2",
+                plain=False),
             "hymba-1.5b mesh rank di=800 (model 4) B=2 S=4096, with and "
             "without states": self.time_scan_states(
-                800, 100, "hymba-1.5b mesh rank, model 4")}
+                800, 100, "hymba-1.5b mesh rank, model 4", plain=False)}
         self.timing[SCAN_BWD["name"]] = self.time_scan_bwd(
             TRAIN_BATCH, TRAIN_SEQ, 8192, 256, "falcon-mamba-7b training "
             "shape")
         self.also[SCAN_BWD["name"]] = {
             "hymba-1.5b B=2 S=4096": self.time_scan_bwd(
                 TRAIN_BATCH, TRAIN_SEQ, 3200, 100, "hymba-1.5b training "
-                "shape"),
+                "shape", plain=False),
             "falcon-mamba-7b B=1 S=2048": self.time_scan_bwd(
-                1, PROMPT, 8192, 256, "falcon-mamba-7b"),
+                1, PROMPT, 8192, 256, "falcon-mamba-7b", plain=False),
             "falcon-mamba-7b mesh rank di=4096 (model 2) B=2 S=4096":
                 self.time_scan_bwd(TRAIN_BATCH, TRAIN_SEQ, 4096, 256,
-                                   "falcon-mamba-7b mesh rank, model 2"),
+                                   "falcon-mamba-7b mesh rank, model 2",
+                                   plain=False),
             "hymba-1.5b mesh rank di=800 (model 4) B=2 S=4096":
                 self.time_scan_bwd(TRAIN_BATCH, TRAIN_SEQ, 800, 100,
-                                   "hymba-1.5b mesh rank, model 4")}
+                                   "hymba-1.5b mesh rank, model 4",
+                                   plain=False)}
 
     @staticmethod
     def bound(nbytes, flops, peak=BF16_FLOPS_PER_S):
@@ -3439,13 +3613,14 @@ class Smoke:
               + f"; the rule picks R {R}, the fastest is R {fastest}")
         return row
 
-    def time_scan_states(self, di, rank, arch, B=TRAIN_BATCH, S=TRAIN_SEQ):
+    def time_scan_states(self, di, rank, arch, B=TRAIN_BATCH, S=TRAIN_SEQ,
+                         plain=True):
         """The forward scan at a training shape (xr bf16, B and C views of
         the projection) by graph replay, without its boundary states (the
         serve paths' code) and with them (the train path's): what saving
         them costs. Each beside its bound by bytes (as `time_scan`'s,
-        plus the states written) and the plain version of both,
-        `ssm_scan_ref` (eager, one call)."""
+        plus the states written) and, with ``plain``, the plain version
+        of both, `ssm_scan_ref` (eager, one call)."""
         from repro_torch.kernels.ssm_scan import ops as scan_ops
         from repro_torch.kernels.ssm_scan import (selective_scan,
                                                   selective_scan_states)
@@ -3465,17 +3640,17 @@ class Smoke:
                "bound_ms": self.bound(nbytes, 0)[0],
                "states_bound_ms": self.bound(nbytes + states, 0)[0],
                "plain_ms": self.time_ms(lambda s: ssm_scan_ref(*s), sets[:1],
-                                        1)}
+                                        1) if plain else None}
         print(f"  ssm_scan bf16 B={B} S={S} di={di} N={N} ({arch}): without "
               f"states {row['ms']:.4f} ms (bound {row['bound_ms']:.4f} ms, "
               f"bytes), with a state every {scan_ops.CHUNK} steps "
               f"{row['states_ms']:.4f} ms (bound "
               f"{row['states_bound_ms']:.4f} ms, {states / 1e6:.1f} MB of "
               f"states more) ({row['states_ms'] / row['ms'] - 1:+.1%}); "
-              f"plain ssm_scan_ref {row['plain_ms']:.4f} ms")
+              f"plain ssm_scan_ref {plain_text(row['plain_ms'])}")
         return row
 
-    def time_scan_bwd(self, B, S, di, rank, arch):
+    def time_scan_bwd(self, B, S, di, rank, arch, plain=True):
         """The scan's backward as the train path calls it (xr bf16, B and C
         views of the projection, the model's long-memory inputs, no
         dh_final), on the forward's boundary states: the kernel by graph
@@ -3487,7 +3662,8 @@ class Smoke:
         the kernel reads; A read, dA and dh0 written), 20 f32 operations
         per state and step at the f32 peak, and one exponential per state
         and step on the special-function units (16 a clock per SM at the
-        1.98 GHz boost). Then every R of ``BWD_PER_THREAD`` by graph
+        1.98 GHz boost); the plain backward only with ``plain``. Then
+        every R of ``BWD_PER_THREAD`` by graph
         replay beside the rule's pick, each named by its R, sub-chunk,
         cluster, warps an SM and shared memory a CTA."""
         torch = self.torch
@@ -3528,7 +3704,8 @@ class Smoke:
         row = {"ms": self.time_ms(kernel, sets, 10, graph=True),
                "eager_ms": self.time_ms(kernel, sets, 10),
                "plain_ms": self.time_ms(
-                   lambda s: ssm_scan_ref_bwd(*s[0], s[2]), sets[:1], 1),
+                   lambda s: ssm_scan_ref_bwd(*s[0], s[2]), sets[:1], 1)
+               if plain else None,
                "library_ms": None, "bound_ms": bms, "bound_by": by,
                "sfu_ms": sfu_ms, "chunk": scan_ops.CHUNK, **cfg}
         self.report(f"ssm_scan_bwd B={B} S={S} di={di} N={N} xr bf16 "
@@ -3550,8 +3727,9 @@ class Smoke:
         lib = row["library_ms"]
         print(f"  {label}: kernel {row['ms']:.4f} ms, bound "
               f"{row['bound_ms']:.4f} ms ({row['bound_by']}), share of bound "
-              f"{row['bound_ms'] / row['ms']:.3f}, plain {row['plain_ms']:.4f}"
-              f" ms, library {'none' if lib is None else f'{lib:.4f} ms'}")
+              f"{row['bound_ms'] / row['ms']:.3f}, plain "
+              f"{plain_text(row['plain_ms'])}, library "
+              f"{'none' if lib is None else f'{lib:.4f} ms'}")
         print(f"    eager (host launch gaps included): kernel "
               f"{row['eager_ms']:.4f} ms"
               + ("" if lib is None
@@ -3573,6 +3751,11 @@ class Smoke:
                             if name in self.rel_err else {}),
                          **self.timing[name], "also": self.also[name]})
         return json.dumps({"kernels": rows})
+
+
+def plain_text(ms) -> str:
+    """A plain version's time, or that this shape does not time it."""
+    return "not timed at this shape" if ms is None else f"{ms:.4f} ms"
 
 
 @contextlib.contextmanager
@@ -3654,7 +3837,21 @@ def against_one_rank(model, state, tp, mesh, reference):
             "moved": moved, "leaves": len(mu)}
 
 
-def mesh_rank(arch, layers, shared, reference):
+def mesh_ranks(runs, shared):
+    """One rank of `Smoke.train_mesh`'s spawn (a process of its own, in a
+    process group that ``repro_torch.launch.ranks.spawn`` set up):
+    `mesh_rank` for each of ``runs`` in turn, each run's state freed
+    before the next."""
+    import torch
+    out = []
+    for run in runs:
+        out.append(mesh_rank(shared=shared, **run))
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_rank(arch, layers, shared, reference, routes=None):
     """One rank of `Smoke.phase_train_mesh` (a process of its own, in a
     process group that ``repro_torch.launch.ranks.spawn`` set up): the
     steps of ``arch`` at full width, ``layers`` of its layers, through
@@ -3665,7 +3862,9 @@ def mesh_rank(arch, layers, shared, reference):
     by leaf against one rank's (``reference``), each over every rank's
     shard: the first moment's largest error over its largest |value|,
     and the params' update from init (drawn again from the run's seed)
-    in norm."""
+    in norm. With ``routes`` (one rank's experts, call by call, of the
+    moe family) a `RouteLog` of this rank's routing against them, which
+    holds the rank to one rank's experts where they differ."""
     t0 = time.monotonic()
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3674,16 +3873,22 @@ def mesh_rank(arch, layers, shared, reference):
     from repro_torch.launch import dryrun
     from repro_torch.launch import train
     from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import moe
     from repro_torch.parallel import collectives as C
     cfg = registry.get(arch).replace(num_layers=layers)
+    log = (RouteLog(torch, moe, torch.load(routes, weights_only=True))
+           if routes else None)
     counters = Smoke.counters()
     for mod in counters.values():
         mod.launches = 0
+    if torch.cuda.is_initialized():       # this rank's card, an earlier run
+        torch.cuda.reset_peak_memory_stats()
     t1 = time.monotonic()
-    res = train.run(cfg, steps=MESH_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-                    ckpt_every=MESH_STEPS + 1,
-                    device="cuda" if shared else None,
-                    backend="gloo" if shared else None, mesh="debug")
+    with log.run() if log else contextlib.nullcontext():
+        res = train.run(cfg, steps=MESH_STEPS, batch=TRAIN_BATCH,
+                        seq=TRAIN_SEQ, ckpt_every=MESH_STEPS + 1,
+                        device="cuda" if shared else None,
+                        backend="gloo" if shared else None, mesh="debug")
     launches = {n: m.launches for n, m in counters.items()}
     t2 = time.monotonic()
     state, tp, mesh = res.pop("state"), res["tp"], res["mesh"]
@@ -3708,6 +3913,10 @@ def mesh_rank(arch, layers, shared, reference):
     if cfg.family in ("ssm", "hybrid"):
         c0, c1 = tp.split(cfg.d_inner)
         local.append(f"d_inner channels [{c0}, {c1}) of {cfg.d_inner}")
+    if cfg.family == "moe":
+        e0, e1 = tp.split(cfg.num_experts)
+        local.append(f"experts [{e0}, {e1}) of {cfg.num_experts}, w_gate "
+                     f"spec {tp.specs['layers/moe/w_gate']}")
     v0, v1 = tp.split(cfg.vocab_size)
     local.append(f"vocab [{v0}, {v1}) of {cfg.vocab_size}, embed spec "
                  f"{tp.specs['embed']}")
@@ -3717,7 +3926,8 @@ def mesh_rank(arch, layers, shared, reference):
            "state_bytes": res["state_bytes"], "gathers": tp.gathers,
            "peak": torch.cuda.max_memory_allocated(mesh.device),
            "device": str(mesh.device), "note": C.backend_note(mesh),
-           "local": "; ".join(local)}
+           "local": "; ".join(local),
+           "routing": log.calls if log else None}
     out.update(against_one_rank(res["model"], state, tp, mesh, reference))
     out["seconds"] = {"start": t1 - t0, "train.run": t2 - t1,
                       "checks": time.monotonic() - t2}
@@ -3755,13 +3965,15 @@ def main() -> int:
         phases.append((f"embeds and enc-dec {arch}",
                        lambda arch=arch: smoke.embeds_path(arch)))
     phases.append(("train", smoke.phase_train))
-    phases.append(("train (mesh)", smoke.phase_train_mesh))
+    phases.append(("train (mesh; one spawn a count of ranks)",
+                   smoke.phase_train_mesh))
     phases.append(("mlserve cores", smoke.phase_mlserve))
     phases.append(("worker node", smoke.phase_node))
     phases.append(("density", smoke.phase_density))
     phases.append(("fleet and plancheck", smoke.phase_fleet))
     phases.append(("dry run", smoke.phase_dryrun))
-    phases.append(("timing", smoke.phase_timing))
+    phases.append(("timing (the plain scans at the training shapes only)",
+                   smoke.phase_timing))
     for name, fn in phases:
         print(f"== {name}", flush=True)
         t0 = time.monotonic()

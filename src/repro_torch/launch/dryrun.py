@@ -292,9 +292,12 @@ def _append(path: str, rec: dict) -> None:
         f.write(json.dumps(rec) + "\n")
 
 
-def run_all(out: str, extra: dict | None = None) -> list[dict]:
+def run_all(out: str, extra: dict | None = None,
+            single_pod_only: bool = False) -> list[dict]:
     """Every runnable cell on both meshes, appended to ``out`` as JSONL;
-    cells ``out`` holds without an error are skipped."""
+    cells ``out`` holds without an error are skipped. With
+    ``single_pod_only`` the 2x16x16 cells are left out, silently, after
+    the skip of a done cell, in the reference's order."""
     done = set()
     if os.path.exists(out):
         with open(out) as f:
@@ -309,6 +312,8 @@ def run_all(out: str, extra: dict | None = None) -> list[dict]:
         tag = f"[{i + 1}/{len(cells)}] {arch} {shape_name} {mesh_name}"
         if (arch, shape_name, mesh_name) in done:
             print(f"{tag} skip (done)", flush=True)
+            continue
+        if multi_pod and single_pod_only:
             continue
         t0 = time.monotonic()
         try:
@@ -336,10 +341,13 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--out", default=DEFAULT_OUT)
     ap.add_argument("--extra", default=None,
                     help="JSON dict of ModelConfig overrides")
+    ap.add_argument("--single-pod-only", action="store_true",
+                    help="--all: skip the 2x16x16 mesh (roofline table "
+                         "is single-pod)")
     args = ap.parse_args(argv)
     extra = json.loads(args.extra) if args.extra else None
     if args.all:
-        return run_all(args.out, extra)
+        return run_all(args.out, extra, args.single_pod_only)
     if not (args.arch and args.shape):
         ap.error("--arch and --shape, or --all, are required")
     rec = run_cell(args.arch, args.shape, args.multi_pod, extra)

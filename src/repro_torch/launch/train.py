@@ -14,8 +14,9 @@ process a rank: ``debug`` is (1, n) over every rank there is, ``prod``
 holds its shards of the train state under the reference's rules
 (``launch/sharding.py``, which `run` turns into the placement that the
 step, the pipeline and the checkpoints take) and its slice of the global
-batch; the step is tensor-parallel over ``model`` and FSDP over the data
-axes (the dense, ssm and hybrid families: ``lm.check_mesh``). Without
+batch; the step is tensor-parallel over ``model`` (the moe family's
+experts too) and FSDP over the data axes (every token-LM family:
+``lm.check_mesh``). Without
 ``--mesh`` (or on a world of one) the step is the one-device step. `run` takes a config directly, so a
 caller can train a config cut in depth without a flag for it, as
 `serve.run` serves one.
@@ -156,6 +157,12 @@ def run(cfg, *, steps: int = 20, batch: int = 8, seq: int = 256,
     # rule), whose rows each rank keeps
     rows = (SH.batch_spec("tokens", (batch, seq), mesh)[0]
             if mesh is not None else None)
+    if (tp is not None and cfg.family == "moe" and rows is None
+            and mesh.group(tp.data) is not None):
+        raise SystemExit(f"{cfg.name}: a batch of {batch} does not split "
+                         f"over the data axes {tp.data}; the moe family's "
+                         f"capacity slots are the whole batch's, counted "
+                         f"from each data rank's own rows")
     records = []
     for step in range(start_step, start_step + steps):
         batch_np = pipeline.next_batch(mesh, rows)

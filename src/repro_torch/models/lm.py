@@ -154,15 +154,17 @@ def _fuse(cfg, lp, attn_out, m_out):
                   + L.rms_norm(m_out, lp["bn_mamba"], cfg.norm_eps))
 
 
-def _seq_sublayers(cfg, lp, x, plain=False, train=False, tp=None):
+def _seq_sublayers(cfg, lp, x, plain=False, tp=None):
     """One layer over a full sequence. Returns (x, cache_out, aux): the
     layer's ``k``/``v`` and/or ``conv``/``ssm``, and the moe family's
-    load-balancing loss (None for the others). In ``train`` mode a
-    ``moe_impl`` of "local" runs `moe_sorted`, as the reference's
-    training does. With ``tp`` (on a mesh) attention, the Mamba block and
-    the MLP run on this rank's share (`layers.attention_layer`,
-    `mamba.mamba_layer`), each branch summed over ``model`` before
-    hymba's fusion."""
+    load-balancing loss (None for the others). A ``moe_impl`` of
+    "local" runs `moe_sorted` (on one device `moe_local` is
+    `moe_sorted`; on a mesh the global one, as the reference's training
+    does). With ``tp`` (on a mesh) attention, the Mamba block, the MLP
+    and the experts run on this rank's share (`layers.attention_layer`,
+    `mamba.mamba_layer`, `moe.moe_layer`), each branch summed over
+    ``model`` before hymba's fusion, and the moe loss is this rank's
+    share of the whole batch's."""
     fam = cfg.family
     cache_out, aux = {}, None
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
@@ -182,10 +184,7 @@ def _seq_sublayers(cfg, lp, x, plain=False, train=False, tp=None):
         x = x + _fuse(cfg, lp, attn_out, m_out)
     h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
     if fam == "moe":
-        if train and cfg.moe_impl == "local":
-            moe_out, aux = MOE.moe_sorted(lp["moe"], cfg, h2)
-        else:
-            moe_out, aux = MOE.moe_layer(lp["moe"], cfg, h2)
+        moe_out, aux = MOE.moe_layer(lp["moe"], cfg, h2, tp)
         return x + moe_out, cache_out, aux
     return x + L.mlp_layer(lp["mlp"], h2, tp), cache_out, aux
 
@@ -270,7 +269,7 @@ def run_stack(cfg, params, x, cache=None, plain=False, tp=None):
 
 
 def _train_layer(cfg, lp, x, plain, tp=None):
-    x, _, aux = _seq_sublayers(cfg, lp, x, plain=plain, train=True, tp=tp)
+    x, _, aux = _seq_sublayers(cfg, lp, x, plain=plain, tp=tp)
     return x, aux
 
 
@@ -382,17 +381,13 @@ def chunked_ce_loss(cfg, params, hidden, targets, chunk=LOSS_CHUNK, tp=None):
 
 
 def check_mesh(cfg, tp) -> None:
-    """Exit for a config the port does not yet train on a mesh of more
-    than one rank, naming the ROADMAP item that brings it."""
+    """Exit for a config the reference does not train on a mesh of more
+    than one rank: an enc-dec or vlm config, which its driver refuses."""
     if tp is None:
         return
     if cfg.is_encoder_decoder or cfg.embed_input:
         raise SystemExit(f"{cfg.name}: the reference trains no enc-dec or "
                          f"vlm config on a mesh (its driver refuses them)")
-    if cfg.family == "moe":
-        raise SystemExit(f"{cfg.name}: the moe family does not train on a "
-                         f"mesh of {tp.mesh.size} ranks yet; ROADMAP Queue 1 "
-                         f"item 9c (moe under the mesh)")
 
 
 def forward_train(cfg, params, batch, plain=False, tp=None):
@@ -403,12 +398,14 @@ def forward_train(cfg, params, batch, plain=False, tp=None):
     grad as the caller has it (never under inference mode), no cache.
 
     ``tp`` (a `repro_torch.parallel.placement.Sharded` on a mesh of more
-    than one rank; the dense, ssm and hybrid families, `check_mesh`):
-    ``params`` are this rank's shards and ``batch`` its slice of the
-    global batch;
+    than one rank; the dense, moe, ssm and hybrid families,
+    `check_mesh`): ``params`` are this rank's shards and ``batch`` its
+    slice of the global batch, its rows split over the data axes;
     the loss is this rank's share of the global batch's mean (the shares
     over the data axes sum to it, and every rank of ``model`` holds the
-    same), and ``ce_loss`` is the global mean."""
+    same), the moe family's load-balancing loss its share of the whole
+    batch's (`moe.moe_sorted`), and ``ce_loss`` and ``aux_loss`` are the
+    global values."""
     check_supported(cfg)
     check_mesh(cfg, tp)
     if cfg.embed_input:
@@ -417,8 +414,11 @@ def forward_train(cfg, params, batch, plain=False, tp=None):
         x = embed_tokens(cfg, params, batch["tokens"], tp)
     hidden, aux = run_stack(cfg, params, x, plain=plain, tp=tp)
     loss = chunked_ce_loss(cfg, params, hidden, batch["targets"], tp=tp)
-    metrics = {"ce_loss": loss if tp is None else tp.sum_data(loss),
-               "aux_loss": aux}
+    metrics = {"ce_loss": loss, "aux_loss": aux}
+    if tp is not None:
+        metrics["ce_loss"] = tp.sum_data(loss)
+        if cfg.family == "moe":
+            metrics["aux_loss"] = tp.sum_data(aux)
     return loss + aux, metrics
 
 

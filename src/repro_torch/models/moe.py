@@ -16,6 +16,17 @@ The expert products are plain large products that the reference leaves
 to XLA; here they are `torch.matmul`, which reads the (E, D, F) weights
 in place (a 2-D input broadcasts against the expert axis). On one device
 `moe_local` is `moe_sorted`, as the reference's is without a data axis.
+
+On a mesh (``tp``, a `repro_torch.parallel.placement.Sharded` of more
+than one rank; training) both compute the reference's global semantics
+from this rank's rows of the batch (`_route_on_mesh`): the router runs
+on the whole x before it enters the split work, every data rank's
+per-expert counts are gathered (no gradient), so the capacity, each
+assignment's slot and the Switch loss are those of the whole batch, and
+each ``model`` rank runs the experts of its ``tp.split(E)``: its own
+shard where ``model`` divides E (expert parallelism), else cut from the
+leaf fetched whole (the reference's fallback rule). The partial outputs
+are summed over ``model``.
 """
 from __future__ import annotations
 
@@ -34,21 +45,63 @@ def init_moe(generator, cfg, dtype, device=None):
     }
 
 
-def _route(p, cfg, xf):
-    """Router in f32. xf: (T, D) -> gates (T, k) f32, idx (T, k) int64,
-    and the Switch load-balancing loss (a 0-d f32 tensor)."""
-    logits = xf.float() @ p["router"]                     # (T, E)
+def _top_k(router, cfg, xf):
+    """The router in f32. xf: (T, D) -> probs (T, E), gates (T, k)
+    renormalised, idx (T, k) int64."""
+    logits = xf.float() @ router                          # (T, E)
     probs = torch.softmax(logits, dim=-1)
     gates, idx = torch.topk(probs, cfg.num_experts_per_tok, dim=-1)
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    return probs, gates, idx
+
+
+def _counts(idx, E):
+    """(E,) f32: the assignments of ``idx`` to each expert."""
+    ce = torch.zeros((E,), dtype=torch.float32, device=idx.device)
+    return ce.index_add_(0, idx.reshape(-1), torch.ones_like(
+        idx.reshape(-1), dtype=torch.float32))
+
+
+def _route(p, cfg, xf):
+    """Router in f32. xf: (T, D) -> gates (T, k) f32, idx (T, k) int64,
+    and the Switch load-balancing loss (a 0-d f32 tensor)."""
+    probs, gates, idx = _top_k(p["router"], cfg, xf)
     E = cfg.num_experts
     me = probs.mean(dim=0)                                # mean router prob
-    ce = torch.zeros((E,), dtype=torch.float32, device=xf.device)
-    ce.index_add_(0, idx.reshape(-1), torch.ones_like(idx.reshape(-1),
-                                                      dtype=torch.float32))
+    ce = _counts(idx, E)
     ce = ce / ce.sum().clamp_min(1.0)
     aux = E * torch.sum(me * ce) * cfg.router_aux_loss
     return gates, idx, aux
+
+
+def _route_on_mesh(p, cfg, xf, tp):
+    """`_route` on this rank's rows xf (T, D) of a batch split over the
+    data axes: gates and idx of these rows, this rank's share of the
+    whole batch's Switch loss, and every data rank's per-expert counts
+    (n, E) in the order the batch is split (no gradient). The loss is a
+    product of two means over the whole batch, so the share is ``E *
+    coef * sum(probs.sum(0) / (n T) * ce)`` with ``ce`` from every
+    rank's counts: the shares sum over the data axes to the reference's
+    loss, and the gradient through ``probs`` stays this rank's."""
+    E = cfg.num_experts
+    router = tp.weight(p["router"], "layers/moe/router", 1, 0, E)
+    probs, gates, idx = _top_k(router, cfg, xf)
+    table = tp.gather_data(_counts(idx, E))               # (n, E)
+    ce = table.sum(dim=0)
+    ce = ce / ce.sum().clamp_min(1.0)
+    me = probs.sum(dim=0) / (xf.shape[0] * table.shape[0])
+    aux = E * torch.sum(me * ce) * cfg.router_aux_loss
+    return gates, idx, aux, table
+
+
+def _experts_on_mesh(p, cfg, tp):
+    """This rank's experts [e0, e1) (``tp.split(E)``) of each expert
+    weight: its own shard where ``model`` divides E, else cut from the
+    leaf gathered whole (`Sharded.weight`)."""
+    e0, e1 = tp.split(cfg.num_experts)
+    return e0, e1, {name: tp.weight(p[name], f"layers/moe/{name}", 0, e0,
+                                    e1)
+                    for name in ("w_gate", "w_up", "w_down")}
 
 
 def silu(x):
@@ -67,20 +120,36 @@ def _experts_ffn(p, buf):
     return torch.matmul(h, p["w_down"])
 
 
-def moe_sorted(p, cfg, x):
+def moe_sorted(p, cfg, x, tp=None):
     """Sort-based capacity-C dispatch. x: (B, S, D) -> (out, aux_loss).
 
     Everything stays on the device with static shapes (no host sync):
     a dropped assignment is written to a spare row past the buffer.
+
+    With ``tp`` x is this rank's rows of the batch and aux its share
+    (`_route_on_mesh`). The capacity is the whole batch's, and an
+    assignment's slot is its rank within its expert in the whole batch's
+    stable sort: the counts of the data ranks before this one (the
+    batch's order) plus its rank among this rank's rows. Each ``model``
+    rank fills and runs only its experts' rows of the buffer, on x and
+    the gates entering the split work (`Sharded.copy`), and the partial
+    outputs are summed over ``model`` (`Sharded.reduce`).
     """
     B, S, D = x.shape
     E, k = cfg.num_experts, cfg.num_experts_per_tok
     T = B * S
     xf = x.reshape(T, D)
-    gates, idx, aux = _route(p, cfg, xf)
-
     A = T * k                                             # assignments
-    cap = max(int(A / E * cfg.capacity_factor), 8)
+    if tp is None:
+        gates, idx, aux = _route(p, cfg, xf)
+        e0, e1, w, n = 0, E, p, 1
+    else:
+        gates, idx, aux, table = _route_on_mesh(p, cfg, xf, tp)
+        e0, e1, w = _experts_on_mesh(p, cfg, tp)
+        n = table.shape[0]
+        xf, gates = tp.copy(xf), tp.copy(gates)
+    cap = max(int(A * n / E * cfg.capacity_factor), 8)
+    El = e1 - e0
     dev = x.device
     flat_e = idx.reshape(A)
     sort_i = torch.argsort(flat_e, stable=True)           # as jnp.argsort
@@ -89,40 +158,58 @@ def moe_sorted(p, cfg, x):
     # slot within the expert's group = rank - first rank of that expert
     gstart = torch.searchsorted(se, torch.arange(E, device=dev))  # left
     slot = torch.arange(A, device=dev) - gstart[se]
-    keep = slot < cap
+    if tp is not None:             # after the data ranks before this one
+        before = table[:tp.mesh.index(tp.data)].sum(dim=0)
+        slot = slot + before.long()[se]
+    keep = (slot < cap) & (se >= e0) & (se < e1)          # this rank's
+    le = se - e0                                          # local expert
 
     # the reference's `.at[se, slot].set(..., mode="drop")`: kept rows to
-    # their (expert, slot), dropped ones to the spare row E * cap
-    rows = torch.where(keep, se * cap + slot, E * cap)
-    flat = x.new_zeros((E * cap + 1, D))
+    # their (expert, slot), dropped ones (and other ranks' experts) to the
+    # spare row El * cap
+    rows = torch.where(keep, le * cap + slot, El * cap)
+    flat = x.new_zeros((El * cap + 1, D))
     flat.index_copy_(0, rows, xf[tok])
-    out_buf = _experts_ffn(p, flat[:E * cap].view(E, cap, D))
+    out_buf = _experts_ffn(w, flat[:El * cap].view(El, cap, D))
 
-    contrib = out_buf[se, slot.clamp_max(cap - 1)]        # (A, D)
-    contrib = torch.where(keep[:, None], contrib, 0)
+    contrib = out_buf[le.clamp(0, El - 1), slot.clamp_max(cap - 1)]
+    contrib = torch.where(keep[:, None], contrib, 0)      # (A, D)
     # back to assignment order, weighted by the gates in x's dtype, summed
     # over k
     y = torch.empty_like(contrib)
     y[sort_i] = contrib
     y = (y.reshape(T, k, D) * gates[..., None].to(x.dtype)).sum(dim=1)
+    if tp is not None:
+        y = tp.reduce(y)
     return y.reshape(B, S, D), aux
 
 
-def moe_dense(p, cfg, x):
+def moe_dense(p, cfg, x, tp=None):
     """Dropless masked-dense dispatch (decode and oracle; E/k x the
-    operations). x: (B, S, D) -> (out, aux_loss)."""
+    operations). x: (B, S, D) -> (out, aux_loss). With ``tp`` each
+    ``model`` rank runs its experts on every token and combines them
+    with its columns of the (T, E) weight; the f32 partial outputs are
+    summed over ``model``."""
     B, S, D = x.shape
     E = cfg.num_experts
     T = B * S
     xf = x.reshape(T, D)
-    gates, idx, aux = _route(p, cfg, xf)
+    if tp is None:
+        gates, idx, aux = _route(p, cfg, xf)
+        e0, e1, w_e = 0, E, p
+    else:
+        gates, idx, aux, _ = _route_on_mesh(p, cfg, xf, tp)
+        e0, e1, w_e = _experts_on_mesh(p, cfg, tp)
+        xf, gates = tp.copy(xf), tp.copy(gates)
     # combine weight per (token, expert), f32
     w = torch.zeros((T, E), dtype=torch.float32, device=x.device)
     w.scatter_add_(1, idx, gates)
-    h = silu(torch.matmul(xf, p["w_gate"]))               # (E, T, F)
-    h = h * torch.matmul(xf, p["w_up"])
-    y = torch.matmul(h, p["w_down"])                      # (E, T, D)
-    out = torch.einsum("etd,te->td", y.float(), w)
+    h = silu(torch.matmul(xf, w_e["w_gate"]))             # (E, T, F)
+    h = h * torch.matmul(xf, w_e["w_up"])
+    y = torch.matmul(h, w_e["w_down"])                    # (E, T, D)
+    out = torch.einsum("etd,te->td", y.float(), w[:, e0:e1])
+    if tp is not None:
+        out = tp.reduce(out)
     return out.to(x.dtype).reshape(B, S, D), aux
 
 
@@ -132,9 +219,13 @@ def moe_local(p, cfg, x):
     return moe_sorted(p, cfg, x)
 
 
-def moe_layer(p, cfg, x):
+def moe_layer(p, cfg, x, tp=None):
+    """The layer by ``cfg.moe_impl``. With ``tp`` (training on a mesh)
+    "local" runs the global `moe_sorted`, as the reference's training
+    does; `moe_local` on a mesh is its sharded prefill, which the port
+    does not run."""
     if cfg.moe_impl == "dense":
-        return moe_dense(p, cfg, x)
-    if cfg.moe_impl == "local":
+        return moe_dense(p, cfg, x, tp)
+    if cfg.moe_impl == "local" and tp is None:
         return moe_local(p, cfg, x)
-    return moe_sorted(p, cfg, x)
+    return moe_sorted(p, cfg, x, tp)

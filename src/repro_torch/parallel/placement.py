@@ -118,8 +118,10 @@ class Sharded:
     is reduce-scattered back to the shard); along the model dim this
     rank's own shard where that is the range, else the leaf gathered over
     ``model`` and cut (counted in ``gathers``, by path, once a fetch: a
-    shard that is not whole heads, or not the rank's channels), or a
-    replicated leaf cut (its gradient summed over ``model``)."""
+    shard that is not whole heads, or not the rank's channels, or experts
+    whose leaf splits another dim over ``model``), or a replicated leaf
+    cut (its gradient summed over ``model``). `gather_data` stacks every
+    data rank's tensor (the moe family's per-expert counts)."""
 
     def __init__(self, mesh, specs: dict, shapes: dict, data: tuple,
                  state_rule):
@@ -160,13 +162,23 @@ class Sharded:
 
     def weight_ranges(self, leaf, path: str, dim: int, ranges):
         """The ``ranges`` ([lo, hi) each) along ``dim`` of the weight at
-        ``path``, from one fetch: a list of tensors."""
+        ``path``, from one fetch: a list of tensors. A dim other than
+        ``dim`` split over ``model`` (the MoE experts' fallback layout,
+        cut along the expert dim) is gathered over ``model`` and counted:
+        the ranks' ranges are then split work, and the gather's backward
+        sums their gradients."""
         spec, full = self.spec(path, leaf.dim()), self.shape(path, leaf.dim())
         ranges = tuple(ranges)
         for d, axes in enumerate(spec):
             if axes is not None and "model" not in axes_of(axes):
                 leaf = C.gather(leaf, self.mesh, axes, d)       # FSDP
-        if spec[dim] == "model":
+        across = [d for d, axes in enumerate(spec)
+                  if d != dim and axes == "model"]
+        for d in across:
+            leaf = C.gather(leaf, self.mesh, "model", d)
+        if across:
+            self.gathers[path] = self.gathers.get(path, 0) + 1
+        elif spec[dim] == "model":
             part = full[dim] // self.mesh.shape["model"]
             own = self.mesh.coords["model"] * part
             if ranges == ((own, own + part),):
@@ -192,6 +204,12 @@ class Sharded:
     def sum_data(self, x):
         """The sum of ``x`` over the data axes (no gradient)."""
         return C.all_reduce(x.detach(), self.mesh, self.data)
+
+    def gather_data(self, x):
+        """Every data rank's ``x`` stacked along a new leading dim, in the
+        order of their combined coordinate, the order the batch is split
+        in (no gradient)."""
+        return C.all_gather(x.detach()[None], self.mesh, self.data, 0)
 
     def _split_over(self, path: str) -> set:
         return {a for entry in self.specs[path] for a in axes_of(entry)}

@@ -77,7 +77,7 @@ def _flat(tree, prefix=""):
 
 # ------------------------------------------------------------ the reference
 
-def _reference_main(archs, out, overrides=None, meshes=MESHES) -> None:
+def _reference_main(cases, out) -> None:
     import jax
     import jax.numpy as jnp
     from jax.sharding import AxisType
@@ -88,7 +88,7 @@ def _reference_main(archs, out, overrides=None, meshes=MESHES) -> None:
     from repro.optim import adamw_init, make_train_step
 
     result = {}
-    for arch in archs:
+    for case, arch, overrides, meshes in cases:
         cfg = _f32(registry.get_smoke(arch)).replace(**(overrides or {}))
         model = get_model(cfg)
         params = model.init_params(jax.random.PRNGKey(SEED))
@@ -126,27 +126,27 @@ def _reference_main(archs, out, overrides=None, meshes=MESHES) -> None:
             rec["meshes"][shape] = {
                 "loss": float(metrics["loss"]),
                 "grad_norm": float(metrics["grad_norm"]),
+                "aux_loss": float(metrics["aux_loss"]),
                 "params": _flat(jax.tree.map(np.asarray, new.params)),
                 "mu": _flat(jax.tree.map(np.asarray, new.mu)),
                 "shard_shapes": shapes}
-        result[arch] = rec
+        result[case] = rec
     with open(out, "wb") as f:
         pickle.dump(result, f)
 
 
-def reference_steps(archs, tmp: Path, overrides=None,
-                    meshes=MESHES) -> dict:
-    """The reference's sharded step for ``archs`` (their smoke configs
-    with ``overrides``) on every mesh of ``meshes``, in a subprocess with
-    4 host devices."""
+def reference_steps(cases, tmp: Path) -> dict:
+    """The reference's sharded step for each of ``cases`` ((key, arch,
+    overrides, meshes): the arch's smoke config with ``overrides`` on
+    every mesh of ``meshes``), all in one subprocess with 4 host
+    devices: {key: record}."""
     out = tmp / "reference.pkl"
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=4")
     env["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT / "src"), str(ROOT), env.get("PYTHONPATH", "")])
     code = (f"from tests._torch_mesh import _reference_main; "
-            f"_reference_main({list(archs)!r}, {str(out)!r}, "
-            f"{overrides!r}, {tuple(meshes)!r})")
+            f"_reference_main({list(cases)!r}, {str(out)!r})")
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                           capture_output=True, text=True,
                           timeout=REF_TIMEOUT_S)
@@ -200,6 +200,7 @@ def port_rank(arch, params, batch, meshes, overrides=None, plain=False):
         state, metrics = step(state, tensors)
         rec = {"loss": float(metrics["loss"]),
                "grad_norm": float(metrics["grad_norm"]),
+               "aux_loss": float(metrics["aux_loss"]),
                "shard_shapes": {p: tuple(t.shape) for p, t in
                                 P.leaves_with_paths(state)},
                "state_bytes": P.state_bytes(state),
@@ -234,30 +235,54 @@ def port_one_device(arch, params, batch, overrides=None, plain=False):
         {k: torch.from_numpy(v) for k, v in batch.items()})
     return {"loss": float(metrics["loss"]),
             "grad_norm": float(metrics["grad_norm"]),
+            "aux_loss": float(metrics["aux_loss"]),
             "params": {k: v.numpy() for k, v in _flat(state.params).items()},
             "mu": {k: v.numpy() for k, v in _flat(state.mu).items()}}
 
 
-def mesh_runs(arch, tmp: Path, overrides=None, meshes=MESHES,
-              plain=False):
-    """``arch``'s smoke with ``overrides``: the reference's step on every
-    mesh of ``meshes`` (one subprocess), the port's on the ranks of each
-    world size among them (``plain`` as `port_rank`'s), and the port's
-    one-device step, all from the reference's params and batch."""
+def port_ranks(jobs):
+    """`port_rank` for each of ``jobs`` (its keyword arguments) in turn,
+    on one spawn's ranks."""
+    return [port_rank(**job) for job in jobs]
+
+
+def mesh_cases(arch, tmp: Path, cases: dict, plain=False) -> dict:
+    """``arch``'s smoke under each of ``cases`` ({key: (overrides,
+    meshes)}): the reference's step on every mesh of each (one
+    subprocess for all), the port's on the ranks of each world size
+    among them (one spawn a world size for all; ``plain`` as
+    `port_rank`'s), and the port's one-device step of each, all from the
+    reference's params and batch of that case: {key: (ref, port, one)}."""
     from repro_torch.launch.ranks import spawn
 
-    ref = reference_steps([arch], tmp, overrides, meshes)[arch]
-    port = {}
-    for world in sorted({m[0] * m[1] for m in meshes}):
-        group = [m for m in meshes if m[0] * m[1] == world]
-        res = spawn("tests._torch_mesh:port_rank", world, {
-            "arch": arch, "params": ref["params"], "batch": ref["batch"],
-            "meshes": group, "overrides": overrides, "plain": plain},
-            timeout_s=RANK_TIMEOUT_S)
-        for shape in group:
-            port[shape] = [r[shape] for r in res]
-    return ref, port, port_one_device(arch, ref["params"], ref["batch"],
-                                      overrides, plain)
+    refs = reference_steps([(key, arch, overrides, tuple(meshes))
+                            for key, (overrides, meshes) in cases.items()],
+                           tmp)
+    port = {key: {} for key in cases}
+    for world in sorted({m[0] * m[1] for _, meshes in cases.values()
+                         for m in meshes}):
+        jobs = [(key, {"arch": arch, "params": refs[key]["params"],
+                       "batch": refs[key]["batch"], "overrides": overrides,
+                       "plain": plain, "meshes": [
+                           m for m in meshes if m[0] * m[1] == world]})
+                for key, (overrides, meshes) in cases.items()
+                if any(m[0] * m[1] == world for m in meshes)]
+        res = spawn("tests._torch_mesh:port_ranks", world,
+                    {"jobs": [job for _, job in jobs]},
+                    timeout_s=RANK_TIMEOUT_S * len(jobs))
+        for i, (key, job) in enumerate(jobs):
+            for shape in job["meshes"]:
+                port[key][shape] = [r[i][shape] for r in res]
+    return {key: (refs[key], port[key], port_one_device(
+        arch, refs[key]["params"], refs[key]["batch"], overrides, plain))
+        for key, (overrides, _) in cases.items()}
+
+
+def mesh_runs(arch, tmp: Path, overrides=None, meshes=MESHES,
+              plain=False):
+    """`mesh_cases` of one case: ``arch``'s smoke with ``overrides`` on
+    ``meshes``, (ref, port, one)."""
+    return mesh_cases(arch, tmp, {"": (overrides, meshes)}, plain)[""]
 
 
 @pytest.fixture(scope="module")
@@ -367,22 +392,60 @@ class MeshCases:
                 {f"layers/attn/{n}": 2 * cfg.num_layers for n in names})
 
 
+class MoeMeshCases(MeshCases):
+    """`MeshCases` for the moe family, and its load-balancing loss on its
+    own: at ``router_aux_loss`` 0.001 it is ~1e-4 of the loss, which the
+    loss check cannot see."""
+
+    def test_aux_loss_matches_reference(self, runs, shape):
+        ref, port, one = runs
+        want = ref["meshes"][shape]["aux_loss"]
+        assert want > 0
+        np.testing.assert_allclose([r["aux_loss"] for r in port[shape]],
+                                   [want] * len(port[shape]), rtol=LOSS_RTOL)
+        np.testing.assert_allclose(one["aux_loss"], want, rtol=LOSS_RTOL)
+
+
+def assert_step_matches(want: dict, ranks: list, init: dict) -> None:
+    """Every rank's loss, grad norm and load-balancing loss against
+    ``want``'s (the reference's step on a mesh, or the port's one-device
+    step) at rtol 1e-5, and rank 0's whole params and first moments
+    (`_close_leaves`)."""
+    for r in ranks:
+        np.testing.assert_allclose(
+            [r["loss"], r["grad_norm"], r["aux_loss"]],
+            [want["loss"], want["grad_norm"], want["aux_loss"]],
+            rtol=LOSS_RTOL)
+    for what in ("params", "mu"):
+        _close_leaves(ranks[0][what], want[what], what, init)
+
+
 # ------------------------------------------------------ the driver's ranks
 
-def driver_refusals(archs):
+def driver_refusals(archs, moe_rows=None):
     """`train.run` of each smoke config on a (1, world) mesh over gloo on
-    the CPU: the SystemExit message each raises (None if it trains)."""
+    the CPU: the SystemExit message each raises (None if it trains).
+    With ``moe_rows`` (an arch of the moe family), also its message on a
+    (world, 1) mesh at a batch of one row, which the data axes cannot
+    split (under ``"moe rows"``)."""
+    import torch.distributed as dist
+
     from repro_torch.configs import registry
     from repro_torch.launch import train
+    from repro_torch.launch.mesh import rank_mesh
 
-    out = {}
-    for arch in archs:
+    def refusal(arch, batch, mesh):
         try:
-            train.run(registry.get_smoke(arch), steps=1, batch=2, seq=16,
-                      device="cpu", mesh="debug", backend="gloo")
-            out[arch] = None
+            train.run(registry.get_smoke(arch), steps=1, batch=batch,
+                      seq=16, device="cpu", mesh=mesh, backend="gloo")
         except SystemExit as e:
-            out[arch] = str(e)
+            return str(e)
+        return None
+
+    out = {arch: refusal(arch, 2, "debug") for arch in archs}
+    if moe_rows is not None:
+        out["moe rows"] = refusal(moe_rows, 1, rank_mesh(
+            ("data", "model"), (dist.get_world_size(), 1), backend="gloo"))
     return out
 
 
@@ -453,6 +516,7 @@ def one_step(arch, overrides, shape=None, plain=False):
     state, metrics = step(state, batch)
     out = {"loss": float(metrics["loss"]),
            "grad_norm": float(metrics["grad_norm"]),
+           "aux_loss": float(metrics["aux_loss"]),
            "gathers": dict(step.tp.gathers) if mesh is not None else {},
            "init": init}
     if mesh is not None:

@@ -177,6 +177,35 @@ def test_main_all_skips_done_cells_and_records_errors(tmp_path,
     assert len(out.read_text().splitlines()) == 3
 
 
+def test_main_all_single_pod_only_leaves_out_the_multipod_cells(
+        tmp_path, monkeypatch, capsys):
+    """``--all --single-pod-only``, in the reference's order: a done cell
+    still prints "skip (done)", whatever its mesh, and a 2x16x16 cell
+    that is not done is left out without a line."""
+    cells = [("llama3-8b", "decode_32k", False),
+             ("llama3-8b", "decode_32k", True),
+             ("granite-8b", "decode_32k", True),
+             ("granite-8b", "decode_32k", False)]
+    monkeypatch.setattr(dryrun, "cells_to_run", lambda: cells)
+    out = tmp_path / "all.jsonl"
+    out.write_text(json.dumps({"arch": "llama3-8b", "shape": "decode_32k",
+                               "mesh": "2x16x16"}) + "\n")
+    ran = []
+    monkeypatch.setattr(dryrun, "run_cell", lambda arch, shape, multi_pod,
+                        extra: ran.append((arch, multi_pod)) or {
+                            "arch": arch, "shape": shape, "mesh": "16x16"})
+    recs = dryrun.main(["--all", "--single-pod-only", "--out", str(out)])
+    assert ran == [("llama3-8b", False), ("granite-8b", False)]
+    assert [r["arch"] for r in recs] == ["llama3-8b", "granite-8b"]
+    lines = [line.rsplit(" ", 1)[0] if line.endswith("s") and not
+             line.endswith("(done)") else line
+             for line in capsys.readouterr().out.splitlines()]
+    assert lines == ["[1/4] llama3-8b decode_32k 16x16",
+                     "[2/4] llama3-8b decode_32k 2x16x16 skip (done)",
+                     "[4/4] granite-8b decode_32k 16x16"]
+    assert len(out.read_text().splitlines()) == 3
+
+
 def test_cells_to_run_are_the_runnable_cells_on_both_meshes():
     cells = dryrun.cells_to_run()
     assert cells == [(a, s, m) for a, s in RUNNABLE for m in (False, True)]

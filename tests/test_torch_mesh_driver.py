@@ -33,17 +33,32 @@ def test_prod_mesh_on_a_world_of_one_exits_naming_its_ranks():
 
 
 def test_other_families_exit_on_a_mesh_of_two_naming_their_item():
-    """The moe smoke config on a (1, 2) mesh exits with the ROADMAP item
-    that brings it; the dense, ssm and hybrid families each train a
-    `train.run` step."""
-    out = spawn("tests._torch_mesh:driver_refusals", 2, {"archs": [
-        "qwen3-moe-30b-a3b", "falcon-mamba-7b", "hymba-1.5b", "granite-8b"]},
+    """On a (1, 2) mesh the vlm and enc-dec configs exit, as the
+    reference's driver refuses them (the driver names the token-LM
+    archs it covers, and `lm.check_mesh` refuses them under a placement);
+    the moe, dense, ssm and hybrid families each train a `train.run`
+    step. A moe batch whose rows the data axes cannot split (one row
+    over data 2) exits: its capacity slots are counted from each data
+    rank's own rows."""
+    from repro_torch.models import lm
+
+    archs = ["qwen3-moe-30b-a3b", "falcon-mamba-7b", "hymba-1.5b",
+             "granite-8b", "internvl2-2b", "seamless-m4t-large-v2"]
+    out = spawn("tests._torch_mesh:driver_refusals", 2, {
+        "archs": archs, "moe_rows": "mixtral-8x22b"},
         timeout_s=RANK_TIMEOUT_S)
     for rank in out:
-        assert "item 9c" in rank["qwen3-moe-30b-a3b"]
-        assert rank["falcon-mamba-7b"] is None
-        assert rank["hymba-1.5b"] is None
-        assert rank["granite-8b"] is None
+        for arch in archs[:4]:
+            assert rank[arch] is None, (arch, rank[arch])
+        for arch in archs[4:]:
+            assert "token-LM" in rank[arch], (arch, rank[arch])
+        assert "does not split over the data axes" in rank["moe rows"]
+    tp = object()                        # any placement: only its presence
+    for arch in archs[4:]:
+        with pytest.raises(SystemExit, match="enc-dec or vlm"):
+            lm.check_mesh(registry.get_smoke(arch), tp)
+    for arch in archs[:4]:
+        lm.check_mesh(registry.get_smoke(arch), tp)
 
 
 @pytest.fixture(scope="module")
