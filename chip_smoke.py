@@ -40,11 +40,13 @@ Phases, each of which fails the run (exit 1) if it fails:
    the forward's lse against the plain row lse (``LSE_TOL``), at llama's
    training shape (B 2 x S 4096 and B
    1 x S 2048, causal) and a mesh rank's local heads of it (H 16 K 4
-   and H 8 K 2, which the forward checks hold too), hymba's heads at
+   and H 8 K 2, and H 16 K 4 at B 1 for a (2, 2) rank, which the
+   forward checks hold too), hymba's heads at
    S 4096 with its 2048 window and a mesh rank's of them at model 4 (H 6
    and H 7 at G 1, B 2, which the forward checks hold too),
    qwen3-moe-30b-a3b's mesh rank's heads at model 2 (H 16 over K 2, G 8,
-   hd 128, B 2 x S 4096, which the forward checks hold too),
+   hd 128, B 2 x S 4096 and B 1 on (2, 2), which the forward checks hold
+   too),
    seamless's cross shape (2048 queries against 1500 keys,
    bidirectional), the group sizes 1, 2, 5, 6, 7 and 8, hd 16 and 32, a
    dout that is a transposed view, and two runs bit for bit; the
@@ -127,32 +129,40 @@ Phases, each of which fails the run (exit 1) if it fails:
    scan's plain side under ``inner_remat``); and at llama3-8b smoke a
    checkpoint through the port's AsyncCheckpointer restored with
    ``--resume`` semantics, equal bit for bit; then ("train (mesh)")
-   at full width, B 2 x S 4096, 3 AdamW steps through
-   ``train.run(mesh="debug")`` on ranks that it spawns itself
+   at full width, B 2 x S 4096, 3 AdamW steps through ``train.run`` on
+   (data, model) meshes of ranks that it spawns itself
    (``repro_torch.launch.ranks.spawn``: a card each over NCCL where the
    machine has that many, else every rank on card 0 over gloo, passed
-   explicitly; a line names the backend and the cards): llama3-8b cut to
-   4 of its 32 layers on 2 and on 4 ranks, falcon-mamba-7b cut to 2 of 64 on 2
-   ranks, hymba-1.5b cut to 4 of 32 on 4 ranks and qwen3-moe-30b-a3b
-   cut to 2 of 48 on 2 ranks (64 of its 128 experts a rank), each
-   against the same 3 steps on one rank (every one-rank run first, then
-   one spawn a count of ranks, which trains its archs in turn: the
-   ranks' start-up once a count, the cut that pays for the moe run
-   with the plain scans' below): each step's loss within 2e-2 and grad
+   explicitly; a line names the backend and the cards; ``mesh="debug"``
+   for (1, n), a ``launch.mesh.rank_mesh`` for (2, 2)): llama3-8b cut to
+   4 of its 32 layers on (1, 2), (1, 4) and (2, 2) (FSDP over data, one
+   row a data rank), falcon-mamba-7b cut to 2 of 64 on (1, 2),
+   hymba-1.5b cut to 4 of 32 on (1, 4) and qwen3-moe-30b-a3b
+   cut to 2 of 48 on (1, 2) and (2, 2) (64 of its 128 experts a rank),
+   each against the same 3 steps on one rank (every one-rank run first,
+   then one spawn a count of ranks, which trains its runs in turn and
+   then makes a sharded checkpoint's round trip at llama3-8b smoke on
+   (1, 2) or (2, 2): saved through ``AsyncCheckpointer.save(step,
+   state, tp)``, restored through ``restore_to_mesh``, every shard bit
+   for bit): each step's loss within 2e-2 and grad
    norm (and the moe family's load-balancing loss) within 5e-2 of it,
    leaf by leaf over every rank's shard: each
    first-moment leaf within 5e-2 of its largest |value|, each params
    leaf's update from init within 5e-1 of one rank's in norm; each
-   rank's train state against the dry run's state bytes on that debug
+   rank's train state against the dry run's state bytes on that
    mesh exactly in requested bytes, exact launches of the attention and
    scan kernels on each rank's local heads and channels (llama H 16 K 4
    and H 8 K 2; falcon d_inner 4096; hymba d_inner 800 and
-   6 or 7 q heads at G 1; qwen3 H 16 K 2), the model-axis gathers by
-   path, step wall and device time and the time inside collectives; for
-   the moe run each layer's assignments kept and dropped, and those
-   whose expert differs from one rank's with the largest router margin
-   among them (at most 2e-2; the ranks then take one rank's experts
-   there, as phase 3's ``RoutePin``);
+   6 or 7 q heads at G 1; qwen3 H 16 K 2; on (2, 2) at B 1), the
+   model-axis gathers by path, step wall and device time and the
+   collectives by kind, bytes, host and (NCCL) device seconds, with a
+   reduce-scatter (``reduce_scatter_tensor`` on either backend, the
+   backward of every gather) in every step of a run whose placement
+   gathers; for the moe runs each layer's assignments kept and dropped
+   (on (2, 2) from both data ranks' counts), equal to one rank's, and
+   those whose expert differs from one rank's with the largest router
+   margin among them (at most 2e-2; the ranks then take one rank's
+   experts there, as phase 3's ``RoutePin``);
 5. one replica of each served arch traced with torch.profiler: host
    wall time of prefill and of a decode step, device time, device idle
    share, top device ops;
@@ -241,9 +251,10 @@ Phases, each of which fails the run (exit 1) if it fails:
    plain versions are timed eagerly. The attention backward is timed on
    the forward's lse at llama's training shape (B 2 x S 4096), at B 1 x
    S 2048, at hymba's heads (hd 64, window 2048, S 4096) and at a mesh
-   rank's llama heads (H 16 K 4 and H 8 K 2, B 2 x S 4096; the forward
-   too), hymba heads (H 6 and 7 at G 1, window 2048; the forward too)
-   and qwen3-moe-30b-a3b heads (H 16 K 2 at G 8; the forward too)
+   rank's llama heads (H 16 K 4 and H 8 K 2, B 2 x S 4096, and H 16 K 4
+   at B 1 for (2, 2); the forward too), hymba heads (H 6 and 7 at G 1,
+   window 2048; the forward too) and qwen3-moe-30b-a3b heads (H 16 K 2
+   at G 8, B 2 and B 1; the forward too)
    beside its
    bound by operations (2.5x the forward's FLOPs), the plain backward and
    the library's (autograd of ``F.scaled_dot_product_attention``,
@@ -358,19 +369,23 @@ TRAIN_RUNS = (("llama3-8b", 8), ("hymba-1.5b", None), ("falcon-mamba-7b", 8))
 TRAIN_BATCH, TRAIN_SEQ = 2, 4096
 TRAIN_STEPS, TRAIN_TRACED = 4, 2
 #: the "train (mesh)" phase: each arch at full width cut to its layers,
-#: B TRAIN_BATCH x S TRAIN_SEQ, MESH_STEPS AdamW steps through
-#: ``train.run(mesh="debug")`` on each of its counts of ranks (a card each
-#: over NCCL where the machine has that many, else all on card 0 over
-#: gloo), the ranks of one spawn, which trains every arch of its count,
-#: within MESH_TIMEOUT_S seconds: llama3-8b 4 of 32
-#: layers on 2 and on 4 ranks (the dense family: 16 and 8 q heads a rank);
-#: falcon-mamba-7b 2 of 64 on 2 ranks (the scan at d_inner 4096 a rank);
-#: hymba-1.5b 4 of 32 on 4 ranks (d_inner 800 a rank, 6 or 7 of its 25
-#: heads at G 1, its odd vocab of 32001 replicated over ``model``);
-#: qwen3-moe-30b-a3b 2 of 48 on 2 ranks (64 of its 128 experts a rank,
-#: H 16 over K 2 at G 8 and the q/k norms)
-MESH_RUNS = (("llama3-8b", 4, (2, 4)), ("falcon-mamba-7b", 2, (2,)),
-             ("hymba-1.5b", 4, (4,)), ("qwen3-moe-30b-a3b", 2, (2,)))
+#: B TRAIN_BATCH x S TRAIN_SEQ, MESH_STEPS AdamW steps on each of its
+#: (data, model) meshes: ``train.run(mesh="debug")`` for (1, n), a
+#: ``rank_mesh`` passed to ``train.run`` for (2, 2) (FSDP over data, one
+#: row a data rank); a card a rank over NCCL where the machine has that
+#: many, else all on card 0 over gloo; the ranks of one spawn train every
+#: run of their count within MESH_TIMEOUT_S seconds: llama3-8b 4 of 32
+#: layers on (1, 2), (1, 4) and (2, 2) (the dense family: 16, 8 and 16 q
+#: heads a rank); falcon-mamba-7b 2 of 64 on (1, 2) (the scan at d_inner
+#: 4096 a rank); hymba-1.5b 4 of 32 on (1, 4) (d_inner 800 a rank, 6 or 7
+#: of its 25 heads at G 1, its odd vocab of 32001 replicated over
+#: ``model``); qwen3-moe-30b-a3b 2 of 48 on (1, 2) and (2, 2) (64 of its
+#: 128 experts a rank, H 16 over K 2 at G 8 and the q/k norms; on (2, 2)
+#: the whole batch's capacity slots from both data ranks' counts)
+MESH_RUNS = (("llama3-8b", 4, ((1, 2), (1, 4), (2, 2))),
+             ("falcon-mamba-7b", 2, ((1, 2),)),
+             ("hymba-1.5b", 4, ((1, 4),)),
+             ("qwen3-moe-30b-a3b", 2, ((1, 2), (2, 2))))
 MESH_STEPS, MESH_TIMEOUT_S = 3, 420
 #: the bf16 tolerances of tests/test_torch_train.py: the loss within 2e-2,
 #: each gradient leaf (here each first-moment leaf, 0.1 x the clipped
@@ -618,14 +633,37 @@ class RoutePin:
             self.moe._route = route
 
 
+def kept_dropped(counts, assignments, cfg) -> dict:
+    """The assignments the MoE capacity keeps and drops, from the batch's
+    per-expert ``counts`` of its ``assignments``."""
+    cap = max(int(assignments / cfg.num_experts * cfg.capacity_factor), 8)
+    kept = int(counts.clamp_max(cap).sum())
+    return {"kept": kept, "dropped": assignments - kept}
+
+
+def whole_batch_routing(ranks, model, cfg):
+    """Each rank's router calls (`RouteLog`'s) with kept and dropped
+    reckoned from the whole batch: the counts of the data ranks (those at
+    model coordinate 0 of a mesh with ``model`` ranks on that axis; on
+    (1, n) rank 0, which routes the whole batch) summed call by call."""
+    firsts = [res["routing"] for r, res in enumerate(ranks) if r % model == 0]
+    whole = [kept_dropped(sum(c[i]["counts"] for c in firsts),
+                          sum(c[i]["assignments"] for c in firsts), cfg)
+             for i in range(len(firsts[0]))]
+    return [[{**c, **w} for c, w in zip(res["routing"], whole)]
+            for res in ranks]
+
+
 class RouteLog:
     """The MoE router's choices call by call, through `moe._top_k` (which
     the one-device `_route` and the mesh's `_route_on_mesh` both call):
-    each call's layer (by its router's storage, first seen in layer
-    order), the assignments it keeps and drops under the capacity
-    (reckoned from the experts' counts: on a (1, n) mesh every rank
-    routes the whole batch) and, against another run's experts call by
-    call (``want``), the assignments whose expert differs and the
+    each call's per-expert counts, the assignments it keeps and drops
+    under the capacity (reckoned from the counts: on a (1, n) mesh every
+    rank routes the whole batch; where the batch is split over data,
+    `whole_batch_routing` reckons them from every data rank's counts)
+    and, against another run's experts call by call (``want``, of the
+    whole batch; this run routes its tokens ``rows``, [lo, hi) of
+    them), the assignments whose expert differs and the
     largest router margin (k-th less (k+1)-th probability) among their
     tokens; it then pins those tokens to ``want``'s experts, with this
     run's own probabilities of them as gates (so the router's gradient
@@ -635,9 +673,9 @@ class RouteLog:
     call's (T, k) experts as uint8 on the host, for a later run's
     ``want``."""
 
-    def __init__(self, torch, moe, want=None):
-        self.torch, self.moe, self.want = torch, moe, want
-        self.layers, self.calls, self.experts = {}, [], []
+    def __init__(self, torch, moe, want=None, rows=None):
+        self.torch, self.moe, self.want, self.rows = torch, moe, want, rows
+        self.calls, self.experts = [], []
 
     @contextlib.contextmanager
     def run(self):
@@ -646,11 +684,12 @@ class RouteLog:
         def spy(router, cfg, xf):
             probs, gates, idx = top_k(router, cfg, xf)
             E, k = cfg.num_experts, cfg.num_experts_per_tok
-            call = {"layer": self.layers.setdefault(router.data_ptr(),
-                                                    len(self.layers)),
-                    "moved": 0, "margin": 0.0}
+            call = {"moved": 0, "margin": 0.0}
             if self.want is not None:
-                ref = self.want[len(self.calls)].to(idx.device, torch.long)
+                ref = self.want[len(self.calls)]
+                if self.rows is not None:
+                    ref = ref[self.rows[0]:self.rows[1]]
+                ref = ref.to(idx.device, torch.long)
                 moved = ~(idx[:, :, None] == ref[:, None, :]).any(-1)
                 call["moved"] = int(moved.sum())
                 if call["moved"]:
@@ -665,10 +704,10 @@ class RouteLog:
                     gates = torch.where(flip, pinned, gates)
             else:
                 self.experts.append(idx.to(torch.uint8).cpu())
-            counts = torch.bincount(idx.reshape(-1), minlength=E)
-            cap = max(int(idx.numel() / E * cfg.capacity_factor), 8)
-            call["kept"] = int(counts.clamp_max(cap).sum())
-            call["dropped"] = idx.numel() - call["kept"]
+            call["counts"] = torch.bincount(idx.reshape(-1),
+                                            minlength=E).cpu()
+            call["assignments"] = idx.numel()
+            call.update(kept_dropped(call["counts"], idx.numel(), cfg))
             self.calls.append(call)
             return probs, gates, idx
 
@@ -842,6 +881,11 @@ class Smoke:
             # a rank's local heads of qwen3-moe-30b-a3b on the mesh
             ((2, 4096, 4096, 16, 2, 128), True, 0,
              "qwen3 mesh rank H16/K2 G8 (model 2) B=2 S=4096"),
+            # a (2, 2) rank's: one row of the batch a data rank
+            ((1, 4096, 4096, 16, 4, 128), True, 0,
+             "llama mesh rank H16/K4 (2, 2) B=1 S=4096"),
+            ((1, 4096, 4096, 16, 2, 128), True, 0,
+             "qwen3 mesh rank H16/K2 G8 (2, 2) B=1 S=4096"),
         ]
         for dname, tol in BWD_TOL.items():
             dtype = getattr(torch, dname)
@@ -950,6 +994,9 @@ class Smoke:
                     *[(h, 2, 4096, True, 2048, "window=2048 S=4096")
                       for h in hymba_tp4],
                     (qwen3_tp2, 2, 4096, True, 0, "causal S=4096"),
+                    # a (2, 2) rank's: one row of the batch a data rank
+                    (llama_tp2, 1, 4096, True, 0, "causal S=4096 (2, 2)"),
+                    (qwen3_tp2, 1, 4096, True, 0, "causal S=4096 (2, 2)"),
                     (mixtral, 1, 8192, True, 4096, "window=4096 S=8192"),
                     (internvl2, 1, 2048, True, 0, "causal S=2048"),
                     (seamless, 1, 2048, False, 0,
@@ -2064,24 +2111,28 @@ class Smoke:
 
     def phase_train_mesh(self):
         """Each arch of ``MESH_RUNS`` at full width, cut to its layers,
-        trained ``MESH_STEPS`` steps through ``train.run(mesh="debug")``
-        on each of its counts of ranks, against the same steps on one
+        trained ``MESH_STEPS`` steps through ``train.run`` on each of its
+        meshes, against the same steps on one
         rank of the card (`one_rank_run`): every step's loss and grad
         norm, and each post-step params leaf over every rank's shard of
         it, within the bf16 tolerances of tests/test_torch_train.py; each
         rank's train state on the card against the dry run's state bytes
-        on that debug mesh, exactly in requested bytes; exact launches of
+        on that mesh, exactly in requested bytes; exact launches of
         the family's attention and scan kernels on each rank's local
         heads and channels; the model-axis gathers by path; step wall and
-        device time and the time inside collectives. The moe family also:
+        device time and the collectives by kind, bytes and seconds, with a
+        reduce-scatter in every step of a run whose placement gathers (the
+        backward of every gather). The moe family also:
         each step's load-balancing loss against one rank's (within
         ``MESH_LEAF_TOL`` of it), and its routing (`RouteLog`) on one
         rank and on each rank: assignments kept and dropped a layer,
         those whose expert differs from one rank's, and the largest
-        router margin among them (at most ``ROUTE_TOL``). Every one-rank
+        router margin among them (at most ``ROUTE_TOL``); kept and
+        dropped equal to one rank's in every call. Every one-rank
         run comes first; then one spawn of `mesh_ranks` a count of ranks
-        trains each of its archs in turn (the ranks' start-up once a
-        count, not once a run)."""
+        trains each of its runs in turn (the ranks' start-up once a
+        count, not once a run) and makes a sharded checkpoint's round
+        trip (`mesh_checkpoint`)."""
         torch = self.torch
         import tempfile
         cards = torch.cuda.device_count()
@@ -2090,10 +2141,11 @@ class Smoke:
         tmp = tempfile.mkdtemp(prefix="mesh-")
         by_count = {}
         try:
-            for arch, layers, counts in MESH_RUNS:
+            for arch, layers, shapes in MESH_RUNS:
                 run = self.one_rank_run(arch, layers, tmp)
-                for n in counts:
-                    by_count.setdefault(n, []).append(run)
+                for shape in shapes:
+                    by_count.setdefault(math.prod(shape), []).append(
+                        {**run, "shape": shape})
             bad = []
             for n in sorted(by_count):
                 bad += self.train_mesh(n, cards, by_count[n])
@@ -2135,6 +2187,7 @@ class Smoke:
                   f"{r['device_s'] * 1e3:.1f} ms ({nvidia_smi()})")
         self.print_routing(path, log.calls, layers)
         run = {"cfg": cfg, "records": one["records"], "routes": None,
+               "route_calls": log.calls,
                "reference": str(Path(tmp) / f"{arch}-state.pt")}
         if log.experts:
             run["routes"] = str(Path(tmp) / f"{arch}-routes.pt")
@@ -2159,15 +2212,24 @@ class Smoke:
         """Each step's forward calls of the router (a `RouteLog`'s): the
         assignments each layer keeps and drops, and those whose expert
         differs from one rank's with their largest margin; each layer's
-        remat recompute must route as its forward did."""
+        remat recompute must route as its forward did. A step calls the
+        router for layers 0 .. L-1, then, under remat, again for L-1 .. 0
+        in the backward's recompute."""
         if not calls:
             return
         per_step = len(calls) // MESH_STEPS
+        for j, c in enumerate(calls):
+            j %= per_step
+            c["layer"] = j if j < layers else per_step - 1 - j
+
+        def key(c):
+            return (c["kept"], c["dropped"], c["moved"], c["margin"],
+                    c["counts"].tolist())
         for step in range(MESH_STEPS):
             run = calls[step * per_step:(step + 1) * per_step]
             fwd = {}
             for c in run:
-                if c["layer"] in fwd and c != fwd[c["layer"]]:
+                if c["layer"] in fwd and key(c) != key(fwd[c["layer"]]):
                     raise AssertionError(f"{path}: the recompute of layer "
                                          f"{c['layer']} routed otherwise")
                 fwd.setdefault(c["layer"], c)
@@ -2179,41 +2241,53 @@ class Smoke:
 
     def train_mesh(self, n, cards, runs):
         """One spawn of `mesh_ranks` on ``n`` ranks for the one-rank
-        ``runs`` (`one_rank_run`'s); prints and returns the checks that
+        ``runs`` (`one_rank_run`'s, each with its mesh ``shape``) and the
+        checkpoint round trip; prints and returns the checks that
         failed."""
         from repro_torch.launch.ranks import spawn
         nccl = cards >= n
         backend = "nccl" if nccl else "gloo"
-        names = ", ".join(f"{r['cfg'].name} x{r['cfg'].num_layers}"
-                          for r in runs)
+        names = ", ".join(f"{r['cfg'].name} x{r['cfg'].num_layers} on "
+                          f"{r['shape']}" for r in runs)
         print(f"  train (mesh) {n} ranks: {cards} card(s) on this machine: "
               f"backend {backend}, "
               f"{'one card a rank' if nccl else 'every rank on card 0'}; "
-              f"mesh debug (1, {n}), {names} in turn, B {TRAIN_BATCH} x S "
-              f"{TRAIN_SEQ}, {MESH_STEPS} steps", flush=True)
+              f"(data, model) meshes: {names} in turn, B {TRAIN_BATCH} x S "
+              f"{TRAIN_SEQ}, {MESH_STEPS} steps; then a sharded "
+              f"checkpoint's round trip", flush=True)
         t0 = time.monotonic()
         ranks = spawn("chip_smoke:mesh_ranks", n, {
             "runs": [{"arch": r["cfg"].name, "layers": r["cfg"].num_layers,
-                      "reference": r["reference"], "routes": r["routes"]}
-                     for r in runs], "shared": not nccl}, backend=backend,
+                      "shape": r["shape"], "reference": r["reference"],
+                      "routes": r["routes"]} for r in runs],
+            "shared": not nccl, "ckpt_shape": max(
+                (r["shape"] for r in runs), key=lambda s: s[0])},
+            backend=backend,
             timeout_s=MESH_TIMEOUT_S, echo=True)
         print(f"  train (mesh) {n} ranks ({names}): spawn to the last "
               f"rank's end {time.monotonic() - t0:.1f} s")
         bad = []
         for i, run in enumerate(runs):
-            bad += self.check_mesh_run(n, run, [res[i] for res in ranks])
+            bad += self.check_mesh_run(run, [res["runs"][i] for res in ranks])
+        bad += self.check_mesh_checkpoint([res["ckpt"] for res in ranks])
         return bad
 
-    def check_mesh_run(self, n, run, ranks):
-        """One arch's results on ``n`` ranks against its one-rank
-        ``run``: prints them and returns the checks that failed."""
+    def check_mesh_run(self, run, ranks):
+        """One arch's results on the ranks of its mesh against its
+        one-rank ``run``: prints them and returns the checks that
+        failed."""
         cfg, one_records = run["cfg"], run["records"]
-        arch, L = cfg.name, cfg.num_layers
+        arch, L, shape = cfg.name, cfg.num_layers, run["shape"]
         want = self.train_launches(cfg, MESH_STEPS, 1)
+        where = f"train (mesh) {arch} x{L} on {shape}"
+        routing = (whole_batch_routing(ranks, shape[1], cfg)
+                   if ranks[0]["routing"] is not None else None)
         bad = []
         for r, res in enumerate(ranks):
-            path = f"train (mesh) {arch} x{L} {n} ranks rank {r}"
+            path = f"{where} rank {r}"
             self.launches[path] = res["launches"]
+            total = {"calls": {}, "bytes": 0, "host_s": 0.0,
+                     "device_s": None}
             for rec, ref in zip(res["records"], one_records):
                 c = rec["collectives"]
                 dev_c = (f"{c['device_s'] * 1e3:.1f} ms device" if
@@ -2235,11 +2309,38 @@ class Smoke:
                         MESH_LEAF_TOL * ref["aux_loss"]:
                     bad.append((path, rec["step"], "loss, grad norm or "
                                 "aux loss"))
-            if res["routing"] is not None:
-                self.print_routing(path, res["routing"], L)
-                margin = max(c["margin"] for c in res["routing"])
+                if res["gathers_placement"] and not c["calls"].get(
+                        "reduce_scatter"):
+                    bad.append((path, rec["step"], "no reduce-scatter in a "
+                                "step whose placement gathers"))
+                for op, k in c["calls"].items():
+                    total["calls"][op] = total["calls"].get(op, 0) + k
+                total["bytes"] += c["bytes"]
+                total["host_s"] += c["host_s"]
+                if c["device_s"] is not None:
+                    total["device_s"] = (total["device_s"] or 0.0) + c[
+                        "device_s"]
+            print(f"  {path}: collectives over {len(res['records'])} steps "
+                  f"by kind {total['calls']}, {total['bytes'] / 1e9:.3f} GB, "
+                  f"{total['host_s']:.3f} s host, " + (
+                      "no device events (gloo through host memory)"
+                      if total["device_s"] is None else
+                      f"{total['device_s']:.4f} s device (NCCL)")
+                  + f"; placement gathers: "
+                  f"{'yes' if res['gathers_placement'] else 'no'} "
+                  f"(FSDP over data: {'yes' if res['fsdp'] else 'no'}, "
+                  f"model-axis gathers {res['gathers'] or 'none'})")
+            if routing is not None:
+                calls = routing[r]
+                self.print_routing(path, calls, L)
+                margin = max(c["margin"] for c in calls)
                 if margin > ROUTE_TOL:
                     bad.append((path, "a route moved at margin", margin))
+                kd = [(c["kept"], c["dropped"]) for c in calls]
+                if kd != [(c["kept"], c["dropped"])
+                          for c in run["route_calls"]]:
+                    bad.append((path, "kept and dropped differ from one "
+                                "rank's", kd))
             print(f"  {path}: seconds {res['seconds']} (imports, "
                   f"train.run, bytes and params checks)")
             print(f"  {path} on {res['device']}: {res['local']}; "
@@ -2257,7 +2358,7 @@ class Smoke:
                             res["dry"]))
         first = ranks[0]
         upd, mu = first["update_worst"], first["mu_worst"]
-        print(f"  train (mesh) {arch} x{L} {n} ranks: against one rank's, "
+        print(f"  {where}: against one rank's, "
               f"leaf by leaf over every rank's shards: first moments' worst "
               f"leaf {mu[1]:.3e} of its largest |value| ({mu[0]}; "
               f"tolerance {MESH_LEAF_TOL}); params' update (params - init) "
@@ -2266,9 +2367,26 @@ class Smoke:
               f"of {first['leaves']} leaves moved on one rank, the rest "
               f"equal to init on both")
         if mu[1] > MESH_LEAF_TOL:
-            bad.append((arch, n, "first moments", mu))
+            bad.append((where, "first moments", mu))
         if upd[1] > MESH_UPDATE_TOL:
-            bad.append((arch, n, "params update", upd))
+            bad.append((where, "params update", upd))
+        return bad
+
+    def check_mesh_checkpoint(self, ranks):
+        """Every rank's `mesh_checkpoint`: prints it and returns the
+        checks that failed."""
+        bad = []
+        for r, res in enumerate(ranks):
+            path = (f"train (mesh) llama3-8b smoke checkpoint on "
+                    f"{res['shape']} rank {r}")
+            self.launches[path] = res["launches"]
+            print(f"  {path}: {res['objects']} objects in rank 0's bucket, "
+                  f"restored at step {res['start_step']} into "
+                  f"{res['leaves']} shards on {res['device']}: "
+                  f"{'equal bit for bit' if res['same'] else 'DIFFERENT'} "
+                  f"({res['seconds']:.1f} s; {res['note']})")
+            if res["start_step"] != 2 or not res["same"]:
+                bad.append((path, "the restored shards differ"))
         return bad
 
     def phase_mlserve(self):
@@ -3322,6 +3440,13 @@ class Smoke:
             "qwen3-moe-30b-a3b mesh rank H16/K2 G8 (model 2) B=2 S=4096":
                 self.time_flash(16, 2, 128, 0, "qwen3-moe-30b-a3b mesh rank, "
                                 "model 2", B=TRAIN_BATCH, S=TRAIN_SEQ),
+            # a (2, 2) rank's heads: one row of the batch a data rank
+            "llama3-8b mesh rank H16/K4 (2, 2) B=1 S=4096":
+                self.time_flash(16, 4, 128, 0, "llama3-8b mesh rank, (2, 2)",
+                                B=1, S=TRAIN_SEQ),
+            "qwen3-moe-30b-a3b mesh rank H16/K2 G8 (2, 2) B=1 S=4096":
+                self.time_flash(16, 2, 128, 0, "qwen3-moe-30b-a3b mesh rank, "
+                                "(2, 2)", B=1, S=TRAIN_SEQ),
             "seamless-m4t-large-v2 encoder": self.time_flash(
                 16, 16, 64, 0, "seamless-m4t-large-v2 encoder",
                 causal=False),
@@ -3382,7 +3507,13 @@ class Smoke:
                    "model 4", window=2048) for H in (6, 7)},
             "qwen3-moe-30b-a3b mesh rank H16/K2 G8 (model 2) B=2 S=4096":
                 self.time_flash_bwd(TRAIN_BATCH, TRAIN_SEQ, 16, 2, 128,
-                                    "qwen3-moe-30b-a3b mesh rank, model 2")}
+                                    "qwen3-moe-30b-a3b mesh rank, model 2"),
+            "llama3-8b mesh rank H16/K4 (2, 2) B=1 S=4096":
+                self.time_flash_bwd(1, TRAIN_SEQ, 16, 4, 128,
+                                    "llama3-8b mesh rank, (2, 2)"),
+            "qwen3-moe-30b-a3b mesh rank H16/K2 G8 (2, 2) B=1 S=4096":
+                self.time_flash_bwd(1, TRAIN_SEQ, 16, 2, 128,
+                                    "qwen3-moe-30b-a3b mesh rank, (2, 2)")}
         self.timing[SCAN["name"]] = self.time_scan(8192, 256, "falcon-mamba-7b")
         self.also[SCAN["name"]] = {
             "hymba-1.5b": self.time_scan(3200, 100, "hymba-1.5b"),
@@ -3837,46 +3968,106 @@ def against_one_rank(model, state, tp, mesh, reference):
             "moved": moved, "leaves": len(mu)}
 
 
-def mesh_ranks(runs, shared):
+def mesh_ranks(runs, shared, ckpt_shape):
     """One rank of `Smoke.train_mesh`'s spawn (a process of its own, in a
     process group that ``repro_torch.launch.ranks.spawn`` set up):
     `mesh_rank` for each of ``runs`` in turn, each run's state freed
-    before the next."""
+    before the next, then `mesh_checkpoint` on a ``ckpt_shape`` mesh."""
     import torch
     out = []
     for run in runs:
         out.append(mesh_rank(shared=shared, **run))
         gc.collect()
         torch.cuda.empty_cache()
-    return out
+    return {"runs": out, "ckpt": mesh_checkpoint(ckpt_shape, shared)}
 
 
-def mesh_rank(arch, layers, shared, reference, routes=None):
+def rank_mesh_of(shape, shared):
+    """This rank's ``launch.mesh.rank_mesh`` of the (data, model)
+    ``shape`` over the spawn's process group, on the device `join_mesh`
+    gives it: card 0 for every rank (``shared``, gloo) or
+    ``cuda:{LOCAL_RANK}`` (NCCL)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.device import rank_device
+    from repro_torch.launch.mesh import rank_mesh
+    dev = rank_device("cuda", shared=shared)
+    if dev.index is not None:
+        torch.cuda.set_device(dev)
+    return rank_mesh(("data", "model"), shape, device=dev,
+                     backend=dist.get_backend())
+
+
+def mesh_checkpoint(shape, shared):
+    """A sharded checkpoint's round trip on this rank of a (data, model)
+    ``shape`` mesh (`rank_mesh_of`), at llama3-8b's smoke config: 2
+    steps through ``train.run``, whose ``AsyncCheckpointer.save(step,
+    state, tp)`` gathers every leaf to rank 0 at step 2, then a run with
+    ``--resume`` semantics on the same store, whose `restore_to_mesh`
+    broadcasts each leaf from rank 0 and cuts this rank's shard; every
+    restored shard against the saved one, bit for bit."""
+    import torch
+    from repro_torch.checkpoint.ckpt import _items
+    from repro_torch.configs import registry
+    from repro_torch.launch import train
+    from repro_torch.parallel import collectives as C
+    t0 = time.monotonic()
+    cfg = registry.get_smoke("llama3-8b")
+    mesh = rank_mesh_of(shape, shared)
+    counters = Smoke.counters()
+    for mod in counters.values():
+        mod.launches = 0
+    runtime = train.build_runtime()
+    saved = train.run(cfg, steps=2, batch=2, seq=64, ckpt_every=2,
+                      mesh=mesh, runtime=runtime)
+    restored = train.run(cfg, steps=0, batch=2, seq=64, resume=True,
+                         mesh=mesh, runtime=runtime)
+    a, b = (dict(_items(r["state"])) for r in (saved, restored))
+    same = list(a) == list(b) and all(
+        x.dtype == y.dtype and x.device == y.device and torch.equal(x, y)
+        for x, y in zip(a.values(), b.values()))
+    return {"shape": shape, "same": same, "leaves": len(b),
+            "start_step": restored["start_step"],
+            "objects": len(runtime[0].list_bucket("ckpts")),
+            "device": str(mesh.device), "note": C.backend_note(mesh),
+            "launches": {n: m.launches for n, m in counters.items()},
+            "seconds": time.monotonic() - t0}
+
+
+def mesh_rank(arch, layers, shape, shared, reference, routes=None):
     """One rank of `Smoke.phase_train_mesh` (a process of its own, in a
     process group that ``repro_torch.launch.ranks.spawn`` set up): the
-    steps of ``arch`` at full width, ``layers`` of its layers, through
-    ``train.run(mesh="debug")`` (``shared``: every rank on card 0 over
-    gloo, passed explicitly; else NCCL on ``cuda:{LOCAL_RANK}``) with
-    every kernel's launches counted from 0, the requested bytes the card
-    holds with only the train state alive and the dry run's, then, leaf
-    by leaf against one rank's (``reference``), each over every rank's
+    steps of ``arch`` at full width, ``layers`` of its layers, on the
+    (data, model) ``shape`` mesh: ``train.run(mesh="debug")`` for
+    (1, n), else a `rank_mesh_of` passed to ``train.run`` (``shared``:
+    every rank on card 0 over gloo, passed explicitly; else NCCL on
+    ``cuda:{LOCAL_RANK}``) with every kernel's launches counted from 0,
+    the requested bytes the card holds with only the train state alive
+    and the dry run's on that mesh, then, leaf by leaf against one
+    rank's (``reference``), each over every rank's
     shard: the first moment's largest error over its largest |value|,
     and the params' update from init (drawn again from the run's seed)
     in norm. With ``routes`` (one rank's experts, call by call, of the
-    moe family) a `RouteLog` of this rank's routing against them, which
-    holds the rank to one rank's experts where they differ."""
+    moe family) a `RouteLog` of this rank's routing against them (its
+    data rank's tokens of them), which holds the rank to one rank's
+    experts where they differ."""
     t0 = time.monotonic()
     import torch
+    import torch.distributed as dist
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.configs import InputShape, registry
     from repro_torch.launch import dryrun
     from repro_torch.launch import train
-    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.mesh import Mesh
     from repro_torch.models import moe
     from repro_torch.parallel import collectives as C
+    from repro_torch.parallel.placement import axes_of
     cfg = registry.get(arch).replace(num_layers=layers)
-    log = (RouteLog(torch, moe, torch.load(routes, weights_only=True))
+    tokens = TRAIN_BATCH * TRAIN_SEQ // shape[0]     # a data rank's
+    d = dist.get_rank() // shape[1]
+    log = (RouteLog(torch, moe, torch.load(routes, weights_only=True),
+                    rows=(d * tokens, (d + 1) * tokens))
            if routes else None)
     counters = Smoke.counters()
     for mod in counters.values():
@@ -3885,10 +4076,16 @@ def mesh_rank(arch, layers, shared, reference, routes=None):
         torch.cuda.reset_peak_memory_stats()
     t1 = time.monotonic()
     with log.run() if log else contextlib.nullcontext():
-        res = train.run(cfg, steps=MESH_STEPS, batch=TRAIN_BATCH,
-                        seq=TRAIN_SEQ, ckpt_every=MESH_STEPS + 1,
-                        device="cuda" if shared else None,
-                        backend="gloo" if shared else None, mesh="debug")
+        if shape[0] == 1:
+            res = train.run(cfg, steps=MESH_STEPS, batch=TRAIN_BATCH,
+                            seq=TRAIN_SEQ, ckpt_every=MESH_STEPS + 1,
+                            device="cuda" if shared else None,
+                            backend="gloo" if shared else None,
+                            mesh="debug")
+        else:
+            res = train.run(cfg, steps=MESH_STEPS, batch=TRAIN_BATCH,
+                            seq=TRAIN_SEQ, ckpt_every=MESH_STEPS + 1,
+                            mesh=rank_mesh_of(shape, shared))
     launches = {n: m.launches for n, m in counters.items()}
     t2 = time.monotonic()
     state, tp, mesh = res.pop("state"), res["tp"], res["mesh"]
@@ -3900,7 +4097,7 @@ def mesh_rank(arch, layers, shared, reference, routes=None):
         "requested_bytes.all.current"]
     cell = dryrun.build_cell(arch, InputShape(
         "train", TRAIN_SEQ, TRAIN_BATCH, "train"), extra={
-            "num_layers": layers}, mesh=make_debug_mesh(mesh.size))
+            "num_layers": layers}, mesh=Mesh(mesh.axis_names, mesh.sizes))
     local = []
     if cfg.num_heads:
         h0, h1 = tp.split(cfg.num_heads)
@@ -3920,10 +4117,18 @@ def mesh_rank(arch, layers, shared, reference, routes=None):
     v0, v1 = tp.split(cfg.vocab_size)
     local.append(f"vocab [{v0}, {v1}) of {cfg.vocab_size}, embed spec "
                  f"{tp.specs['embed']}")
+    if shape[0] > 1:
+        local.append(f"batch rows [{d * TRAIN_BATCH // shape[0]}, "
+                     f"{(d + 1) * TRAIN_BATCH // shape[0]}) of {TRAIN_BATCH}")
+    # FSDP: a params leaf split over the data axes, gathered where used
+    fsdp = mesh.group(tp.data) is not None and any(
+        a in tp.data for spec in tp.specs.values() for entry in spec
+        for a in axes_of(entry))
     out = {"records": res["records"], "launches": launches,
            "requested": requested, "dry": cell.argument_bytes()["state"],
            "mesh": f"{cell.mesh.name}, {cell.step}",
            "state_bytes": res["state_bytes"], "gathers": tp.gathers,
+           "fsdp": fsdp, "gathers_placement": fsdp or bool(tp.gathers),
            "peak": torch.cuda.max_memory_allocated(mesh.device),
            "device": str(mesh.device), "note": C.backend_note(mesh),
            "local": "; ".join(local),

@@ -17,8 +17,9 @@ backward too, which counts a loss that every rank of the axis holds
 function returns its input: no collective and no copy.
 
 Under gloo a CUDA tensor goes through host memory (gloo's own CUDA
-support varies by build), and reduce-scatter is an all-reduce and a
-slice, with the same result; `backend_note` names what ran. Each
+support varies by build); every backend runs the same calls
+(``reduce_scatter_tensor`` for a reduce-scatter), and `backend_note`
+names what ran. Each
 mesh's ``stats`` (a `Stats`) counts its collectives: calls, bytes, host
 seconds and, for NCCL on the card, device time between CUDA events
 around each.
@@ -71,10 +72,7 @@ def _staged(mesh, x) -> bool:
 def backend_note(mesh) -> str:
     """What the collectives of ``mesh`` run as."""
     if mesh.backend == "gloo" and mesh.device.type == "cuda":
-        return ("gloo on the card's tensors through host memory; "
-                "reduce-scatter as all-reduce and a slice")
-    if mesh.backend == "gloo":
-        return "gloo; reduce-scatter as all-reduce and a slice"
+        return "gloo on the card's tensors through host memory"
     return f"{mesh.backend}"
 
 
@@ -146,18 +144,12 @@ def reduce_scatter(x, mesh, axes, dim: int):
     group = mesh.group(axes)
     if group is None:
         return x
-    n, i = mesh.axes_size(axes), mesh.index(axes)
-    part = x.shape[dim] // n
-    if mesh.backend == "gloo":
-        with _Timed("reduce_scatter", mesh, x):
-            buf = _buffer(mesh, x)
-            dist.all_reduce(buf, group=group)
-            return buf.narrow(dim, i * part, part).contiguous().to(x.device)
+    part = x.shape[dim] // mesh.axes_size(axes)
     with _Timed("reduce_scatter", mesh, x):
         src = _buffer(mesh, x.movedim(dim, 0))
         out = src.new_empty((part,) + tuple(src.shape[1:]))
         dist.reduce_scatter_tensor(out, src, group=group)
-        return out.movedim(0, dim).contiguous()
+        return out.movedim(0, dim).contiguous().to(x.device)
 
 
 class _Gather(torch.autograd.Function):

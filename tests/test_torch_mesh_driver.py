@@ -153,11 +153,31 @@ def test_rank_mesh_coordinates_are_row_major():
     assert m.index(("pod", "data")) == 3 and m.index("model") == 1
 
 
+#: the reduce-scatter cases: (dim, axes) of an integer-valued f32
+#: tensor of RS_SHAPE, every dim a multiple of 4
+RS_SHAPE = (4, 8, 4)
+RS_CASES = [(dim, axes) for dim in (0, 1, 2)
+            for axes in (("data",), ("model",), ("data", "model"))]
+
+
+def _rs_input(rank):
+    """Rank ``rank``'s input of a reduce-scatter case: integer values,
+    exact in f32 when summed."""
+    return torch.arange(float(math.prod(RS_SHAPE))).reshape(RS_SHAPE) * (
+        rank + 1)
+
+
 def collectives_rank():
     """On a (2, 2) gloo mesh: the forward and backward of `gather`,
-    `copy_to` and `reduce_from`, and `reduce_scatter` along dim 1."""
+    `copy_to` and `reduce_from`, `reduce_scatter` along dim 1; for each
+    of `RS_CASES` `reduce_scatter` beside an all-reduce and a slice of
+    the same input, and `gather`'s input gradient; `backend_note`; and
+    one `train.run` step of llama3-8b smoke on the mesh (FSDP over
+    data, tensor parallel over model), its records."""
+    from repro_torch.configs import registry
     from repro_torch.launch.mesh import rank_mesh
     from repro_torch.parallel import collectives as C
+    from repro_torch.parallel.placement import axes_of
 
     mesh = rank_mesh(("data", "model"), (2, 2), backend="gloo")
     r = float(mesh.rank)
@@ -175,13 +195,38 @@ def collectives_rank():
     out["scatter"] = C.reduce_scatter(torch.arange(8.0).reshape(2, 4) + r,
                                       mesh, "model", 1)
     out["coords"] = mesh.coords
+    for dim, axes in RS_CASES:
+        v = _rs_input(mesh.rank)
+        part = v.shape[dim] // mesh.axes_size(axes)
+        mesh.stats.reset()
+        rs = C.reduce_scatter(v, mesh, axes, dim)
+        ran = dict(mesh.stats.calls)
+        sliced = C.all_reduce(v, mesh, axes).narrow(
+            dim, mesh.index(axes) * part, part)
+        shard = v.narrow(dim, mesh.index(axes) * part, part).clone()
+        shard.requires_grad_(True)
+        whole = C.gather(shard, mesh, axes, dim)
+        (whole * _rs_input(mesh.rank)).sum().backward()
+        out[("rs", dim, axes)] = {"rs": rs, "sliced": sliced, "ran": ran,
+                                  "gather_grad": shard.grad.clone()}
+    out["note"] = C.backend_note(mesh)
+    res = train.run(registry.get_smoke("llama3-8b"), steps=1, batch=2,
+                    seq=32, ckpt_every=2, mesh=mesh)
+    out["records"] = res["records"]
+    out["fsdp"] = any("data" in axes_of(entry) for spec in
+                      res["tp"].specs.values() for entry in spec)
     return out
 
 
-def test_collectives_forward_and_backward():
-    out = spawn("tests.test_torch_mesh_driver:collectives_rank", 4,
-                timeout_s=RANK_TIMEOUT_S)
-    for rank, o in enumerate(out):
+@pytest.fixture(scope="module")
+def collectives():
+    """Every rank's `collectives_rank`, from one spawn of 4 gloo ranks."""
+    return spawn("tests.test_torch_mesh_driver:collectives_rank", 4,
+                 timeout_s=RANK_TIMEOUT_S)
+
+
+def test_collectives_forward_and_backward(collectives):
+    for rank, o in enumerate(collectives):
         d, m = o["coords"]["data"], o["coords"]["model"]
         peers = [2 * d, 2 * d + 1]                    # the model group
         want = torch.cat([torch.full((2, 3), float(p)) for p in peers], 1)
@@ -195,6 +240,54 @@ def test_collectives_forward_and_backward():
         assert torch.equal(o["reduce_grad"], torch.full((3,), 3.0))
         total = 2 * (torch.arange(8.0).reshape(2, 4)) + sum(peers)
         assert torch.equal(o["scatter"], total[:, 2 * m:2 * m + 2])
+
+
+def _group(coords, axes):
+    """The ranks of a (2, 2) mesh that share ``coords`` off ``axes``, and
+    this rank's place among them."""
+    members = [2 * d + m for d in range(2) for m in range(2)
+               if ("data" in axes or d == coords["data"])
+               and ("model" in axes or m == coords["model"])]
+    return members, members.index(2 * coords["data"] + coords["model"])
+
+
+@pytest.mark.parametrize("case", [("rs", d, a) for d, a in RS_CASES]
+                         + ["llama-step", "backend-note"],
+                         ids=[f"rs-dim{d}-{'+'.join(a)}" for d, a in RS_CASES]
+                         + ["llama-step", "backend-note"])
+def test_reduce_scatter_on_gloo(collectives, case):
+    """`reduce_scatter` runs ``reduce_scatter_tensor`` under gloo, as
+    under NCCL: along dims 0-2 over ``data``, ``model`` and both, each
+    rank's part equals, exactly, an all-reduce and a slice of the same
+    integer-valued input, and the sum the group's inputs make; `gather`'s
+    input gradient is that reduce-scatter of the output's (every rank's
+    output gradient is its own input). A (2, 2) step of llama3-8b smoke
+    (FSDP over data, tensor parallel over model) counts reduce-scatters
+    among its collectives; `backend_note` names no all-reduce and
+    slice."""
+    if case == "llama-step":
+        for o in collectives:
+            assert o["fsdp"]
+            (rec,) = o["records"]
+            assert rec["collectives"]["calls"].get("reduce_scatter", 0) > 0
+            assert math.isfinite(rec["loss"])
+        return
+    if case == "backend-note":
+        for o in collectives:
+            assert o["note"] == "gloo"
+            assert "slice" not in o["note"]
+        return
+    _, dim, axes = case
+    for o in collectives:
+        got = o[case]
+        members, i = _group(o["coords"], axes)
+        part = RS_SHAPE[dim] // len(members)
+        total = _rs_input(0) * sum(q + 1 for q in members)
+        want = total.narrow(dim, i * part, part)
+        assert got["ran"] == {"reduce_scatter": 1}
+        assert torch.equal(got["rs"], got["sliced"])
+        assert torch.equal(got["rs"], want)
+        assert torch.equal(got["gather_grad"], want)
 
 
 def test_torch_distributed_run_trains_on_two_cpu_ranks():
