@@ -67,7 +67,13 @@ Phases, each of which fails the run (exit 1) if it fails:
    counts that are not a multiple of the cluster (masked CTAs in the last
    cluster), each check naming the design that ran (``[R r, cluster
    k]``), two runs bit for bit, and the forward with its states bit for
-   bit the forward without;
+   bit the forward without; the head_dim-slice decode pair
+   (``decode_scores_hd``, ``decode_values_hd``) against its plain
+   versions at the serving ranks' shapes (llama's G 4 at hd slices 64, 32
+   and 8, qwen2's G 8, yi's G 7, B 1 and 8, W 2048 after the ring's first
+   wrap and at a partial fill, a window; bf16 and f32), the pair composed
+   over every slice of hd 128 against ``decode_mha_ref`` on the whole
+   heads, two runs bit for bit, and a slice it does not take raising;
 3. each served model at full width, 2 layers: kernel path against plain
    path, prefill and one decode step (atol 0.3, rtol 0.05), prompt 2048
    (mixtral-8x22b 8192, past its window; internvl2-2b from random bf16
@@ -162,7 +168,29 @@ Phases, each of which fails the run (exit 1) if it fails:
    (on (2, 2) from both data ranks' counts), equal to one rank's, and
    those whose expert differs from one rank's with the largest router
    margin among them (at most 2e-2; the ranks then take one rank's
-   experts there, as phase 3's ``RoutePin``);
+   experts there, as phase 3's ``RoutePin``); then, in the same spawns,
+   the dense family served under the reference's serving shardings
+   (``launch.sharding.serve_placement``: params and batch as in
+   training, the prefill cache W over ``model``, the decode cache
+   head_dim over ``model``, the logits vocab over ``model``): llama3-8b
+   at full width cut to 4 of its 32 layers on (1, 2), (1, 4) and (2, 2)
+   and qwen2-72b cut to 2 of its 80 layers (G 8, QKV biases nonzero) on
+   (1, 4), B 2 x prompt 2048, a prefill, ``kv_cache.to_decode_layout``
+   and 16 decode steps (4 on (2, 2), where FSDP gathers every weight's
+   data shards in each step through host memory) on one rank's greedy
+   tokens (teacher-forced),
+   against the same run on one rank: the gathered logits of every step
+   within atol 0.3, rtol 0.05, the greedy tokens where one rank's top-2
+   margin exceeds that, exact launches a rank (``flash_attention`` the
+   layers a prefill, ``decode_scores_hd`` and ``decode_values_hd`` the
+   layers a decode step, ``flash_decode`` none), each step's collectives
+   by kind (4 ``all_to_all`` a layer; the all-reduce of the f32 scores
+   (B / data, H, W) a layer, counted as ``score_all_reduce``, and those
+   of the embedding and the row-parallel products, exactly in bytes;
+   the score all-reduce's share of a decode step's wall), each rank's params and decode cache
+   on the card equal to the dry run's decode-step argument bytes at that
+   mesh, prefill and decode-step walls and peak memory beside one
+   rank's;
 5. one replica of each served arch traced with torch.profiler: host
    wall time of prefill and of a decode step, device time, device idle
    share, top device ops;
@@ -272,7 +300,13 @@ Phases, each of which fails the run (exit 1) if it fails:
    ranks' start-up, pays for the moe mesh run), then at every R it
    takes, each line naming R,
    sub-chunk, cluster, warps an SM and shared memory a CTA; no library
-   call computes it.
+   call computes it. The head_dim-slice pair is timed at a decode_32k
+   rank's shape on the 16x16 mesh (B 8, W 32768, H 32, K 8, hd slice 8)
+   and at the serving runs' ranks, beside its bound (bytes), its plain
+   versions, one ``torch.einsum`` for the scores (the library call) and
+   the nearest expression for the values (``torch.where``,
+   ``torch.softmax``, ``torch.matmul``; no one call computes them); the
+   prefill kernel also at the serving ranks' heads.
 
 Prints a JSON line of the kernels, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -387,6 +421,26 @@ MESH_RUNS = (("llama3-8b", 4, ((1, 2), (1, 4), (2, 2))),
              ("hymba-1.5b", 4, ((1, 4),)),
              ("qwen3-moe-30b-a3b", 2, ((1, 2), (2, 2))))
 MESH_STEPS, MESH_TIMEOUT_S = 3, 420
+#: the serving runs of the same spawns, after their training runs: each
+#: arch at full width cut to its layers, B MESH_SERVE_BATCH x prompt
+#: PROMPT, a prefill, ``kv_cache.to_decode_layout`` and MESH_SERVE_STEPS
+#: decode steps (one rank's greedy tokens, teacher-forced) on each of its
+#: (data, model) meshes under the reference's serving shardings: llama3-8b
+#: 4 of 32 layers on (1, 2), (1, 4) and (2, 2) (hd slices 64, 32, 64;
+#: FSDP over data on (2, 2)); qwen2-72b 2 of 80 on (1, 4) (G 8, QKV
+#: biases nonzero, hd slice 32)
+MESH_SERVE_RUNS = (("llama3-8b", 4, ((1, 2), (1, 4), (2, 2))),
+                   ("qwen2-72b", 2, ((1, 4),)))
+MESH_SERVE_BATCH, MESH_SERVE_STEPS = 2, 16
+#: the decode steps of a run whose data axis is split (2, 2): FSDP
+#: gathers every weight's data shards in each step, 0.96 GB a rank
+#: through host memory over gloo on one card, ~6.1 s a step (16 steps
+#: took 100.4 s on one H100 80GB HBM3 at 700 W); the cut that keeps the
+#: script inside its limit, named on the phase line
+MESH_SERVE_FSDP_STEPS = 4
+#: the logits of a rank against one rank's, as phase 3's kernel against
+#: plain; a token is compared where one rank's top-2 margin exceeds it
+MESH_SERVE_ATOL, MESH_SERVE_RTOL = 0.3, 0.05
 #: the bf16 tolerances of tests/test_torch_train.py: the loss within 2e-2,
 #: each gradient leaf (here each first-moment leaf, 0.1 x the clipped
 #: gradient of step 3 plus 0.09 and 0.081 x steps 2 and 1) within 5e-2 of
@@ -432,7 +486,15 @@ SCAN_BWD = {"name": "ssm_scan_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan_bwd.cu",
             "replaces": "XLA autodiff of src/repro/models/mamba.py:53 "
                         "ssm_scan_chunked (no Pallas backward)"}
-KERNELS = (FLASH, FLASH_BWD, DECODE, SCAN, SCAN_BWD)
+SCORES_HD = {"name": "decode_scores_hd", "route": "cuda",
+             "source": "src/repro_torch/kernels/decode_attention/csrc/"
+                       "decode_attention_hd.cu",
+             "replaces": "GSPMD's partition of src/repro/models/layers.py:228"
+                         " decode_attention over head_dim (the decode "
+                         "cache_spec, src/repro/launch/sharding.py:166); no "
+                         "Pallas kernel"}
+VALUES_HD = {**SCORES_HD, "name": "decode_values_hd"}
+KERNELS = (FLASH, FLASH_BWD, DECODE, SCORES_HD, VALUES_HD, SCAN, SCAN_BWD)
 
 
 def every_kernel(counts):
@@ -832,6 +894,7 @@ class Smoke:
 
     def phase_kernels(self):
         self.check_attention()
+        self.check_decode_hd()
         self.check_attention_bwd()
         self.check_scan()
         self.check_scan_bwd()
@@ -1133,6 +1196,95 @@ class Smoke:
         if decode_ops.launches != before:
             raise AssertionError("a refused call counted a launch")
 
+    def check_decode_hd(self):
+        """The head_dim-slice pair (``decode_scores_hd``,
+        ``decode_values_hd``) against its plain versions, each kernel on
+        the same inputs, at the serving ranks' shapes: llama's heads (G 4)
+        at hd slices 64, 32 and 8 (hd 128 over model 2, 4 and 16),
+        qwen2's G 8 and yi's G 7; B 1 and 8; W 2048 after the ring's first
+        wrap and at a partial fill; a window; bf16 and f32. Then the pair
+        composed over every slice of hd 128 (the partial scores summed, as
+        the all-reduce sums them) against ``decode_mha_ref`` on the whole
+        heads; two runs bit for bit; a slice it does not take raises."""
+        torch = self.torch
+        from repro_torch.kernels.decode_attention import (
+            decode_mha_ref, decode_scores_hd, decode_scores_hd_ref,
+            decode_values_hd, decode_values_hd_ref)
+        from repro_torch.kernels.decode_attention import ops as decode_ops
+        sname, vname = SCORES_HD["name"], VALUES_HD["name"]
+        W, hd = PROMPT, 128
+        cases = [((32, 8), 64, 1, W + 1, 0, "llama G4 (model 2)"),
+                 ((32, 8), 32, 8, W + 1, 0, "llama G4 (model 4)"),
+                 ((32, 8), 8, 8, W + 1, 0, "llama G4 (model 16)"),
+                 ((32, 8), 64, 1, 700, 0, "llama G4 partial fill"),
+                 ((64, 8), 32, 1, W + 1, 0, "qwen2 G8 (model 4)"),
+                 ((64, 8), 32, 8, W + 1, 0, "qwen2 G8 (model 4)"),
+                 ((56, 8), 16, 1, W + 1, 0, "yi G7 (model 8)"),
+                 ((56, 8), 16, 8, 1500, 0, "yi G7 partial fill"),
+                 ((32, 8), 32, 1, W + 1, 512, "llama G4 window=512")]
+        for dname, tol in TOL.items():
+            dtype = getattr(torch, dname)
+            g = self.gen(21)
+            for (H, K), hs, B, fill, window, arch in cases:
+                q = self.randn(g, (B, H, hs), dtype)
+                kc, vc = (self.randn(g, (B, W, K, hs), dtype) for _ in "kv")
+                sp = self.ring_slot_pos(W, fill, B)
+                p = torch.full((B,), fill - 1, dtype=torch.int32,
+                               device=self.dev)
+                label = (f"{dname} B={B} W={W} H={H} K={K} hs={hs} fill="
+                         f"{fill}{f' window={window}' if window else ''} "
+                         f"[{arch}]")
+                s_ref = decode_scores_hd_ref(q, kc)
+                self.compare(sname, label, decode_scores_hd(q, kc), s_ref,
+                             tol)
+                self.compare(vname, label, decode_values_hd(
+                    s_ref, vc, sp, p, head_dim=hd, window=window),
+                    decode_values_hd_ref(s_ref, vc, sp, p, head_dim=hd,
+                                         window=window), tol)
+            # the pair over every slice against the whole heads
+            for (H, K), n, B, fill in (((32, 8), 2, 1, W + 1),
+                                       ((32, 8), 16, 8, W + 1),
+                                       ((64, 8), 4, 1, W + 1),
+                                       ((56, 8), 8, 8, 1500)):
+                q = self.randn(g, (B, 1, H, hd), dtype)
+                kc, vc = (self.randn(g, (B, W, K, hd), dtype) for _ in "kv")
+                sp = self.ring_slot_pos(W, fill, B)
+                p = torch.full((B,), fill - 1, dtype=torch.int32,
+                               device=self.dev)
+                parts = [slice(j * hd // n, (j + 1) * hd // n)
+                         for j in range(n)]
+                s = sum(decode_scores_hd(q[:, 0, :, sl].contiguous(),
+                                         kc[..., sl].contiguous())
+                        for sl in parts)
+                out = torch.cat([decode_values_hd(
+                    s, vc[..., sl].contiguous(), sp, p, head_dim=hd)
+                    for sl in parts], dim=-1)[:, None]
+                self.compare(vname, f"{dname} pair over {n} slices of hd "
+                             f"{hd} B={B} H={H} K={K} fill={fill} vs "
+                             f"decode_mha_ref", out,
+                             decode_mha_ref(q, kc, vc, sp, p), tol)
+        g = self.gen(22)
+        q = self.randn(g, (8, 32, 8), torch.bfloat16)
+        kc, vc = (self.randn(g, (8, W, 8, 8), torch.bfloat16) for _ in "kv")
+        sp, p = self.ring_slot_pos(W, W + 1, 8), torch.full(
+            (8,), W, dtype=torch.int32, device=self.dev)
+        runs = [(s, decode_values_hd(s, vc, sp, p, head_dim=hd)) for s in
+                (decode_scores_hd(q, kc), decode_scores_hd(q, kc))]
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        print(f"  {sname}/{vname} two runs bit for bit: "
+              f"{'yes' if same else 'NO'}")
+        if not same:
+            raise AssertionError("the decode pair differs from run to run")
+        before = (decode_ops.scores_launches, decode_ops.values_launches)
+        try:
+            decode_scores_hd(q[..., :4], kc[..., :4])
+        except ValueError as e:
+            print(f"  {sname} hd slice 4 raises: {e}")
+        else:
+            raise AssertionError("a slice outside HD_SLICES did not raise")
+        if (decode_ops.scores_launches, decode_ops.values_launches) != before:
+            raise AssertionError("a refused call counted a launch")
+
     def scan_inputs(self, g, B, S, di, N=16, xdtype=None, h0_scale=0.0,
                     proj_rank=0, long_memory=False):
         """dt, xr, B, C, A, h0 as the model path gives them: dt from a
@@ -1428,7 +1580,10 @@ class Smoke:
         from repro_torch.kernels.ssm_scan import ops as scan_ops
         return {FLASH["name"]: flash_ops,
                 FLASH_BWD["name"]: Counter(flash_ops, "bwd_launches"),
-                DECODE["name"]: decode_ops, SCAN["name"]: scan_ops,
+                DECODE["name"]: decode_ops,
+                SCORES_HD["name"]: Counter(decode_ops, "scores_launches"),
+                VALUES_HD["name"]: Counter(decode_ops, "values_launches"),
+                SCAN["name"]: scan_ops,
                 SCAN_BWD["name"]: Counter(scan_ops, "bwd_launches")}
 
     @staticmethod
@@ -2139,20 +2294,26 @@ class Smoke:
         os.environ["PYTHONPATH"] = os.pathsep.join(
             [str(ROOT), str(SRC), os.environ.get("PYTHONPATH", "")])
         tmp = tempfile.mkdtemp(prefix="mesh-")
-        by_count = {}
+        by_count, serves = {}, {}
         try:
             for arch, layers, shapes in MESH_RUNS:
                 run = self.one_rank_run(arch, layers, tmp)
                 for shape in shapes:
                     by_count.setdefault(math.prod(shape), []).append(
                         {**run, "shape": shape})
+            for arch, layers, shapes in MESH_SERVE_RUNS:
+                one = self.one_rank_serve(arch, layers)
+                for shape in shapes:
+                    serves.setdefault(math.prod(shape), []).append(
+                        {**one, "shape": shape})
             bad = []
-            for n in sorted(by_count):
-                bad += self.train_mesh(n, cards, by_count[n])
+            for n in sorted(set(by_count) | set(serves)):
+                bad += self.train_mesh(n, cards, by_count.get(n, []),
+                                       serves.get(n, []))
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         if bad:
-            raise AssertionError(f"train (mesh): {bad}")
+            raise AssertionError(f"train and serve (mesh): {bad}")
 
     def one_rank_run(self, arch, layers, tmp):
         """``MESH_STEPS`` steps of ``arch`` cut to ``layers`` on one rank
@@ -2207,6 +2368,135 @@ class Smoke:
         torch.cuda.empty_cache()
         return run
 
+    def one_rank_serve(self, arch, layers):
+        """``arch`` at full width cut to ``layers`` served on one rank of
+        the card: a prefill of MESH_SERVE_BATCH x PROMPT (`serve_prompt`)
+        and MESH_SERVE_STEPS greedy decode steps from `serve_params`, its
+        walls, peak memory and launches. Returns what the ranks are held
+        to: every step's logits and the tokens fed to the steps (each
+        the argmax of the logits before it), on the host."""
+        torch = self.torch
+        from repro_torch.configs import registry
+        from repro_torch.models import Model
+        cfg = registry.get(arch).replace(num_layers=layers)
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = Model(cfg)
+        params = serve_params(cfg, self.dev)
+        prompt = serve_prompt(cfg, self.dev)
+        counters = self.counters()
+        for mod in counters.values():
+            mod.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, {"tokens": prompt})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        outs, tokens, step_s = [logits], [], []
+        for _ in range(MESH_SERVE_STEPS):
+            tokens.append(outs[-1].argmax(-1).to(torch.int32))
+            t0 = time.perf_counter()
+            logits, cache = model.decode_step(params, cache, tokens[-1])
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            outs.append(logits)
+        peak = torch.cuda.max_memory_allocated()
+        path = f"serve (mesh) {arch} x{layers} one rank"
+        self.launches[path] = {n: m.launches for n, m in counters.items()}
+        print(f"  {path}: B {MESH_SERVE_BATCH} x prompt {PROMPT}, "
+              f"{MESH_SERVE_STEPS} greedy steps: prefill "
+              f"{prefill_s * 1e3:.1f} ms, decode step "
+              f"{min(step_s) * 1e3:.2f}-{max(step_s) * 1e3:.2f} ms (median "
+              f"{sorted(step_s)[len(step_s) // 2] * 1e3:.2f}); peak device "
+              f"memory {peak / 1e9:.2f} GB; launches {self.launches[path]} "
+              f"({nvidia_smi()})")
+        res = {"cfg": cfg, "depth": registry.get(arch).num_layers,
+               "prefill_s": prefill_s, "step_s": step_s,
+               "peak": peak,
+               "logits": torch.stack([o.cpu() for o in outs]),
+               "tokens": torch.stack([t.cpu() for t in tokens])}
+        del model, params, cache, outs, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+        return res
+
+    def check_mesh_serve(self, one, ranks):
+        """One serving run's results on the ranks of its mesh
+        (`mesh_serve`'s) against its one-rank run (`one_rank_serve`'s):
+        prints them and returns the checks that failed."""
+        cfg, shape = one["cfg"], one["shape"]
+        arch, L = cfg.name, cfg.num_layers
+        steps = serve_steps(shape)
+        want = every_kernel({FLASH["name"]: L, SCORES_HD["name"]: L * steps,
+                             VALUES_HD["name"]: L * steps})
+        rows = MESH_SERVE_BATCH // shape[0]
+        scores_b = L * rows * cfg.num_heads * PROMPT * 4
+        sums_b = (2 * L + 1) * rows * cfg.d_model * 2
+        where = f"serve (mesh) {arch} x{L} on {shape}"
+        bad = []
+        for r, res in enumerate(ranks):
+            path = f"{where} rank {r}"
+            self.launches[path] = res["launches"]
+            st = res["step_s"]
+            print(f"  {path} on {res['device']}: {res['local']}; prefill "
+                  f"{res['prefill_s'] * 1e3:.1f} ms (one rank "
+                  f"{one['prefill_s'] * 1e3:.1f}), to_decode_layout "
+                  f"{res['reshard_s'] * 1e3:.1f} ms, decode step "
+                  f"{min(st) * 1e3:.2f}-{max(st) * 1e3:.2f} ms (median "
+                  f"{sorted(st)[len(st) // 2] * 1e3:.2f}; one rank median "
+                  f"{sorted(one['step_s'])[MESH_SERVE_STEPS // 2] * 1e3:.2f}"
+                  f"); peak "
+                  f"device memory {res['peak'] / 1e9:.2f} GB (one rank "
+                  f"{one['peak'] / 1e9:.2f}); {res['note']} ({nvidia_smi()})")
+            for what, c in (("prefill", res["prefill_c"]),
+                            ("to_decode_layout", res["reshard_c"]),
+                            ("decode step 0", res["step_c"][0]),
+                            ("decode step 1", res["step_c"][1])):
+                print(f"  {path} {what} collectives: calls {c['calls']}, "
+                      f"bytes {c['bytes_by']}, {c['host_s'] * 1e3:.1f} ms "
+                      f"host" + ("" if c["device_s"] is None else
+                                 f", {c['device_s'] * 1e3:.2f} ms device"))
+            coll_s = [c["host_s"] for c in res["step_c"]]
+            score_s = [c["host_s_by"].get("score_all_reduce", 0.0)
+                       for c in res["step_c"]]
+            print(f"  {path}: the decode steps' wall {sum(st) * 1e3:.1f} ms "
+                  f"over {steps} steps: collectives {sum(coll_s) * 1e3:.1f} "
+                  f"ms host ({sum(coll_s) / sum(st):.3f} of it), the score "
+                  f"all-reduce {sum(score_s) * 1e3:.1f} ms "
+                  f"({sum(score_s) / sum(st):.3f} of it)")
+            print(f"  {path}: logits against one rank's over "
+                  f"{steps + 1} outputs: max_abs_err "
+                  f"{max(res['errs']):.3e} (atol {MESH_SERVE_ATOL}, rtol "
+                  f"{MESH_SERVE_RTOL}) {'ok' if res['close'] else 'FAIL'}; "
+                  f"greedy tokens {res['compared']} compared (top-2 margin "
+                  f"over the tolerance), {res['flips']} differ; score "
+                  f"all-reduce {scores_b} B a step; launches "
+                  f"{res['launches']} (want {want}); params "
+                  f"{res['bytes']['params']} B and decode cache "
+                  f"{res['bytes']['cache']} B on the card, dry run "
+                  f"{res['dry']['params']} B and {res['dry']['cache']} B "
+                  f"({res['mesh']}); seconds {res['seconds']}")
+            if not res["close"] or res["flips"]:
+                bad.append((path, "logits or tokens", max(res["errs"]),
+                            res["flips"]))
+            if res["launches"] != want:
+                bad.append((path, "launches", res["launches"]))
+            if res["prefill_c"]["calls"].get("all_to_all") != 2 * L:
+                bad.append((path, "prefill all_to_all", res["prefill_c"]))
+            for i, c in enumerate(res["step_c"]):
+                if (c["calls"].get("all_to_all") != 4 * L
+                        or c["calls"].get("score_all_reduce") != L
+                        or c["bytes_by"].get("score_all_reduce") != scores_b
+                        or c["calls"].get("all_reduce") != 2 * L + 1
+                        or c["bytes_by"].get("all_reduce") != sums_b):
+                    bad.append((path, "decode step collectives", i, c))
+                    break
+            if (res["bytes"]["params"], res["bytes"]["cache"]) != (
+                    res["dry"]["params"], res["dry"]["cache"]):
+                bad.append((path, "bytes", res["bytes"], res["dry"]))
+        return bad
+
     @staticmethod
     def print_routing(path, calls, layers):
         """Each step's forward calls of the router (a `RouteLog`'s): the
@@ -2239,37 +2529,56 @@ class Smoke:
                 for l, c in sorted(fwd.items()))
                   + f" ({len(run)} router calls, {layers} layers)")
 
-    def train_mesh(self, n, cards, runs):
+    def train_mesh(self, n, cards, runs, serves):
         """One spawn of `mesh_ranks` on ``n`` ranks for the one-rank
-        ``runs`` (`one_rank_run`'s, each with its mesh ``shape``) and the
-        checkpoint round trip; prints and returns the checks that
-        failed."""
+        ``runs`` (`one_rank_run`'s, each with its mesh ``shape``), the
+        checkpoint round trip and the serving runs ``serves``
+        (`one_rank_serve`'s, each with its ``shape``); prints and returns
+        the checks that failed."""
         from repro_torch.launch.ranks import spawn
         nccl = cards >= n
         backend = "nccl" if nccl else "gloo"
         names = ", ".join(f"{r['cfg'].name} x{r['cfg'].num_layers} on "
                           f"{r['shape']}" for r in runs)
+        served = ", ".join(
+            f"{r['cfg'].name} x{r['cfg'].num_layers} ({r['cfg'].num_layers}"
+            f" of its {r['depth']} layers) on {r['shape']}, "
+            f"{serve_steps(r['shape'])} decode steps"
+            + ("" if serve_steps(r["shape"]) == MESH_SERVE_STEPS else
+               f" (cut from {MESH_SERVE_STEPS}: FSDP over data gathers "
+               f"every weight each step, ~6 s a step over gloo on one card)")
+            for r in serves)
         print(f"  train (mesh) {n} ranks: {cards} card(s) on this machine: "
               f"backend {backend}, "
               f"{'one card a rank' if nccl else 'every rank on card 0'}; "
               f"(data, model) meshes: {names} in turn, B {TRAIN_BATCH} x S "
               f"{TRAIN_SEQ}, {MESH_STEPS} steps; then a sharded "
-              f"checkpoint's round trip", flush=True)
+              f"checkpoint's round trip; then serving {served}; B "
+              f"{MESH_SERVE_BATCH} x prompt {PROMPT}, a prefill and the "
+              f"decode steps each", flush=True)
         t0 = time.monotonic()
         ranks = spawn("chip_smoke:mesh_ranks", n, {
             "runs": [{"arch": r["cfg"].name, "layers": r["cfg"].num_layers,
                       "shape": r["shape"], "reference": r["reference"],
                       "routes": r["routes"]} for r in runs],
             "shared": not nccl, "ckpt_shape": max(
-                (r["shape"] for r in runs), key=lambda s: s[0])},
+                (r["shape"] for r in runs), key=lambda s: s[0]),
+            "serves": [{"arch": r["cfg"].name,
+                        "layers": r["cfg"].num_layers, "shape": r["shape"],
+                        "logits": r["logits"][:serve_steps(r["shape"]) + 1],
+                        "tokens": r["tokens"][:serve_steps(r["shape"])]}
+                       for r in serves]},
             backend=backend,
             timeout_s=MESH_TIMEOUT_S, echo=True)
-        print(f"  train (mesh) {n} ranks ({names}): spawn to the last "
-              f"rank's end {time.monotonic() - t0:.1f} s")
+        print(f"  train (mesh) {n} ranks ({names}; serving {served}): spawn "
+              f"to the last rank's end {time.monotonic() - t0:.1f} s")
         bad = []
         for i, run in enumerate(runs):
             bad += self.check_mesh_run(run, [res["runs"][i] for res in ranks])
         bad += self.check_mesh_checkpoint([res["ckpt"] for res in ranks])
+        for i, one in enumerate(serves):
+            bad += self.check_mesh_serve(one, [res["serves"][i]
+                                               for res in ranks])
         return bad
 
     def check_mesh_run(self, run, ranks):
@@ -3488,6 +3797,31 @@ class Smoke:
             "seamless-m4t-large-v2 cross W=1500": self.time_decode(
                 1, 16, 16, 64, 0, "seamless-m4t-large-v2 cross, ragged "
                 "source", W=1500)}
+        # the serving ranks' heads (the "train (mesh)" phase's serving
+        # runs): llama3-8b at model 2, qwen2-72b at model 4 (G 8)
+        self.also[FLASH["name"]].update({
+            "llama3-8b serving rank H16/K4 (model 2) B=2 S=2048":
+                self.time_flash(16, 4, 128, 0, "llama3-8b serving rank, "
+                                "model 2", B=MESH_SERVE_BATCH),
+            "qwen2-72b serving rank H16/K2 G8 (model 4) B=2 S=2048":
+                self.time_flash(16, 2, 128, 0, "qwen2-72b serving rank, "
+                                "model 4", B=MESH_SERVE_BATCH)})
+        # the head_dim-slice pair at a decode_32k rank's shape on the 16x16
+        # mesh (B 128 over data 16, hd 128 over model 16), and at the
+        # serving runs' ranks
+        rows = self.time_decode_hd(8, 32, 8, 8, 32768, "llama3-8b "
+                                   "decode_32k rank, 16x16 mesh")
+        self.timing[SCORES_HD["name"]], self.timing[VALUES_HD["name"]] = rows
+        also = {}
+        for label, shape in (
+                ("llama3-8b (1, 2) rank B=2 hs=64", (2, 32, 8, 64)),
+                ("llama3-8b (1, 4) rank B=2 hs=32", (2, 32, 8, 32)),
+                ("llama3-8b (2, 2) rank B=1 hs=64", (1, 32, 8, 64)),
+                ("qwen2-72b (1, 4) rank B=2 H=64 K=8 hs=32", (2, 64, 8, 32))):
+            also[label] = self.time_decode_hd(*shape, PROMPT,
+                                              f"{label}, serving run")
+        for i, meta in enumerate((SCORES_HD, VALUES_HD)):
+            self.also[meta["name"]] = {k: v[i] for k, v in also.items()}
         self.timing[FLASH_BWD["name"]] = self.time_flash_bwd(
             TRAIN_BATCH, TRAIN_SEQ, *llama, "llama3-8b training shape")
         self.also[FLASH_BWD["name"]] = {
@@ -3701,6 +4035,71 @@ class Smoke:
         self.report(f"flash_decode bf16 B={B} W={W} H={H} K={K} hd={hd} "
                     f"window={window} [cluster {C}] ({arch})", row)
         return row
+
+    def time_decode_hd(self, B, H, K, hs, W, arch):
+        """The head_dim-slice pair at a rank's shape: B x H q heads over K
+        kv heads on an hd slice ``hs`` of hd 128, a W-slot ring after its
+        first wrap, bf16, the values kernel on f32 summed scores. Bounds by
+        bytes (each input read once, each output written once; f32 FMAs
+        at 67 TFLOP/s for the operations). The scores' library call is
+        one ``torch.einsum`` on the bf16 tensors; the values have no one
+        call, and the nearest expression (``torch.where`` of the mask and
+        scale, ``torch.softmax``, ``torch.matmul`` with V) is timed beside
+        them (``expression_ms``). Returns (scores row, values row)."""
+        torch = self.torch
+        from repro_torch.kernels.decode_attention import (
+            decode_scores_hd, decode_scores_hd_ref, decode_values_hd,
+            decode_values_hd_ref)
+        dt, hd, G = torch.bfloat16, 128, H // K
+        per_set = 2 * 2 * B * W * K * hs + 4 * B * H * W
+        n = min(32, max(3, math.ceil(120e6 / per_set)))
+        g = self.gen(23)
+        sp = self.ring_slot_pos(W, W + 1, B)
+        p = torch.full((B,), W, dtype=torch.int32, device=self.dev)
+        mask = (sp >= 0) & (sp <= p[:, None])
+        sets = []
+        for _ in range(n):
+            q = self.randn(g, (B, H, hs), dt)
+            kc, vc = (self.randn(g, (B, W, K, hs), dt) for _ in "kv")
+            sets.append((q, kc, vc, decode_scores_hd_ref(q, kc)))
+        shape = f"bf16 B={B} W={W} H={H} K={K} hs={hs} ({arch})"
+        sbytes = 2 * B * H * hs + 2 * B * W * K * hs + 4 * B * H * W
+        bms, by = self.bound(sbytes, 2 * B * H * W * hs, F32_FLOPS_PER_S)
+        srow = self.time_row(
+            lambda t: decode_scores_hd(t[0], t[1]),
+            lambda t: decode_scores_hd_ref(t[0], t[1]),
+            lambda t: torch.einsum("bkgd,bwkd->bkgw",
+                                   t[0].view(B, K, G, hs), t[1]),
+            sets, sets, 200, 20)
+        srow.update(bound_ms=bms, bound_by=by, library="torch.einsum("
+                    "'bkgd,bwkd->bkgw') of the bf16 q and K slice")
+        self.report(f"decode_scores_hd {shape}", srow)
+        n_valid = int(mask.sum())
+        vbytes = (4 * B * H * W + 2 * n_valid * K * hs + 4 * (B * W + B)
+                  + 2 * B * H * hs)
+        bms, by = self.bound(vbytes, 2 * B * H * n_valid * hs,
+                             F32_FLOPS_PER_S)
+        scale = 1.0 / math.sqrt(hd)
+
+        def expression(t):
+            sc = torch.where(mask[:, None, :], t[3] * scale, -1e30)
+            prob = torch.softmax(sc, dim=-1).view(B, K, G, W).to(dt)
+            return torch.matmul(prob, t[2].permute(0, 2, 1, 3))
+
+        vrow = self.time_row(
+            lambda t: decode_values_hd(t[3], t[2], sp, p, head_dim=hd),
+            lambda t: decode_values_hd_ref(t[3], t[2], sp, p, head_dim=hd),
+            None, sets, sets, 200, 20)
+        vrow.update(bound_ms=bms, bound_by=by,
+                    expression_ms=self.time_ms(expression, sets, 200,
+                                               graph=True),
+                    expression="torch.where (mask, scale) + torch.softmax + "
+                               "torch.matmul with the V slice")
+        self.report(f"decode_values_hd {shape}", vrow)
+        print(f"    nearest expression ({vrow['expression']}): "
+              f"{vrow['expression_ms']:.4f} ms (graph replay)")
+        del sets
+        return srow, vrow
 
     def time_scan(self, di, rank, arch):
         """The scan at the serve shape: B=1, S=2048, N=16, xr in bf16,
@@ -3968,18 +4367,172 @@ def against_one_rank(model, state, tp, mesh, reference):
             "moved": moved, "leaves": len(mu)}
 
 
-def mesh_ranks(runs, shared, ckpt_shape):
+def mesh_ranks(runs, shared, ckpt_shape, serves=()):
     """One rank of `Smoke.train_mesh`'s spawn (a process of its own, in a
     process group that ``repro_torch.launch.ranks.spawn`` set up):
     `mesh_rank` for each of ``runs`` in turn, each run's state freed
-    before the next, then `mesh_checkpoint` on a ``ckpt_shape`` mesh."""
+    before the next, then `mesh_checkpoint` on a ``ckpt_shape`` mesh,
+    then `mesh_serve` for each of ``serves``."""
     import torch
     out = []
     for run in runs:
         out.append(mesh_rank(shared=shared, **run))
         gc.collect()
         torch.cuda.empty_cache()
-    return {"runs": out, "ckpt": mesh_checkpoint(ckpt_shape, shared)}
+    ckpt = mesh_checkpoint(ckpt_shape, shared)
+    served = []
+    for run in serves:
+        gc.collect()
+        torch.cuda.empty_cache()
+        served.append(mesh_serve(shared=shared, **run))
+    return {"runs": out, "ckpt": ckpt, "serves": served}
+
+
+def registry_depth(arch) -> int:
+    """``arch``'s published number of layers."""
+    from repro_torch.configs import registry
+    return registry.get(arch).num_layers
+
+
+def serve_steps(shape) -> int:
+    """The decode steps of a serving run on a (data, model) ``shape``."""
+    return MESH_SERVE_STEPS if shape[0] == 1 else MESH_SERVE_FSDP_STEPS
+
+
+def serve_params(cfg, device):
+    """Seed-0 params of ``cfg`` on ``device``, the QKV biases (where the
+    config has them) drawn nonzero from seed 9, as phase 3 draws them."""
+    import torch
+    from repro_torch.models import Model
+    params = Model(cfg, device=device).init_params(
+        torch.Generator(device=device).manual_seed(0))
+    if cfg.attn_bias:
+        g = torch.Generator(device=device).manual_seed(9)
+        for name in ("bq", "bk", "bv"):
+            leaf = params["layers"]["attn"][name]
+            leaf.copy_(torch.randn(tuple(leaf.shape), generator=g,
+                                   device=device).to(leaf.dtype))
+    return params
+
+
+def serve_prompt(cfg, device):
+    """The serving runs' prompt: MESH_SERVE_BATCH x PROMPT tokens, seed 2."""
+    import torch
+    return torch.randint(0, cfg.vocab_size, (MESH_SERVE_BATCH, PROMPT),
+                         dtype=torch.int32, device=device,
+                         generator=torch.Generator(device=device)
+                         .manual_seed(2))
+
+
+def mesh_serve(arch, layers, shape, shared, logits, tokens):
+    """One rank of a serving run (`Smoke.check_mesh_serve`): ``arch`` at
+    full width cut to ``layers`` on this rank of the (data, model)
+    ``shape`` mesh (`rank_mesh_of`) under the reference's serving
+    shardings (``launch.sharding.serve_placement``): `serve_params` cut to
+    this rank's shards, a prefill of its rows of `serve_prompt`,
+    ``kv_cache.to_decode_layout``, and a decode step for each of one
+    rank's ``tokens`` (teacher-forced), with every kernel's launches
+    counted from 0 just before the prefill and read after the last step,
+    the collectives of the prefill, the reshard and each step by kind,
+    walls, peak memory, the params' and decode cache's bytes on the card
+    and the dry run's decode-step argument bytes at this mesh; then every
+    output's logits gathered whole against one rank's ``logits``. The
+    ranks draw the whole params and cut their shards one at a time, so
+    the card holds one whole copy at once."""
+    t0 = time.monotonic()
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import InputShape, registry
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import Model
+    from repro_torch.models import kv_cache as kvc
+    from repro_torch.models.registry import param_structs
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel import placement as P
+    cfg = registry.get(arch).replace(num_layers=layers)
+    mesh = rank_mesh_of(shape, shared)
+    dev = mesh.device
+    tp = SH.serve_placement(mesh, param_structs(cfg), kvc.init_cache(
+        cfg, MESH_SERVE_BATCH, PROMPT, device="meta"))
+    params = None
+    for r in range(dist.get_world_size()):    # one whole copy at a time
+        if r == dist.get_rank():
+            whole = serve_params(cfg, dev)
+            params = P.params_to_mesh(whole, tp)
+            del whole
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = Model(cfg, device=dev)
+
+    def rows(t):
+        return P.local_shard(t, SH.batch_spec("t", tuple(t.shape), mesh),
+                             mesh)
+
+    def timed(fn):
+        torch.cuda.synchronize(dev)
+        mesh.stats.reset()
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        return out, time.perf_counter() - t1, mesh.stats.summary()
+
+    prompt = rows(serve_prompt(cfg, dev))
+    counters = Smoke.counters()
+    for mod in counters.values():
+        mod.launches = 0
+    t1 = time.monotonic()
+    (out, cache), prefill_s, prefill_c = timed(
+        lambda: model.prefill(params, {"tokens": prompt}, tp=tp))
+    cache, reshard_s, reshard_c = timed(
+        lambda: kvc.to_decode_layout(cache, tp))
+    nbytes = {"params": P.state_bytes(params), "cache": P.state_bytes(cache)}
+    outs, step_s, step_c = [out], [], []
+    for tok in tokens:
+        t = rows(tok.to(dev))
+        (out, cache), sec, c = timed(
+            lambda t=t: model.decode_step(params, cache, t, tp=tp))
+        outs.append(out)
+        step_s.append(sec)
+        step_c.append(c)
+    launches = {n: m.launches for n, m in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    t2 = time.monotonic()
+    errs, close, flips, compared = [], True, 0, 0
+    for out, want in zip(outs, logits):
+        full = P.gather_full(out, tp.specs["logits"], mesh)
+        want = want.to(dev)
+        errs.append((full - want).abs().max().item())
+        close &= torch.allclose(full, want, atol=MESH_SERVE_ATOL,
+                                rtol=MESH_SERVE_RTOL)
+        top = want.topk(2, dim=-1).values
+        sure = (top[..., 0] - top[..., 1]) > (
+            MESH_SERVE_ATOL + MESH_SERVE_RTOL * top[..., 0].abs())
+        same = full.argmax(-1) == want.argmax(-1)
+        flips += int((sure & ~same).sum())
+        compared += int(sure.sum())
+    cell = dryrun.build_cell(arch, InputShape(
+        "decode", PROMPT, MESH_SERVE_BATCH, "decode"), extra={
+            "num_layers": layers}, mesh=Mesh(mesh.axis_names, mesh.sizes))
+    h0, h1 = tp.split(cfg.num_heads)
+    v0, v1 = tp.split(cfg.vocab_size)
+    slice_ = cache["k"].shape[-1]
+    local = (f"q heads [{h0}, {h1}) of {cfg.num_heads}; decode cache "
+             f"{tuple(cache['k'].shape)} (hd slice {slice_} of "
+             f"{cfg.head_dim}); vocab [{v0}, {v1}) of {cfg.vocab_size}")
+    return {"device": str(dev), "note": C.backend_note(mesh),
+            "local": local, "launches": launches, "peak": peak,
+            "prefill_s": prefill_s, "reshard_s": reshard_s,
+            "step_s": step_s, "prefill_c": prefill_c,
+            "reshard_c": reshard_c, "step_c": step_c, "errs": errs,
+            "close": bool(close), "flips": flips, "compared": compared,
+            "bytes": nbytes, "dry": cell.argument_bytes(),
+            "mesh": f"{cell.mesh.name}, {cell.step}",
+            "seconds": {"start": t1 - t0, "serve": t2 - t1,
+                        "checks": time.monotonic() - t2}}
 
 
 def rank_mesh_of(shape, shared):
@@ -4170,7 +4723,13 @@ def main() -> int:
         phases.append((f"embeds and enc-dec {arch}",
                        lambda arch=arch: smoke.embeds_path(arch)))
     phases.append(("train", smoke.phase_train))
-    phases.append(("train (mesh; one spawn a count of ranks)",
+    served = "; ".join(
+        f"{arch} {layers} of {registry_depth(arch)} layers on "
+        f"{', '.join(map(str, shapes))}" for arch, layers, shapes in
+        MESH_SERVE_RUNS)
+    phases.append((f"train (mesh; one spawn a count of ranks), then serve "
+                   f"in the same spawns ({served}; {MESH_SERVE_FSDP_STEPS} "
+                   f"of {MESH_SERVE_STEPS} decode steps on (2, 2))",
                    smoke.phase_train_mesh))
     phases.append(("mlserve cores", smoke.phase_mlserve))
     phases.append(("worker node", smoke.phase_node))

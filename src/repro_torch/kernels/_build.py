@@ -2,8 +2,9 @@
 
 Each kernel keeps one source, ``kernels/<name>/csrc/<name>.cu``, with a
 plain C interface; the backwards' sources, ``flash_attention_bwd.cu`` and
-``ssm_scan_bwd.cu``, sit beside their forwards' in their packages'
-``csrc/`` and build as libraries of their own; both attention sources
+``ssm_scan_bwd.cu``, and the head_dim-slice decode pair's,
+``decode_attention_hd.cu``, sit beside their forwards' in their
+packages' ``csrc/`` and build as libraries of their own; both attention sources
 include the shared header ``hopper.cuh`` beside them. At first use a
 source is compiled for Hopper into a shared library under
 ``build/kernels/`` at the root of the checkout, named by a digest of its
@@ -36,9 +37,10 @@ from pathlib import Path
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
 NAMES = ("flash_attention", "flash_attention_bwd", "decode_attention",
-         "ssm_scan", "ssm_scan_bwd")
+         "decode_attention_hd", "ssm_scan", "ssm_scan_bwd")
 #: the kernels whose source lives in another kernel's package
 PACKAGES = {"flash_attention_bwd": "flash_attention",
+            "decode_attention_hd": "decode_attention",
             "ssm_scan_bwd": "ssm_scan"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -23,8 +23,9 @@ paths the rules match are the reference's paths.
 
 On a `RankMesh` (``launch/mesh.py``) the same specs place real tensors:
 `placement` builds the `repro_torch.parallel.placement.Sharded` of a
-params tree from them, and the layers below ``launch`` (models, optim,
-data, checkpoint) take it, or a spec, from their caller.
+params tree from them (`serve_placement` of params plus a decode cache
+and the logits), and the layers below ``launch`` (models, optim, data,
+checkpoint) take it, or a spec, from their caller.
 """
 from __future__ import annotations
 
@@ -249,3 +250,20 @@ def placement(mesh, structs) -> Sharded:
 
     return Sharded(mesh, param_shardings(structs, mesh), shapes,
                    data_axes(mesh), state_rule)
+
+
+def serve_placement(mesh, structs, cache) -> Sharded:
+    """`placement` of a params tree for the serving steps, with the specs
+    of a decode cache (``cache``: its whole leaves, meta tensors will do)
+    in both layouts, at ``cache/prefill/{name}`` and
+    ``cache/decode/{name}`` (`cache_spec`), and of the last-token logits
+    (B, 1, V) at ``logits`` (`logits_spec`)."""
+    tp = placement(mesh, structs)
+    for kind in ("prefill", "decode"):
+        for name, spec in cache_shardings(cache, mesh, kind).items():
+            tp.specs[f"cache/{kind}/{name}"] = spec
+            tp.shapes[f"cache/{kind}/{name}"] = tuple(cache[name].shape)
+    shape = (cache["pos"].shape[0], 1, tp.shapes["embed"][0])
+    tp.specs["logits"] = logits_spec(mesh, shape)
+    tp.shapes["logits"] = shape
+    return tp

@@ -5,10 +5,22 @@ a leading layer axis. ``slot_pos`` holds the absolute position stored in
 each ring slot (-1 = empty), which makes masking exact for full and ring
 caches alike. The SSM families keep a bf16 conv tail and an f32 state
 per layer; the ssm family has no ``slot_pos``.
+
+On a mesh (``tp``: a serving placement,
+``repro_torch.launch.sharding.serve_placement``) each rank holds its
+shard of every leaf in one of the reference's two layouts: "prefill",
+k and v (L, B / data, W / model, K, hd), and "decode", (L, B / data, W,
+K, hd / model); ``pos`` and ``slot_pos`` split over the data axes alike
+(`init_cache_on_mesh`). A prefill writes its layers' K/V into the
+prefill layout (`write_prefill_on_mesh`) and `to_decode_layout` moves
+the cache to the decode layout once a request.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel.placement import shard_shape
 
 ATTN_FAMILIES = ("dense", "vlm", "moe", "audio", "hybrid")
 SSM_FAMILIES = ("ssm", "hybrid")
@@ -101,3 +113,65 @@ def prefill_slot_pos(seq_len, width, batch, device="cpu"):
         # slot s holds the largest position p <= last with p % W == s
         pos = last - ((last - slots) % width)
     return pos.to(torch.int32).expand(batch, width).contiguous()
+
+
+# ------------------------------------------------------------ on a mesh
+
+def init_cache_on_mesh(cfg, tp, kind: str, dtype=torch.bfloat16,
+                       device="cpu"):
+    """This rank's shards, in the ``kind`` layout, of the cache whose
+    whole shapes the serving placement ``tp`` holds (``cache/{kind}/*``):
+    zeros, and ``slot_pos`` -1."""
+    B = tp.shapes[f"cache/{kind}/pos"][0]
+    W = tp.shapes[f"cache/{kind}/slot_pos"][1]
+    whole = init_cache(cfg, B, W, dtype=dtype, device="meta")
+    out = {}
+    for name, leaf in whole.items():
+        spec = tp.specs[f"cache/{kind}/{name}"]
+        shape = shard_shape(tuple(leaf.shape), spec, tp.mesh)
+        out[name] = (torch.full(shape, -1, dtype=leaf.dtype, device=device)
+                     if name == "slot_pos" else
+                     torch.zeros(shape, dtype=leaf.dtype, device=device))
+    return out
+
+
+def write_prefill_on_mesh(cache_k, k, tp, counts):
+    """Write one layer's prefill K into this rank's shard ``cache_k``
+    (B, W / model, K, hd; or (B, W, K, hd) where ``model`` does not
+    divide W) of the prefill layout, IN PLACE. ``k`` (B, S, Ko, hd) holds
+    the kv heads this rank is the first to hold, ``counts`` every
+    ``model`` rank's Ko: each rank lays its heads into the ring of W
+    slots (`write_prefill_entries`) and sends slots [j W / model,
+    (j + 1) W / model) to rank j (every slot where W is not split), which
+    concatenates the heads in rank order: one ``all_to_all``."""
+    W = tp.shapes["cache/prefill/k"][2]
+    ring = k.new_zeros((k.shape[0], W) + tuple(k.shape[2:]))
+    write_prefill_entries(ring, k)
+    split = 1 if tp.specs["cache/prefill/k"][2] == "model" else None
+    cache_k.copy_(C.all_to_all(ring, tp.mesh, "model", split, 2,
+                               recv=counts))
+    return cache_k
+
+
+def to_decode_layout(cache, tp):
+    """A prefill-layout cache (this rank's shards) in the decode layout:
+    k and v from W over ``model`` to head_dim over ``model``, one
+    ``all_to_all`` a leaf (the reference's per-request reshard), or a
+    local cut where ``model`` does not divide W. ``pos`` and
+    ``slot_pos`` are the same in both layouts. Returns a new dict; the
+    prefill leaves can be freed."""
+    out = dict(cache)
+    mesh = tp.mesh
+    for name in ("k", "v"):
+        if tp.specs[f"cache/decode/{name}"][4] != "model":
+            raise NotImplementedError(
+                f"the decode cache's head_dim {cache[name].shape[4]} does "
+                f"not split over model {mesh.shape['model']}")
+        x = cache[name]
+        if tp.specs[f"cache/prefill/{name}"][2] == "model":
+            x = C.all_to_all(x, mesh, "model", 4, 2)
+        else:
+            part = x.shape[4] // mesh.shape["model"]
+            x = x.narrow(4, mesh.coords["model"] * part, part).contiguous()
+        out[name] = x
+    return out

@@ -15,13 +15,19 @@ itself. Nothing on the kernel path calls them.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.kernels.decode_attention import decode_mha, decode_mha_ref
+from repro_torch.kernels.decode_attention import (decode_mha, decode_mha_ref,
+                                                  decode_scores_hd,
+                                                  decode_scores_hd_ref,
+                                                  decode_values_hd,
+                                                  decode_values_hd_ref)
 from repro_torch.kernels.flash_attention import mha, mha_ref
+from repro_torch.parallel import collectives as C
 
 NEG_INF = -1e30
 
@@ -289,18 +295,40 @@ def _kv_for_heads(k, v, h0, h1, G, k0):
     return k.index_select(2, idx), v.index_select(2, idx)
 
 
-def _attention_on_mesh(p, cfg, x, tp, use_rope, causal, plain):
-    """`attention_layer` on this rank's q heads [h0, h1) of H (its
-    ``model`` share) and the kv heads they read: column-parallel q/k/v
-    (and QKV bias) on x entering the split (`Sharded.copy`), q/k norms
-    replicated, the attention kernel on the local heads, row-parallel
-    ``wo`` summed over ``model`` (`Sharded.reduce`). The FSDP dims of
-    each weight are gathered over the data axes where it is read."""
+class MeshHeads(NamedTuple):
+    """One ``model`` rank's heads on a mesh: its q heads [h0, h1), the kv
+    heads they read [k0, k1), and those of them no rank before it reads
+    [o0, o1) (each kv head is sent to the caches by one rank)."""
+
+    h0: int
+    h1: int
+    k0: int
+    k1: int
+    o0: int
+    o1: int
+
+
+def mesh_heads(tp, cfg) -> list[MeshHeads]:
+    """Every ``model`` rank's `MeshHeads`, in coordinate order: q heads
+    ``tp.splits(H)``, kv heads the groups they fall in."""
+    G = cfg.num_heads // cfg.num_kv_heads
+    out, seen = [], 0
+    for h0, h1 in tp.splits(cfg.num_heads):
+        k0 = h0 // G
+        k1 = (h1 - 1) // G + 1 if h1 > h0 else k0
+        o0 = max(k0, seen)
+        o1 = max(k1, o0)
+        seen = max(seen, k1)
+        out.append(MeshHeads(h0, h1, k0, k1, o0, o1))
+    return out
+
+
+def _project_on_mesh(p, cfg, x, tp, hs: MeshHeads):
+    """q (B, S, h1 - h0, hd), k and v (B, S, k1 - k0, hd) of this rank's
+    heads: column-parallel q/k/v (and QKV bias) on x entering the split
+    (`Sharded.copy`), q/k norms replicated; no RoPE."""
     B, S, _ = x.shape
-    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    G = H // K
-    h0, h1 = tp.split(H)
-    k0, k1 = h0 // G, (h1 - 1) // G + 1
+    hd = cfg.head_dim
 
     def cols(name, lo, hi):
         leaf = p[name]
@@ -308,32 +336,73 @@ def _attention_on_mesh(p, cfg, x, tp, use_rope, causal, plain):
                          lo * hd, hi * hd)
 
     xp = tp.copy(x)
-    q, k, v = xp @ cols("wq", h0, h1), xp @ cols("wk", k0, k1), \
-        xp @ cols("wv", k0, k1)
+    q, k, v = xp @ cols("wq", hs.h0, hs.h1), xp @ cols("wk", hs.k0, hs.k1), \
+        xp @ cols("wv", hs.k0, hs.k1)
     if cfg.attn_bias:
-        q = q + cols("bq", h0, h1)
-        k = k + cols("bk", k0, k1)
-        v = v + cols("bv", k0, k1)
-    q = q.reshape(B, S, h1 - h0, hd)
-    k = k.reshape(B, S, k1 - k0, hd)
-    v = v.reshape(B, S, k1 - k0, hd)
+        q = q + cols("bq", hs.h0, hs.h1)
+        k = k + cols("bk", hs.k0, hs.k1)
+        v = v + cols("bv", hs.k0, hs.k1)
+    q = q.reshape(B, S, hs.h1 - hs.h0, hd)
+    k = k.reshape(B, S, hs.k1 - hs.k0, hd)
+    v = v.reshape(B, S, hs.k1 - hs.k0, hd)
     if cfg.qk_norm:
         q = rms_norm(q, tp.copy(p["q_norm"]), cfg.norm_eps)
         k = rms_norm(k, tp.copy(p["k_norm"]), cfg.norm_eps)
+    return q, k, v
+
+
+def _out_on_mesh(p, cfg, out, tp, hs: MeshHeads):
+    """Row-parallel ``wo`` on this rank's heads' outputs (B, S, h1 - h0,
+    hd), summed over ``model`` (`Sharded.reduce`)."""
+    B, S = out.shape[:2]
+    hd = cfg.head_dim
+    wo = tp.weight(p["wo"], "layers/attn/wo", 0, hs.h0 * hd, hs.h1 * hd)
+    return tp.reduce(out.reshape(B, S, (hs.h1 - hs.h0) * hd) @ wo)
+
+
+def _attention_on_mesh(p, cfg, x, tp, use_rope, causal, plain):
+    """`attention_layer` on this rank's q heads [h0, h1) of H (its
+    ``model`` share) and the kv heads [k0, k1) they read
+    (`_project_on_mesh`), the attention kernel on the local heads,
+    row-parallel ``wo`` summed over ``model`` (`_out_on_mesh`). The FSDP
+    dims of each weight are gathered over the data axes where it is
+    read. Returns (out, (k, v)) with k and v of kv heads [k0, k1)."""
+    B, S, _ = x.shape
+    G = cfg.num_heads // cfg.num_kv_heads
+    hs = mesh_heads(tp, cfg)[tp.mesh.coords["model"]]
+    q, k, v = _project_on_mesh(p, cfg, x, tp, hs)
     if use_rope:
         positions = torch.arange(S, device=x.device)[None, :]
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    k, v = _kv_for_heads(k, v, h0, h1, G, k0)
+    kq, vq = _kv_for_heads(k, v, hs.h0, hs.h1, G, hs.k0)
     attend = mha_ref if plain else mha
-    out = attend(q, k, v, causal=causal, window=cfg.sliding_window)
-    out = out.reshape(B, S, (h1 - h0) * hd)
-    wo = tp.weight(p["wo"], "layers/attn/wo", 0, h0 * hd, h1 * hd)
-    return tp.reduce(out @ wo), (k, v)
+    out = attend(q, kq, vq, causal=causal, window=cfg.sliding_window)
+    return _out_on_mesh(p, cfg, out, tp, hs), (k, v)
+
+
+def _write_slot(cfg, k_cache, v_cache, k, v, pos, tp=None):
+    """This token's k and v (B, 1, K, d) into slot ``pos % W`` of the
+    caches (B, W, K, d), in place; with ``cfg.uniform_decode`` every row
+    into the slot of the batch's first row (on a mesh the global first
+    row's: the first data rank's)."""
+    B, W = k_cache.shape[:2]
+    if cfg.uniform_decode:
+        first = pos[:1]
+        if tp is not None and tp.mesh.group(tp.data) is not None:
+            first = tp.gather_data(first).reshape(-1)[:1]
+        slot0 = (first % W).long()
+        k_cache.index_copy_(1, slot0, k)
+        v_cache.index_copy_(1, slot0, v)
+    else:
+        slot = (pos % W).long()
+        b_idx = torch.arange(B, device=k.device)
+        k_cache[b_idx, slot] = k[:, 0]
+        v_cache[b_idx, slot] = v[:, 0]
 
 
 def attention_decode_layer(p, cfg, x, k_cache, v_cache, slot_pos, pos, *,
-                           use_rope=True, plain=False):
+                           use_rope=True, plain=False, tp=None):
     """One-token self-attention against a ring cache.
 
     x: (B, 1, D); pos: (B,) absolute position of this token. ``slot_pos``
@@ -344,27 +413,70 @@ def attention_decode_layer(p, cfg, x, k_cache, v_cache, slot_pos, pos, *,
     in lockstep and every row writes slot ``pos[0] % W``, as the
     reference's does: where rows stand at other positions, the cache and
     ``slot_pos`` (stamped per row by the stack) disagree in both packages
-    alike.
+    alike. With ``tp`` (a serving placement) the caches are this rank's
+    shards of the decode layout, head_dim over ``model``
+    (`_attention_decode_on_mesh`).
     """
+    if tp is not None:
+        return _attention_decode_on_mesh(p, cfg, x, k_cache, v_cache,
+                                         slot_pos, pos, tp, use_rope, plain)
     B = x.shape[0]
     q, k, v = _project_qkv(p, cfg, x)
     if use_rope:
         q = apply_rope(q, pos[:, None], cfg.rope_theta)
         k = apply_rope(k, pos[:, None], cfg.rope_theta)
-    W = k_cache.shape[1]
-    if cfg.uniform_decode:
-        slot0 = (pos[:1] % W).long()
-        k_cache.index_copy_(1, slot0, k)
-        v_cache.index_copy_(1, slot0, v)
-    else:
-        slot = (pos % W).long()
-        b_idx = torch.arange(B, device=x.device)
-        k_cache[b_idx, slot] = k[:, 0]
-        v_cache[b_idx, slot] = v[:, 0]
+    _write_slot(cfg, k_cache, v_cache, k, v, pos)
     attend = decode_mha_ref if plain else decode_mha
     out = attend(q, k_cache, v_cache, slot_pos, pos, window=cfg.sliding_window)
     out = out.reshape(B, 1, cfg.num_heads * cfg.head_dim)
     return out @ p["wo"], (k_cache, v_cache)
+
+
+def _attention_decode_on_mesh(p, cfg, x, k_cache, v_cache, slot_pos, pos,
+                              tp, use_rope, plain):
+    """`attention_decode_layer` on a mesh whose caches (B, W, K, hd /
+    model) hold a head_dim slice of every head (the reference's decode
+    layout): q, k and v of this rank's heads (`_project_on_mesh`), RoPE
+    on whole heads, then one ``all_to_all`` over ``model`` each to the
+    slice of every head (k and v from the rank that is first to hold
+    each kv head); the slot written in place; the partial scores
+    (`decode_scores_hd`) summed over ``model`` in f32 (counted as
+    "score_all_reduce"), the softmax and values (`decode_values_hd`); an ``all_to_all`` back to this rank's
+    heads and row-parallel ``wo``. At ``model`` 1 the one-device kernel
+    (`decode_mha`) runs on the whole heads."""
+    hd = cfg.head_dim
+    heads = mesh_heads(tp, cfg)
+    hs = heads[tp.mesh.coords["model"]]
+    M = tp.mesh.shape["model"]
+    if M > 1 and tp.spec("cache/decode/k")[4] != "model":
+        raise NotImplementedError(
+            f"{cfg.name}: the decode cache's head_dim {hd} does not split "
+            f"over model {M}")
+    q, k, v = _project_on_mesh(p, cfg, x, tp, hs)
+    if use_rope:
+        q = apply_rope(q, pos[:, None], cfg.rope_theta)
+        k = apply_rope(k, pos[:, None], cfg.rope_theta)
+    own = slice(hs.o0 - hs.k0, hs.o1 - hs.k0)
+    counts = [r.o1 - r.o0 for r in heads]
+    q = C.all_to_all(q[:, 0], tp.mesh, "model", 2, 1,
+                     recv=[r.h1 - r.h0 for r in heads])      # (B, H, hd/M)
+    k = C.all_to_all(k[:, 0, own], tp.mesh, "model", 2, 1, recv=counts)
+    v = C.all_to_all(v[:, 0, own], tp.mesh, "model", 2, 1, recv=counts)
+    _write_slot(cfg, k_cache, v_cache, k[:, None], v[:, None], pos, tp)
+    if M == 1:
+        attend = decode_mha_ref if plain else decode_mha
+        out = attend(q[:, None], k_cache, v_cache, slot_pos, pos,
+                     window=cfg.sliding_window)[:, 0]
+    else:
+        scores, values = ((decode_scores_hd_ref, decode_values_hd_ref)
+                          if plain else (decode_scores_hd, decode_values_hd))
+        s = C.all_reduce(scores(q, k_cache), tp.mesh, "model",
+                         kind="score_all_reduce")
+        out = values(s, v_cache, slot_pos, pos, head_dim=hd,
+                     window=cfg.sliding_window)               # (B, H, hd/M)
+        out = C.all_to_all(out, tp.mesh, "model", 1, 2,
+                           send=[r.h1 - r.h0 for r in heads])
+    return _out_on_mesh(p, cfg, out[:, None], tp, hs), (k_cache, v_cache)
 
 
 def _cross_query(p, cfg, x):

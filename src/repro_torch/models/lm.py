@@ -16,6 +16,14 @@ dict that shares them (the reference returns a new cache).
 prefill layers dispatch by ``cfg.moe_impl`` and its decode layers always
 run the dropless `moe_dense`, as the reference's do.
 
+Serving on a mesh (the dense family; `check_mesh` refuses the others):
+`prefill` and `decode_step` take a serving placement ``tp``
+(``launch.sharding.serve_placement``) and run on this rank's shards
+under the reference's serving shardings: params and batch as in
+training, the prefill cache W over ``model``, the decode cache head_dim
+over ``model`` (`kv_cache.to_decode_layout` moves one to the other),
+the logits vocab over ``model``.
+
 Training: `forward_train` runs the stack without a cache and with grad
 enabled, each layer under the remat policy ``cfg.remat_policy``
 (`checkpoint_layer`: "none", "full", or "dots", which saves the outputs
@@ -189,15 +197,18 @@ def _seq_sublayers(cfg, lp, x, plain=False, tp=None):
     return x + L.mlp_layer(lp["mlp"], h2, tp), cache_out, aux
 
 
-def _decode_sublayers(cfg, lp, x, cache, i, slot_pos, pos, plain=False):
+def _decode_sublayers(cfg, lp, x, cache, i, slot_pos, pos, plain=False,
+                      tp=None):
     """One layer, one token; writes its K/V and SSM state into layer i of
-    the cache, in place."""
+    the cache, in place. With ``tp`` (a serving placement; the dense
+    family) attention and the MLP run on this rank's share, the cache in
+    the decode layout (`layers.attention_decode_layer`)."""
     fam = cfg.family
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     if fam in DENSE + ("moe", "hybrid"):
         attn_out, _ = L.attention_decode_layer(
             lp["attn"], cfg, h, cache["k"][i], cache["v"][i], slot_pos, pos,
-            plain=plain)
+            plain=plain, tp=tp)
     if fam in ("ssm", "hybrid"):
         m_out, st = M.mamba_decode_step(
             lp["mamba"], cfg, h, {"conv": cache["conv"][i],
@@ -212,7 +223,7 @@ def _decode_sublayers(cfg, lp, x, cache, i, slot_pos, pos, plain=False):
     if fam == "moe":
         # T = B tokens: the dropless dense dispatch, whatever moe_impl says
         return x + MOE.moe_dense(lp["moe"], cfg, h2)[0]
-    return x + L.mlp_layer(lp["mlp"], h2)
+    return x + L.mlp_layer(lp["mlp"], h2, tp)
 
 
 # ------------------------------------------------------------------- stacks
@@ -243,13 +254,20 @@ def checkpoint_layer(policy, fn, *args):
 
 def run_stack(cfg, params, x, cache=None, plain=False, tp=None):
     """Run the layer stack over a full sequence. With ``cache`` (prefill)
-    each layer's slice of it is written; without (training) nothing is,
-    and each layer runs under `checkpoint_layer` (on a mesh, ``tp``,
+    each layer's slice of it is written (on a mesh, ``tp``, this rank's
+    shard of the prefill layout, `kv_cache.write_prefill_on_mesh`, each
+    kv head sent by the first rank that holds it); without (training)
+    nothing is, and each layer runs under `checkpoint_layer` (on a mesh
     its weights' gathers inside it, so the recompute gathers again).
     Returns the final-normed hidden states and, in training, the sum of
     the layers' moe losses (a 0-d f32 tensor; None in prefill)."""
     aux = (torch.zeros((), dtype=torch.float32, device=x.device)
            if cache is None else None)
+    if cache is not None and tp is not None:
+        heads = L.mesh_heads(tp, cfg)
+        me = heads[tp.mesh.coords["model"]]
+        own = slice(me.o0 - me.k0, me.o1 - me.k0)
+        counts = [r.o1 - r.o0 for r in heads]
     for i in range(cfg.num_layers):
         lp = layer_params(params["layers"], i)
         if cache is None:
@@ -258,8 +276,12 @@ def run_stack(cfg, params, x, cache=None, plain=False, tp=None):
             if aux_l is not None:
                 aux = aux + aux_l
             continue
-        x, out, _ = _seq_sublayers(cfg, lp, x, plain=plain)
-        if "k" in out:                    # into the (ring) cache slice
+        x, out, _ = _seq_sublayers(cfg, lp, x, plain=plain, tp=tp)
+        if "k" in out and tp is not None:
+            for name in ("k", "v"):
+                kvc.write_prefill_on_mesh(cache[name][i],
+                                          out[name][:, :, own], tp, counts)
+        elif "k" in out:                  # into the (ring) cache slice
             kvc.write_prefill_entries(cache["k"][i], out["k"])
             kvc.write_prefill_entries(cache["v"][i], out["v"])
         if "ssm" in out:
@@ -273,12 +295,13 @@ def _train_layer(cfg, lp, x, plain, tp=None):
     return x, aux
 
 
-def run_stack_decode(cfg, params, x, cache, pos, plain=False):
+def run_stack_decode(cfg, params, x, cache, pos, plain=False, tp=None):
     """Run the stack for one decode token; cache leaves have leading L.
 
     Where the cache has ``slot_pos``, it gets this token's position in
     slot ``pos % W`` first (every layer writes the same slot), all in
-    place on the device.
+    place on the device. With ``tp`` the cache is this rank's shard of
+    the decode layout (`_decode_sublayers`).
     """
     slot_pos = cache.get("slot_pos")
     if slot_pos is not None:
@@ -287,7 +310,7 @@ def run_stack_decode(cfg, params, x, cache, pos, plain=False):
         slot_pos[b_idx, (pos % W).long()] = pos
     for i in range(cfg.num_layers):
         x = _decode_sublayers(cfg, layer_params(params["layers"], i), x,
-                              cache, i, slot_pos, pos, plain=plain)
+                              cache, i, slot_pos, pos, plain=plain, tp=tp)
     new_cache = dict(cache)
     new_cache["pos"] = pos + 1
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), new_cache
@@ -295,12 +318,12 @@ def run_stack_decode(cfg, params, x, cache, pos, plain=False):
 
 # ------------------------------------------------------------------ top-level
 
-def _lm_head(cfg, params, tp=None):
+def _lm_head(cfg, params, tp=None, whole=False):
     """The (D, V) head; with ``tp`` this rank's vocab columns [v0, v1)
-    (``tp.split(V)``), whole along D."""
+    (``tp.split(V)``), or with ``whole`` every column, whole along D."""
     if tp is None:
         return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    v0, v1 = tp.split(cfg.vocab_size)
+    v0, v1 = (0, cfg.vocab_size) if whole else tp.split(cfg.vocab_size)
     if cfg.tie_embeddings:
         return tp.weight(params["embed"], "embed", 0, v0, v1).T
     return tp.weight(params["lm_head"], "lm_head", 1, v0, v1)
@@ -380,10 +403,27 @@ def chunked_ce_loss(cfg, params, hidden, targets, chunk=LOSS_CHUNK, tp=None):
     return tot / cnt.clamp_min(1.0)
 
 
-def check_mesh(cfg, tp) -> None:
+#: the ROADMAP item (Queue 1) that ports each family's serving steps on
+#: a mesh
+SERVE_MESH_ITEMS = {"ssm": "11b", "hybrid": "11b", "moe": "11c",
+                    "vlm": "11d", "enc-dec": "11d"}
+
+
+def check_mesh(cfg, tp, serve: bool = False) -> None:
     """Exit for a config the reference does not train on a mesh of more
-    than one rank: an enc-dec or vlm config, which its driver refuses."""
+    than one rank: an enc-dec or vlm config, which its driver refuses.
+    With ``serve`` (a prefill or decode step) raise for every family but
+    the dense one: their sharded serving steps are not ported yet
+    (`SERVE_MESH_ITEMS`), and nothing runs half-sharded."""
     if tp is None:
+        return
+    if serve:
+        fam = "enc-dec" if cfg.is_encoder_decoder else cfg.family
+        if fam != "dense" or cfg.embed_input:
+            raise NotImplementedError(
+                f"{cfg.name}: the {fam} family's serving steps on a mesh are "
+                f"not ported (ROADMAP Queue 1 item "
+                f"{SERVE_MESH_ITEMS.get(fam, '11d')})")
         return
     if cfg.is_encoder_decoder or cfg.embed_input:
         raise SystemExit(f"{cfg.name}: the reference trains no enc-dec or "
@@ -423,39 +463,69 @@ def forward_train(cfg, params, batch, plain=False, tp=None):
 
 
 @torch.inference_mode()
-def prefill(cfg, params, batch, cache_len=None, plain=False):
+def prefill(cfg, params, batch, cache_len=None, plain=False, tp=None):
     """Process the prompt (``batch["tokens"]``, or with
     ``cfg.embed_input`` ``batch["inputs_embeds"]`` (B, S, D) cast to
     ``cfg.dtype``); returns (last-token logits, decode cache).
 
     Without ``cache_len`` the cache is exactly S wide, as in the
     reference, so the first decode step overwrites slot 0 (position 0).
+
+    ``tp`` (a serving placement, ``launch.sharding.serve_placement``, of
+    this cache's whole shape; the dense family, `check_mesh`): ``params``
+    are this rank's shards and ``batch`` its rows (split over the data
+    axes); the cache is this rank's shard of the prefill layout (W over
+    ``model``; `kv_cache.to_decode_layout` moves it to the decode
+    layout) and the logits its shard under ``logits_spec`` (its vocab
+    columns where ``model`` divides V, else every column).
     """
     check_supported(cfg)
+    check_mesh(cfg, tp, serve=True)
     if cfg.embed_input:
         x = batch["inputs_embeds"].to(DTYPES[cfg.dtype])
     else:
-        x = embed_tokens(cfg, params, batch["tokens"])
+        x = embed_tokens(cfg, params, batch["tokens"], tp)
     B, S = x.shape[:2]
     W = kvc.cache_width(cfg, max(cache_len or S, S))
-    cache = kvc.init_cache(cfg, B, W, dtype=x.dtype, device=x.device)
-    hidden, _ = run_stack(cfg, params, x, cache, plain=plain)
-    logits = (hidden[:, -1:] @ _lm_head(cfg, params)).float()
+    if tp is None:
+        cache = kvc.init_cache(cfg, B, W, dtype=x.dtype, device=x.device)
+    else:
+        if tp.shapes["cache/prefill/slot_pos"][1] != W:
+            raise ValueError(f"the placement's cache is "
+                             f"{tp.shapes['cache/prefill/slot_pos'][1]} "
+                             f"slots wide, this prefill's {W}")
+        cache = kvc.init_cache_on_mesh(cfg, tp, "prefill", dtype=x.dtype,
+                                       device=x.device)
+    hidden, _ = run_stack(cfg, params, x, cache, plain=plain, tp=tp)
+    logits = (hidden[:, -1:] @ _serve_head(cfg, params, tp)).float()
     cache["pos"].fill_(S)
     if "slot_pos" in cache:
         cache["slot_pos"] = kvc.prefill_slot_pos(S, W, B, device=x.device)
     return logits, cache
 
 
+def _serve_head(cfg, params, tp):
+    """The head a serving step's logits come from: on a mesh this rank's
+    vocab columns where ``logits_spec`` splits V over ``model``, else
+    every column."""
+    if tp is None:
+        return _lm_head(cfg, params)
+    return _lm_head(cfg, params, tp, whole=tp.specs["logits"][2] != "model")
+
+
 @torch.inference_mode()
-def decode_step(cfg, params, cache, token, plain=False):
+def decode_step(cfg, params, cache, token, plain=False, tp=None):
     """One token: (B, 1) int32 -> (logits (B, 1, V) f32, cache).
 
-    The cache is updated in place; see the module docstring.
+    The cache is updated in place; see the module docstring. With ``tp``
+    (`prefill`'s) the cache is this rank's shard of the decode layout
+    (head_dim over ``model``) and ``token`` its rows; the logits as
+    `prefill`'s.
     """
     check_supported(cfg)
-    x = embed_tokens(cfg, params, token)
+    check_mesh(cfg, tp, serve=True)
+    x = embed_tokens(cfg, params, token, tp)
     hidden, new_cache = run_stack_decode(cfg, params, x, cache, cache["pos"],
-                                         plain=plain)
-    logits = (hidden @ _lm_head(cfg, params)).float()
+                                         plain=plain, tp=tp)
+    logits = (hidden @ _serve_head(cfg, params, tp)).float()
     return logits, new_cache

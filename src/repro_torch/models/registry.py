@@ -43,13 +43,20 @@ class Model:
         return self._mod.forward_train(self.cfg, params, batch, plain=plain,
                                        tp=tp)
 
-    def prefill(self, params, batch, cache_len=None, plain=False):
+    def prefill(self, params, batch, cache_len=None, plain=False, tp=None):
+        """The family's prefill; ``tp`` (a serving placement) runs it on
+        a mesh, the dense family only (`lm.check_mesh`)."""
+        lm.check_mesh(self.cfg, tp, serve=True)
+        on_mesh = {} if tp is None else {"tp": tp}
         return self._mod.prefill(self.cfg, params, batch,
-                                 cache_len=cache_len, plain=plain)
+                                 cache_len=cache_len, plain=plain, **on_mesh)
 
-    def decode_step(self, params, cache, token, plain=False):
+    def decode_step(self, params, cache, token, plain=False, tp=None):
+        """The family's decode step; ``tp`` as `prefill`'s."""
+        lm.check_mesh(self.cfg, tp, serve=True)
+        on_mesh = {} if tp is None else {"tp": tp}
         return self._mod.decode_step(self.cfg, params, cache, token,
-                                     plain=plain)
+                                     plain=plain, **on_mesh)
 
     def init_cache(self, batch, seq_len, dtype=torch.bfloat16):
         return kvc.init_cache(self.cfg, batch, seq_len, dtype=dtype,

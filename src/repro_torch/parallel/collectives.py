@@ -1,8 +1,9 @@
 """Collectives over the axes of a `RankMesh`, and the autograd Functions
 that tensor and FSDP parallelism are built from.
 
-* `all_reduce`, `all_gather` (along any dim) and `reduce_scatter` (along
-  any dim) over a tuple of mesh axes, outside autograd;
+* `all_reduce`, `all_gather` (along any dim), `reduce_scatter` (along
+  any dim) and `all_to_all` (parts along one dim out, along another in)
+  over a tuple of mesh axes, outside autograd;
 * `gather`: all-gather forward, reduce-scatter (sum) backward: a
   sharded weight made whole where it is used, its gradient summed back
   to the shard;
@@ -18,7 +19,8 @@ function returns its input: no collective and no copy.
 
 Under gloo a CUDA tensor goes through host memory (gloo's own CUDA
 support varies by build); every backend runs the same calls
-(``reduce_scatter_tensor`` for a reduce-scatter), and `backend_note`
+(``reduce_scatter_tensor`` for a reduce-scatter, ``all_to_all_single``
+for an all-to-all), and `backend_note`
 names what ran. Each
 mesh's ``stats`` (a `Stats`) counts its collectives: calls, bytes, host
 seconds and, for NCCL on the card, device time between CUDA events
@@ -26,6 +28,7 @@ around each.
 """
 from __future__ import annotations
 
+import math
 import time
 
 import torch
@@ -33,8 +36,8 @@ import torch.distributed as dist
 
 
 class Stats:
-    """Calls and input bytes per collective, host seconds inside them
-    and, on the card under NCCL, their device time."""
+    """Calls, input bytes and host seconds per collective (in all and by
+    kind) and, on the card under NCCL, their device time."""
 
     def __init__(self):
         self.reset()
@@ -42,13 +45,17 @@ class Stats:
     def reset(self) -> None:
         self.calls: dict[str, int] = {}
         self.bytes = 0
+        self.bytes_by: dict[str, int] = {}
         self.host_s = 0.0
+        self.host_s_by: dict[str, float] = {}
         self._events: list = []
 
     def add(self, op: str, nbytes: int, host_s: float, events=None) -> None:
         self.calls[op] = self.calls.get(op, 0) + 1
         self.bytes += nbytes
+        self.bytes_by[op] = self.bytes_by.get(op, 0) + nbytes
         self.host_s += host_s
+        self.host_s_by[op] = self.host_s_by.get(op, 0.0) + host_s
         if events is not None:
             self._events.append(events)
 
@@ -62,7 +69,9 @@ class Stats:
 
     def summary(self) -> dict:
         return {"calls": dict(self.calls), "bytes": self.bytes,
-                "host_s": self.host_s, "device_s": self.device_s()}
+                "bytes_by": dict(self.bytes_by), "host_s": self.host_s,
+                "host_s_by": dict(self.host_s_by),
+                "device_s": self.device_s()}
 
 
 def _staged(mesh, x) -> bool:
@@ -112,13 +121,13 @@ def _buffer(mesh, x):
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
-def all_reduce(x, mesh, axes, op: str = "sum"):
+def all_reduce(x, mesh, axes, op: str = "sum", kind: str = "all_reduce"):
     """The sum (or max) of ``x`` over the ranks of ``axes``, a new
-    tensor."""
+    tensor, counted in the mesh's `Stats` under ``kind``."""
     group = mesh.group(axes)
     if group is None:
         return x
-    with _Timed("all_reduce", mesh, x):
+    with _Timed(kind, mesh, x):
         buf = _buffer(mesh, x)
         dist.all_reduce(buf, op=_OPS[op], group=group)
         return buf.to(x.device)
@@ -150,6 +159,44 @@ def reduce_scatter(x, mesh, axes, dim: int):
         out = src.new_empty((part,) + tuple(src.shape[1:]))
         dist.reduce_scatter_tensor(out, src, group=group)
         return out.movedim(0, dim).contiguous().to(x.device)
+
+
+def all_to_all(x, mesh, axes, split_dim, cat_dim, *, send=None,
+               recv=None):
+    """Every rank of ``axes`` cuts ``x`` into parts along ``split_dim``,
+    sends part j to the rank of combined coordinate j, and concatenates
+    the parts it receives along ``cat_dim`` in the order of their senders'
+    coordinates. ``send`` gives the parts' sizes along ``split_dim``
+    (every rank the same list; default n equal parts); ``split_dim`` None
+    sends the whole of ``x`` to every rank. ``recv`` gives the size along
+    ``cat_dim`` of the part each sender sends (default ``x``'s own).
+    Sizes may be 0."""
+    group = mesh.group(axes)
+    if group is None:
+        return x
+    n = mesh.axes_size(axes)
+    me = mesh.index(axes)
+    if split_dim is None:
+        parts = [x] * n
+    else:
+        send = send or [x.shape[split_dim] // n] * n
+        parts = torch.split(x, list(send), dim=split_dim)
+    recv = recv or [x.shape[cat_dim]] * n
+    shapes = []
+    for size in recv:
+        shape = list(parts[me].shape)
+        shape[cat_dim] = size
+        shapes.append(shape)
+    with _Timed("all_to_all", mesh, x):
+        src = torch.cat([p.reshape(-1) for p in parts])
+        if _staged(mesh, x):
+            src = src.cpu()
+        out = src.new_empty(sum(math.prod(s) for s in shapes))
+        dist.all_to_all_single(out, src, [math.prod(s) for s in shapes],
+                               [p.numel() for p in parts], group=group)
+        pieces = [t.reshape(s) for t, s in zip(
+            out.split([math.prod(s) for s in shapes]), shapes)]
+        return torch.cat(pieces, dim=cat_dim).to(x.device)
 
 
 class _Gather(torch.autograd.Function):

@@ -14,9 +14,9 @@ axes from whoever builds it (``repro_torch.launch.sharding.placement``).
 
 `local_shard` cuts this rank's shard of a whole tensor, `gather_full`
 makes it whole again, `state_to_mesh` / `state_from_mesh` do that for a
-whole `TrainState`, and `Sharded` fetches the part of a weight that one
-rank's share of a layer's work reads (`Sharded.weight`,
-`Sharded.weight_ranges`).
+whole `TrainState` and `cache_to_mesh` / `cache_from_mesh` for a decode
+cache, and `Sharded` fetches the part of a weight that one rank's share
+of a layer's work reads (`Sharded.weight`, `Sharded.weight_ranges`).
 """
 from __future__ import annotations
 
@@ -135,8 +135,13 @@ class Sharded:
     # ----------------------------------------------------------- layout
     def split(self, n: int) -> tuple[int, int]:
         """This rank's share [lo, hi) of n over ``model``."""
-        M, m = self.mesh.shape["model"], self.mesh.coords["model"]
-        return m * n // M, (m + 1) * n // M
+        return self.splits(n)[self.mesh.coords["model"]]
+
+    def splits(self, n: int) -> list[tuple[int, int]]:
+        """Every ``model`` rank's share [lo, hi) of n, in coordinate
+        order."""
+        M = self.mesh.shape["model"]
+        return [(m * n // M, (m + 1) * n // M) for m in range(M)]
 
     def spec(self, path: str, ndim: int | None = None) -> tuple:
         """The spec of ``path``; with ``ndim`` that of one layer's slice
@@ -249,6 +254,21 @@ def state_from_mesh(state, sharded: Sharded):
     specs = sharded.state_specs(state)
     return map_leaves(state, lambda p, leaf: gather_full(leaf, specs[p],
                                                           sharded.mesh))
+
+
+def cache_to_mesh(cache, sharded: Sharded, kind: str):
+    """The shards of a whole decode cache that this rank holds in the
+    ``kind`` ("prefill" or "decode") layout: each leaf by its spec at
+    ``cache/{kind}/{name}`` (a serving placement's)."""
+    return {name: local_shard(leaf, sharded.specs[f"cache/{kind}/{name}"],
+                              sharded.mesh) for name, leaf in cache.items()}
+
+
+def cache_from_mesh(cache, sharded: Sharded, kind: str):
+    """The whole decode cache from every rank's shards in the ``kind``
+    layout (a collective; every rank gets it)."""
+    return {name: gather_full(leaf, sharded.specs[f"cache/{kind}/{name}"],
+                              sharded.mesh) for name, leaf in cache.items()}
 
 
 def state_bytes(state) -> int:

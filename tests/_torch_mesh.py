@@ -524,3 +524,304 @@ def one_step(arch, overrides, shape=None, plain=False):
     out["params"] = {k: v.numpy() for k, v in _flat(state.params).items()}
     out["mu"] = {k: v.numpy() for k, v in _flat(state.mu).items()}
     return out
+
+
+# ------------------------------------------------------ the serving steps
+#
+# The reference's jitted prefill and decode step under the dry run's in
+# and out shardings (repro/launch/dryrun.py: params and batch by the
+# param and batch rules, the prefill cache by ``cache_shardings(kind=
+# "prefill")``, the decode cache by ``kind="decode"``, the logits by
+# ``logits_sharding``), and the port's ``prefill`` / ``decode_step`` on
+# gloo ranks with a serving placement, from the same params and tokens.
+
+#: decode steps after the prefill: the first writes slot S % S = 0 and
+#: evicts position 0
+SERVE_STEPS = 3
+SERVE_SEED = 9
+
+
+def serve_inputs(cfg) -> dict:
+    """The prompt (B, S) and the decode steps' tokens (steps, B, 1)."""
+    rng = np.random.default_rng(SERVE_SEED)
+    return {"tokens": rng.integers(0, cfg.vocab_size, (B, S),
+                                   dtype=np.int32),
+            "decode": rng.integers(0, cfg.vocab_size, (SERVE_STEPS, B, 1),
+                                   dtype=np.int32)}
+
+
+def _with_biases(cfg, params: dict) -> dict:
+    """``params`` (flat numpy) with the QKV biases drawn nonzero where the
+    config has them (the init leaves them 0)."""
+    if not cfg.attn_bias:
+        return params
+    rng = np.random.default_rng(SERVE_SEED + 1)
+    out = dict(params)
+    for name in ("bq", "bk", "bv"):
+        key = f"layers/attn/{name}"
+        out[key] = rng.normal(0.0, 0.5, params[key].shape).astype(np.float32)
+    return out
+
+
+def _reference_serve_main(cases, out) -> None:
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import AxisType
+
+    from repro.configs import registry
+    from repro.launch import sharding as SH
+    from repro.models import get_model
+
+    def shard_shapes(shardings, values):
+        return {k: tuple(shardings[k].shard_shape(v.shape))
+                for k, v in values.items()}
+
+    result = {}
+    for case, arch, overrides, meshes in cases:
+        cfg = _f32(registry.get_smoke(arch)).replace(**(overrides or {}))
+        model = get_model(cfg)
+        flat = _with_biases(cfg, _flat(jax.tree.map(
+            np.asarray, model.init_params(jax.random.PRNGKey(SEED)))))
+        params = jax.tree.map(jnp.asarray, _unflat(flat))
+        inputs = serve_inputs(cfg)
+        batch = {"tokens": jnp.asarray(inputs["tokens"])}
+        _, cache1 = jax.jit(model.prefill)(params, batch)
+        rec = {"params": flat, "inputs": inputs,
+               "prefill_cache": {k: np.asarray(v) for k, v in
+                                 cache1.items()},
+               "meshes": {}}
+        pshapes = jax.eval_shape(lambda: params)
+        for shape in meshes:
+            n = shape[0] * shape[1]
+            mesh = jax.make_mesh(shape, ("data", "model"),
+                                 axis_types=(AxisType.Auto,) * 2,
+                                 devices=jax.devices()[:n])
+            pshard = SH.param_shardings(pshapes, mesh)
+            bshard = SH.batch_shardings(jax.eval_shape(lambda: batch), mesh)
+            lshape, cshapes = jax.eval_shape(model.prefill, pshapes, batch)
+            lshard = SH.logits_sharding(mesh, lshape.shape)
+            cpre = SH.cache_shardings(cshapes, mesh, kind="prefill")
+            cdec = SH.cache_shardings(cshapes, mesh)
+            token = jax.ShapeDtypeStruct((B, 1), jnp.int32)
+            tshard = SH.batch_shardings({"t": token}, mesh)["t"]
+            prefill = jax.jit(lambda p, b: model.prefill(p, b),
+                              in_shardings=(pshard, bshard),
+                              out_shardings=(lshard, cpre))
+            step = jax.jit(lambda p, c, t: model.decode_step(p, c, t),
+                           in_shardings=(pshard, cdec, tshard),
+                           out_shardings=(lshard, cdec))
+            with jax.set_mesh(mesh):
+                p = jax.device_put(params, pshard)
+                logits, cache = prefill(p, jax.device_put(batch, bshard))
+                c = jax.device_put(cache1, cdec)
+                steps = []
+                for t in inputs["decode"]:
+                    lg, c = step(p, c, jax.device_put(jnp.asarray(t),
+                                                      tshard))
+                    steps.append(np.asarray(lg))
+            rec["meshes"][shape] = {
+                "prefill": {"logits": np.asarray(logits),
+                            "cache": {k: np.asarray(v)
+                                      for k, v in cache.items()}},
+                "prefill_shapes": {
+                    "logits": tuple(lshard.shard_shape(logits.shape)),
+                    **shard_shapes(cpre, cache)},
+                "decode": {"logits": steps,
+                           "cache": {k: np.asarray(v) for k, v in
+                                     c.items()}},
+                "decode_shapes": {
+                    "logits": tuple(lshard.shard_shape(lg.shape)),
+                    **shard_shapes(cdec, c)}}
+        result[case] = rec
+    with open(out, "wb") as f:
+        pickle.dump(result, f)
+
+
+def reference_serves(cases, tmp: Path) -> dict:
+    """The reference's sharded prefill and decode steps for each of
+    ``cases`` ((key, arch, overrides, meshes)), all in one subprocess
+    with 4 host devices: {key: record}, with each mesh's logits, caches
+    and shard shapes, and the one-device prefill's cache that the decode
+    steps start from."""
+    out = tmp / "reference_serve.pkl"
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT), env.get("PYTHONPATH", "")])
+    code = (f"from tests._torch_mesh import _reference_serve_main; "
+            f"_reference_serve_main({list(cases)!r}, {str(out)!r})")
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True,
+                          timeout=REF_TIMEOUT_S)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    with open(out, "rb") as f:
+        return pickle.load(f)
+
+
+def port_serve_rank(arch, overrides, ref, meshes):
+    """On each mesh of ``meshes`` (all of this world's size) the port's
+    sharded prefill and ``SERVE_STEPS`` decode steps of ``arch`` (smoke,
+    f32, with ``overrides``) from the reference's params and inputs
+    (``ref``, a `reference_serves` record): each as (this rank's result,
+    its shard of the reference's) pairs of numpy arrays, the results'
+    shard shapes, the decode steps' collectives by kind, and whether
+    `kv_cache.to_decode_layout` of the port's own prefill cache equals
+    that cache placed by the decode rules."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.mesh import rank_mesh
+    from repro_torch.models import get_model
+    from repro_torch.models import kv_cache as kvc
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.models.registry import param_structs
+    from repro_torch.parallel import placement as P
+
+    cfg = _f32(registry.get_smoke(arch)).replace(**(overrides or {}))
+    model = get_model(cfg, device="cpu")
+    params = params_from_numpy(_unflat(ref["params"]))
+    inputs = ref["inputs"]
+    out = {}
+    for shape in meshes:
+        mesh = rank_mesh(("data", "model"), shape, backend="gloo")
+        tp = SH.serve_placement(mesh, param_structs(cfg), kvc.init_cache(
+            cfg, B, S, dtype=torch.float32, device="meta"))
+        local = P.params_to_mesh(params, tp)
+        want = ref["meshes"][shape]
+
+        def rows(x):
+            t = torch.from_numpy(np.ascontiguousarray(x))
+            return P.local_shard(t, SH.batch_spec("t", tuple(t.shape), mesh),
+                                 mesh)
+
+        def pairs(got, whole, kind):
+            return {k: (v.numpy(), P.local_shard(
+                torch.from_numpy(whole[k]), tp.specs[f"cache/{kind}/{k}"],
+                mesh).numpy()) for k, v in got.items()}
+
+        def logits_pair(got, whole):
+            return (got.numpy(), P.local_shard(torch.from_numpy(whole),
+                                               tp.specs["logits"],
+                                               mesh).numpy())
+
+        mesh.stats.reset()
+        logits, cache = model.prefill(local, {"tokens": rows(
+            inputs["tokens"])}, tp=tp)
+        rec = {"prefill_collectives": mesh.stats.summary(),
+               "prefill": {"logits": logits_pair(
+                   logits, want["prefill"]["logits"]),
+                   "cache": pairs(cache, want["prefill"]["cache"],
+                                  "prefill")},
+               "prefill_shapes": {"logits": tuple(logits.shape),
+                                  **{k: tuple(v.shape)
+                                     for k, v in cache.items()}}}
+        moved = kvc.to_decode_layout(cache, tp)
+        placed = P.cache_to_mesh(P.cache_from_mesh(cache, tp, "prefill"), tp,
+                                 "decode")
+        rec["layout_equal"] = list(moved) == list(placed) and all(
+            moved[k].shape == placed[k].shape and torch.equal(moved[k],
+                                                              placed[k])
+            for k in moved)
+        c = P.cache_to_mesh({k: torch.from_numpy(v) for k, v in
+                             ref["prefill_cache"].items()}, tp, "decode")
+        steps, colls = [], []
+        for t, whole in zip(inputs["decode"], want["decode"]["logits"]):
+            mesh.stats.reset()
+            lg, c = model.decode_step(local, c, rows(t), tp=tp)
+            colls.append(mesh.stats.summary())
+            steps.append(logits_pair(lg, whole))
+        rec["decode"] = {"logits": steps,
+                         "cache": pairs(c, want["decode"]["cache"],
+                                        "decode")}
+        rec["decode_collectives"] = colls
+        rec["decode_shapes"] = {"logits": tuple(lg.shape),
+                                **{k: tuple(v.shape) for k, v in c.items()}}
+        rec["bytes"] = {"params": P.state_bytes(local),
+                        "cache": P.state_bytes(c)}
+        out[shape] = rec
+    return out
+
+
+def port_serve_ranks(jobs):
+    """`port_serve_rank` for each of ``jobs`` in turn, on one spawn's
+    ranks."""
+    return [port_serve_rank(**job) for job in jobs]
+
+
+def serve_cases(cases: dict, tmp: Path) -> dict:
+    """The reference's serving steps for each of ``cases`` ({key: (arch,
+    overrides, meshes)}; one subprocess for all) and the port's on the
+    ranks of each world size among them (one spawn a world size):
+    {key: (ref, {shape: [rank results]})}."""
+    from repro_torch.launch.ranks import spawn
+
+    refs = reference_serves([(key, arch, overrides, tuple(meshes))
+                             for key, (arch, overrides, meshes)
+                             in cases.items()], tmp)
+    port = {key: {} for key in cases}
+    for world in sorted({m[0] * m[1] for _, _, meshes in cases.values()
+                         for m in meshes}):
+        jobs = [(key, {"arch": arch, "overrides": overrides,
+                       "ref": refs[key], "meshes": [
+                           m for m in meshes if m[0] * m[1] == world]})
+                for key, (arch, overrides, meshes) in cases.items()
+                if any(m[0] * m[1] == world for m in meshes)]
+        res = spawn("tests._torch_mesh:port_serve_ranks", world,
+                    {"jobs": [job for _, job in jobs]},
+                    timeout_s=RANK_TIMEOUT_S * len(jobs))
+        for i, (key, job) in enumerate(jobs):
+            for shape in job["meshes"]:
+                port[key][shape] = [r[i][shape] for r in res]
+    return {key: (refs[key], port[key]) for key in cases}
+
+
+def serve_one_device_pairs(arch, shape, seq):
+    """The port's sharded prefill and ``SERVE_STEPS`` decode steps of
+    ``arch`` (smoke, f32, seeded params) on a (data, model) ``shape``
+    mesh at a prompt of ``seq`` against its one-device steps: (this
+    rank's logits, its shard of the one-device logits) for the prefill
+    and each step, and the prefill cache's specs."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.mesh import rank_mesh
+    from repro_torch.models import get_model
+    from repro_torch.models import kv_cache as kvc
+    from repro_torch.models.registry import param_structs
+    from repro_torch.parallel import placement as P
+
+    cfg = _f32(registry.get_smoke(arch))
+    model = get_model(cfg, device="cpu")
+    params = model.init_params(torch.Generator().manual_seed(SEED))
+    rng = np.random.default_rng(SERVE_SEED)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, seq),
+                                         dtype=np.int32))
+    steps = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                          (SERVE_STEPS, B, 1),
+                                          dtype=np.int32))
+    logits, cache = model.prefill(params, {"tokens": toks})
+    want = [logits]
+    for t in steps:
+        logits, cache = model.decode_step(params, cache, t)
+        want.append(logits)
+    mesh = rank_mesh(("data", "model"), shape, backend="gloo")
+    tp = SH.serve_placement(mesh, param_structs(cfg), kvc.init_cache(
+        cfg, B, seq, dtype=torch.float32, device="meta"))
+    local = P.params_to_mesh(params, tp)
+
+    def rows(t):
+        return P.local_shard(t, SH.batch_spec("t", tuple(t.shape), mesh),
+                             mesh)
+
+    logits, cache = model.prefill(local, {"tokens": rows(toks)}, tp=tp)
+    got = [logits]
+    cache = kvc.to_decode_layout(cache, tp)
+    for t in steps:
+        logits, cache = model.decode_step(local, cache, rows(t), tp=tp)
+        got.append(logits)
+    return {"pairs": [(g.numpy(), P.local_shard(w, tp.specs["logits"],
+                                                 mesh).numpy())
+                      for g, w in zip(got, want)],
+            "prefill_spec": tp.specs["cache/prefill/k"]}

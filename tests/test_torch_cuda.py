@@ -13,7 +13,11 @@ import pytest
 import torch
 
 from repro_torch.configs import registry
-from repro_torch.kernels.decode_attention import decode_mha, decode_mha_ref
+from repro_torch.kernels.decode_attention import (decode_mha, decode_mha_ref,
+                                                  decode_scores_hd,
+                                                  decode_scores_hd_ref,
+                                                  decode_values_hd,
+                                                  decode_values_hd_ref)
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import (mha, mha_bwd, mha_ref,
                                                  mha_ref_bwd,
@@ -1128,3 +1132,97 @@ def test_ssm_families_refuse_to_train_on_the_card(card, arch):
     for a, b in zip(out[False][1], out[True][1]):
         err = (a.float() - b.float()).abs().max().item()
         assert err <= 5 * tol * max(b.float().abs().max().item(), 1e-6)
+
+
+# --------------------------------------- the head_dim-slice decode pair
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,K,W,hs,window,fill", [
+    (2, 32, 8, 2048, 64, 0, 2049),     # llama's heads, hd 128 over model 2
+    (2, 32, 8, 2048, 32, 0, 2049),     # over model 4
+    (8, 32, 8, 2048, 8, 0, 2049),      # over model 16, B 8
+    (1, 64, 8, 2048, 32, 0, 2049),     # qwen2's G 8
+    (1, 56, 8, 2048, 16, 0, 700),      # yi's G 7, partial fill
+    (2, 4, 4, 300, 8, 100, 350),       # G 1, a window
+    (1, 6, 3, 1000, 16, 0, 1000),      # G 2, W not a multiple of 128
+    (2, 8, 2, 64, 32, 0, 0),           # no valid slot: the mean of V
+])
+def test_decode_pair_matches_plain(card, dtype, B, H, K, W, hs, window,
+                                   fill):
+    """Each kernel of the pair against its plain version on the same
+    inputs, and the values kernel on the plain scores."""
+    gen = torch.Generator(device=card).manual_seed(11)
+    q = _randn(gen, (B, H, hs), dtype)
+    kc, vc = (_randn(gen, (B, W, K, hs), dtype) for _ in range(2))
+    sp = ring_slot_pos(W, fill, B, card)
+    pos = torch.full((B,), max(fill - 1, 0), dtype=torch.int32, device=card)
+    before = (decode_ops.scores_launches, decode_ops.values_launches)
+    s = decode_scores_hd(q, kc)
+    s_ref = decode_scores_hd_ref(q, kc)
+    torch.testing.assert_close(s, s_ref, atol=TOL[torch.float32] * hs,
+                               rtol=TOL[torch.float32])
+    out = decode_values_hd(s_ref, vc, sp, pos, head_dim=128, window=window)
+    torch.cuda.synchronize()
+    assert (decode_ops.scores_launches, decode_ops.values_launches) == (
+        before[0] + 1, before[1] + 1)
+    _close(out, decode_values_hd_ref(s_ref, vc, sp, pos, head_dim=128,
+                                     window=window), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [2, 4, 16])
+def test_decode_pair_over_slices_equals_flash_decode_plain(card, dtype, n):
+    """The pair over the n head_dim slices of hd 128 (the partial scores
+    summed as the all-reduce sums them) against the one-device plain
+    decode on the whole heads, after the ring's first wrap."""
+    gen = torch.Generator(device=card).manual_seed(12)
+    B, H, K, W, hd = 2, 32, 8, 2048, 128
+    q = _randn(gen, (B, 1, H, hd), dtype)
+    kc, vc = (_randn(gen, (B, W, K, hd), dtype) for _ in range(2))
+    sp = ring_slot_pos(W, W + 1, B, card)
+    pos = torch.full((B,), W, dtype=torch.int32, device=card)
+    hs = hd // n
+    parts = [slice(j * hs, (j + 1) * hs) for j in range(n)]
+    s = sum(decode_scores_hd(q[:, 0, :, p].contiguous(),
+                             kc[..., p].contiguous()) for p in parts)
+    out = torch.cat([decode_values_hd(s, vc[..., p].contiguous(), sp, pos,
+                                      head_dim=hd) for p in parts], dim=-1)
+    _close(out[:, None], decode_mha_ref(q, kc, vc, sp, pos), dtype)
+
+
+def test_decode_pair_runs_bit_for_bit(card):
+    gen = torch.Generator(device=card).manual_seed(13)
+    q = _randn(gen, (2, 32, 16), torch.bfloat16)
+    kc, vc = (_randn(gen, (2, 2048, 8, 16), torch.bfloat16) for _ in "kv")
+    sp = ring_slot_pos(2048, 2049, 2, card)
+    pos = torch.full((2,), 2048, dtype=torch.int32, device=card)
+    runs = []
+    for _ in range(2):
+        s = decode_scores_hd(q, kc)
+        runs.append((s, decode_values_hd(s, vc, sp, pos, head_dim=128)))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_decode_pair_refuses_what_it_does_not_take(card):
+    """A slice outside 8-64, a group over 8 and a misaligned K slice
+    raise without a launch."""
+    gen = torch.Generator(device=card).manual_seed(14)
+    sp = ring_slot_pos(64, 64, 1, card)
+    pos = torch.full((1,), 63, dtype=torch.int32, device=card)
+    before = (decode_ops.scores_launches, decode_ops.values_launches)
+    q4, k4 = _randn(gen, (1, 8, 4), torch.float32), _randn(
+        gen, (1, 64, 2, 4), torch.float32)
+    with pytest.raises(ValueError, match="slice"):
+        decode_scores_hd(q4, k4)
+    with pytest.raises(ValueError, match="slice"):
+        decode_values_hd(torch.zeros((1, 8, 64), device=card), k4, sp, pos,
+                         head_dim=128)
+    q9, k9 = _randn(gen, (1, 9, 8), torch.float32), _randn(
+        gen, (1, 64, 1, 8), torch.float32)
+    with pytest.raises(ValueError, match="group"):
+        decode_scores_hd(q9, k9)
+    wide = _randn(gen, (1, 64, 2, 24), torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned|multiple"):
+        decode_scores_hd(_randn(gen, (1, 4, 8), torch.bfloat16),
+                         wide[..., 4:12])
+    assert (decode_ops.scores_launches, decode_ops.values_launches) == before

@@ -44,7 +44,8 @@ def test_library_path_follows_the_shared_header(tmp_path, monkeypatch):
     for name in ("flash_attention", "flash_attention_bwd"):
         assert after[name] != before[name]
         assert after[name].parent == before[name].parent
-    for name in ("decode_attention", "ssm_scan", "ssm_scan_bwd"):
+    for name in ("decode_attention", "decode_attention_hd", "ssm_scan",
+                 "ssm_scan_bwd"):
         assert after[name] == before[name]
     src = _build.source("ssm_scan")
     src.write_bytes(src.read_bytes() + b"\n")
@@ -54,16 +55,20 @@ def test_library_path_follows_the_shared_header(tmp_path, monkeypatch):
 
 
 def test_every_library_has_its_source():
-    """Five libraries, each from its own source: the two backwards'
-    beside their forwards' in those kernels' packages."""
+    """Six libraries, each from its own source: the two backwards' and
+    the head_dim-slice decode pair's beside their forwards' in those
+    kernels' packages."""
     assert _build.NAMES == ("flash_attention", "flash_attention_bwd",
-                            "decode_attention", "ssm_scan", "ssm_scan_bwd")
+                            "decode_attention", "decode_attention_hd",
+                            "ssm_scan", "ssm_scan_bwd")
     for name in _build.NAMES:
         src = _build.source(name)
         assert src.is_file() and src.name == f"{name}.cu"
     assert _build.source("ssm_scan_bwd").parent == \
         _build.source("ssm_scan").parent
-    assert len({_build.library_path(n).name for n in _build.NAMES}) == 5
+    assert _build.source("decode_attention_hd").parent == \
+        _build.source("decode_attention").parent
+    assert len({_build.library_path(n).name for n in _build.NAMES}) == 6
 
 
 def test_attention_sources_share_one_header():
