@@ -428,9 +428,14 @@ MESH_STEPS, MESH_TIMEOUT_S = 3, 420
 #: (data, model) meshes under the reference's serving shardings: llama3-8b
 #: 4 of 32 layers on (1, 2), (1, 4) and (2, 2) (hd slices 64, 32, 64;
 #: FSDP over data on (2, 2)); qwen2-72b 2 of 80 on (1, 4) (G 8, QKV
-#: biases nonzero, hd slice 32)
+#: biases nonzero, hd slice 32); falcon-mamba-7b 2 of 64 on (1, 2)
+#: (d_inner 4096 a rank); hymba-1.5b 4 of 32 on (1, 4) (d_inner 800 a
+#: rank, 6 or 7 of its 25 q heads, hd slice 16 at G 5, its window of 2048,
+#: its odd vocab of 32001 replicated)
 MESH_SERVE_RUNS = (("llama3-8b", 4, ((1, 2), (1, 4), (2, 2))),
-                   ("qwen2-72b", 2, ((1, 4),)))
+                   ("qwen2-72b", 2, ((1, 4),)),
+                   ("falcon-mamba-7b", 2, ((1, 2),)),
+                   ("hymba-1.5b", 4, ((1, 4),)))
 MESH_SERVE_BATCH, MESH_SERVE_STEPS = 2, 16
 #: the decode steps of a run whose data axis is split (2, 2): FSDP
 #: gathers every weight's data shards in each step, 0.96 GB a rank
@@ -1201,31 +1206,42 @@ class Smoke:
         ``decode_values_hd``) against its plain versions, each kernel on
         the same inputs, at the serving ranks' shapes: llama's heads (G 4)
         at hd slices 64, 32 and 8 (hd 128 over model 2, 4 and 16),
-        qwen2's G 8 and yi's G 7; B 1 and 8; W 2048 after the ring's first
+        qwen2's G 8 and yi's G 7, hymba's G 5 with its window of 2048 at
+        slices 32, 16 and 4 (hd 64 over model 2, 4 and 16; a bf16 row of
+        4 is one 8-byte vector); B 1 and 8; W 2048 after the ring's first
         wrap and at a partial fill; a window; bf16 and f32. Then the pair
-        composed over every slice of hd 128 (the partial scores summed, as
-        the all-reduce sums them) against ``decode_mha_ref`` on the whole
-        heads; two runs bit for bit; a slice it does not take raises."""
+        composed over every slice of hd 128, and over all 16 slices of
+        hymba's hd 64 (the partial scores summed, as the all-reduce sums
+        them) against ``decode_mha_ref`` on the whole heads; two runs bit
+        for bit, at slice 8 and at hymba's slice 4; a slice it does not
+        take (12) raises."""
         torch = self.torch
         from repro_torch.kernels.decode_attention import (
             decode_mha_ref, decode_scores_hd, decode_scores_hd_ref,
             decode_values_hd, decode_values_hd_ref)
         from repro_torch.kernels.decode_attention import ops as decode_ops
         sname, vname = SCORES_HD["name"], VALUES_HD["name"]
-        W, hd = PROMPT, 128
-        cases = [((32, 8), 64, 1, W + 1, 0, "llama G4 (model 2)"),
-                 ((32, 8), 32, 8, W + 1, 0, "llama G4 (model 4)"),
-                 ((32, 8), 8, 8, W + 1, 0, "llama G4 (model 16)"),
-                 ((32, 8), 64, 1, 700, 0, "llama G4 partial fill"),
-                 ((64, 8), 32, 1, W + 1, 0, "qwen2 G8 (model 4)"),
-                 ((64, 8), 32, 8, W + 1, 0, "qwen2 G8 (model 4)"),
-                 ((56, 8), 16, 1, W + 1, 0, "yi G7 (model 8)"),
-                 ((56, 8), 16, 8, 1500, 0, "yi G7 partial fill"),
-                 ((32, 8), 32, 1, W + 1, 512, "llama G4 window=512")]
+        W = PROMPT
+        llama, qwen2, yi, hymba = (32, 8, 128), (64, 8, 128), (56, 8, 128), \
+            (25, 5, 64)
+        cases = [(llama, 64, 1, W + 1, 0, "llama G4 (model 2)"),
+                 (llama, 32, 8, W + 1, 0, "llama G4 (model 4)"),
+                 (llama, 8, 8, W + 1, 0, "llama G4 (model 16)"),
+                 (llama, 64, 1, 700, 0, "llama G4 partial fill"),
+                 (qwen2, 32, 1, W + 1, 0, "qwen2 G8 (model 4)"),
+                 (qwen2, 32, 8, W + 1, 0, "qwen2 G8 (model 4)"),
+                 (yi, 16, 1, W + 1, 0, "yi G7 (model 8)"),
+                 (yi, 16, 8, 1500, 0, "yi G7 partial fill"),
+                 (llama, 32, 1, W + 1, 512, "llama G4 window=512"),
+                 (hymba, 32, 1, W + 1, W, "hymba G5 (model 2)"),
+                 (hymba, 16, 8, W + 1, W, "hymba G5 (model 4)"),
+                 (hymba, 4, 1, W + 1, W, "hymba G5 (model 16)"),
+                 (hymba, 4, 8, W + 1, W, "hymba G5 (model 16)"),
+                 (hymba, 4, 8, 1500, W, "hymba G5 partial fill")]
         for dname, tol in TOL.items():
             dtype = getattr(torch, dname)
             g = self.gen(21)
-            for (H, K), hs, B, fill, window, arch in cases:
+            for (H, K, hd), hs, B, fill, window, arch in cases:
                 q = self.randn(g, (B, H, hs), dtype)
                 kc, vc = (self.randn(g, (B, W, K, hs), dtype) for _ in "kv")
                 sp = self.ring_slot_pos(W, fill, B)
@@ -1242,10 +1258,10 @@ class Smoke:
                     decode_values_hd_ref(s_ref, vc, sp, p, head_dim=hd,
                                          window=window), tol)
             # the pair over every slice against the whole heads
-            for (H, K), n, B, fill in (((32, 8), 2, 1, W + 1),
-                                       ((32, 8), 16, 8, W + 1),
-                                       ((64, 8), 4, 1, W + 1),
-                                       ((56, 8), 8, 8, 1500)):
+            for (H, K, hd), n, B, fill, window in (
+                    (llama, 2, 1, W + 1, 0), (llama, 16, 8, W + 1, 0),
+                    (qwen2, 4, 1, W + 1, 0), (yi, 8, 8, 1500, 0),
+                    (hymba, 16, 8, W + 1, W), (hymba, 16, 1, 1500, W)):
                 q = self.randn(g, (B, 1, H, hd), dtype)
                 kc, vc = (self.randn(g, (B, W, K, hd), dtype) for _ in "kv")
                 sp = self.ring_slot_pos(W, fill, B)
@@ -1257,29 +1273,38 @@ class Smoke:
                                          kc[..., sl].contiguous())
                         for sl in parts)
                 out = torch.cat([decode_values_hd(
-                    s, vc[..., sl].contiguous(), sp, p, head_dim=hd)
-                    for sl in parts], dim=-1)[:, None]
+                    s, vc[..., sl].contiguous(), sp, p, head_dim=hd,
+                    window=window) for sl in parts], dim=-1)[:, None]
                 self.compare(vname, f"{dname} pair over {n} slices of hd "
-                             f"{hd} B={B} H={H} K={K} fill={fill} vs "
+                             f"{hd} B={B} H={H} K={K} fill={fill}"
+                             f"{f' window={window}' if window else ''} vs "
                              f"decode_mha_ref", out,
-                             decode_mha_ref(q, kc, vc, sp, p), tol)
-        g = self.gen(22)
-        q = self.randn(g, (8, 32, 8), torch.bfloat16)
-        kc, vc = (self.randn(g, (8, W, 8, 8), torch.bfloat16) for _ in "kv")
-        sp, p = self.ring_slot_pos(W, W + 1, 8), torch.full(
-            (8,), W, dtype=torch.int32, device=self.dev)
-        runs = [(s, decode_values_hd(s, vc, sp, p, head_dim=hd)) for s in
-                (decode_scores_hd(q, kc), decode_scores_hd(q, kc))]
-        same = all(torch.equal(a, b) for a, b in zip(*runs))
-        print(f"  {sname}/{vname} two runs bit for bit: "
-              f"{'yes' if same else 'NO'}")
-        if not same:
-            raise AssertionError("the decode pair differs from run to run")
+                             decode_mha_ref(q, kc, vc, sp, p, window=window),
+                             tol)
+        for (H, K, hd), hs, window in ((llama, 8, 0), (hymba, 4, W)):
+            g = self.gen(22)
+            q = self.randn(g, (8, H, hs), torch.bfloat16)
+            kc, vc = (self.randn(g, (8, W, K, hs), torch.bfloat16)
+                      for _ in "kv")
+            sp, p = self.ring_slot_pos(W, W + 1, 8), torch.full(
+                (8,), W, dtype=torch.int32, device=self.dev)
+            runs = [(s, decode_values_hd(s, vc, sp, p, head_dim=hd,
+                                         window=window))
+                    for s in (decode_scores_hd(q, kc),
+                              decode_scores_hd(q, kc))]
+            same = all(torch.equal(a, b) for a, b in zip(*runs))
+            print(f"  {sname}/{vname} H={H} K={K} hs={hs} two runs bit for "
+                  f"bit: {'yes' if same else 'NO'}")
+            if not same:
+                raise AssertionError("the decode pair differs from run to "
+                                     "run")
         before = (decode_ops.scores_launches, decode_ops.values_launches)
+        g = self.gen(24)
         try:
-            decode_scores_hd(q[..., :4], kc[..., :4])
+            decode_scores_hd(self.randn(g, (1, 8, 12), torch.float32),
+                             self.randn(g, (1, 64, 2, 12), torch.float32))
         except ValueError as e:
-            print(f"  {sname} hd slice 4 raises: {e}")
+            print(f"  {sname} hd slice 12 raises: {e}")
         else:
             raise AssertionError("a slice outside HD_SLICES did not raise")
         if (decode_ops.scores_launches, decode_ops.values_launches) != before:
@@ -2373,8 +2398,10 @@ class Smoke:
         the card: a prefill of MESH_SERVE_BATCH x PROMPT (`serve_prompt`)
         and MESH_SERVE_STEPS greedy decode steps from `serve_params`, its
         walls, peak memory and launches. Returns what the ranks are held
-        to: every step's logits and the tokens fed to the steps (each
-        the argmax of the logits before it), on the host."""
+        to: every step's logits, the tokens fed to the steps (each the
+        argmax of the logits before it) and, for the ssm and hybrid
+        families, the f32 ``ssm`` state after the last step, on the
+        host."""
         torch = self.torch
         from repro_torch.configs import registry
         from repro_torch.models import Model
@@ -2415,7 +2442,8 @@ class Smoke:
                "prefill_s": prefill_s, "step_s": step_s,
                "peak": peak,
                "logits": torch.stack([o.cpu() for o in outs]),
-               "tokens": torch.stack([t.cpu() for t in tokens])}
+               "tokens": torch.stack([t.cpu() for t in tokens]),
+               "ssm": cache["ssm"].cpu() if "ssm" in cache else None}
         del model, params, cache, outs, logits
         gc.collect()
         torch.cuda.empty_cache()
@@ -2428,11 +2456,22 @@ class Smoke:
         cfg, shape = one["cfg"], one["shape"]
         arch, L = cfg.name, cfg.num_layers
         steps = serve_steps(shape)
-        want = every_kernel({FLASH["name"]: L, SCORES_HD["name"]: L * steps,
-                             VALUES_HD["name"]: L * steps})
+        attn = cfg.family != "ssm"              # the dense and hybrid ones
+        mamba = cfg.family in ("ssm", "hybrid")
         rows = MESH_SERVE_BATCH // shape[0]
-        scores_b = L * rows * cfg.num_heads * PROMPT * 4
-        sums_b = (2 * L + 1) * rows * cfg.d_model * 2
+        # the attention kernels on the rank's heads, the scan on its
+        # channels; a decode step's sums over model: the embedding, then
+        # each layer's wo and MLP and/or x_proj (f32) and out_proj
+        want = every_kernel({
+            **({FLASH["name"]: L, SCORES_HD["name"]: L * steps,
+                VALUES_HD["name"]: L * steps} if attn else {}),
+            **({SCAN["name"]: L} if mamba else {})})
+        W = min(PROMPT, cfg.sliding_window or PROMPT)
+        scores_b = L * rows * cfg.num_heads * W * 4 if attn else 0
+        sums = 1 + L * (2 * attn + 2 * mamba)
+        sums_b = ((1 + L * (2 * attn + mamba)) * rows * cfg.d_model * 2
+                  + mamba * L * rows * (cfg.dt_rank + 2 * cfg.ssm_state) * 4)
+        in_proj_b = mamba * L * rows * 2 * cfg.d_inner // shape[1] * 2
         where = f"serve (mesh) {arch} x{L} on {shape}"
         bad = []
         for r, res in enumerate(ranks):
@@ -2457,6 +2496,14 @@ class Smoke:
                       f"bytes {c['bytes_by']}, {c['host_s'] * 1e3:.1f} ms "
                       f"host" + ("" if c["device_s"] is None else
                                  f", {c['device_s'] * 1e3:.2f} ms device"))
+            print(f"  {path} model-axis gathers: prefill "
+                  f"{res['prefill_gathers']}, the decode steps "
+                  f"{res['decode_gathers']}" + (
+                      "" if res["state"] is None else
+                      f"; the last step's f32 ssm state "
+                      f"{res['state']['shape']} gathered over model against "
+                      f"one rank's: max_abs_err {res['state']['err']:.3e} "
+                      f"{'ok' if res['state']['close'] else 'FAIL'}"))
             coll_s = [c["host_s"] for c in res["step_c"]]
             score_s = [c["host_s_by"].get("score_all_reduce", 0.0)
                        for c in res["step_c"]]
@@ -2471,7 +2518,8 @@ class Smoke:
                   f"{MESH_SERVE_RTOL}) {'ok' if res['close'] else 'FAIL'}; "
                   f"greedy tokens {res['compared']} compared (top-2 margin "
                   f"over the tolerance), {res['flips']} differ; score "
-                  f"all-reduce {scores_b} B a step; launches "
+                  f"all-reduce {scores_b} B and in_proj exchange "
+                  f"{in_proj_b} B a step; launches "
                   f"{res['launches']} (want {want}); params "
                   f"{res['bytes']['params']} B and decode cache "
                   f"{res['bytes']['cache']} B on the card, dry run "
@@ -2482,16 +2530,25 @@ class Smoke:
                             res["flips"]))
             if res["launches"] != want:
                 bad.append((path, "launches", res["launches"]))
-            if res["prefill_c"]["calls"].get("all_to_all") != 2 * L:
+            if res["prefill_c"]["calls"].get("all_to_all", 0) != 2 * L * attn:
                 bad.append((path, "prefill all_to_all", res["prefill_c"]))
             for i, c in enumerate(res["step_c"]):
-                if (c["calls"].get("all_to_all") != 4 * L
-                        or c["calls"].get("score_all_reduce") != L
-                        or c["bytes_by"].get("score_all_reduce") != scores_b
-                        or c["calls"].get("all_reduce") != 2 * L + 1
-                        or c["bytes_by"].get("all_reduce") != sums_b):
+                calls, nb = c["calls"], c["bytes_by"]
+                if (calls.get("all_to_all", 0) != 4 * L * attn
+                        or calls.get("score_all_reduce", 0) != L * attn
+                        or nb.get("score_all_reduce", 0) != scores_b
+                        or calls.get("in_proj_all_to_all", 0) != L * mamba
+                        or nb.get("in_proj_all_to_all", 0) != in_proj_b
+                        or calls.get("all_reduce") != sums
+                        or nb.get("all_reduce") != sums_b):
                     bad.append((path, "decode step collectives", i, c))
                     break
+            if "layers/mamba/in_proj" in res["decode_gathers"]:
+                bad.append((path, "in_proj gathered in a decode step",
+                            res["decode_gathers"]))
+            if mamba and steps == MESH_SERVE_STEPS and (
+                    res["state"] is None or not res["state"]["close"]):
+                bad.append((path, "ssm state", res["state"]))
             if (res["bytes"]["params"], res["bytes"]["cache"]) != (
                     res["dry"]["params"], res["dry"]["cache"]):
                 bad.append((path, "bytes", res["bytes"], res["dry"]))
@@ -2566,7 +2623,10 @@ class Smoke:
             "serves": [{"arch": r["cfg"].name,
                         "layers": r["cfg"].num_layers, "shape": r["shape"],
                         "logits": r["logits"][:serve_steps(r["shape"]) + 1],
-                        "tokens": r["tokens"][:serve_steps(r["shape"])]}
+                        "tokens": r["tokens"][:serve_steps(r["shape"])],
+                        # the state after one rank's last step
+                        "ssm": (r["ssm"] if serve_steps(r["shape"])
+                                == MESH_SERVE_STEPS else None)}
                        for r in serves]},
             backend=backend,
             timeout_s=MESH_TIMEOUT_S, echo=True)
@@ -3820,6 +3880,16 @@ class Smoke:
                 ("qwen2-72b (1, 4) rank B=2 H=64 K=8 hs=32", (2, 64, 8, 32))):
             also[label] = self.time_decode_hd(*shape, PROMPT,
                                               f"{label}, serving run")
+        # hymba-1.5b (H 25 over K 5, hd 64, its window of 2048 bounds the
+        # ring): the decode_32k rank on 16x16 (B 128 over data 16, hd 64
+        # over model 16: a slice of 4), the long_500k rank (B 1
+        # replicated), the serving run's (1, 4) rank (a slice of 16)
+        for label, shape in (
+                ("hymba-1.5b decode_32k rank B=8 hs=4", (8, 25, 5, 4)),
+                ("hymba-1.5b long_500k rank B=1 hs=4", (1, 25, 5, 4)),
+                ("hymba-1.5b (1, 4) rank B=2 hs=16", (2, 25, 5, 16))):
+            also[label] = self.time_decode_hd(*shape, PROMPT, label,
+                                              head_dim=64, window=PROMPT)
         for i, meta in enumerate((SCORES_HD, VALUES_HD)):
             self.also[meta["name"]] = {k: v[i] for k, v in also.items()}
         self.timing[FLASH_BWD["name"]] = self.time_flash_bwd(
@@ -4036,10 +4106,11 @@ class Smoke:
                     f"window={window} [cluster {C}] ({arch})", row)
         return row
 
-    def time_decode_hd(self, B, H, K, hs, W, arch):
+    def time_decode_hd(self, B, H, K, hs, W, arch, head_dim=128, window=0):
         """The head_dim-slice pair at a rank's shape: B x H q heads over K
-        kv heads on an hd slice ``hs`` of hd 128, a W-slot ring after its
-        first wrap, bf16, the values kernel on f32 summed scores. Bounds by
+        kv heads on an hd slice ``hs`` of ``head_dim``, a W-slot ring after
+        its first wrap (every slot valid, within a ``window`` of W too),
+        bf16, the values kernel on f32 summed scores. Bounds by
         bytes (each input read once, each output written once; f32 FMAs
         at 67 TFLOP/s for the operations). The scores' library call is
         one ``torch.einsum`` on the bf16 tensors; the values have no one
@@ -4050,7 +4121,7 @@ class Smoke:
         from repro_torch.kernels.decode_attention import (
             decode_scores_hd, decode_scores_hd_ref, decode_values_hd,
             decode_values_hd_ref)
-        dt, hd, G = torch.bfloat16, 128, H // K
+        dt, hd, G = torch.bfloat16, head_dim, H // K
         per_set = 2 * 2 * B * W * K * hs + 4 * B * H * W
         n = min(32, max(3, math.ceil(120e6 / per_set)))
         g = self.gen(23)
@@ -4087,8 +4158,10 @@ class Smoke:
             return torch.matmul(prob, t[2].permute(0, 2, 1, 3))
 
         vrow = self.time_row(
-            lambda t: decode_values_hd(t[3], t[2], sp, p, head_dim=hd),
-            lambda t: decode_values_hd_ref(t[3], t[2], sp, p, head_dim=hd),
+            lambda t: decode_values_hd(t[3], t[2], sp, p, head_dim=hd,
+                                       window=window),
+            lambda t: decode_values_hd_ref(t[3], t[2], sp, p, head_dim=hd,
+                                           window=window),
             None, sets, sets, 200, 20)
         vrow.update(bound_ms=bms, bound_by=by,
                     expression_ms=self.time_ms(expression, sets, 200,
@@ -4424,7 +4497,7 @@ def serve_prompt(cfg, device):
                          .manual_seed(2))
 
 
-def mesh_serve(arch, layers, shape, shared, logits, tokens):
+def mesh_serve(arch, layers, shape, shared, logits, tokens, ssm=None):
     """One rank of a serving run (`Smoke.check_mesh_serve`): ``arch`` at
     full width cut to ``layers`` on this rank of the (data, model)
     ``shape`` mesh (`rank_mesh_of`) under the reference's serving
@@ -4434,11 +4507,14 @@ def mesh_serve(arch, layers, shape, shared, logits, tokens):
     rank's ``tokens`` (teacher-forced), with every kernel's launches
     counted from 0 just before the prefill and read after the last step,
     the collectives of the prefill, the reshard and each step by kind,
-    walls, peak memory, the params' and decode cache's bytes on the card
-    and the dry run's decode-step argument bytes at this mesh; then every
-    output's logits gathered whole against one rank's ``logits``. The
-    ranks draw the whole params and cut their shards one at a time, so
-    the card holds one whole copy at once."""
+    the model-axis gathers of the prefill and of the decode steps by
+    path, walls, peak memory, the params' and decode cache's bytes on
+    the card and the dry run's decode-step argument bytes at this mesh;
+    then every output's logits gathered whole against one rank's
+    ``logits``, and the last step's f32 ``ssm`` state gathered over
+    ``model`` against one rank's ``ssm`` (where given). The ranks draw
+    the whole params and cut their shards one at a time, so the card
+    holds one whole copy at once."""
     t0 = time.monotonic()
     import torch
     import torch.distributed as dist
@@ -4489,6 +4565,8 @@ def mesh_serve(arch, layers, shape, shared, logits, tokens):
         lambda: model.prefill(params, {"tokens": prompt}, tp=tp))
     cache, reshard_s, reshard_c = timed(
         lambda: kvc.to_decode_layout(cache, tp))
+    prefill_g = dict(tp.gathers)
+    tp.gathers.clear()
     nbytes = {"params": P.state_bytes(params), "cache": P.state_bytes(cache)}
     outs, step_s, step_c = [out], [], []
     for tok in tokens:
@@ -4500,7 +4578,18 @@ def mesh_serve(arch, layers, shape, shared, logits, tokens):
         step_c.append(c)
     launches = {n: m.launches for n, m in counters.items()}
     peak = torch.cuda.max_memory_allocated(dev)
+    decode_g = dict(tp.gathers)
     t2 = time.monotonic()
+    state = None
+    if ssm is not None:
+        full = P.gather_full(cache["ssm"], tp.specs["cache/decode/ssm"],
+                             mesh)
+        want = ssm.to(dev)
+        state = {"err": (full - want).abs().max().item(),
+                 "close": torch.allclose(full, want, atol=MESH_SERVE_ATOL,
+                                         rtol=MESH_SERVE_RTOL),
+                 "shape": tuple(full.shape)}
+        del full, want
     errs, close, flips, compared = [], True, 0, 0
     for out, want in zip(outs, logits):
         full = P.gather_full(out, tp.specs["logits"], mesh)
@@ -4517,14 +4606,24 @@ def mesh_serve(arch, layers, shape, shared, logits, tokens):
     cell = dryrun.build_cell(arch, InputShape(
         "decode", PROMPT, MESH_SERVE_BATCH, "decode"), extra={
             "num_layers": layers}, mesh=Mesh(mesh.axis_names, mesh.sizes))
-    h0, h1 = tp.split(cfg.num_heads)
+    local = []
+    if "k" in cache:
+        h0, h1 = tp.split(cfg.num_heads)
+        local.append(f"q heads [{h0}, {h1}) of {cfg.num_heads}; decode "
+                     f"cache k {tuple(cache['k'].shape)} (hd slice "
+                     f"{cache['k'].shape[-1]} of {cfg.head_dim})")
+    if "ssm" in cache:
+        c0, c1 = tp.split(cfg.d_inner)
+        local.append(f"d_inner channels [{c0}, {c1}) of {cfg.d_inner}; "
+                     f"conv {tuple(cache['conv'].shape)}, ssm "
+                     f"{tuple(cache['ssm'].shape)}")
     v0, v1 = tp.split(cfg.vocab_size)
-    slice_ = cache["k"].shape[-1]
-    local = (f"q heads [{h0}, {h1}) of {cfg.num_heads}; decode cache "
-             f"{tuple(cache['k'].shape)} (hd slice {slice_} of "
-             f"{cfg.head_dim}); vocab [{v0}, {v1}) of {cfg.vocab_size}")
+    local.append(f"vocab [{v0}, {v1}) of {cfg.vocab_size}, logits spec "
+                 f"{tp.specs['logits']}")
     return {"device": str(dev), "note": C.backend_note(mesh),
-            "local": local, "launches": launches, "peak": peak,
+            "local": "; ".join(local), "launches": launches, "peak": peak,
+            "prefill_gathers": prefill_g, "decode_gathers": decode_g,
+            "state": state,
             "prefill_s": prefill_s, "reshard_s": reshard_s,
             "step_s": step_s, "prefill_c": prefill_c,
             "reshard_c": reshard_c, "step_c": step_c, "errs": errs,

@@ -36,18 +36,19 @@ def check_float(name: str, *tensors) -> torch.device:
 ALIGN = 16
 
 
-def check_aligned(name: str, what: str, *tensors) -> None:
+def check_aligned(name: str, what: str, *tensors,
+                  align: int = ALIGN) -> None:
     """Raise unless each tensor's base address, and the byte stride of
-    every dimension but the innermost, are multiples of ALIGN bytes, as
-    ``what`` needs."""
+    every dimension but the innermost, are multiples of ``align`` bytes
+    (ALIGN by default), as ``what`` needs."""
     for t in tensors:
-        if t.data_ptr() % ALIGN:
+        if t.data_ptr() % align:
             raise ValueError(f"{name}: base address {t.data_ptr():#x} is not "
-                             f"{ALIGN}-byte aligned, which {what} needs")
+                             f"{align}-byte aligned, which {what} needs")
         for st in t.stride()[:-1]:
-            if (st * t.element_size()) % ALIGN:
+            if (st * t.element_size()) % align:
                 raise ValueError(f"{name}: a stride of {st * t.element_size()}"
-                                 f" bytes is not a multiple of {ALIGN}, which "
+                                 f" bytes is not a multiple of {align}, which "
                                  f"{what} needs")
 
 

@@ -21,10 +21,11 @@
 // ref.py::decode_scores_hd_ref / decode_values_hd_ref.
 //
 // What bounds them on the H100: device memory. A slice holds 8-64 of a
-// head's 128 dims, so each cache byte is used for 2 * G / hd_s ... 2 * G
-// FLOPs, and the scores themselves (4 bytes a (head, slot)) are as many
-// bytes as the K slice at hd_s 8 and G 4: the least time is the K or V
-// slice's bytes plus the scores' bytes over 3.35 TB/s.
+// head's 128 dims (4 of hymba-1.5b's 64 over `model` 16), so each cache
+// byte is used for 2 * G / hd_s ... 2 * G FLOPs, and the scores
+// themselves (4 bytes a (head, slot)) are as many bytes as the K slice at
+// hd_s 8 and G 4, twice them at hd_s 4 and G 5: the least time is the K
+// or V slice's bytes plus the scores' bytes over 3.35 TB/s.
 //
 // Design (a first, simple version):
 // * scores: grid (K, W / 128, B), one thread a slot of one kv head; the
@@ -34,7 +35,8 @@
 //   warp writes 32 consecutive floats. The K blocks of one slot tile are
 //   launched next to each other, so a 32-byte sector of the (B, W, K,
 //   hd_s) layout that several kv heads share is read from device memory
-//   once and from L2 after.
+//   once and from L2 after. A bf16 row of 4 is one 8-byte vector (the
+//   wrapper checks 8-byte alignment for it).
 // * values: the W slots of each (kv head, batch) split across the C
 //   blocks of a thread-block cluster (grid (C, K, B), C chosen as
 //   flash_decode chooses it: a power of two up to 8, at least 128 slots
@@ -43,16 +45,16 @@
 //   slots 32 at a time, one pass with an online softmax: each lane takes
 //   one slot's G scores (one exponential a slot and head), the warp's
 //   max rescales its running state, and the warp, LPS = min(hd_s, 32)
-//   lanes a slot and 32 / LPS slots at once, adds weight x V row to
-//   per-lane sums, the weights passed by shuffles. The warps' states
+//   lanes a slot and 32 / LPS slots at once (8 at hd_s 4), adds weight x
+//   V row to per-lane sums, the weights passed by shuffles. The warps' states
 //   are combined in shared memory, then the blocks' through distributed
 //   shared memory with exp(m_i - M) weights, as in decode_attention.cu.
 //   (The first version, one block a (batch, q head) and two passes over
 //   the scores, read each V slice G times and trailed the nearest
 //   PyTorch expression.) No atomics: two runs agree bit for bit.
 // Both kernels are instantiated for two group bounds, 4 and 8, with the
-// group size G read at run time: 16 instances each rather than 64, which
-// halved the library's build.
+// group size G read at run time: 20 instances each (2 dtypes x 5 slices
+// x 2 bounds) rather than 80, which halved the library's build.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -105,25 +107,39 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(x);
 }
 
-// HS elements of T from 16-byte aligned memory, as floats.
+// HS elements of T, as floats, in vectors of VEC bytes: 16, or 8 where
+// the row is 8 bytes (a bf16 row of 4); src aligned to VEC.
 template <typename T, int HS>
 __device__ __forceinline__ void load_row(float (&r)[HS], const T* src) {
-  constexpr int PER16 = 16 / sizeof(T);
-  static_assert(HS % PER16 == 0, "a row is whole 16-byte vectors");
+  constexpr int VEC = HS * sizeof(T) < 16 ? HS * sizeof(T) : 16;
+  constexpr int WORDS = VEC / 4;         // 32-bit words a vector
+  constexpr int PER = VEC / sizeof(T);   // elements a vector
+  static_assert((VEC == 16 || VEC == 8) && HS % PER == 0,
+                "a row is whole 16-byte vectors, or one 8-byte vector");
 #pragma unroll
-  for (int i = 0; i < HS / PER16; ++i) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(src) + i);
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  for (int i = 0; i < HS / PER; ++i) {
+    uint32_t w[WORDS];
+    if constexpr (VEC == 16) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(src) + i);
+      w[0] = v.x;
+      w[1] = v.y;
+      w[2] = v.z;
+      w[3] = v.w;
+    } else {
+      const uint2 v = __ldg(reinterpret_cast<const uint2*>(src) + i);
+      w[0] = v.x;
+      w[1] = v.y;
+    }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < WORDS; ++j) {
       if constexpr (std::is_same<T, float>::value) {
-        r[4 * i + j] = __uint_as_float(w[j]);
+        r[PER * i + j] = __uint_as_float(w[j]);
       } else {
         __nv_bfloat162 h;
         *reinterpret_cast<uint32_t*>(&h) = w[j];
         const float2 f = __bfloat1622float2(h);
-        r[8 * i + 2 * j] = f.x;
-        r[8 * i + 2 * j + 1] = f.y;
+        r[PER * i + 2 * j] = f.x;
+        r[PER * i + 2 * j + 1] = f.y;
       }
     }
   }
@@ -203,7 +219,7 @@ __global__ void __launch_bounds__(V_THREADS) values_kernel(ValuesArgs a) {
   constexpr int LPS = HS < 32 ? HS : 32;  // lanes a slot
   constexpr int SPW = 32 / LPS;           // slots a warp at once
   constexpr int PER = HS / LPS;           // dims a lane
-  static_assert(LPS * PER == HS && SPW * LPS == 32, "hd slice 8, 16, 32 or 64");
+  static_assert(LPS * PER == HS && SPW * LPS == 32, "hd slice 4, 8, 16, 32 or 64");
   __shared__ WarpStates<HS, MAXG> st;
   __shared__ float bm[MAXG], bl[MAXG], bacc[MAXG][HS];
   const int G = a.G;
@@ -363,6 +379,7 @@ int launch_scores(const ScoresArgs& a, int B, int K, cudaStream_t stream) {
 template <typename T>
 int scores_by_slice(const ScoresArgs& a, int B, int K, int hs, cudaStream_t st) {
   switch (hs) {
+    case 4: return launch_scores<T, 4>(a, B, K, st);
     case 8: return launch_scores<T, 8>(a, B, K, st);
     case 16: return launch_scores<T, 16>(a, B, K, st);
     case 32: return launch_scores<T, 32>(a, B, K, st);
@@ -397,6 +414,7 @@ int values_by_group(const ValuesArgs& a, int B, cudaStream_t st) {
 template <typename T>
 int values_by_slice(const ValuesArgs& a, int B, int hs, cudaStream_t st) {
   switch (hs) {
+    case 4: return values_by_group<T, 4>(a, B, st);
     case 8: return values_by_group<T, 8>(a, B, st);
     case 16: return values_by_group<T, 16>(a, B, st);
     case 32: return values_by_group<T, 32>(a, B, st);

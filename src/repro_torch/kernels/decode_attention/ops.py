@@ -19,8 +19,10 @@ head_dim 16.
 a head_dim slice of every head (the decode cache's layout on a mesh,
 head_dim over ``model``), from ``csrc/decode_attention_hd.cu``: the
 partial scores, which the caller sums over the ranks, then the softmax
-and the values. The same rule: the kernel on CUDA tensors, the plain
-versions (``ref.py``) on CPU tensors, never a fallback.
+and the values. The scores kernel reads K rows in vectors of 16 bytes (8
+at a bf16 slice of 4), so its wrapper checks that alignment. The same
+rule: the kernel on CUDA tensors, the plain versions (``ref.py``) on CPU
+tensors, never a fallback.
 ``scores_launches`` and ``values_launches`` count their launches.
 """
 from __future__ import annotations
@@ -42,8 +44,9 @@ SOURCE = "decode_attention"
 GROUPS = (1, 2, 4, 5, 6, 7, 8)
 SCORES_NAME, VALUES_NAME = "decode_scores_hd", "decode_values_hd"
 HD_SOURCE = "decode_attention_hd"
-#: the head_dim slices the pair takes (hd 128 over ``model`` 16 .. 2)
-HD_SLICES = (8, 16, 32, 64)
+#: the head_dim slices the pair takes (hd 128 over ``model`` 16 .. 2, hd
+#: 64 over 16: hymba-1.5b's)
+HD_SLICES = (4, 8, 16, 32, 64)
 HD_GROUPS = tuple(range(1, 9))
 launches = 0
 scores_launches = 0
@@ -158,7 +161,9 @@ def decode_scores_hd(q, k_cache):
     if dev.type == "cpu":
         return decode_scores_hd_ref(q, k_cache)
     _check_slice(name, dev, H, K, hs)
-    X.check_aligned(name, "16-byte cache loads", k_cache)
+    # a K row is read in vectors of up to 16 bytes: 8 at a bf16 slice of 4
+    vec = min(X.ALIGN, hs * k_cache.element_size())
+    X.check_aligned(name, f"{vec}-byte cache loads", k_cache, align=vec)
     out = torch.empty((B, H, W), dtype=torch.float32, device=dev)
     rc = _lib_hd(name)(X.DTYPE_CODES[q.dtype], q.data_ptr(),
                        k_cache.data_ptr(), out.data_ptr(), B, H, K, W, hs,

@@ -121,9 +121,11 @@ def init_cache_on_mesh(cfg, tp, kind: str, dtype=torch.bfloat16,
                        device="cpu"):
     """This rank's shards, in the ``kind`` layout, of the cache whose
     whole shapes the serving placement ``tp`` holds (``cache/{kind}/*``):
-    zeros, and ``slot_pos`` -1."""
+    zeros, and ``slot_pos`` -1. B is ``pos``'s; W is ``k``'s where the
+    cache has attention (the ssm family's cache has no W)."""
     B = tp.shapes[f"cache/{kind}/pos"][0]
-    W = tp.shapes[f"cache/{kind}/slot_pos"][1]
+    k = tp.shapes.get(f"cache/{kind}/k")
+    W = k[2] if k else 1                # no leaf of the ssm family's has W
     whole = init_cache(cfg, B, W, dtype=dtype, device="meta")
     out = {}
     for name, leaf in whole.items():
@@ -155,14 +157,15 @@ def write_prefill_on_mesh(cache_k, k, tp, counts):
 
 def to_decode_layout(cache, tp):
     """A prefill-layout cache (this rank's shards) in the decode layout:
-    k and v from W over ``model`` to head_dim over ``model``, one
-    ``all_to_all`` a leaf (the reference's per-request reshard), or a
-    local cut where ``model`` does not divide W. ``pos`` and
-    ``slot_pos`` are the same in both layouts. Returns a new dict; the
-    prefill leaves can be freed."""
+    k and v, where the cache has them, from W over ``model`` to head_dim
+    over ``model``, one ``all_to_all`` a leaf (the reference's
+    per-request reshard), or a local cut where ``model`` does not divide
+    W. ``pos``, ``slot_pos``, ``conv`` and ``ssm`` have one spec in both
+    layouts and pass through. Returns a new dict; the prefill leaves can
+    be freed."""
     out = dict(cache)
     mesh = tp.mesh
-    for name in ("k", "v"):
+    for name in [n for n in ("k", "v") if n in cache]:
         if tp.specs[f"cache/decode/{name}"][4] != "model":
             raise NotImplementedError(
                 f"the decode cache's head_dim {cache[name].shape[4]} does "

@@ -441,17 +441,15 @@ def _attention_decode_on_mesh(p, cfg, x, k_cache, v_cache, slot_pos, pos,
     slice of every head (k and v from the rank that is first to hold
     each kv head); the slot written in place; the partial scores
     (`decode_scores_hd`) summed over ``model`` in f32 (counted as
-    "score_all_reduce"), the softmax and values (`decode_values_hd`); an ``all_to_all`` back to this rank's
-    heads and row-parallel ``wo``. At ``model`` 1 the one-device kernel
-    (`decode_mha`) runs on the whole heads."""
+    "score_all_reduce"), the softmax and values (`decode_values_hd`); an
+    ``all_to_all`` back to this rank's heads and row-parallel ``wo``. At
+    ``model`` 1 the one-device kernel (`decode_mha`) runs on the whole
+    heads. The serving steps' `lm.check_mesh` has made sure that
+    ``model`` splits head_dim."""
     hd = cfg.head_dim
     heads = mesh_heads(tp, cfg)
     hs = heads[tp.mesh.coords["model"]]
     M = tp.mesh.shape["model"]
-    if M > 1 and tp.spec("cache/decode/k")[4] != "model":
-        raise NotImplementedError(
-            f"{cfg.name}: the decode cache's head_dim {hd} does not split "
-            f"over model {M}")
     q, k, v = _project_on_mesh(p, cfg, x, tp, hs)
     if use_rope:
         q = apply_rope(q, pos[:, None], cfg.rope_theta)

@@ -16,13 +16,14 @@ dict that shares them (the reference returns a new cache).
 prefill layers dispatch by ``cfg.moe_impl`` and its decode layers always
 run the dropless `moe_dense`, as the reference's do.
 
-Serving on a mesh (the dense family; `check_mesh` refuses the others):
-`prefill` and `decode_step` take a serving placement ``tp``
-(``launch.sharding.serve_placement``) and run on this rank's shards
-under the reference's serving shardings: params and batch as in
-training, the prefill cache W over ``model``, the decode cache head_dim
-over ``model`` (`kv_cache.to_decode_layout` moves one to the other),
-the logits vocab over ``model``.
+Serving on a mesh (the dense, ssm and hybrid families; `check_mesh`
+refuses the others): `prefill` and `decode_step` take a serving
+placement ``tp`` (``launch.sharding.serve_placement``) and run on this
+rank's shards under the reference's serving shardings: params and batch
+as in training, the prefill cache W over ``model``, the decode cache
+head_dim over ``model`` (`kv_cache.to_decode_layout` moves one to the
+other), the conv and ssm states d_inner over ``model`` in both, the
+logits vocab over ``model``.
 
 Training: `forward_train` runs the stack without a cache and with grad
 enabled, each layer under the remat policy ``cfg.remat_policy``
@@ -200,9 +201,11 @@ def _seq_sublayers(cfg, lp, x, plain=False, tp=None):
 def _decode_sublayers(cfg, lp, x, cache, i, slot_pos, pos, plain=False,
                       tp=None):
     """One layer, one token; writes its K/V and SSM state into layer i of
-    the cache, in place. With ``tp`` (a serving placement; the dense
-    family) attention and the MLP run on this rank's share, the cache in
-    the decode layout (`layers.attention_decode_layer`)."""
+    the cache, in place. With ``tp`` (a serving placement) attention, the
+    Mamba step and the MLP run on this rank's share, each branch summed
+    over ``model`` before hymba's fusion, the cache in the decode layout
+    (`layers.attention_decode_layer`; `mamba.mamba_decode_step` on the
+    rank's conv and ssm shards)."""
     fam = cfg.family
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     if fam in DENSE + ("moe", "hybrid"):
@@ -212,7 +215,7 @@ def _decode_sublayers(cfg, lp, x, cache, i, slot_pos, pos, plain=False,
     if fam in ("ssm", "hybrid"):
         m_out, st = M.mamba_decode_step(
             lp["mamba"], cfg, h, {"conv": cache["conv"][i],
-                                  "ssm": cache["ssm"][i]})
+                                  "ssm": cache["ssm"][i]}, tp=tp)
         cache["conv"][i].copy_(st["conv"])
         cache["ssm"][i].copy_(st["ssm"])
     if fam == "ssm":
@@ -263,7 +266,7 @@ def run_stack(cfg, params, x, cache=None, plain=False, tp=None):
     the layers' moe losses (a 0-d f32 tensor; None in prefill)."""
     aux = (torch.zeros((), dtype=torch.float32, device=x.device)
            if cache is None else None)
-    if cache is not None and tp is not None:
+    if cache is not None and tp is not None and "k" in cache:
         heads = L.mesh_heads(tp, cfg)
         me = heads[tp.mesh.coords["model"]]
         own = slice(me.o0 - me.k0, me.o1 - me.k0)
@@ -403,31 +406,48 @@ def chunked_ce_loss(cfg, params, hidden, targets, chunk=LOSS_CHUNK, tp=None):
     return tot / cnt.clamp_min(1.0)
 
 
-#: the ROADMAP item (Queue 1) that ports each family's serving steps on
-#: a mesh
-SERVE_MESH_ITEMS = {"ssm": "11b", "hybrid": "11b", "moe": "11c",
-                    "vlm": "11d", "enc-dec": "11d"}
+#: the families whose serving steps run on a mesh
+SERVE_MESH_FAMILIES = ("dense", "ssm", "hybrid")
+#: the ROADMAP item (Queue 1) that ports each other family's serving
+#: steps on a mesh
+SERVE_MESH_ITEMS = {"moe": "11c", "vlm": "11d", "enc-dec": "11d"}
 
 
 def check_mesh(cfg, tp, serve: bool = False) -> None:
     """Exit for a config the reference does not train on a mesh of more
     than one rank: an enc-dec or vlm config, which its driver refuses.
-    With ``serve`` (a prefill or decode step) raise for every family but
-    the dense one: their sharded serving steps are not ported yet
-    (`SERVE_MESH_ITEMS`), and nothing runs half-sharded."""
+    With ``serve`` (a prefill or decode step) raise for a family whose
+    sharded serving steps are not ported yet (`SERVE_MESH_ITEMS`), and
+    for a head_dim or d_inner that ``model`` does not divide (the decode
+    cache's rules leave it whole): nothing runs half-sharded."""
     if tp is None:
         return
     if serve:
         fam = "enc-dec" if cfg.is_encoder_decoder else cfg.family
-        if fam != "dense" or cfg.embed_input:
+        if fam not in SERVE_MESH_FAMILIES or cfg.embed_input:
             raise NotImplementedError(
                 f"{cfg.name}: the {fam} family's serving steps on a mesh are "
                 f"not ported (ROADMAP Queue 1 item "
                 f"{SERVE_MESH_ITEMS.get(fam, '11d')})")
+        _check_serve_split(cfg, tp)
         return
     if cfg.is_encoder_decoder or cfg.embed_input:
         raise SystemExit(f"{cfg.name}: the reference trains no enc-dec or "
                          f"vlm config on a mesh (its driver refuses them)")
+
+
+def _check_serve_split(cfg, tp) -> None:
+    """Raise where ``model`` (more than one rank) does not split the
+    decode cache's head_dim (k: (L, B, W, K, hd)) or d_inner (ssm:
+    (L, B, di, N)), naming the shapes: before any work of the step."""
+    M = tp.mesh.shape["model"]
+    for name, dim, what in (("k", 4, "head_dim"), ("ssm", 2, "d_inner")):
+        path = f"cache/decode/{name}"
+        if M > 1 and path in tp.specs and tp.specs[path][dim] != "model":
+            raise NotImplementedError(
+                f"{cfg.name}: the decode cache's {name} "
+                f"{tp.shapes[path]} has a {what} of {tp.shapes[path][dim]}, "
+                f"which model {M} does not split")
 
 
 def forward_train(cfg, params, batch, plain=False, tp=None):
@@ -472,12 +492,13 @@ def prefill(cfg, params, batch, cache_len=None, plain=False, tp=None):
     reference, so the first decode step overwrites slot 0 (position 0).
 
     ``tp`` (a serving placement, ``launch.sharding.serve_placement``, of
-    this cache's whole shape; the dense family, `check_mesh`): ``params``
-    are this rank's shards and ``batch`` its rows (split over the data
-    axes); the cache is this rank's shard of the prefill layout (W over
-    ``model``; `kv_cache.to_decode_layout` moves it to the decode
-    layout) and the logits its shard under ``logits_spec`` (its vocab
-    columns where ``model`` divides V, else every column).
+    this cache's whole shape; the dense, ssm and hybrid families,
+    `check_mesh`): ``params`` are this rank's shards and ``batch`` its
+    rows (split over the data axes); the cache is this rank's shard of
+    the prefill layout (W over ``model``, the conv and ssm states
+    d_inner over ``model``; `kv_cache.to_decode_layout` moves it to the
+    decode layout) and the logits its shard under ``logits_spec`` (its
+    vocab columns where ``model`` divides V, else every column).
     """
     check_supported(cfg)
     check_mesh(cfg, tp, serve=True)
@@ -490,10 +511,10 @@ def prefill(cfg, params, batch, cache_len=None, plain=False, tp=None):
     if tp is None:
         cache = kvc.init_cache(cfg, B, W, dtype=x.dtype, device=x.device)
     else:
-        if tp.shapes["cache/prefill/slot_pos"][1] != W:
-            raise ValueError(f"the placement's cache is "
-                             f"{tp.shapes['cache/prefill/slot_pos'][1]} "
-                             f"slots wide, this prefill's {W}")
+        k = tp.shapes.get("cache/prefill/k")
+        if k and k[2] != W:
+            raise ValueError(f"the placement's cache is {k[2]} slots wide, "
+                             f"this prefill's {W}")
         cache = kvc.init_cache_on_mesh(cfg, tp, "prefill", dtype=x.dtype,
                                        device=x.device)
     hidden, _ = run_stack(cfg, params, x, cache, plain=plain, tp=tp)

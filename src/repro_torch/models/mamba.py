@@ -13,7 +13,8 @@ decode step has no kernel in the reference, so none here either.
 On a mesh (``tp``, a `repro_torch.parallel.placement.Sharded` of more
 than one rank) `mamba_layer` runs on this rank's ``model`` share of the
 d_inner channels, the scan and its backward kernel on those channels
-alone.
+alone, and so does `mamba_decode_step` (a serving placement), whose
+state is then the rank's shard of the decode cache.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.ssm_scan import selective_scan
 from repro_torch.models.layers import dense_init
+from repro_torch.parallel import collectives as C
 
 #: steps a chunk of `ssm_scan_chunked` takes. The dry run's meta passes
 #: set it past any sequence for their duration
@@ -133,13 +135,29 @@ def _same(t):
     return t
 
 
+def _channels(p, di, tp):
+    """(c0, c1, chan, copy, reduce) of this rank's share of the block:
+    its channels [c0, c1) of d_inner (``tp.split``), ``chan(name, dim)``
+    the leaf's range along its d_inner ``dim`` (this rank's own shard on
+    a mesh, the leaf itself off it), and Megatron's f and g over
+    ``model`` (the identity off the mesh)."""
+    if tp is None:
+        return 0, di, lambda name, dim: p[name], _same, _same
+    c0, c1 = tp.split(di)
+
+    def chan(name, dim):
+        return tp.weight(p[name], f"layers/mamba/{name}", dim, c0, c1)
+    return c0, c1, chan, tp.copy, tp.reduce
+
+
 def mamba_layer(p, cfg, x, state=None, *, plain=False, tp=None):
     """Full-sequence Mamba block. x: (B, S, D).
 
     state: {'conv': (B,c-1,di), 'ssm': (B,di,N)} or None.
     Returns (y (B,S,D), new_state) with the conv state in bf16.
 
-    With ``tp`` (training on a mesh; no state) the block runs on this
+    With ``tp`` (training or a prefill on a mesh; no state) the block
+    runs on this
     rank's channels [c0, c1) of d_inner (``tp.split``; the reference's
     hints put ``xr`` and ``dt`` over ``model`` on d_inner) and the new
     state holds those channels only. ``in_proj``'s columns are
@@ -159,20 +177,10 @@ def mamba_layer(p, cfg, x, state=None, *, plain=False, tp=None):
     """
     B, S, _ = x.shape
     di, N, R = cfg.d_inner, cfg.ssm_state, cfg.dt_rank
+    c0, c1, chan, copy, reduce = _channels(p, di, tp)
     if tp is None:
-        c0, c1 = 0, di
-
-        def chan(name, dim):
-            return p[name]
-        copy = reduce = _same
         xr, z = (x @ p["in_proj"]).chunk(2, dim=-1)      # (B,S,di) each
     else:
-        c0, c1 = tp.split(di)
-
-        def chan(name, dim):
-            """This rank's channels of a leaf along its d_inner ``dim``."""
-            return tp.weight(p[name], f"layers/mamba/{name}", dim, c0, c1)
-        copy, reduce = tp.copy, tp.reduce
         xp = copy(x)
         w_x, w_z = tp.weight_ranges(p["in_proj"], "layers/mamba/in_proj", 1,
                                     ((c0, c1), (di + c0, di + c1)))
@@ -202,28 +210,79 @@ def mamba_layer(p, cfg, x, state=None, *, plain=False, tp=None):
         "conv": conv_state.to(torch.bfloat16), "ssm": h_final}
 
 
-def mamba_decode_step(p, cfg, x, state):
+def _in_proj_on_mesh(p, cfg, x, tp, c0, c1):
+    """This rank's x and z channels [c0, c1) of the one-token ``in_proj``
+    product (x: (B, D)) without gathering the leaf over ``model``: x
+    times this rank's own column shard [o0, o0 + 2 di / M) of the
+    (D, 2 di) leaf, then one ``all_to_all`` over ``model`` (counted as
+    "in_proj_all_to_all", (B, 2 di / M) elements a rank) sends each rank
+    the columns of its x range [j0, j1) and z range [di + j0, di + j1),
+    uneven parts where the ranges straddle shards. The columns arrive in
+    the senders' order, which is the columns' own, so x's range comes
+    before z's. Each column's dot product over D is the gathered
+    path's."""
+    di = cfg.d_inner
+    part = 2 * di // tp.mesh.shape["model"]
+
+    def overlaps(o0, j0, j1):
+        """[lo, hi) of the columns [o0, o0 + part) in j's x and z
+        ranges, x's first."""
+        return [(max(lo, o0), min(hi, o0 + part))
+                for lo, hi in ((j0, j1), (di + j0, di + j1))
+                if min(hi, o0 + part) > max(lo, o0)]
+
+    o0 = tp.mesh.coords["model"] * part
+    y = x @ tp.weight(p["in_proj"], "layers/mamba/in_proj", 1, o0, o0 + part)
+    pieces, send = [], []
+    for j0, j1 in tp.splits(di):
+        cols = overlaps(o0, j0, j1)
+        pieces += [y[:, lo - o0:hi - o0] for lo, hi in cols]
+        send.append(sum(hi - lo for lo, hi in cols))
+    recv = [sum(hi - lo for lo, hi in overlaps(i * part, c0, c1))
+            for i in range(len(send))]
+    xz = C.all_to_all(torch.cat(pieces, dim=1), tp.mesh, "model", 1, 1,
+                      send=send, recv=recv, kind="in_proj_all_to_all")
+    return xz.split(c1 - c0, dim=1)
+
+
+def mamba_decode_step(p, cfg, x, state, tp=None):
     """One-token Mamba step. x: (B, 1, D). O(1) in context length.
 
     Returns (out (B, 1, D), new_state); the caller writes the state back.
+
+    With ``tp`` (a serving placement) the step runs on this rank's
+    channels [c0, c1) of d_inner, as `mamba_layer` does, and ``state``
+    and the new state are the rank's shards of the decode cache
+    ((B, c-1, di / M) and (B, di / M, N)): the x and z channels from
+    this rank's own ``in_proj`` columns and one exchange
+    (`_in_proj_on_mesh`; a gather of the leaf would move (D, 2 di / M) a
+    layer a step), the conv taps, ``dt_proj``, ``dt_bias``, ``A_log``
+    and ``D_skip`` as this rank's own shards, ``x_proj`` and
+    ``out_proj`` row-parallel, summed over ``model``.
     """
     N, R = cfg.ssm_state, cfg.dt_rank
-    xr, z = (x[:, 0] @ p["in_proj"]).chunk(2, dim=-1)    # (B, di) each
+    c0, c1, chan, copy, reduce = _channels(p, cfg.d_inner, tp)
+    if tp is None:
+        xr, z = (x[:, 0] @ p["in_proj"]).chunk(2, dim=-1)    # (B, di) each
+    else:
+        xr, z = _in_proj_on_mesh(p, cfg, copy(x[:, 0]), tp, c0, c1)
 
     conv = state["conv"].to(xr.dtype)                    # (B, c-1, di)
     window = torch.cat([conv, xr[:, None]], dim=1)       # (B, c, di)
-    xr = torch.einsum("bcd,cd->bd", window, p["conv_w"]) + p["conv_b"]
+    xr = (torch.einsum("bcd,cd->bd", window, chan("conv_w", 1))
+          + chan("conv_b", 0))
     xr = F.silu(xr)
 
-    proj = (xr @ p["x_proj"]).float()                    # (B, R+2N)
+    proj = reduce((xr @ chan("x_proj", 0)).float())      # (B, R+2N)
     dt_r, Bmat, Cmat = proj.split([R, N, N], dim=-1)
-    dt = softplus(dt_r @ p["dt_proj"].float() + p["dt_bias"].float())
-    A = -torch.exp(p["A_log"])
+    dt = softplus(dt_r @ chan("dt_proj", 1).float()
+                  + chan("dt_bias", 0).float())
+    A = -torch.exp(chan("A_log", 0))
     dA = torch.exp(dt[..., None] * A)                    # (B, di, N)
     dBx = (dt * xr.float())[..., None] * Bmat[:, None, :]
     h = state["ssm"] * dA + dBx                          # (B, di, N)
     y = torch.einsum("bdn,bn->bd", h, Cmat)
-    y = y + p["D_skip"] * xr.float()
+    y = y + chan("D_skip", 0) * xr.float()
     y = y.to(x.dtype) * F.silu(z)
-    out = (y @ p["out_proj"])[:, None]
+    out = reduce(y @ chan("out_proj", 0))[:, None]
     return out, {"conv": window[:, 1:].to(torch.bfloat16), "ssm": h}

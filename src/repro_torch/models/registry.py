@@ -45,7 +45,8 @@ class Model:
 
     def prefill(self, params, batch, cache_len=None, plain=False, tp=None):
         """The family's prefill; ``tp`` (a serving placement) runs it on
-        a mesh, the dense family only (`lm.check_mesh`)."""
+        a mesh, the dense, ssm and hybrid families only
+        (`lm.check_mesh`)."""
         lm.check_mesh(self.cfg, tp, serve=True)
         on_mesh = {} if tp is None else {"tp": tp}
         return self._mod.prefill(self.cfg, params, batch,

@@ -162,7 +162,7 @@ def reduce_scatter(x, mesh, axes, dim: int):
 
 
 def all_to_all(x, mesh, axes, split_dim, cat_dim, *, send=None,
-               recv=None):
+               recv=None, kind: str = "all_to_all"):
     """Every rank of ``axes`` cuts ``x`` into parts along ``split_dim``,
     sends part j to the rank of combined coordinate j, and concatenates
     the parts it receives along ``cat_dim`` in the order of their senders'
@@ -170,7 +170,7 @@ def all_to_all(x, mesh, axes, split_dim, cat_dim, *, send=None,
     (every rank the same list; default n equal parts); ``split_dim`` None
     sends the whole of ``x`` to every rank. ``recv`` gives the size along
     ``cat_dim`` of the part each sender sends (default ``x``'s own).
-    Sizes may be 0."""
+    Sizes may be 0. Counted in the mesh's `Stats` under ``kind``."""
     group = mesh.group(axes)
     if group is None:
         return x
@@ -187,7 +187,7 @@ def all_to_all(x, mesh, axes, split_dim, cat_dim, *, send=None,
         shape = list(parts[me].shape)
         shape[cat_dim] = size
         shapes.append(shape)
-    with _Timed("all_to_all", mesh, x):
+    with _Timed(kind, mesh, x):
         src = torch.cat([p.reshape(-1) for p in parts])
         if _staged(mesh, x):
             src = src.cpu()

@@ -541,13 +541,14 @@ SERVE_STEPS = 3
 SERVE_SEED = 9
 
 
-def serve_inputs(cfg) -> dict:
-    """The prompt (B, S) and the decode steps' tokens (steps, B, 1)."""
+def serve_inputs(cfg, batch=B) -> dict:
+    """The prompt (batch, S) and the decode steps' tokens (steps, batch,
+    1)."""
     rng = np.random.default_rng(SERVE_SEED)
-    return {"tokens": rng.integers(0, cfg.vocab_size, (B, S),
+    return {"tokens": rng.integers(0, cfg.vocab_size, (batch, S),
                                    dtype=np.int32),
-            "decode": rng.integers(0, cfg.vocab_size, (SERVE_STEPS, B, 1),
-                                   dtype=np.int32)}
+            "decode": rng.integers(0, cfg.vocab_size,
+                                   (SERVE_STEPS, batch, 1), dtype=np.int32)}
 
 
 def _with_biases(cfg, params: dict) -> dict:
@@ -576,19 +577,24 @@ def _reference_serve_main(cases, out) -> None:
         return {k: tuple(shardings[k].shard_shape(v.shape))
                 for k, v in values.items()}
 
+    def host(cache):
+        """The cache as numpy, a bf16 leaf (the ssm families' conv) in f32,
+        which holds it exactly."""
+        return {k: np.asarray(v, dtype=np.float32 if v.dtype == jnp.bfloat16
+                              else v.dtype) for k, v in cache.items()}
+
     result = {}
-    for case, arch, overrides, meshes in cases:
+    for case, arch, overrides, meshes, rows in cases:
         cfg = _f32(registry.get_smoke(arch)).replace(**(overrides or {}))
         model = get_model(cfg)
         flat = _with_biases(cfg, _flat(jax.tree.map(
             np.asarray, model.init_params(jax.random.PRNGKey(SEED)))))
         params = jax.tree.map(jnp.asarray, _unflat(flat))
-        inputs = serve_inputs(cfg)
+        inputs = serve_inputs(cfg, rows)
         batch = {"tokens": jnp.asarray(inputs["tokens"])}
         _, cache1 = jax.jit(model.prefill)(params, batch)
         rec = {"params": flat, "inputs": inputs,
-               "prefill_cache": {k: np.asarray(v) for k, v in
-                                 cache1.items()},
+               "prefill_cache": host(cache1),
                "meshes": {}}
         pshapes = jax.eval_shape(lambda: params)
         for shape in meshes:
@@ -602,7 +608,7 @@ def _reference_serve_main(cases, out) -> None:
             lshard = SH.logits_sharding(mesh, lshape.shape)
             cpre = SH.cache_shardings(cshapes, mesh, kind="prefill")
             cdec = SH.cache_shardings(cshapes, mesh)
-            token = jax.ShapeDtypeStruct((B, 1), jnp.int32)
+            token = jax.ShapeDtypeStruct((rows, 1), jnp.int32)
             tshard = SH.batch_shardings({"t": token}, mesh)["t"]
             prefill = jax.jit(lambda p, b: model.prefill(p, b),
                               in_shardings=(pshard, bshard),
@@ -621,14 +627,12 @@ def _reference_serve_main(cases, out) -> None:
                     steps.append(np.asarray(lg))
             rec["meshes"][shape] = {
                 "prefill": {"logits": np.asarray(logits),
-                            "cache": {k: np.asarray(v)
-                                      for k, v in cache.items()}},
+                            "cache": host(cache)},
                 "prefill_shapes": {
                     "logits": tuple(lshard.shard_shape(logits.shape)),
                     **shard_shapes(cpre, cache)},
                 "decode": {"logits": steps,
-                           "cache": {k: np.asarray(v) for k, v in
-                                     c.items()}},
+                           "cache": host(c)},
                 "decode_shapes": {
                     "logits": tuple(lshard.shard_shape(lg.shape)),
                     **shard_shapes(cdec, c)}}
@@ -639,7 +643,7 @@ def _reference_serve_main(cases, out) -> None:
 
 def reference_serves(cases, tmp: Path) -> dict:
     """The reference's sharded prefill and decode steps for each of
-    ``cases`` ((key, arch, overrides, meshes)), all in one subprocess
+    ``cases`` ((key, arch, overrides, meshes, batch)), all in one subprocess
     with 4 host devices: {key: record}, with each mesh's logits, caches
     and shard shapes, and the one-device prefill's cache that the decode
     steps start from."""
@@ -658,15 +662,16 @@ def reference_serves(cases, tmp: Path) -> dict:
         return pickle.load(f)
 
 
-def port_serve_rank(arch, overrides, ref, meshes):
+def port_serve_rank(arch, overrides, ref, meshes, batch=B):
     """On each mesh of ``meshes`` (all of this world's size) the port's
     sharded prefill and ``SERVE_STEPS`` decode steps of ``arch`` (smoke,
-    f32, with ``overrides``) from the reference's params and inputs
-    (``ref``, a `reference_serves` record): each as (this rank's result,
-    its shard of the reference's) pairs of numpy arrays, the results'
-    shard shapes, the decode steps' collectives by kind, and whether
-    `kv_cache.to_decode_layout` of the port's own prefill cache equals
-    that cache placed by the decode rules."""
+    f32, with ``overrides``, a batch of ``batch``) from the reference's
+    params and inputs (``ref``, a `reference_serves` record): each as
+    (this rank's result, its shard of the reference's) pairs of numpy
+    arrays, the results' shard shapes, the decode steps' collectives by
+    kind and the model-axis gathers of the prefill and of the decode
+    steps by path, and whether `kv_cache.to_decode_layout` of the port's
+    own prefill cache equals that cache placed by the decode rules."""
     import torch
 
     from repro_torch.configs import registry
@@ -686,7 +691,7 @@ def port_serve_rank(arch, overrides, ref, meshes):
     for shape in meshes:
         mesh = rank_mesh(("data", "model"), shape, backend="gloo")
         tp = SH.serve_placement(mesh, param_structs(cfg), kvc.init_cache(
-            cfg, B, S, dtype=torch.float32, device="meta"))
+            cfg, batch, S, dtype=torch.float32, device="meta"))
         local = P.params_to_mesh(params, tp)
         want = ref["meshes"][shape]
 
@@ -696,7 +701,8 @@ def port_serve_rank(arch, overrides, ref, meshes):
                                  mesh)
 
         def pairs(got, whole, kind):
-            return {k: (v.numpy(), P.local_shard(
+            return {k: (v.float().numpy() if v.dtype == torch.bfloat16
+                        else v.numpy(), P.local_shard(
                 torch.from_numpy(whole[k]), tp.specs[f"cache/{kind}/{k}"],
                 mesh).numpy()) for k, v in got.items()}
 
@@ -709,6 +715,7 @@ def port_serve_rank(arch, overrides, ref, meshes):
         logits, cache = model.prefill(local, {"tokens": rows(
             inputs["tokens"])}, tp=tp)
         rec = {"prefill_collectives": mesh.stats.summary(),
+               "prefill_gathers": dict(tp.gathers),
                "prefill": {"logits": logits_pair(
                    logits, want["prefill"]["logits"]),
                    "cache": pairs(cache, want["prefill"]["cache"],
@@ -723,9 +730,11 @@ def port_serve_rank(arch, overrides, ref, meshes):
             moved[k].shape == placed[k].shape and torch.equal(moved[k],
                                                               placed[k])
             for k in moved)
-        c = P.cache_to_mesh({k: torch.from_numpy(v) for k, v in
-                             ref["prefill_cache"].items()}, tp, "decode")
+        c = P.cache_to_mesh({k: torch.from_numpy(v).to(cache[k].dtype)
+                             for k, v in ref["prefill_cache"].items()}, tp,
+                            "decode")
         steps, colls = [], []
+        tp.gathers.clear()
         for t, whole in zip(inputs["decode"], want["decode"]["logits"]):
             mesh.stats.reset()
             lg, c = model.decode_step(local, c, rows(t), tp=tp)
@@ -735,6 +744,7 @@ def port_serve_rank(arch, overrides, ref, meshes):
                          "cache": pairs(c, want["decode"]["cache"],
                                         "decode")}
         rec["decode_collectives"] = colls
+        rec["decode_gathers"] = dict(tp.gathers)
         rec["decode_shapes"] = {"logits": tuple(lg.shape),
                                 **{k: tuple(v.shape) for k, v in c.items()}}
         rec["bytes"] = {"params": P.state_bytes(local),
@@ -749,24 +759,31 @@ def port_serve_ranks(jobs):
     return [port_serve_rank(**job) for job in jobs]
 
 
+def serve_batch(case: tuple) -> int:
+    """A case's batch: its fourth entry where it has one, else B."""
+    return case[3] if len(case) > 3 else B
+
+
 def serve_cases(cases: dict, tmp: Path) -> dict:
     """The reference's serving steps for each of ``cases`` ({key: (arch,
-    overrides, meshes)}; one subprocess for all) and the port's on the
-    ranks of each world size among them (one spawn a world size):
-    {key: (ref, {shape: [rank results]})}."""
+    overrides, meshes[, batch])}, batch B where it is left out; one
+    subprocess for all) and the port's on the ranks of each world size
+    among them (one spawn a world size): {key: (ref, {shape: [rank
+    results]})}."""
     from repro_torch.launch.ranks import spawn
 
-    refs = reference_serves([(key, arch, overrides, tuple(meshes))
-                             for key, (arch, overrides, meshes)
-                             in cases.items()], tmp)
+    refs = reference_serves([(key, case[0], case[1], tuple(case[2]),
+                              serve_batch(case))
+                             for key, case in cases.items()], tmp)
     port = {key: {} for key in cases}
-    for world in sorted({m[0] * m[1] for _, _, meshes in cases.values()
-                         for m in meshes}):
-        jobs = [(key, {"arch": arch, "overrides": overrides,
-                       "ref": refs[key], "meshes": [
-                           m for m in meshes if m[0] * m[1] == world]})
-                for key, (arch, overrides, meshes) in cases.items()
-                if any(m[0] * m[1] == world for m in meshes)]
+    for world in sorted({m[0] * m[1] for case in cases.values()
+                         for m in case[2]}):
+        jobs = [(key, {"arch": case[0], "overrides": case[1],
+                       "ref": refs[key], "batch": serve_batch(case),
+                       "meshes": [m for m in case[2]
+                                  if m[0] * m[1] == world]})
+                for key, case in cases.items()
+                if any(m[0] * m[1] == world for m in case[2])]
         res = spawn("tests._torch_mesh:port_serve_ranks", world,
                     {"jobs": [job for _, job in jobs]},
                     timeout_s=RANK_TIMEOUT_S * len(jobs))
@@ -824,4 +841,4 @@ def serve_one_device_pairs(arch, shape, seq):
     return {"pairs": [(g.numpy(), P.local_shard(w, tp.specs["logits"],
                                                  mesh).numpy())
                       for g, w in zip(got, want)],
-            "prefill_spec": tp.specs["cache/prefill/k"]}
+            "prefill_spec": tp.specs.get("cache/prefill/k")}

@@ -1146,6 +1146,11 @@ def test_ssm_families_refuse_to_train_on_the_card(card, arch):
     (2, 4, 4, 300, 8, 100, 350),       # G 1, a window
     (1, 6, 3, 1000, 16, 0, 1000),      # G 2, W not a multiple of 128
     (2, 8, 2, 64, 32, 0, 0),           # no valid slot: the mean of V
+    (8, 25, 5, 2048, 4, 2048, 2100),   # hymba's G 5, hd 64 over model 16
+    (1, 25, 5, 2048, 4, 2048, 2049),   # B 1 (long_500k), bf16 rows of 8 B
+    (2, 25, 5, 2048, 16, 2048, 2049),  # hd 64 over model 4
+    (2, 25, 5, 2048, 32, 2048, 2049),  # over model 2
+    (2, 10, 2, 48, 4, 20, 70),         # slice 4, a window of 20
 ])
 def test_decode_pair_matches_plain(card, dtype, B, H, K, W, hs, window,
                                    fill):
@@ -1190,32 +1195,75 @@ def test_decode_pair_over_slices_equals_flash_decode_plain(card, dtype, n):
     _close(out[:, None], decode_mha_ref(q, kc, vc, sp, pos), dtype)
 
 
-def test_decode_pair_runs_bit_for_bit(card):
+@pytest.mark.parametrize("H, K, hs, hd, window", [
+    (32, 8, 16, 128, 0), (25, 5, 4, 64, 2048)])
+def test_decode_pair_runs_bit_for_bit(card, H, K, hs, hd, window):
     gen = torch.Generator(device=card).manual_seed(13)
-    q = _randn(gen, (2, 32, 16), torch.bfloat16)
-    kc, vc = (_randn(gen, (2, 2048, 8, 16), torch.bfloat16) for _ in "kv")
+    q = _randn(gen, (2, H, hs), torch.bfloat16)
+    kc, vc = (_randn(gen, (2, 2048, K, hs), torch.bfloat16) for _ in "kv")
     sp = ring_slot_pos(2048, 2049, 2, card)
     pos = torch.full((2,), 2048, dtype=torch.int32, device=card)
     runs = []
     for _ in range(2):
         s = decode_scores_hd(q, kc)
-        runs.append((s, decode_values_hd(s, vc, sp, pos, head_dim=128)))
+        runs.append((s, decode_values_hd(s, vc, sp, pos, head_dim=hd,
+                                         window=window)))
     assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [2, 4, 16])
+def test_decode_pair_over_hymba_slices_equals_flash_decode_plain(card, dtype,
+                                                                n):
+    """hymba-1.5b's heads (H 25 over K 5, G 5, hd 64) with its window of
+    2048: the pair over the n head_dim slices (32, 16 and 4: model 2, 4
+    and 16) against the one-device plain decode, after the ring's first
+    wrap."""
+    gen = torch.Generator(device=card).manual_seed(15)
+    B, H, K, W, hd = 2, 25, 5, 2048, 64
+    q = _randn(gen, (B, 1, H, hd), dtype)
+    kc, vc = (_randn(gen, (B, W, K, hd), dtype) for _ in range(2))
+    sp = ring_slot_pos(W, W + 1, B, card)
+    pos = torch.full((B,), W, dtype=torch.int32, device=card)
+    hs = hd // n
+    parts = [slice(j * hs, (j + 1) * hs) for j in range(n)]
+    s = sum(decode_scores_hd(q[:, 0, :, p].contiguous(),
+                             kc[..., p].contiguous()) for p in parts)
+    out = torch.cat([decode_values_hd(s, vc[..., p].contiguous(), sp, pos,
+                                      head_dim=hd, window=W)
+                     for p in parts], dim=-1)
+    _close(out[:, None], decode_mha_ref(q, kc, vc, sp, pos, window=W), dtype)
+
+
+def test_decode_pair_takes_a_bf16_slice_of_4_at_8_bytes(card):
+    """A bf16 K slice of 4 is one 8-byte vector a row: a slice cut at 8
+    bytes into a wider cache (strides of 48 bytes) runs and matches the
+    plain scores; one cut at 4 bytes raises without a launch."""
+    gen = torch.Generator(device=card).manual_seed(16)
+    wide = _randn(gen, (1, 64, 2, 24), torch.bfloat16)
+    q = _randn(gen, (1, 4, 4), torch.bfloat16)
+    before = decode_ops.scores_launches
+    _close(decode_scores_hd(q, wide[..., 4:8]),
+           decode_scores_hd_ref(q, wide[..., 4:8]), torch.float32)
+    assert decode_ops.scores_launches == before + 1
+    with pytest.raises(ValueError, match="aligned|multiple"):
+        decode_scores_hd(q, wide[..., 2:6])
+    assert decode_ops.scores_launches == before + 1
+
+
 def test_decode_pair_refuses_what_it_does_not_take(card):
-    """A slice outside 8-64, a group over 8 and a misaligned K slice
+    """A slice outside 4-64 (12), a group over 8 and a misaligned K slice
     raise without a launch."""
     gen = torch.Generator(device=card).manual_seed(14)
     sp = ring_slot_pos(64, 64, 1, card)
     pos = torch.full((1,), 63, dtype=torch.int32, device=card)
     before = (decode_ops.scores_launches, decode_ops.values_launches)
-    q4, k4 = _randn(gen, (1, 8, 4), torch.float32), _randn(
-        gen, (1, 64, 2, 4), torch.float32)
+    q12, k12 = _randn(gen, (1, 8, 12), torch.float32), _randn(
+        gen, (1, 64, 2, 12), torch.float32)
     with pytest.raises(ValueError, match="slice"):
-        decode_scores_hd(q4, k4)
+        decode_scores_hd(q12, k12)
     with pytest.raises(ValueError, match="slice"):
-        decode_values_hd(torch.zeros((1, 8, 64), device=card), k4, sp, pos,
+        decode_values_hd(torch.zeros((1, 8, 64), device=card), k12, sp, pos,
                          head_dim=128)
     q9, k9 = _randn(gen, (1, 9, 8), torch.float32), _randn(
         gen, (1, 64, 1, 8), torch.float32)

@@ -57,17 +57,23 @@ def composed(q, k, v, sp, pos, n, window, scores=decode_scores_hd_ref,
     return torch.cat(out, dim=-1)[:, None]
 
 
-CASES = [(n, G, window, fill) for n in (2, 4, 8) for G in (1, 2, 4, 7, 8)
-         for window in (0, 20) for fill in (W + 13, 30)]
+CASES = ([(n, G, window, fill) for n in (2, 4, 8) for G in (1, 2, 4, 7, 8)
+          for window in (0, 20) for fill in (W + 13, 30)]
+         # hymba-1.5b's G 5 at its slices of hd 64 over model 2, 4 and 16
+         # (32, 16 and 4), and slice 4 at G 1 and 8
+         + [(n, 5, window, fill) for n in (2, 4, 16) for window in (0, 20)
+            for fill in (W + 13, 30)]
+         + [(16, G, 20, W + 13) for G in (1, 8)])
 
 
 @pytest.mark.parametrize("n, G, window, fill", CASES, ids=[
     f"slices{n}-G{G}-w{w}-{'wrapped' if f > W else 'partial'}"
     for n, G, w, f in CASES])
 def test_pair_over_slices_equals_the_whole_head(n, G, window, fill):
-    """Over 2, 4 and 8 slices of hd 64, G 1-8, with and without a window,
-    on a ring wrapped past W and one partly filled: the one-device
-    decode attention, and the wrappers on CPU tensors give the same."""
+    """Over 2, 4, 8 and 16 slices of hd 64 (slices of 32 down to 4), G
+    1-8, with and without a window, on a ring wrapped past W and one
+    partly filled: the one-device decode attention, and the wrappers on
+    CPU tensors give the same."""
     q, k, v, sp, pos = (torch.from_numpy(a) for a in _inputs(G, fill))
     want = decode_mha_ref(q, k, v, sp, pos, window=window)
     got = composed(q, k, v, sp, pos, n, window)
@@ -77,10 +83,12 @@ def test_pair_over_slices_equals_the_whole_head(n, G, window, fill):
     assert torch.equal(wrapped, got)
 
 
-@pytest.mark.parametrize("G, window", [(4, 0), (7, 20), (8, 0)])
-def test_pair_matches_the_reference_decode_attention(G, window):
-    """The composed pair against the reference's plain layer function
-    (the one GSPMD partitions over head_dim), at f32."""
+@pytest.mark.parametrize("G, window, n", [(4, 0, 4), (7, 20, 4), (8, 0, 4),
+                                          (5, 20, 16)])
+def test_pair_matches_the_reference_decode_attention(G, window, n):
+    """The composed pair over ``n`` slices against the reference's plain
+    layer function (the one GSPMD partitions over head_dim), at f32;
+    hymba's G 5 with a window at slice 4."""
     import jax.numpy as jnp
 
     from repro.models.layers import decode_attention
@@ -89,7 +97,7 @@ def test_pair_matches_the_reference_decode_attention(G, window):
     want = np.asarray(decode_attention(*(jnp.asarray(a) for a in arrays),
                                        window=window))
     q, k, v, sp, pos = (torch.from_numpy(a) for a in arrays)
-    got = composed(q, k, v, sp, pos, 4, window)
+    got = composed(q, k, v, sp, pos, n, window)
     np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=TOL)
 
 
@@ -114,12 +122,21 @@ def test_values_scale_by_the_full_head_dim():
     assert not torch.allclose(a, b, atol=1e-3)
 
 
-def test_values_keep_the_cache_dtype():
+@pytest.mark.parametrize("hs", [16, 4])
+def test_values_keep_the_cache_dtype(hs):
     q, k, v, sp, pos = (torch.from_numpy(a) for a in _inputs(2, W))
     s = decode_scores_hd_ref(q[:, 0], k)
-    out = decode_values_hd(s, v[..., :16].to(torch.bfloat16), sp, pos,
+    out = decode_values_hd(s, v[..., :hs].to(torch.bfloat16), sp, pos,
                            head_dim=HD)
-    assert out.dtype == torch.bfloat16 and out.shape == (B, 2 * K, 16)
+    assert out.dtype == torch.bfloat16 and out.shape == (B, 2 * K, hs)
+
+
+def test_slice_4_is_one_the_kernels_take():
+    """hymba-1.5b's hd 64 over ``model`` 16 is a slice of 4: in
+    ``HD_SLICES``, beside hd 128's slices over 2-16; 12 is not."""
+    from repro_torch.kernels.decode_attention.ops import HD_SLICES
+    assert 64 // 16 in HD_SLICES and 12 not in HD_SLICES
+    assert all(128 // m in HD_SLICES for m in (2, 4, 8, 16))
 
 
 def test_wrappers_refuse_what_they_do_not_take():

@@ -135,12 +135,12 @@ class TestServeOnMesh:
                                      "cache": want["cache"]}
 
 
-@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "hymba-1.5b",
-                                  "qwen3-moe-30b-a3b", "internvl2-2b",
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "internvl2-2b",
                                   "seamless-m4t-large-v2"])
 def test_other_families_refuse_serving_on_a_mesh(arch):
-    """A serving step on a mesh refuses every family but the dense one,
-    naming the ROADMAP item that ports it, before any work."""
+    """A serving step on a mesh refuses the moe, vlm and enc-dec
+    families, naming the ROADMAP item that ports each (11c, 11d), before
+    any work."""
     import torch
 
     from repro_torch.configs import registry
