@@ -71,9 +71,15 @@ Phases, each of which fails the run (exit 1) if it fails:
    (``decode_scores_hd``, ``decode_values_hd``) against its plain
    versions at the serving ranks' shapes (llama's G 4 at hd slices 64, 32
    and 8, qwen2's G 8, yi's G 7, B 1 and 8, W 2048 after the ring's first
-   wrap and at a partial fill, a window; bf16 and f32), the pair composed
-   over every slice of hd 128 against ``decode_mha_ref`` on the whole
-   heads, two runs bit for bit, and a slice it does not take raising;
+   wrap and at a partial fill, a window; bf16 and f32; the moe family's
+   ranks: qwen3's G 8 over K 4 at its decode_32k rank (B 8, W 32768,
+   slice 8) and its serving runs' ranks (slice 64, B 2 and 1),
+   mixtral's G 6 with its window of 4096 on its wrapped ring of 4096 at
+   its decode_32k and long_500k ranks (slice 8, B 8 and 1) and its
+   serving run's rank (slice 64)), the pair composed over every slice of
+   hd 128 (mixtral's heads with a window too) against
+   ``decode_mha_ref`` on the whole heads, two runs bit for bit, and a
+   slice it does not take raising;
 3. each served model at full width, 2 layers: kernel path against plain
    path, prefill and one decode step (atol 0.3, rtol 0.05), prompt 2048
    (mixtral-8x22b 8192, past its window; internvl2-2b from random bf16
@@ -190,7 +196,21 @@ Phases, each of which fails the run (exit 1) if it fails:
    the score all-reduce's share of a decode step's wall), each rank's params and decode cache
    on the card equal to the dry run's decode-step argument bytes at that
    mesh, prefill and decode-step walls and peak memory beside one
-   rank's;
+   rank's; and the moe family so: qwen3-moe-30b-a3b cut to
+   2 of its 48 layers on (1, 2) and (2, 2) (64 experts a rank; on (2, 2)
+   the prefill's capacity slots from both data ranks' counts, one
+   ``count_all_gather`` a layer, and 4 decode steps) and mixtral-8x22b
+   cut to 2 of its 56 on (1, 2) at prompt 8192 (4 of its 8 experts a
+   rank, its ring of 4096 wrapped), each prefill through ``moe_sorted``
+   and each decode step through the dropless ``moe_dense`` on the
+   rank's experts, with no count gather in a decode step and the
+   experts' f32 partial outputs in the all-reduce bytes; the ranks
+   pinned to one rank's experts where a bf16 near-tie routes a token
+   otherwise (``RouteLog``; the pinned assignments and their largest
+   router margin printed, at most 2e-2); the one-rank training runs'
+   references (params and first moments) copied to the host on the
+   phase's path and written to their files by a thread beside it, the
+   ranks waiting for a run's file only when they check against it;
 5. one replica of each served arch traced with torch.profiler: host
    wall time of prefill and of a decode step, device time, device idle
    share, top device ops;
@@ -301,12 +321,15 @@ Phases, each of which fails the run (exit 1) if it fails:
    takes, each line naming R,
    sub-chunk, cluster, warps an SM and shared memory a CTA; no library
    call computes it. The head_dim-slice pair is timed at a decode_32k
-   rank's shape on the 16x16 mesh (B 8, W 32768, H 32, K 8, hd slice 8)
-   and at the serving runs' ranks, beside its bound (bytes), its plain
+   rank's shape on the 16x16 mesh (B 8, W 32768, H 32, K 8, hd slice 8),
+   at qwen3-moe-30b-a3b's (K 4) and mixtral-8x22b's (H 48, W 4096 with
+   its window; and its long_500k rank, B 1), and at the serving runs'
+   ranks, beside its bound (bytes), its plain
    versions, one ``torch.einsum`` for the scores (the library call) and
    the nearest expression for the values (``torch.where``,
    ``torch.softmax``, ``torch.matmul``; no one call computes them); the
-   prefill kernel also at the serving ranks' heads.
+   prefill kernel also at the serving ranks' heads (mixtral-8x22b's H 24
+   over K 4 at S 8192 with its window).
 
 Prints a JSON line of the kernels, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -315,6 +338,7 @@ no result. Imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import gc
 import json
@@ -431,11 +455,19 @@ MESH_STEPS, MESH_TIMEOUT_S = 3, 420
 #: biases nonzero, hd slice 32); falcon-mamba-7b 2 of 64 on (1, 2)
 #: (d_inner 4096 a rank); hymba-1.5b 4 of 32 on (1, 4) (d_inner 800 a
 #: rank, 6 or 7 of its 25 q heads, hd slice 16 at G 5, its window of 2048,
-#: its odd vocab of 32001 replicated)
+#: its odd vocab of 32001 replicated); qwen3-moe-30b-a3b 2 of 48 on (1, 2)
+#: and (2, 2) (64 of its 128 experts a rank, hd slice 64 at G 8; on (2, 2)
+#: the prefill's capacity slots from both data ranks' counts);
+#: mixtral-8x22b 2 of 56 on (1, 2) at its ``CUT`` prompt of 8192 (4 of its
+#: 8 experts a rank, a ring of 4096 that the prompt wraps, hd slice 64 at
+#: G 6 with its window). The moe runs' ranks are pinned to one rank's
+#: experts where a bf16 near-tie routes a token otherwise (`RouteLog`)
 MESH_SERVE_RUNS = (("llama3-8b", 4, ((1, 2), (1, 4), (2, 2))),
                    ("qwen2-72b", 2, ((1, 4),)),
                    ("falcon-mamba-7b", 2, ((1, 2),)),
-                   ("hymba-1.5b", 4, ((1, 4),)))
+                   ("hymba-1.5b", 4, ((1, 4),)),
+                   ("qwen3-moe-30b-a3b", 2, ((1, 2), (2, 2))),
+                   ("mixtral-8x22b", 2, ((1, 2),)))
 MESH_SERVE_BATCH, MESH_SERVE_STEPS = 2, 16
 #: the decode steps of a run whose data axis is split (2, 2): FSDP
 #: gathers every weight's data shards in each step, 0.96 GB a rank
@@ -729,8 +761,9 @@ class RouteLog:
     rank routes the whole batch; where the batch is split over data,
     `whole_batch_routing` reckons them from every data rank's counts)
     and, against another run's experts call by call (``want``, of the
-    whole batch; this run routes its tokens ``rows``, [lo, hi) of
-    them), the assignments whose expert differs and the
+    whole batch; this run routes ``part`` (d, n) of each call's tokens,
+    the d-th of n equal parts: a data rank's rows of a batch split over n
+    data ranks), the assignments whose expert differs and the
     largest router margin (k-th less (k+1)-th probability) among their
     tokens; it then pins those tokens to ``want``'s experts, with this
     run's own probabilities of them as gates (so the router's gradient
@@ -740,8 +773,8 @@ class RouteLog:
     call's (T, k) experts as uint8 on the host, for a later run's
     ``want``."""
 
-    def __init__(self, torch, moe, want=None, rows=None):
-        self.torch, self.moe, self.want, self.rows = torch, moe, want, rows
+    def __init__(self, torch, moe, want=None, part=(0, 1)):
+        self.torch, self.moe, self.want, self.part = torch, moe, want, part
         self.calls, self.experts = [], []
 
     @contextlib.contextmanager
@@ -754,8 +787,8 @@ class RouteLog:
             call = {"moved": 0, "margin": 0.0}
             if self.want is not None:
                 ref = self.want[len(self.calls)]
-                if self.rows is not None:
-                    ref = ref[self.rows[0]:self.rows[1]]
+                d, n = self.part
+                ref = ref[d * len(ref) // n:(d + 1) * len(ref) // n]
                 ref = ref.to(idx.device, torch.long)
                 moved = ~(idx[:, :, None] == ref[:, None, :]).any(-1)
                 call["moved"] = int(moved.sum())
@@ -1209,12 +1242,18 @@ class Smoke:
         qwen2's G 8 and yi's G 7, hymba's G 5 with its window of 2048 at
         slices 32, 16 and 4 (hd 64 over model 2, 4 and 16; a bf16 row of
         4 is one 8-byte vector); B 1 and 8; W 2048 after the ring's first
-        wrap and at a partial fill; a window; bf16 and f32. Then the pair
-        composed over every slice of hd 128, and over all 16 slices of
-        hymba's hd 64 (the partial scores summed, as the all-reduce sums
-        them) against ``decode_mha_ref`` on the whole heads; two runs bit
-        for bit, at slice 8 and at hymba's slice 4; a slice it does not
-        take (12) raises."""
+        wrap and at a partial fill; a window; bf16 and f32; the moe
+        family's ranks: qwen3's G 8 over K 4 (its decode_32k rank, B 8 W
+        32768 slice 8, and its serving runs' (1, 2) and (2, 2) ranks,
+        slice 64) and mixtral's G 6 with its window of 4096 on its wrapped
+        ring of 4096 (the decode_32k rank B 8 and the long_500k rank B 1
+        at slice 8, the serving run's (1, 2) rank at slice 64). Then the
+        pair composed over every slice of hd 128 (mixtral's heads with a
+        window of 1024 too), and over all 16 slices of hymba's hd 64 (the
+        partial scores summed, as the all-reduce sums them) against
+        ``decode_mha_ref`` on the whole heads; two runs bit for bit, at
+        slice 8 (llama's and mixtral's heads) and at hymba's slice 4; a
+        slice it does not take (12) raises."""
         torch = self.torch
         from repro_torch.kernels.decode_attention import (
             decode_mha_ref, decode_scores_hd, decode_scores_hd_ref,
@@ -1238,6 +1277,20 @@ class Smoke:
                  (hymba, 4, 1, W + 1, W, "hymba G5 (model 16)"),
                  (hymba, 4, 8, W + 1, W, "hymba G5 (model 16)"),
                  (hymba, 4, 8, 1500, W, "hymba G5 partial fill")]
+        # (heads, hs, B, W, fill, window, label): the decode_32k ranks on
+        # 16x16 (B 128 over data 16, hd 128 over model 16), mixtral's
+        # long_500k rank (B 1 replicated; its cache is its 4096 window),
+        # and the serving runs' ranks (hd over model 2); mixtral's rings
+        # have wrapped (prompt 8192, and 524288 at long_500k)
+        qwen3, mixtral = (32, 4, 128), (48, 8, 128)
+        moe_cases = [
+            (qwen3, 8, 8, 32768, 32769, 0, "qwen3 G8 decode_32k rank"),
+            (qwen3, 64, 2, W, W + 1, 0, "qwen3 G8 (1, 2) rank"),
+            (qwen3, 64, 1, W, W + 1, 0, "qwen3 G8 (2, 2) rank"),
+            (mixtral, 8, 8, 4096, 8193, 4096, "mixtral G6 decode_32k rank"),
+            (mixtral, 8, 1, 4096, 524289, 4096,
+             "mixtral G6 long_500k rank"),
+            (mixtral, 64, 2, 4096, 8193, 4096, "mixtral G6 (1, 2) rank")]
         for dname, tol in TOL.items():
             dtype = getattr(torch, dname)
             g = self.gen(21)
@@ -1257,11 +1310,31 @@ class Smoke:
                     s_ref, vc, sp, p, head_dim=hd, window=window),
                     decode_values_hd_ref(s_ref, vc, sp, p, head_dim=hd,
                                          window=window), tol)
+            # the moe family's ranks, each on its own ring: qwen3's G 8
+            # (K 4) and mixtral's G 6 with its window of 4096
+            for (H, K, hd), hs, B, Wr, fill, window, arch in moe_cases:
+                q = self.randn(g, (B, H, hs), dtype)
+                kc, vc = (self.randn(g, (B, Wr, K, hs), dtype) for _ in "kv")
+                sp = self.ring_slot_pos(Wr, fill, B)
+                p = torch.full((B,), fill - 1, dtype=torch.int32,
+                               device=self.dev)
+                label = (f"{dname} B={B} W={Wr} H={H} K={K} hs={hs} fill="
+                         f"{fill}{f' window={window}' if window else ''} "
+                         f"[{arch}]")
+                s_ref = decode_scores_hd_ref(q, kc)
+                self.compare(sname, label, decode_scores_hd(q, kc), s_ref,
+                             tol)
+                self.compare(vname, label, decode_values_hd(
+                    s_ref, vc, sp, p, head_dim=hd, window=window),
+                    decode_values_hd_ref(s_ref, vc, sp, p, head_dim=hd,
+                                         window=window), tol)
             # the pair over every slice against the whole heads
             for (H, K, hd), n, B, fill, window in (
                     (llama, 2, 1, W + 1, 0), (llama, 16, 8, W + 1, 0),
                     (qwen2, 4, 1, W + 1, 0), (yi, 8, 8, 1500, 0),
-                    (hymba, 16, 8, W + 1, W), (hymba, 16, 1, 1500, W)):
+                    (hymba, 16, 8, W + 1, W), (hymba, 16, 1, 1500, W),
+                    (mixtral, 2, 2, W + 1, 1024), (mixtral, 16, 8, W + 1,
+                                                   1024)):
                 q = self.randn(g, (B, 1, H, hd), dtype)
                 kc, vc = (self.randn(g, (B, W, K, hd), dtype) for _ in "kv")
                 sp = self.ring_slot_pos(W, fill, B)
@@ -1281,7 +1354,8 @@ class Smoke:
                              f"decode_mha_ref", out,
                              decode_mha_ref(q, kc, vc, sp, p, window=window),
                              tol)
-        for (H, K, hd), hs, window in ((llama, 8, 0), (hymba, 4, W)):
+        for (H, K, hd), hs, window in ((llama, 8, 0), (hymba, 4, W),
+                                       (mixtral, 8, W)):
             g = self.gen(22)
             q = self.randn(g, (8, H, hs), torch.bfloat16)
             kc, vc = (self.randn(g, (8, W, K, hs), torch.bfloat16)
@@ -2320,9 +2394,15 @@ class Smoke:
             [str(ROOT), str(SRC), os.environ.get("PYTHONPATH", "")])
         tmp = tempfile.mkdtemp(prefix="mesh-")
         by_count, serves = {}, {}
+        # the one-rank references are written to disk by one thread of
+        # their own while the phase goes on: the next runs, and the
+        # spawns, whose ranks wait for a run's file only when they check
+        # against it (`wait_for_file`); torch.save without the CRC-32
+        # (`no_crc32`) releases the GIL while it writes
+        writer = concurrent.futures.ThreadPoolExecutor(1)
         try:
             for arch, layers, shapes in MESH_RUNS:
-                run = self.one_rank_run(arch, layers, tmp)
+                run = self.one_rank_run(arch, layers, tmp, writer)
                 for shape in shapes:
                     by_count.setdefault(math.prod(shape), []).append(
                         {**run, "shape": shape})
@@ -2335,16 +2415,21 @@ class Smoke:
             for n in sorted(set(by_count) | set(serves)):
                 bad += self.train_mesh(n, cards, by_count.get(n, []),
                                        serves.get(n, []))
+            for run in (r for runs in by_count.values() for r in runs):
+                run["saved"].result()            # raises a failed save
         finally:
+            writer.shutdown(wait=True)
             shutil.rmtree(tmp, ignore_errors=True)
         if bad:
             raise AssertionError(f"train and serve (mesh): {bad}")
 
-    def one_rank_run(self, arch, layers, tmp):
+    def one_rank_run(self, arch, layers, tmp, writer):
         """``MESH_STEPS`` steps of ``arch`` cut to ``layers`` on one rank
         of the card, its launches and, for the moe family, its routing;
         its params and first moments (and routing) saved under ``tmp``
-        for the ranks. Returns what `train_mesh` takes."""
+        for the ranks, copied to the host here and written by ``writer``
+        (one thread) while the phase goes on. Returns what `train_mesh`
+        takes, ``saved`` the write's future."""
         torch = self.torch
         from repro_torch.configs import registry
         from repro_torch.launch import train
@@ -2378,16 +2463,29 @@ class Smoke:
         if log.experts:
             run["routes"] = str(Path(tmp) / f"{arch}-routes.pt")
             torch.save(log.experts, run["routes"])
+        # the copy to the host stays on the phase's path: on a stream of
+        # a thread of its own, it stalled the next runs on the card by as
+        # long and held the leaves there meanwhile
         t0 = time.monotonic()
-        with no_crc32():              # a file the ranks read once, at once
-            torch.save({f"{name}/" + "/".join(map(str, p)): t.cpu()
-                        for name in ("params", "mu") for p, t in
-                        leaves_with_paths(getattr(one["state"], name))},
-                       run["reference"])
-        print(f"  {path}: params and first moments saved for the ranks, "
-              f"{os.path.getsize(run['reference']) / 1e9:.2f} GB in "
-              f"{time.monotonic() - t0:.1f} s, "
-              f"{shutil.disk_usage(tmp).free / 1e9:.0f} GB left there")
+        host = {f"{name}/" + "/".join(map(str, p)): t.cpu()
+                for name in ("params", "mu") for p, t in
+                leaves_with_paths(getattr(one["state"], name))}
+        copy_s = time.monotonic() - t0
+
+        def save():
+            t1 = time.monotonic()
+            part = run["reference"] + ".part"
+            with no_crc32():          # a file the ranks read once, at once
+                torch.save(host, part)
+            os.replace(part, run["reference"])
+            print(f"  {path}: params and first moments saved for the ranks, "
+                  f"{os.path.getsize(run['reference']) / 1e9:.2f} GB: copied "
+                  f"to the host in {copy_s:.1f} s on the phase's path, "
+                  f"written in {time.monotonic() - t1:.1f} s by a thread "
+                  f"beside it, {shutil.disk_usage(tmp).free / 1e9:.0f} GB "
+                  f"left there", flush=True)
+            host.clear()
+        run["saved"] = writer.submit(save)
         del one
         gc.collect()
         torch.cuda.empty_cache()
@@ -2395,43 +2493,48 @@ class Smoke:
 
     def one_rank_serve(self, arch, layers):
         """``arch`` at full width cut to ``layers`` served on one rank of
-        the card: a prefill of MESH_SERVE_BATCH x PROMPT (`serve_prompt`)
-        and MESH_SERVE_STEPS greedy decode steps from `serve_params`, its
-        walls, peak memory and launches. Returns what the ranks are held
-        to: every step's logits, the tokens fed to the steps (each the
-        argmax of the logits before it) and, for the ssm and hybrid
-        families, the f32 ``ssm`` state after the last step, on the
-        host."""
+        the card: a prefill of MESH_SERVE_BATCH x its prompt
+        (`serve_prompt`) and MESH_SERVE_STEPS greedy decode steps from
+        `serve_params`, its walls, peak memory and launches. Returns what
+        the ranks are held to: every step's logits, the tokens fed to the
+        steps (each the argmax of the logits before it), for the ssm and
+        hybrid families the f32 ``ssm`` state after the last step, on the
+        host, and for the moe family its experts router call by router
+        call (`RouteLog`), to which the ranks are pinned."""
         torch = self.torch
         from repro_torch.configs import registry
         from repro_torch.models import Model
+        from repro_torch.models import moe
         cfg = registry.get(arch).replace(num_layers=layers)
         gc.collect()
         torch.cuda.empty_cache()
         model = Model(cfg)
         params = serve_params(cfg, self.dev)
         prompt = serve_prompt(cfg, self.dev)
+        log = RouteLog(torch, moe)
         counters = self.counters()
         for mod in counters.values():
             mod.launches = 0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        logits, cache = model.prefill(params, {"tokens": prompt})
-        torch.cuda.synchronize()
-        prefill_s = time.perf_counter() - t0
-        outs, tokens, step_s = [logits], [], []
-        for _ in range(MESH_SERVE_STEPS):
-            tokens.append(outs[-1].argmax(-1).to(torch.int32))
+        with log.run() if cfg.family == "moe" else contextlib.nullcontext():
             t0 = time.perf_counter()
-            logits, cache = model.decode_step(params, cache, tokens[-1])
+            logits, cache = model.prefill(params, {"tokens": prompt})
             torch.cuda.synchronize()
-            step_s.append(time.perf_counter() - t0)
-            outs.append(logits)
+            prefill_s = time.perf_counter() - t0
+            outs, tokens, step_s = [logits], [], []
+            for _ in range(MESH_SERVE_STEPS):
+                tokens.append(outs[-1].argmax(-1).to(torch.int32))
+                t0 = time.perf_counter()
+                logits, cache = model.decode_step(params, cache, tokens[-1])
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                outs.append(logits)
         peak = torch.cuda.max_memory_allocated()
         path = f"serve (mesh) {arch} x{layers} one rank"
         self.launches[path] = {n: m.launches for n, m in counters.items()}
-        print(f"  {path}: B {MESH_SERVE_BATCH} x prompt {PROMPT}, "
+        print(f"  {path}: B {MESH_SERVE_BATCH} x prompt "
+              f"{serve_len(arch)}, "
               f"{MESH_SERVE_STEPS} greedy steps: prefill "
               f"{prefill_s * 1e3:.1f} ms, decode step "
               f"{min(step_s) * 1e3:.2f}-{max(step_s) * 1e3:.2f} ms (median "
@@ -2443,7 +2546,8 @@ class Smoke:
                "peak": peak,
                "logits": torch.stack([o.cpu() for o in outs]),
                "tokens": torch.stack([t.cpu() for t in tokens]),
-               "ssm": cache["ssm"].cpu() if "ssm" in cache else None}
+               "ssm": cache["ssm"].cpu() if "ssm" in cache else None,
+               "routes": log.experts or None}
         del model, params, cache, outs, logits
         gc.collect()
         torch.cuda.empty_cache()
@@ -2456,21 +2560,27 @@ class Smoke:
         cfg, shape = one["cfg"], one["shape"]
         arch, L = cfg.name, cfg.num_layers
         steps = serve_steps(shape)
-        attn = cfg.family != "ssm"              # the dense and hybrid ones
+        attn = cfg.family != "ssm"          # the dense, moe and hybrid ones
         mamba = cfg.family in ("ssm", "hybrid")
+        experts = cfg.family == "moe"
         rows = MESH_SERVE_BATCH // shape[0]
         # the attention kernels on the rank's heads, the scan on its
         # channels; a decode step's sums over model: the embedding, then
-        # each layer's wo and MLP and/or x_proj (f32) and out_proj
+        # each layer's wo and MLP (the experts' partial outputs in f32)
+        # and/or x_proj (f32) and out_proj
         want = every_kernel({
             **({FLASH["name"]: L, SCORES_HD["name"]: L * steps,
                 VALUES_HD["name"]: L * steps} if attn else {}),
             **({SCAN["name"]: L} if mamba else {})})
-        W = min(PROMPT, cfg.sliding_window or PROMPT)
+        W = min(serve_len(arch), cfg.sliding_window or serve_len(arch))
         scores_b = L * rows * cfg.num_heads * W * 4 if attn else 0
         sums = 1 + L * (2 * attn + 2 * mamba)
-        sums_b = ((1 + L * (2 * attn + mamba)) * rows * cfg.d_model * 2
+        sums_b = ((1 + L * (2 * attn + mamba - experts)) * rows
+                  * cfg.d_model * 2 + experts * L * rows * cfg.d_model * 4
                   + mamba * L * rows * (cfg.dt_rank + 2 * cfg.ssm_state) * 4)
+        # the prefill's count gather: each layer's per-expert counts from
+        # every data rank, where the data axes split the batch
+        counts = L if experts and shape[0] > 1 else 0
         in_proj_b = mamba * L * rows * 2 * cfg.d_inner // shape[1] * 2
         where = f"serve (mesh) {arch} x{L} on {shape}"
         bad = []
@@ -2528,10 +2638,22 @@ class Smoke:
             if not res["close"] or res["flips"]:
                 bad.append((path, "logits or tokens", max(res["errs"]),
                             res["flips"]))
+            if res["routing"] is not None:
+                moved = sum(c["moved"] for c in res["routing"])
+                margin = max(c["margin"] for c in res["routing"])
+                print(f"  {path} routing: {len(res['routing'])} router "
+                      f"calls (the prefill's {L}, then {L} a decode step), "
+                      f"{moved} assignments pinned to one rank's experts, "
+                      f"the largest router margin among them {margin:.3e} "
+                      f"(at most {ROUTE_TOL})")
+                if margin > ROUTE_TOL:
+                    bad.append((path, "a route moved at margin", margin))
             if res["launches"] != want:
                 bad.append((path, "launches", res["launches"]))
             if res["prefill_c"]["calls"].get("all_to_all", 0) != 2 * L * attn:
                 bad.append((path, "prefill all_to_all", res["prefill_c"]))
+            if res["prefill_c"]["calls"].get("count_all_gather", 0) != counts:
+                bad.append((path, "prefill count gathers", res["prefill_c"]))
             for i, c in enumerate(res["step_c"]):
                 calls, nb = c["calls"], c["bytes_by"]
                 if (calls.get("all_to_all", 0) != 4 * L * attn
@@ -2540,7 +2662,8 @@ class Smoke:
                         or calls.get("in_proj_all_to_all", 0) != L * mamba
                         or nb.get("in_proj_all_to_all", 0) != in_proj_b
                         or calls.get("all_reduce") != sums
-                        or nb.get("all_reduce") != sums_b):
+                        or nb.get("all_reduce") != sums_b
+                        or "count_all_gather" in calls):
                     bad.append((path, "decode step collectives", i, c))
                     break
             if "layers/mamba/in_proj" in res["decode_gathers"]:
@@ -2611,8 +2734,9 @@ class Smoke:
               f"(data, model) meshes: {names} in turn, B {TRAIN_BATCH} x S "
               f"{TRAIN_SEQ}, {MESH_STEPS} steps; then a sharded "
               f"checkpoint's round trip; then serving {served}; B "
-              f"{MESH_SERVE_BATCH} x prompt {PROMPT}, a prefill and the "
-              f"decode steps each", flush=True)
+              f"{MESH_SERVE_BATCH} x prompt {PROMPT} (mixtral-8x22b "
+              f"{serve_len('mixtral-8x22b')}), a prefill and the decode "
+              f"steps each", flush=True)
         t0 = time.monotonic()
         ranks = spawn("chip_smoke:mesh_ranks", n, {
             "runs": [{"arch": r["cfg"].name, "layers": r["cfg"].num_layers,
@@ -2626,7 +2750,8 @@ class Smoke:
                         "tokens": r["tokens"][:serve_steps(r["shape"])],
                         # the state after one rank's last step
                         "ssm": (r["ssm"] if serve_steps(r["shape"])
-                                == MESH_SERVE_STEPS else None)}
+                                == MESH_SERVE_STEPS else None),
+                        "routes": r["routes"]}
                        for r in serves]},
             backend=backend,
             timeout_s=MESH_TIMEOUT_S, echo=True)
@@ -3858,14 +3983,20 @@ class Smoke:
                 1, 16, 16, 64, 0, "seamless-m4t-large-v2 cross, ragged "
                 "source", W=1500)}
         # the serving ranks' heads (the "train (mesh)" phase's serving
-        # runs): llama3-8b at model 2, qwen2-72b at model 4 (G 8)
+        # runs): llama3-8b at model 2, qwen2-72b at model 4 (G 8; the
+        # heads of qwen3-moe-30b-a3b's at model 2), mixtral-8x22b at model
+        # 2 (G 6, its window, prompt 8192)
         self.also[FLASH["name"]].update({
             "llama3-8b serving rank H16/K4 (model 2) B=2 S=2048":
                 self.time_flash(16, 4, 128, 0, "llama3-8b serving rank, "
                                 "model 2", B=MESH_SERVE_BATCH),
             "qwen2-72b serving rank H16/K2 G8 (model 4) B=2 S=2048":
                 self.time_flash(16, 2, 128, 0, "qwen2-72b serving rank, "
-                                "model 4", B=MESH_SERVE_BATCH)})
+                                "model 4", B=MESH_SERVE_BATCH),
+            "mixtral-8x22b serving rank H24/K4 G6 (model 2) B=2 S=8192 "
+            "window=4096": self.time_flash(
+                24, 4, 128, 4096, "mixtral-8x22b serving rank, model 2",
+                B=MESH_SERVE_BATCH, S=serve_len("mixtral-8x22b"))})
         # the head_dim-slice pair at a decode_32k rank's shape on the 16x16
         # mesh (B 128 over data 16, hd 128 over model 16), and at the
         # serving runs' ranks
@@ -3890,6 +4021,26 @@ class Smoke:
                 ("hymba-1.5b (1, 4) rank B=2 hs=16", (2, 25, 5, 16))):
             also[label] = self.time_decode_hd(*shape, PROMPT, label,
                                               head_dim=64, window=PROMPT)
+        # the moe family: qwen3-moe-30b-a3b's decode_32k rank on 16x16 (B
+        # 128 over data 16, H 32 over K 4, hd 128 over model 16) and its
+        # serving runs' ranks (hd over model 2); mixtral-8x22b's, its ring
+        # the 4096 window: decode_32k on 16x16, long_500k (B 1
+        # replicated) and the serving run's (1, 2) rank
+        for label, shape, W, window in (
+                ("qwen3-moe-30b-a3b decode_32k rank B=8 K=4 hs=8",
+                 (8, 32, 4, 8), 32768, 0),
+                ("qwen3-moe-30b-a3b (1, 2) rank B=2 hs=64", (2, 32, 4, 64),
+                 PROMPT, 0),
+                ("qwen3-moe-30b-a3b (2, 2) rank B=1 hs=64", (1, 32, 4, 64),
+                 PROMPT, 0),
+                ("mixtral-8x22b decode_32k rank B=8 H=48 K=8 hs=8",
+                 (8, 48, 8, 8), 4096, 4096),
+                ("mixtral-8x22b long_500k rank B=1 hs=8", (1, 48, 8, 8),
+                 4096, 4096),
+                ("mixtral-8x22b (1, 2) rank B=2 hs=64", (2, 48, 8, 64), 4096,
+                 4096)):
+            also[label] = self.time_decode_hd(*shape, W, label,
+                                              window=window)
         for i, meta in enumerate((SCORES_HD, VALUES_HD)):
             self.also[meta["name"]] = {k: v[i] for k, v in also.items()}
         self.timing[FLASH_BWD["name"]] = self.time_flash_bwd(
@@ -4148,7 +4299,7 @@ class Smoke:
         n_valid = int(mask.sum())
         vbytes = (4 * B * H * W + 2 * n_valid * K * hs + 4 * (B * W + B)
                   + 2 * B * H * hs)
-        bms, by = self.bound(vbytes, 2 * B * H * n_valid * hs,
+        bms, by = self.bound(vbytes, 2 * H * n_valid * hs,
                              F32_FLOPS_PER_S)
         scale = 1.0 / math.sqrt(hd)
 
@@ -4407,6 +4558,7 @@ def against_one_rank(model, state, tp, mesh, reference):
     import torch
     from repro_torch.parallel import collectives as C
     from repro_torch.parallel import placement as P
+    wait_for_file(reference)
     want = torch.load(reference, mmap=True, weights_only=True)
     init = dict(P.leaves_with_paths(model.init_params(
         torch.Generator(device=mesh.device).manual_seed(0))))
@@ -4438,6 +4590,16 @@ def against_one_rank(model, state, tp, mesh, reference):
             1e-30)).item()), key=lambda w: w[1])
     return {"update_worst": upd_worst, "mu_worst": mu_worst,
             "moved": moved, "leaves": len(mu)}
+
+
+def wait_for_file(path, timeout_s=MESH_TIMEOUT_S):
+    """Wait until ``path`` exists (the parent's writer thread renames a
+    one-rank reference into place once it is whole)."""
+    deadline = time.monotonic() + timeout_s
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{path} was not written within {timeout_s} s")
+        time.sleep(0.2)
 
 
 def mesh_ranks(runs, shared, ckpt_shape, serves=()):
@@ -4488,16 +4650,25 @@ def serve_params(cfg, device):
     return params
 
 
+def serve_len(arch) -> int:
+    """A serving run's prompt: PROMPT, or the one ``CUT`` gives ``arch``
+    (mixtral-8x22b's 8192, twice its window)."""
+    return CUT.get(arch, (None, PROMPT))[1]
+
+
 def serve_prompt(cfg, device):
-    """The serving runs' prompt: MESH_SERVE_BATCH x PROMPT tokens, seed 2."""
+    """The serving runs' prompt: MESH_SERVE_BATCH x `serve_len` tokens,
+    seed 2."""
     import torch
-    return torch.randint(0, cfg.vocab_size, (MESH_SERVE_BATCH, PROMPT),
+    return torch.randint(0, cfg.vocab_size, (MESH_SERVE_BATCH,
+                                             serve_len(cfg.name)),
                          dtype=torch.int32, device=device,
                          generator=torch.Generator(device=device)
                          .manual_seed(2))
 
 
-def mesh_serve(arch, layers, shape, shared, logits, tokens, ssm=None):
+def mesh_serve(arch, layers, shape, shared, logits, tokens, ssm=None,
+               routes=None):
     """One rank of a serving run (`Smoke.check_mesh_serve`): ``arch`` at
     full width cut to ``layers`` on this rank of the (data, model)
     ``shape`` mesh (`rank_mesh_of`) under the reference's serving
@@ -4512,7 +4683,10 @@ def mesh_serve(arch, layers, shape, shared, logits, tokens, ssm=None):
     the card and the dry run's decode-step argument bytes at this mesh;
     then every output's logits gathered whole against one rank's
     ``logits``, and the last step's f32 ``ssm`` state gathered over
-    ``model`` against one rank's ``ssm`` (where given). The ranks draw
+    ``model`` against one rank's ``ssm`` (where given). With ``routes``
+    (the moe family: one rank's experts, router call by router call) a
+    `RouteLog` of this rank's routing, its data rank's rows of each call,
+    which pins it to one rank's experts where they differ. The ranks draw
     the whole params and cut their shards one at a time, so the card
     holds one whole copy at once."""
     t0 = time.monotonic()
@@ -4524,6 +4698,7 @@ def mesh_serve(arch, layers, shape, shared, logits, tokens, ssm=None):
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import Model
     from repro_torch.models import kv_cache as kvc
+    from repro_torch.models import moe
     from repro_torch.models.registry import param_structs
     from repro_torch.parallel import collectives as C
     from repro_torch.parallel import placement as P
@@ -4531,7 +4706,10 @@ def mesh_serve(arch, layers, shape, shared, logits, tokens, ssm=None):
     mesh = rank_mesh_of(shape, shared)
     dev = mesh.device
     tp = SH.serve_placement(mesh, param_structs(cfg), kvc.init_cache(
-        cfg, MESH_SERVE_BATCH, PROMPT, device="meta"))
+        cfg, MESH_SERVE_BATCH, serve_len(arch), device="meta"))
+    log = (RouteLog(torch, moe, routes, part=(
+        dist.get_rank() // shape[1], shape[0] if tp.rows_split else 1))
+        if routes else None)
     params = None
     for r in range(dist.get_world_size()):    # one whole copy at a time
         if r == dist.get_rank():
@@ -4561,21 +4739,23 @@ def mesh_serve(arch, layers, shape, shared, logits, tokens, ssm=None):
     for mod in counters.values():
         mod.launches = 0
     t1 = time.monotonic()
-    (out, cache), prefill_s, prefill_c = timed(
-        lambda: model.prefill(params, {"tokens": prompt}, tp=tp))
-    cache, reshard_s, reshard_c = timed(
-        lambda: kvc.to_decode_layout(cache, tp))
-    prefill_g = dict(tp.gathers)
-    tp.gathers.clear()
-    nbytes = {"params": P.state_bytes(params), "cache": P.state_bytes(cache)}
-    outs, step_s, step_c = [out], [], []
-    for tok in tokens:
-        t = rows(tok.to(dev))
-        (out, cache), sec, c = timed(
-            lambda t=t: model.decode_step(params, cache, t, tp=tp))
-        outs.append(out)
-        step_s.append(sec)
-        step_c.append(c)
+    with log.run() if log else contextlib.nullcontext():
+        (out, cache), prefill_s, prefill_c = timed(
+            lambda: model.prefill(params, {"tokens": prompt}, tp=tp))
+        cache, reshard_s, reshard_c = timed(
+            lambda: kvc.to_decode_layout(cache, tp))
+        prefill_g = dict(tp.gathers)
+        tp.gathers.clear()
+        nbytes = {"params": P.state_bytes(params),
+                  "cache": P.state_bytes(cache)}
+        outs, step_s, step_c = [out], [], []
+        for tok in tokens:
+            t = rows(tok.to(dev))
+            (out, cache), sec, c = timed(
+                lambda t=t: model.decode_step(params, cache, t, tp=tp))
+            outs.append(out)
+            step_s.append(sec)
+            step_c.append(c)
     launches = {n: m.launches for n, m in counters.items()}
     peak = torch.cuda.max_memory_allocated(dev)
     decode_g = dict(tp.gathers)
@@ -4604,9 +4784,13 @@ def mesh_serve(arch, layers, shape, shared, logits, tokens, ssm=None):
         flips += int((sure & ~same).sum())
         compared += int(sure.sum())
     cell = dryrun.build_cell(arch, InputShape(
-        "decode", PROMPT, MESH_SERVE_BATCH, "decode"), extra={
+        "decode", serve_len(arch), MESH_SERVE_BATCH, "decode"), extra={
             "num_layers": layers}, mesh=Mesh(mesh.axis_names, mesh.sizes))
     local = []
+    if cfg.family == "moe":
+        e0, e1 = tp.split(cfg.num_experts)
+        local.append(f"experts [{e0}, {e1}) of {cfg.num_experts}, w_gate "
+                     f"spec {tp.specs['layers/moe/w_gate']}")
     if "k" in cache:
         h0, h1 = tp.split(cfg.num_heads)
         local.append(f"q heads [{h0}, {h1}) of {cfg.num_heads}; decode "
@@ -4623,7 +4807,7 @@ def mesh_serve(arch, layers, shape, shared, logits, tokens, ssm=None):
     return {"device": str(dev), "note": C.backend_note(mesh),
             "local": "; ".join(local), "launches": launches, "peak": peak,
             "prefill_gathers": prefill_g, "decode_gathers": decode_g,
-            "state": state,
+            "state": state, "routing": log.calls if log else None,
             "prefill_s": prefill_s, "reshard_s": reshard_s,
             "step_s": step_s, "prefill_c": prefill_c,
             "reshard_c": reshard_c, "step_c": step_c, "errs": errs,
@@ -4716,11 +4900,9 @@ def mesh_rank(arch, layers, shape, shared, reference, routes=None):
     from repro_torch.parallel import collectives as C
     from repro_torch.parallel.placement import axes_of
     cfg = registry.get(arch).replace(num_layers=layers)
-    tokens = TRAIN_BATCH * TRAIN_SEQ // shape[0]     # a data rank's
-    d = dist.get_rank() // shape[1]
+    d = dist.get_rank() // shape[1]                  # the data rank
     log = (RouteLog(torch, moe, torch.load(routes, weights_only=True),
-                    rows=(d * tokens, (d + 1) * tokens))
-           if routes else None)
+                    part=(d, shape[0])) if routes else None)
     counters = Smoke.counters()
     for mod in counters.values():
         mod.launches = 0
@@ -4826,9 +5008,12 @@ def main() -> int:
         f"{arch} {layers} of {registry_depth(arch)} layers on "
         f"{', '.join(map(str, shapes))}" for arch, layers, shapes in
         MESH_SERVE_RUNS)
-    phases.append((f"train (mesh; one spawn a count of ranks), then serve "
-                   f"in the same spawns ({served}; {MESH_SERVE_FSDP_STEPS} "
-                   f"of {MESH_SERVE_STEPS} decode steps on (2, 2))",
+    phases.append((f"train (mesh; one spawn a count of ranks; the one-rank "
+                   f"references' files written beside the phase, off its "
+                   f"path), "
+                   f"then serve in the same spawns ({served}; "
+                   f"{MESH_SERVE_FSDP_STEPS} of {MESH_SERVE_STEPS} decode "
+                   f"steps on (2, 2))",
                    smoke.phase_train_mesh))
     phases.append(("mlserve cores", smoke.phase_mlserve))
     phases.append(("worker node", smoke.phase_node))

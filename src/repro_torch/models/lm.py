@@ -16,14 +16,17 @@ dict that shares them (the reference returns a new cache).
 prefill layers dispatch by ``cfg.moe_impl`` and its decode layers always
 run the dropless `moe_dense`, as the reference's do.
 
-Serving on a mesh (the dense, ssm and hybrid families; `check_mesh`
-refuses the others): `prefill` and `decode_step` take a serving
-placement ``tp`` (``launch.sharding.serve_placement``) and run on this
-rank's shards under the reference's serving shardings: params and batch
-as in training, the prefill cache W over ``model``, the decode cache
-head_dim over ``model`` (`kv_cache.to_decode_layout` moves one to the
-other), the conv and ssm states d_inner over ``model`` in both, the
-logits vocab over ``model``.
+Serving on a mesh (the dense, moe, ssm and hybrid families;
+`check_mesh` refuses vlm and enc-dec): `prefill` and `decode_step` take
+a serving placement ``tp`` (``launch.sharding.serve_placement``) and run
+on this rank's shards under the reference's serving shardings: params
+and batch as in training (the experts over ``model``, or the
+fallback's layout), the prefill cache W over ``model``, the decode
+cache head_dim over ``model`` (`kv_cache.to_decode_layout` moves one to
+the other), the conv and ssm states d_inner over ``model`` in both, the
+logits vocab over ``model``. A batch the data axes do not divide (B 1
+of ``long_500k``) is replicated over them, and the moe family then
+routes this rank's rows as the whole batch (`moe.moe_sorted`).
 
 Training: `forward_train` runs the stack without a cache and with grad
 enabled, each layer under the remat policy ``cfg.remat_policy``
@@ -163,17 +166,17 @@ def _fuse(cfg, lp, attn_out, m_out):
                   + L.rms_norm(m_out, lp["bn_mamba"], cfg.norm_eps))
 
 
-def _seq_sublayers(cfg, lp, x, plain=False, tp=None):
+def _seq_sublayers(cfg, lp, x, plain=False, tp=None, train=False):
     """One layer over a full sequence. Returns (x, cache_out, aux): the
     layer's ``k``/``v`` and/or ``conv``/``ssm``, and the moe family's
     load-balancing loss (None for the others). A ``moe_impl`` of
-    "local" runs `moe_sorted` (on one device `moe_local` is
-    `moe_sorted`; on a mesh the global one, as the reference's training
-    does). With ``tp`` (on a mesh) attention, the Mamba block, the MLP
-    and the experts run on this rank's share (`layers.attention_layer`,
-    `mamba.mamba_layer`, `moe.moe_layer`), each branch summed over
-    ``model`` before hymba's fusion, and the moe loss is this rank's
-    share of the whole batch's."""
+    "local" runs `moe_local` in a prefill and the global `moe_sorted` in
+    training (``train``), as the reference's does (on one device the
+    two are the same). With ``tp`` (on a mesh) attention, the Mamba
+    block, the MLP and the experts run on this rank's share
+    (`layers.attention_layer`, `mamba.mamba_layer`, `moe.moe_layer`),
+    each branch summed over ``model`` before hymba's fusion, and in
+    training the moe loss is this rank's share of the whole batch's."""
     fam = cfg.family
     cache_out, aux = {}, None
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
@@ -193,7 +196,7 @@ def _seq_sublayers(cfg, lp, x, plain=False, tp=None):
         x = x + _fuse(cfg, lp, attn_out, m_out)
     h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
     if fam == "moe":
-        moe_out, aux = MOE.moe_layer(lp["moe"], cfg, h2, tp)
+        moe_out, aux = MOE.moe_layer(lp["moe"], cfg, h2, tp, train)
         return x + moe_out, cache_out, aux
     return x + L.mlp_layer(lp["mlp"], h2, tp), cache_out, aux
 
@@ -202,10 +205,12 @@ def _decode_sublayers(cfg, lp, x, cache, i, slot_pos, pos, plain=False,
                       tp=None):
     """One layer, one token; writes its K/V and SSM state into layer i of
     the cache, in place. With ``tp`` (a serving placement) attention, the
-    Mamba step and the MLP run on this rank's share, each branch summed
-    over ``model`` before hymba's fusion, the cache in the decode layout
-    (`layers.attention_decode_layer`; `mamba.mamba_decode_step` on the
-    rank's conv and ssm shards)."""
+    Mamba step, the MLP and the experts run on this rank's share, each
+    branch summed over ``model`` before hymba's fusion, the cache in the
+    decode layout (`layers.attention_decode_layer`;
+    `mamba.mamba_decode_step` on the rank's conv and ssm shards; the
+    dropless `moe.moe_dense` on the rank's experts, with no count
+    gather: the step throws its loss away, as the reference's does)."""
     fam = cfg.family
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     if fam in DENSE + ("moe", "hybrid"):
@@ -225,7 +230,7 @@ def _decode_sublayers(cfg, lp, x, cache, i, slot_pos, pos, plain=False,
     h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
     if fam == "moe":
         # T = B tokens: the dropless dense dispatch, whatever moe_impl says
-        return x + MOE.moe_dense(lp["moe"], cfg, h2)[0]
+        return x + MOE.moe_dense(lp["moe"], cfg, h2, tp, gather=False)[0]
     return x + L.mlp_layer(lp["mlp"], h2, tp)
 
 
@@ -294,7 +299,7 @@ def run_stack(cfg, params, x, cache=None, plain=False, tp=None):
 
 
 def _train_layer(cfg, lp, x, plain, tp=None):
-    x, _, aux = _seq_sublayers(cfg, lp, x, plain=plain, tp=tp)
+    x, _, aux = _seq_sublayers(cfg, lp, x, plain=plain, tp=tp, train=True)
     return x, aux
 
 
@@ -407,10 +412,10 @@ def chunked_ce_loss(cfg, params, hidden, targets, chunk=LOSS_CHUNK, tp=None):
 
 
 #: the families whose serving steps run on a mesh
-SERVE_MESH_FAMILIES = ("dense", "ssm", "hybrid")
+SERVE_MESH_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 #: the ROADMAP item (Queue 1) that ports each other family's serving
 #: steps on a mesh
-SERVE_MESH_ITEMS = {"moe": "11c", "vlm": "11d", "enc-dec": "11d"}
+SERVE_MESH_ITEMS = {"vlm": "11d", "enc-dec": "11d"}
 
 
 def check_mesh(cfg, tp, serve: bool = False) -> None:
@@ -492,9 +497,11 @@ def prefill(cfg, params, batch, cache_len=None, plain=False, tp=None):
     reference, so the first decode step overwrites slot 0 (position 0).
 
     ``tp`` (a serving placement, ``launch.sharding.serve_placement``, of
-    this cache's whole shape; the dense, ssm and hybrid families,
+    this cache's whole shape; the dense, moe, ssm and hybrid families,
     `check_mesh`): ``params`` are this rank's shards and ``batch`` its
-    rows (split over the data axes); the cache is this rank's shard of
+    rows (split over the data axes where they divide B, else every row);
+    the moe layers dispatch by ``moe_impl`` ("local": each data rank's
+    rows in a capacity of their own); the cache is this rank's shard of
     the prefill layout (W over ``model``, the conv and ssm states
     d_inner over ``model``; `kv_cache.to_decode_layout` moves it to the
     decode layout) and the logits its shard under ``logits_spec`` (its
@@ -540,7 +547,8 @@ def decode_step(cfg, params, cache, token, plain=False, tp=None):
 
     The cache is updated in place; see the module docstring. With ``tp``
     (`prefill`'s) the cache is this rank's shard of the decode layout
-    (head_dim over ``model``) and ``token`` its rows; the logits as
+    (head_dim over ``model``) and ``token`` its rows; the moe layers run
+    the dropless `moe.moe_dense` on the rank's experts; the logits as
     `prefill`'s.
     """
     check_supported(cfg)

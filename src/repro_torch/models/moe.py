@@ -18,15 +18,23 @@ in place (a 2-D input broadcasts against the expert axis). On one device
 `moe_local` is `moe_sorted`, as the reference's is without a data axis.
 
 On a mesh (``tp``, a `repro_torch.parallel.placement.Sharded` of more
-than one rank; training) both compute the reference's global semantics
-from this rank's rows of the batch (`_route_on_mesh`): the router runs
-on the whole x before it enters the split work, every data rank's
+than one rank) both compute the reference's global semantics from this
+rank's rows of the batch (`_route_on_mesh`): the router runs on the
+whole x before it enters the split work; where the data axes split the
+batch (training, and a serving batch they divide) every data rank's
 per-expert counts are gathered (no gradient), so the capacity, each
-assignment's slot and the Switch loss are those of the whole batch, and
-each ``model`` rank runs the experts of its ``tp.split(E)``: its own
-shard where ``model`` divides E (expert parallelism), else cut from the
-leaf fetched whole (the reference's fallback rule). The partial outputs
-are summed over ``model``.
+assignment's slot and the Switch loss are those of the whole batch;
+where they do not (a serving batch replicated over them, B 1 of
+``long_500k``) this rank's rows are the whole batch and are routed as
+on one device. Each ``model`` rank runs the experts of its
+``tp.split(E)``: its own shard where ``model`` divides E (expert
+parallelism), else cut from the leaf fetched whole (the reference's
+fallback rule); where ``model`` exceeds E some ranks hold no expert and
+add zeros to the sum. The partial outputs are summed over ``model``.
+`moe_local` on a serving mesh is the reference's ``shard_map`` over the
+data axes: each data rank sorts its own rows into a capacity of its
+own, and the losses are averaged over the data axes. A decode step's
+`moe_dense` gathers no counts: its loss is thrown away.
 """
 from __future__ import annotations
 
@@ -62,36 +70,47 @@ def _counts(idx, E):
         idx.reshape(-1), dtype=torch.float32))
 
 
+def _switch_loss(cfg, me, ce):
+    """The Switch load-balancing loss of the mean router probabilities
+    ``me`` (E,) and the per-expert assignment counts ``ce`` (E,)."""
+    ce = ce / ce.sum().clamp_min(1.0)
+    return cfg.num_experts * torch.sum(me * ce) * cfg.router_aux_loss
+
+
 def _route(p, cfg, xf):
     """Router in f32. xf: (T, D) -> gates (T, k) f32, idx (T, k) int64,
     and the Switch load-balancing loss (a 0-d f32 tensor)."""
     probs, gates, idx = _top_k(p["router"], cfg, xf)
-    E = cfg.num_experts
-    me = probs.mean(dim=0)                                # mean router prob
-    ce = _counts(idx, E)
-    ce = ce / ce.sum().clamp_min(1.0)
-    aux = E * torch.sum(me * ce) * cfg.router_aux_loss
-    return gates, idx, aux
+    return gates, idx, _switch_loss(cfg, probs.mean(dim=0),
+                                    _counts(idx, cfg.num_experts))
 
 
-def _route_on_mesh(p, cfg, xf, tp):
-    """`_route` on this rank's rows xf (T, D) of a batch split over the
-    data axes: gates and idx of these rows, this rank's share of the
-    whole batch's Switch loss, and every data rank's per-expert counts
+def _route_on_mesh(p, cfg, xf, tp, gather=True):
+    """`_route` on this rank's rows xf (T, D), the router fetched whole:
+    gates and idx of these rows, a Switch loss, and the per-expert counts
+    of the rows the slots are ranked among (or None).
+
+    Where the data axes split the batch and ``gather`` is set: this
+    rank's share of the whole batch's loss, and every data rank's counts
     (n, E) in the order the batch is split (no gradient). The loss is a
     product of two means over the whole batch, so the share is ``E *
     coef * sum(probs.sum(0) / (n T) * ce)`` with ``ce`` from every
     rank's counts: the shares sum over the data axes to the reference's
-    loss, and the gradient through ``probs`` stays this rank's."""
+    loss, and the gradient through ``probs`` stays this rank's.
+
+    Else (a batch replicated over the data axes, whose rows are the
+    whole batch on every rank; or ``gather`` off: `moe_local`'s shards
+    and a decode step) the rows are routed as on one device: their own
+    loss, no counts, no collective."""
     E = cfg.num_experts
     router = tp.weight(p["router"], "layers/moe/router", 1, 0, E)
     probs, gates, idx = _top_k(router, cfg, xf)
-    table = tp.gather_data(_counts(idx, E))               # (n, E)
-    ce = table.sum(dim=0)
-    ce = ce / ce.sum().clamp_min(1.0)
+    if not (gather and tp.rows_split):
+        return gates, idx, _switch_loss(cfg, probs.mean(dim=0),
+                                        _counts(idx, E)), None
+    table = tp.gather_data(_counts(idx, E), kind="count_all_gather")
     me = probs.sum(dim=0) / (xf.shape[0] * table.shape[0])
-    aux = E * torch.sum(me * ce) * cfg.router_aux_loss
-    return gates, idx, aux, table
+    return gates, idx, _switch_loss(cfg, me, table.sum(dim=0)), table
 
 
 def _experts_on_mesh(p, cfg, tp):
@@ -120,36 +139,43 @@ def _experts_ffn(p, buf):
     return torch.matmul(h, p["w_down"])
 
 
-def moe_sorted(p, cfg, x, tp=None):
+def moe_sorted(p, cfg, x, tp=None, gather=True):
     """Sort-based capacity-C dispatch. x: (B, S, D) -> (out, aux_loss).
 
     Everything stays on the device with static shapes (no host sync):
     a dropped assignment is written to a spare row past the buffer.
 
-    With ``tp`` x is this rank's rows of the batch and aux its share
-    (`_route_on_mesh`). The capacity is the whole batch's, and an
-    assignment's slot is its rank within its expert in the whole batch's
-    stable sort: the counts of the data ranks before this one (the
-    batch's order) plus its rank among this rank's rows. Each ``model``
-    rank fills and runs only its experts' rows of the buffer, on x and
-    the gates entering the split work (`Sharded.copy`), and the partial
-    outputs are summed over ``model`` (`Sharded.reduce`).
+    With ``tp`` x is this rank's rows of the batch (`_route_on_mesh`).
+    Where they are a split of the batch (and ``gather`` is set) the
+    capacity is the whole batch's, and an assignment's slot is its rank
+    within its expert in the whole batch's stable sort: the counts of
+    the data ranks before this one (the batch's order) plus its rank
+    among this rank's rows; aux is this rank's share. Else (a replicated
+    batch, or `moe_local`'s shards) capacity and slots are those of
+    these rows alone. Each ``model`` rank fills and runs only its
+    experts' rows of the buffer, on x and the gates entering the split
+    work (`Sharded.copy`), and the partial outputs are summed over
+    ``model`` (`Sharded.reduce`); a rank with no expert joins the sum
+    with zeros.
     """
     B, S, D = x.shape
     E, k = cfg.num_experts, cfg.num_experts_per_tok
     T = B * S
     xf = x.reshape(T, D)
     A = T * k                                             # assignments
+    table = None
     if tp is None:
         gates, idx, aux = _route(p, cfg, xf)
-        e0, e1, w, n = 0, E, p, 1
+        e0, e1, w = 0, E, p
     else:
-        gates, idx, aux, table = _route_on_mesh(p, cfg, xf, tp)
+        gates, idx, aux, table = _route_on_mesh(p, cfg, xf, tp, gather)
         e0, e1, w = _experts_on_mesh(p, cfg, tp)
-        n = table.shape[0]
         xf, gates = tp.copy(xf), tp.copy(gates)
+    n = 1 if table is None else table.shape[0]
     cap = max(int(A * n / E * cfg.capacity_factor), 8)
     El = e1 - e0
+    if El == 0:                         # no expert here: only the sum
+        return tp.reduce(torch.zeros_like(xf)).reshape(B, S, D), aux
     dev = x.device
     flat_e = idx.reshape(A)
     sort_i = torch.argsort(flat_e, stable=True)           # as jnp.argsort
@@ -158,7 +184,7 @@ def moe_sorted(p, cfg, x, tp=None):
     # slot within the expert's group = rank - first rank of that expert
     gstart = torch.searchsorted(se, torch.arange(E, device=dev))  # left
     slot = torch.arange(A, device=dev) - gstart[se]
-    if tp is not None:             # after the data ranks before this one
+    if table is not None:          # after the data ranks before this one
         before = table[:tp.mesh.index(tp.data)].sum(dim=0)
         slot = slot + before.long()[se]
     keep = (slot < cap) & (se >= e0) & (se < e1)          # this rank's
@@ -184,12 +210,15 @@ def moe_sorted(p, cfg, x, tp=None):
     return y.reshape(B, S, D), aux
 
 
-def moe_dense(p, cfg, x, tp=None):
+def moe_dense(p, cfg, x, tp=None, gather=True):
     """Dropless masked-dense dispatch (decode and oracle; E/k x the
     operations). x: (B, S, D) -> (out, aux_loss). With ``tp`` each
     ``model`` rank runs its experts on every token and combines them
     with its columns of the (T, E) weight; the f32 partial outputs are
-    summed over ``model``."""
+    summed over ``model`` (a rank with no expert runs empty products and
+    adds zeros). With ``gather`` off (a decode step, which throws the
+    loss away) no counts are gathered and the loss is that of this
+    rank's rows (`_route_on_mesh`)."""
     B, S, D = x.shape
     E = cfg.num_experts
     T = B * S
@@ -198,7 +227,7 @@ def moe_dense(p, cfg, x, tp=None):
         gates, idx, aux = _route(p, cfg, xf)
         e0, e1, w_e = 0, E, p
     else:
-        gates, idx, aux, _ = _route_on_mesh(p, cfg, xf, tp)
+        gates, idx, aux, _ = _route_on_mesh(p, cfg, xf, tp, gather)
         e0, e1, w_e = _experts_on_mesh(p, cfg, tp)
         xf, gates = tp.copy(xf), tp.copy(gates)
     # combine weight per (token, expert), f32
@@ -213,19 +242,29 @@ def moe_dense(p, cfg, x, tp=None):
     return out.to(x.dtype).reshape(B, S, D), aux
 
 
-def moe_local(p, cfg, x):
-    """Shard-local dispatch. On one device there is no data axis to keep
-    tokens on, so it is `moe_sorted`, as in the reference."""
-    return moe_sorted(p, cfg, x)
+def moe_local(p, cfg, x, tp=None):
+    """Shard-local dispatch, the reference's ``shard_map`` over the data
+    axes. On one device there is no data axis to keep tokens on, so it is
+    `moe_sorted`, as in the reference. On a mesh each data rank's rows go
+    through `moe_sorted` with a capacity of their own and slots ranked
+    among them (no count gather), the experts over ``model`` as there,
+    and the loss is the mean of the data ranks' (no gradient: training
+    runs the global sort). Where the data axes do not split the batch (a
+    replicated batch: the reference's ``B % n != 0``) it is the global
+    `moe_sorted`."""
+    if tp is None or not tp.rows_split:
+        return moe_sorted(p, cfg, x, tp)
+    y, aux = moe_sorted(p, cfg, x, tp, gather=False)
+    return y, tp.sum_data(aux) / tp.mesh.axes_size(tp.data)
 
 
-def moe_layer(p, cfg, x, tp=None):
-    """The layer by ``cfg.moe_impl``. With ``tp`` (training on a mesh)
-    "local" runs the global `moe_sorted`, as the reference's training
-    does; `moe_local` on a mesh is its sharded prefill, which the port
-    does not run."""
+def moe_layer(p, cfg, x, tp=None, train=False):
+    """The layer by ``cfg.moe_impl``, as the reference's: "local" runs
+    `moe_local` in a prefill, and in training (``train``) the global
+    `moe_sorted` (on one device the two are the same). A prefill throws
+    its loss away, so its "dense" layer gathers no counts."""
     if cfg.moe_impl == "dense":
-        return moe_dense(p, cfg, x, tp)
-    if cfg.moe_impl == "local" and tp is None:
-        return moe_local(p, cfg, x)
+        return moe_dense(p, cfg, x, tp, gather=train)
+    if cfg.moe_impl == "local" and not train:
+        return moe_local(p, cfg, x, tp)
     return moe_sorted(p, cfg, x, tp)

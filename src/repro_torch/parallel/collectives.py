@@ -133,14 +133,14 @@ def all_reduce(x, mesh, axes, op: str = "sum", kind: str = "all_reduce"):
         return buf.to(x.device)
 
 
-def all_gather(x, mesh, axes, dim: int):
+def all_gather(x, mesh, axes, dim: int, kind: str = "all_gather"):
     """The ranks' ``x`` of ``axes`` concatenated along ``dim``, in the
-    order of their combined coordinate."""
+    order of their combined coordinate, counted under ``kind``."""
     group = mesh.group(axes)
     if group is None:
         return x
     n = mesh.axes_size(axes)
-    with _Timed("all_gather", mesh, x):
+    with _Timed(kind, mesh, x):
         src = _buffer(mesh, x.movedim(dim, 0))
         out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
         dist.all_gather_into_tensor(out, src, group=group)

@@ -121,7 +121,8 @@ class Sharded:
     shard that is not whole heads, or not the rank's channels, or experts
     whose leaf splits another dim over ``model``), or a replicated leaf
     cut (its gradient summed over ``model``). `gather_data` stacks every
-    data rank's tensor (the moe family's per-expert counts)."""
+    data rank's tensor (the moe family's per-expert counts), and
+    `rows_split` says whether the data axes split the batch."""
 
     def __init__(self, mesh, specs: dict, shapes: dict, data: tuple,
                  state_rule):
@@ -210,11 +211,22 @@ class Sharded:
         """The sum of ``x`` over the data axes (no gradient)."""
         return C.all_reduce(x.detach(), self.mesh, self.data)
 
-    def gather_data(self, x):
+    def gather_data(self, x, kind: str = "all_gather"):
         """Every data rank's ``x`` stacked along a new leading dim, in the
         order of their combined coordinate, the order the batch is split
-        in (no gradient)."""
-        return C.all_gather(x.detach()[None], self.mesh, self.data, 0)
+        in (no gradient), counted under ``kind``."""
+        return C.all_gather(x.detach()[None], self.mesh, self.data, 0,
+                            kind=kind)
+
+    @property
+    def rows_split(self) -> bool:
+        """Whether this rank's rows are its part of a batch split over the
+        data axes (training's batch, and a serving batch whose
+        ``cache/decode/pos`` spec splits it), not the whole batch
+        replicated over them (a serving batch the data axes do not
+        divide: the spec's guard leaves it whole)."""
+        spec = self.specs.get("cache/decode/pos")
+        return spec is None or spec[0] is not None
 
     def _split_over(self, path: str) -> set:
         return {a for entry in self.specs[path] for a in axes_of(entry)}

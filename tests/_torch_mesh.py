@@ -842,3 +842,136 @@ def serve_one_device_pairs(arch, shape, seq):
                                                  mesh).numpy())
                       for g, w in zip(got, want)],
             "prefill_spec": tp.specs.get("cache/prefill/k")}
+
+
+def serve_rows(case: tuple, shape) -> int:
+    """A data rank's rows of a case's batch on a (data, model) ``shape``:
+    the batch split over ``data`` where it divides, else the whole batch
+    (replicated)."""
+    batch = serve_batch(case)
+    return batch // shape[0] if batch % shape[0] == 0 else batch
+
+
+class MoeServeCases:
+    """The moe family's serving steps on a mesh: each (key, shape) of the
+    module's ``CASES`` ({key: (arch, overrides, meshes[, batch])}; the
+    module's ``serves`` fixture, their `serve_cases`), the port's sharded
+    prefill and decode steps against the reference's jitted steps under
+    the dry run's shardings, at the f32 tolerance of
+    tests/test_torch_model.py."""
+
+    CASES: dict
+    ATOL = RTOL = 1e-4
+
+    def _close(self, pair, what):
+        got, want = pair
+        assert got.shape == want.shape, what
+        np.testing.assert_allclose(got, want, atol=self.ATOL, rtol=self.RTOL,
+                                   err_msg=str(what))
+
+    def cfg(self, key):
+        from repro_torch.configs import registry
+        arch, overrides = self.CASES[key][:2]
+        return _f32(registry.get_smoke(arch)).replace(**overrides)
+
+    def test_prefill_logits_match_reference(self, serves, key, shape):
+        for r, rank in enumerate(serves[key][1][shape]):
+            self._close(rank["prefill"]["logits"], (key, shape, r))
+
+    def test_prefill_cache_matches_reference(self, serves, key, shape):
+        for r, rank in enumerate(serves[key][1][shape]):
+            assert set(rank["prefill"]["cache"]) == {"k", "v", "slot_pos",
+                                                     "pos"}
+            for name, pair in rank["prefill"]["cache"].items():
+                self._close(pair, (key, shape, r, name))
+
+    def test_prefill_shard_shapes_match_reference(self, serves, key, shape):
+        ref, port = serves[key]
+        want = ref["meshes"][shape]["prefill_shapes"]
+        for rank in port[shape]:
+            assert rank["prefill_shapes"] == want
+
+    def test_decode_logits_match_reference(self, serves, key, shape):
+        for r, rank in enumerate(serves[key][1][shape]):
+            assert len(rank["decode"]["logits"]) == SERVE_STEPS
+            for i, pair in enumerate(rank["decode"]["logits"]):
+                self._close(pair, (key, shape, r, "step", i))
+
+    def test_decode_cache_matches_reference(self, serves, key, shape):
+        for r, rank in enumerate(serves[key][1][shape]):
+            for name, pair in rank["decode"]["cache"].items():
+                self._close(pair, (key, shape, r, name))
+
+    def test_decode_shard_shapes_match_reference(self, serves, key, shape):
+        ref, port = serves[key]
+        want = ref["meshes"][shape]["decode_shapes"]
+        for rank in port[shape]:
+            assert rank["decode_shapes"] == want
+
+    def test_to_decode_layout_equals_the_decode_placement(self, serves, key,
+                                                          shape):
+        assert all(rank["layout_equal"] for rank in serves[key][1][shape])
+
+    def test_collectives_by_kind(self, serves, key, shape):
+        """A prefill sends each layer's k and v by one ``all_to_all``
+        each, and gathers every data rank's per-expert counts
+        (``count_all_gather``, (1, E) f32) once a layer only where
+        `moe_sorted` ranks the slots in a batch that the data axes split
+        ((2, 2) at B 2): "local" ranks them among a rank's own rows,
+        "dense" and a replicated batch need none. A decode step gathers
+        no counts (its loss is thrown away): it moves q, k, v and the
+        outputs by four ``all_to_all`` a layer, sums each layer's f32
+        scores (rows, H, W) over ``model``, and the vocab-parallel
+        embedding, each layer's row-parallel ``wo`` and its experts'
+        partial outputs (rows, D) f32."""
+        from repro_torch.models.kv_cache import cache_width
+
+        cfg = self.cfg(key)
+        L, D, E = cfg.num_layers, cfg.d_model, cfg.num_experts
+        rows = serve_rows(self.CASES[key], shape)
+        counts = (shape[0] > 1 and rows < serve_batch(self.CASES[key])
+                  and cfg.moe_impl == "sorted")
+        W = cache_width(cfg, S)
+        for rank in serves[key][1][shape]:
+            calls = rank["prefill_collectives"]["calls"]
+            assert calls["all_to_all"] == 2 * L
+            assert calls.get("count_all_gather", 0) == (L if counts else 0)
+            if counts:
+                assert rank["prefill_collectives"]["bytes_by"][
+                    "count_all_gather"] == L * E * 4
+            for c in rank["decode_collectives"]:
+                assert "count_all_gather" not in c["calls"]
+                assert c["calls"]["all_to_all"] == 4 * L
+                assert c["calls"]["score_all_reduce"] == L
+                assert c["bytes_by"]["score_all_reduce"] == (
+                    L * rows * cfg.num_heads * W * 4)
+                assert c["calls"]["all_reduce"] == 2 * L + 1
+                assert c["bytes_by"]["all_reduce"] == (
+                    (2 * L + 1) * rows * D * 4)
+
+    def test_bytes_match_dry_run(self, serves, key, shape):
+        """Each rank's params and decode cache: the dry run's per-device
+        argument bytes of the decode step at this mesh (its k and v,
+        which both packages' dry runs hold in bf16, counted at the
+        model's f32 under the dry run's specs)."""
+        import torch
+
+        from repro_torch.configs import InputShape
+        from repro_torch.launch import dryrun
+        from repro_torch.launch import sharding as SH
+        from repro_torch.launch.mesh import Mesh
+
+        cfg = self.cfg(key)
+        extra = {f.name: getattr(cfg, f.name)
+                 for f in dataclasses.fields(cfg)}
+        cell = dryrun.build_cell(self.CASES[key][0], InputShape(
+            "decode", S, serve_batch(self.CASES[key]), "decode"),
+            extra=extra, mesh=Mesh(("data", "model"), shape))
+        want = cell.argument_bytes()
+        want["cache"] = SH.tree_bytes(
+            {k: v.to(torch.float32) if v.is_floating_point() else v
+             for k, v in cell.args["cache"].items()},
+            cell.arg_specs["cache"], cell.mesh)
+        for rank in serves[key][1][shape]:
+            assert rank["bytes"] == {"params": want["params"],
+                                     "cache": want["cache"]}

@@ -1151,6 +1151,12 @@ def test_ssm_families_refuse_to_train_on_the_card(card, arch):
     (2, 25, 5, 2048, 16, 2048, 2049),  # hd 64 over model 4
     (2, 25, 5, 2048, 32, 2048, 2049),  # over model 2
     (2, 10, 2, 48, 4, 20, 70),         # slice 4, a window of 20
+    (2, 32, 4, 2048, 64, 0, 2049),     # qwen3's G 8 over K 4, model 2
+    (2, 48, 8, 4096, 64, 4096, 8193),  # mixtral's G 6, its window, model 2
+    (8, 48, 8, 4096, 8, 4096, 8193),   # mixtral's decode_32k rank, model 16
+    (1, 48, 8, 4096, 8, 4096, 524289),  # mixtral's long_500k rank
+    (2, 12, 2, 1000, 64, 300, 1500),   # G 6, a window short of the ring
+    (2, 12, 2, 1000, 8, 300, 1500),    # the same at slice 8
 ])
 def test_decode_pair_matches_plain(card, dtype, B, H, K, W, hs, window,
                                    fill):
@@ -1233,6 +1239,31 @@ def test_decode_pair_over_hymba_slices_equals_flash_decode_plain(card, dtype,
                                       head_dim=hd, window=W)
                      for p in parts], dim=-1)
     _close(out[:, None], decode_mha_ref(q, kc, vc, sp, pos, window=W), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [2, 16])
+def test_decode_pair_over_mixtral_slices_equals_flash_decode_plain(
+        card, dtype, n):
+    """mixtral-8x22b's heads (H 48 over K 8, G 6, hd 128) with a window of
+    1024 inside a wrapped ring of 2048: the pair over the n head_dim
+    slices (64 and 8: model 2 and 16) against the one-device plain
+    decode."""
+    gen = torch.Generator(device=card).manual_seed(16)
+    B, H, K, W, hd, window = 2, 48, 8, 2048, 128, 1024
+    q = _randn(gen, (B, 1, H, hd), dtype)
+    kc, vc = (_randn(gen, (B, W, K, hd), dtype) for _ in range(2))
+    sp = ring_slot_pos(W, W + 1, B, card)
+    pos = torch.full((B,), W, dtype=torch.int32, device=card)
+    hs = hd // n
+    parts = [slice(j * hs, (j + 1) * hs) for j in range(n)]
+    s = sum(decode_scores_hd(q[:, 0, :, p].contiguous(),
+                             kc[..., p].contiguous()) for p in parts)
+    out = torch.cat([decode_values_hd(s, vc[..., p].contiguous(), sp, pos,
+                                      head_dim=hd, window=window)
+                     for p in parts], dim=-1)
+    _close(out[:, None], decode_mha_ref(q, kc, vc, sp, pos, window=window),
+           dtype)
 
 
 def test_decode_pair_takes_a_bf16_slice_of_4_at_8_bytes(card):
