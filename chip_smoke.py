@@ -460,14 +460,26 @@ MESH_STEPS, MESH_TIMEOUT_S = 3, 420
 #: the prefill's capacity slots from both data ranks' counts);
 #: mixtral-8x22b 2 of 56 on (1, 2) at its ``CUT`` prompt of 8192 (4 of its
 #: 8 experts a rank, a ring of 4096 that the prompt wraps, hd slice 64 at
-#: G 6 with its window). The moe runs' ranks are pinned to one rank's
-#: experts where a bf16 near-tie routes a token otherwise (`RouteLog`)
+#: G 6 with its window); internvl2-2b 4 of 24 on (1, 2) from a prompt of
+#: bf16 embeddings (8 q heads and 4 kv heads a rank, hd slice 64 at G 2,
+#: its odd vocab of 92553 replicated over ``model``); seamless-m4t-large-v2
+#: 4 of its 24 encoder and 4 of its 24 decoder layers on (1, 4) from
+#: PROMPT source frames and a target prefix of PROMPT tokens (4 heads a
+#: rank at G 1, the self and cross caches' hd slice 16, its vocab of
+#: 256206 replicated over ``model`` 4). The moe runs' ranks are pinned to
+#: one rank's experts where a bf16 near-tie routes a token otherwise
+#: (`RouteLog`). A fourth entry {shape: steps} cuts a run's decode steps
+#: below `serve_steps`' default, named on the phase line: qwen3-moe's
+#: (2, 2) steps (6.9 s each on one H100 80GB HBM3 at 700 W) pay for the
+#: internvl2-2b and seamless-m4t-large-v2 runs
 MESH_SERVE_RUNS = (("llama3-8b", 4, ((1, 2), (1, 4), (2, 2))),
                    ("qwen2-72b", 2, ((1, 4),)),
                    ("falcon-mamba-7b", 2, ((1, 2),)),
                    ("hymba-1.5b", 4, ((1, 4),)),
-                   ("qwen3-moe-30b-a3b", 2, ((1, 2), (2, 2))),
-                   ("mixtral-8x22b", 2, ((1, 2),)))
+                   ("qwen3-moe-30b-a3b", 2, ((1, 2), (2, 2)), {(2, 2): 2}),
+                   ("mixtral-8x22b", 2, ((1, 2),)),
+                   ("internvl2-2b", 4, ((1, 2),)),
+                   ("seamless-m4t-large-v2", 4, ((1, 4),)))
 MESH_SERVE_BATCH, MESH_SERVE_STEPS = 2, 16
 #: the decode steps of a run whose data axis is split (2, 2): FSDP
 #: gathers every weight's data shards in each step, 0.96 GB a rank
@@ -527,9 +539,10 @@ SCORES_HD = {"name": "decode_scores_hd", "route": "cuda",
              "source": "src/repro_torch/kernels/decode_attention/csrc/"
                        "decode_attention_hd.cu",
              "replaces": "GSPMD's partition of src/repro/models/layers.py:228"
-                         " decode_attention over head_dim (the decode "
-                         "cache_spec, src/repro/launch/sharding.py:166); no "
-                         "Pallas kernel"}
+                         " decode_attention and :359 cross_attention_layer "
+                         "over head_dim (the decode cache_spec, "
+                         "src/repro/launch/sharding.py:166); no Pallas "
+                         "kernel"}
 VALUES_HD = {**SCORES_HD, "name": "decode_values_hd"}
 KERNELS = (FLASH, FLASH_BWD, DECODE, SCORES_HD, VALUES_HD, SCAN, SCAN_BWD)
 
@@ -1247,13 +1260,19 @@ class Smoke:
         32768 slice 8, and its serving runs' (1, 2) and (2, 2) ranks,
         slice 64) and mixtral's G 6 with its window of 4096 on its wrapped
         ring of 4096 (the decode_32k rank B 8 and the long_500k rank B 1
-        at slice 8, the serving run's (1, 2) rank at slice 64). Then the
-        pair composed over every slice of hd 128 (mixtral's heads with a
-        window of 1024 too), and over all 16 slices of hymba's hd 64 (the
-        partial scores summed, as the all-reduce sums them) against
-        ``decode_mha_ref`` on the whole heads; two runs bit for bit, at
-        slice 8 (llama's and mixtral's heads) and at hymba's slice 4; a
-        slice it does not take (12) raises."""
+        at slice 8, the serving run's (1, 2) rank at slice 64);
+        internvl2's G 2 (its decode_32k rank B 8 W 32768 at slice 8, its
+        serving run's (1, 2) rank at slice 64) and seamless's G 1 (its
+        decode_32k rank at slice 4 and its serving run's (1, 4) rank at
+        slice 16, each with every slot valid, as the cross decode calls
+        it, and after the self ring's wrap). Then the pair composed over
+        every slice of hd 128 (mixtral's heads with a window of 1024 too,
+        internvl2's), and over all 16 slices of hymba's and seamless's hd
+        64 (the partial scores summed, as the all-reduce sums them)
+        against ``decode_mha_ref`` on the whole heads; two runs bit for
+        bit, at slice 8 (llama's, mixtral's and internvl2's heads) and at
+        hymba's and seamless's slice 4; a slice it does not take (12)
+        raises."""
         torch = self.torch
         from repro_torch.kernels.decode_attention import (
             decode_mha_ref, decode_scores_hd, decode_scores_hd_ref,
@@ -1278,19 +1297,29 @@ class Smoke:
                  (hymba, 4, 8, W + 1, W, "hymba G5 (model 16)"),
                  (hymba, 4, 8, 1500, W, "hymba G5 partial fill")]
         # (heads, hs, B, W, fill, window, label): the decode_32k ranks on
-        # 16x16 (B 128 over data 16, hd 128 over model 16), mixtral's
+        # 16x16 (B 128 over data 16, hd over model 16), mixtral's
         # long_500k rank (B 1 replicated; its cache is its 4096 window),
-        # and the serving runs' ranks (hd over model 2); mixtral's rings
-        # have wrapped (prompt 8192, and 524288 at long_500k)
+        # and the serving runs' ranks (hd over model 2, seamless's over
+        # 4); mixtral's rings have wrapped (prompt 8192, and 524288 at
+        # long_500k); a fill of W is the cross cache's every valid slot
         qwen3, mixtral = (32, 4, 128), (48, 8, 128)
-        moe_cases = [
+        internvl2, seamless = (16, 8, 128), (16, 16, 64)
+        rank_cases = [
             (qwen3, 8, 8, 32768, 32769, 0, "qwen3 G8 decode_32k rank"),
             (qwen3, 64, 2, W, W + 1, 0, "qwen3 G8 (1, 2) rank"),
             (qwen3, 64, 1, W, W + 1, 0, "qwen3 G8 (2, 2) rank"),
             (mixtral, 8, 8, 4096, 8193, 4096, "mixtral G6 decode_32k rank"),
             (mixtral, 8, 1, 4096, 524289, 4096,
              "mixtral G6 long_500k rank"),
-            (mixtral, 64, 2, 4096, 8193, 4096, "mixtral G6 (1, 2) rank")]
+            (mixtral, 64, 2, 4096, 8193, 4096, "mixtral G6 (1, 2) rank"),
+            (internvl2, 8, 8, 32768, 32769, 0, "internvl2 G2 decode_32k rank"),
+            (internvl2, 64, 2, W, W + 1, 0, "internvl2 G2 (1, 2) rank"),
+            (seamless, 4, 8, 32768, 32768, 0,
+             "seamless G1 decode_32k rank, cross"),
+            (seamless, 4, 8, 32768, 32769, 0,
+             "seamless G1 decode_32k rank, self"),
+            (seamless, 16, 2, W, W, 0, "seamless G1 (1, 4) rank, cross"),
+            (seamless, 16, 2, W, W + 1, 0, "seamless G1 (1, 4) rank, self")]
         for dname, tol in TOL.items():
             dtype = getattr(torch, dname)
             g = self.gen(21)
@@ -1310,9 +1339,10 @@ class Smoke:
                     s_ref, vc, sp, p, head_dim=hd, window=window),
                     decode_values_hd_ref(s_ref, vc, sp, p, head_dim=hd,
                                          window=window), tol)
-            # the moe family's ranks, each on its own ring: qwen3's G 8
-            # (K 4) and mixtral's G 6 with its window of 4096
-            for (H, K, hd), hs, B, Wr, fill, window, arch in moe_cases:
+            # the moe, vlm and enc-dec ranks, each on its own ring:
+            # qwen3's G 8 (K 4), mixtral's G 6 with its window of 4096,
+            # internvl2's G 2 and seamless's G 1
+            for (H, K, hd), hs, B, Wr, fill, window, arch in rank_cases:
                 q = self.randn(g, (B, H, hs), dtype)
                 kc, vc = (self.randn(g, (B, Wr, K, hs), dtype) for _ in "kv")
                 sp = self.ring_slot_pos(Wr, fill, B)
@@ -1334,7 +1364,8 @@ class Smoke:
                     (qwen2, 4, 1, W + 1, 0), (yi, 8, 8, 1500, 0),
                     (hymba, 16, 8, W + 1, W), (hymba, 16, 1, 1500, W),
                     (mixtral, 2, 2, W + 1, 1024), (mixtral, 16, 8, W + 1,
-                                                   1024)):
+                                                   1024),
+                    (internvl2, 2, 2, W + 1, 0), (seamless, 16, 8, W, 0)):
                 q = self.randn(g, (B, 1, H, hd), dtype)
                 kc, vc = (self.randn(g, (B, W, K, hd), dtype) for _ in "kv")
                 sp = self.ring_slot_pos(W, fill, B)
@@ -1355,7 +1386,8 @@ class Smoke:
                              decode_mha_ref(q, kc, vc, sp, p, window=window),
                              tol)
         for (H, K, hd), hs, window in ((llama, 8, 0), (hymba, 4, W),
-                                       (mixtral, 8, W)):
+                                       (mixtral, 8, W), (internvl2, 8, 0),
+                                       (seamless, 4, 0)):
             g = self.gen(22)
             q = self.randn(g, (8, H, hs), torch.bfloat16)
             kc, vc = (self.randn(g, (8, W, K, hs), torch.bfloat16)
@@ -2406,11 +2438,12 @@ class Smoke:
                 for shape in shapes:
                     by_count.setdefault(math.prod(shape), []).append(
                         {**run, "shape": shape})
-            for arch, layers, shapes in MESH_SERVE_RUNS:
+            for arch, layers, shapes, *cut in MESH_SERVE_RUNS:
                 one = self.one_rank_serve(arch, layers)
                 for shape in shapes:
                     serves.setdefault(math.prod(shape), []).append(
-                        {**one, "shape": shape})
+                        {**one, "shape": shape,
+                         "steps": serve_steps(shape, *cut)})
             bad = []
             for n in sorted(set(by_count) | set(serves)):
                 bad += self.train_mesh(n, cards, by_count.get(n, []),
@@ -2494,7 +2527,7 @@ class Smoke:
     def one_rank_serve(self, arch, layers):
         """``arch`` at full width cut to ``layers`` served on one rank of
         the card: a prefill of MESH_SERVE_BATCH x its prompt
-        (`serve_prompt`) and MESH_SERVE_STEPS greedy decode steps from
+        (`serve_batch`) and MESH_SERVE_STEPS greedy decode steps from
         `serve_params`, its walls, peak memory and launches. Returns what
         the ranks are held to: every step's logits, the tokens fed to the
         steps (each the argmax of the logits before it), for the ssm and
@@ -2505,12 +2538,12 @@ class Smoke:
         from repro_torch.configs import registry
         from repro_torch.models import Model
         from repro_torch.models import moe
-        cfg = registry.get(arch).replace(num_layers=layers)
+        cfg, _ = cut_config(arch, layers)
         gc.collect()
         torch.cuda.empty_cache()
         model = Model(cfg)
         params = serve_params(cfg, self.dev)
-        prompt = serve_prompt(cfg, self.dev)
+        batch = serve_batch(cfg, self.dev)
         log = RouteLog(torch, moe)
         counters = self.counters()
         for mod in counters.values():
@@ -2519,7 +2552,7 @@ class Smoke:
         torch.cuda.reset_peak_memory_stats()
         with log.run() if cfg.family == "moe" else contextlib.nullcontext():
             t0 = time.perf_counter()
-            logits, cache = model.prefill(params, {"tokens": prompt})
+            logits, cache = model.prefill(params, batch)
             torch.cuda.synchronize()
             prefill_s = time.perf_counter() - t0
             outs, tokens, step_s = [logits], [], []
@@ -2557,25 +2590,37 @@ class Smoke:
         """One serving run's results on the ranks of its mesh
         (`mesh_serve`'s) against its one-rank run (`one_rank_serve`'s):
         prints them and returns the checks that failed."""
+        from repro_torch.launch import sharding as SH
+        from repro_torch.launch.mesh import Mesh
         cfg, shape = one["cfg"], one["shape"]
-        arch, L = cfg.name, cfg.num_layers
-        steps = serve_steps(shape)
+        arch, L, steps = cfg.name, cfg.num_layers, one["steps"]
         attn = cfg.family != "ssm"          # the dense, moe and hybrid ones
         mamba = cfg.family in ("ssm", "hybrid")
         experts = cfg.family == "moe"
+        xattn = int(cfg.is_encoder_decoder)  # the decoder's cross-attention
         rows = MESH_SERVE_BATCH // shape[0]
-        # the attention kernels on the rank's heads, the scan on its
-        # channels; a decode step's sums over model: the embedding, then
-        # each layer's wo and MLP (the experts' partial outputs in f32)
+        # the embedding is summed over model where its vocab is split
+        # there; where the guard leaves it whole (an odd vocab) each rank
+        # looks its tokens up in its own copy
+        emb = int(SH.param_spec("embed", (cfg.vocab_size, cfg.d_model),
+                                Mesh(("data", "model"), shape))[0]
+                  == "model")
+        # the attention kernels on the rank's heads (an encoder-decoder's
+        # encoder, decoder and cross-attention in the prefill, self and
+        # cross in a decode step), the scan on its channels; a decode
+        # step's sums over model: the split embedding, then each layer's
+        # wo (and cross wo) and MLP (the experts' partial outputs in f32)
         # and/or x_proj (f32) and out_proj
         want = every_kernel({
-            **({FLASH["name"]: L, SCORES_HD["name"]: L * steps,
-                VALUES_HD["name"]: L * steps} if attn else {}),
+            **({FLASH["name"]: L * (1 + xattn) + cfg.num_encoder_layers,
+                SCORES_HD["name"]: L * steps * (1 + xattn),
+                VALUES_HD["name"]: L * steps * (1 + xattn)} if attn else {}),
             **({SCAN["name"]: L} if mamba else {})})
         W = min(serve_len(arch), cfg.sliding_window or serve_len(arch))
-        scores_b = L * rows * cfg.num_heads * W * 4 if attn else 0
-        sums = 1 + L * (2 * attn + 2 * mamba)
-        sums_b = ((1 + L * (2 * attn + mamba - experts)) * rows
+        scores_b = (L * rows * cfg.num_heads * (W + xattn * serve_len(arch))
+                    * 4 if attn else 0)
+        sums = emb + L * (2 * attn + 2 * mamba + xattn)
+        sums_b = ((emb + L * (2 * attn + mamba - experts + xattn)) * rows
                   * cfg.d_model * 2 + experts * L * rows * cfg.d_model * 4
                   + mamba * L * rows * (cfg.dt_rank + 2 * cfg.ssm_state) * 4)
         # the prefill's count gather: each layer's per-expert counts from
@@ -2650,14 +2695,16 @@ class Smoke:
                     bad.append((path, "a route moved at margin", margin))
             if res["launches"] != want:
                 bad.append((path, "launches", res["launches"]))
-            if res["prefill_c"]["calls"].get("all_to_all", 0) != 2 * L * attn:
+            if res["prefill_c"]["calls"].get("all_to_all", 0) != 2 * L * (
+                    attn + xattn):
                 bad.append((path, "prefill all_to_all", res["prefill_c"]))
             if res["prefill_c"]["calls"].get("count_all_gather", 0) != counts:
                 bad.append((path, "prefill count gathers", res["prefill_c"]))
             for i, c in enumerate(res["step_c"]):
                 calls, nb = c["calls"], c["bytes_by"]
-                if (calls.get("all_to_all", 0) != 4 * L * attn
-                        or calls.get("score_all_reduce", 0) != L * attn
+                if (calls.get("all_to_all", 0) != 2 * L * (2 * attn + xattn)
+                        or calls.get("score_all_reduce", 0) != L * (
+                            attn + xattn)
                         or nb.get("score_all_reduce", 0) != scores_b
                         or calls.get("in_proj_all_to_all", 0) != L * mamba
                         or nb.get("in_proj_all_to_all", 0) != in_proj_b
@@ -2722,11 +2769,13 @@ class Smoke:
                           f"{r['shape']}" for r in runs)
         served = ", ".join(
             f"{r['cfg'].name} x{r['cfg'].num_layers} ({r['cfg'].num_layers}"
-            f" of its {r['depth']} layers) on {r['shape']}, "
-            f"{serve_steps(r['shape'])} decode steps"
-            + ("" if serve_steps(r["shape"]) == MESH_SERVE_STEPS else
+            f" of its {r['depth']} layers"
+            + (", encoder and decoder each" if r["cfg"].is_encoder_decoder
+               else "") + f") on {r['shape']}, {r['steps']} decode steps"
+            + ("" if r["steps"] == MESH_SERVE_STEPS else
                f" (cut from {MESH_SERVE_STEPS}: FSDP over data gathers "
-               f"every weight each step, ~6 s a step over gloo on one card)")
+               f"every weight each step, ~6-7 s a step over gloo on one "
+               f"card)")
             for r in serves)
         print(f"  train (mesh) {n} ranks: {cards} card(s) on this machine: "
               f"backend {backend}, "
@@ -2735,8 +2784,10 @@ class Smoke:
               f"{TRAIN_SEQ}, {MESH_STEPS} steps; then a sharded "
               f"checkpoint's round trip; then serving {served}; B "
               f"{MESH_SERVE_BATCH} x prompt {PROMPT} (mixtral-8x22b "
-              f"{serve_len('mixtral-8x22b')}), a prefill and the decode "
-              f"steps each", flush=True)
+              f"{serve_len('mixtral-8x22b')}; internvl2-2b's of bf16 "
+              f"embeddings; seamless-m4t-large-v2's as many source frames "
+              f"and target tokens), a prefill and the decode steps each",
+              flush=True)
         t0 = time.monotonic()
         ranks = spawn("chip_smoke:mesh_ranks", n, {
             "runs": [{"arch": r["cfg"].name, "layers": r["cfg"].num_layers,
@@ -2746,11 +2797,11 @@ class Smoke:
                 (r["shape"] for r in runs), key=lambda s: s[0]),
             "serves": [{"arch": r["cfg"].name,
                         "layers": r["cfg"].num_layers, "shape": r["shape"],
-                        "logits": r["logits"][:serve_steps(r["shape"]) + 1],
-                        "tokens": r["tokens"][:serve_steps(r["shape"])],
+                        "logits": r["logits"][:r["steps"] + 1],
+                        "tokens": r["tokens"][:r["steps"]],
                         # the state after one rank's last step
-                        "ssm": (r["ssm"] if serve_steps(r["shape"])
-                                == MESH_SERVE_STEPS else None),
+                        "ssm": (r["ssm"] if r["steps"] == MESH_SERVE_STEPS
+                                else None),
                         "routes": r["routes"]}
                        for r in serves]},
             backend=backend,
@@ -3996,7 +4047,21 @@ class Smoke:
             "mixtral-8x22b serving rank H24/K4 G6 (model 2) B=2 S=8192 "
             "window=4096": self.time_flash(
                 24, 4, 128, 4096, "mixtral-8x22b serving rank, model 2",
-                B=MESH_SERVE_BATCH, S=serve_len("mixtral-8x22b"))})
+                B=MESH_SERVE_BATCH, S=serve_len("mixtral-8x22b")),
+            # internvl2-2b at model 2 (G 2) and seamless-m4t-large-v2 at
+            # model 4 (G 1): its encoder and cross-attention (Sq = Sk =
+            # 2048, bidirectional) and its decoder
+            "internvl2-2b serving rank H8/K4 G2 (model 2) B=2 S=2048":
+                self.time_flash(8, 4, 128, 0, "internvl2-2b serving rank, "
+                                "model 2", B=MESH_SERVE_BATCH),
+            "seamless-m4t-large-v2 serving rank H4/K4 (model 4) B=2 S=2048 "
+            "encoder and cross": self.time_flash(
+                4, 4, 64, 0, "seamless-m4t-large-v2 serving rank, model 4, "
+                "encoder and cross", B=MESH_SERVE_BATCH, causal=False),
+            "seamless-m4t-large-v2 serving rank H4/K4 (model 4) B=2 S=2048 "
+            "decoder": self.time_flash(
+                4, 4, 64, 0, "seamless-m4t-large-v2 serving rank, model 4, "
+                "decoder", B=MESH_SERVE_BATCH)})
         # the head_dim-slice pair at a decode_32k rank's shape on the 16x16
         # mesh (B 128 over data 16, hd 128 over model 16), and at the
         # serving runs' ranks
@@ -4041,6 +4106,21 @@ class Smoke:
                  4096)):
             also[label] = self.time_decode_hd(*shape, W, label,
                                               window=window)
+        # internvl2-2b (H 16 over K 8, hd 128: G 2) and
+        # seamless-m4t-large-v2 (H 16 over K 16, hd 64: G 1; its self and
+        # cross caches alike, every slot valid): the decode_32k ranks on
+        # 16x16 (B 128 over data 16, hd over model 16) and the serving
+        # runs' ranks (internvl2's hd over model 2, seamless's over 4)
+        for label, shape, W, hd in (
+                ("internvl2-2b decode_32k rank B=8 H=16 K=8 hs=8",
+                 (8, 16, 8, 8), 32768, 128),
+                ("seamless-m4t-large-v2 decode_32k rank B=8 H=16 K=16 hs=4, "
+                 "self and cross", (8, 16, 16, 4), 32768, 64),
+                ("internvl2-2b (1, 2) rank B=2 hs=64", (2, 16, 8, 64), PROMPT,
+                 128),
+                ("seamless-m4t-large-v2 (1, 4) rank B=2 hs=16, self and "
+                 "cross", (2, 16, 16, 16), PROMPT, 64)):
+            also[label] = self.time_decode_hd(*shape, W, label, head_dim=hd)
         for i, meta in enumerate((SCORES_HD, VALUES_HD)):
             self.also[meta["name"]] = {k: v[i] for k, v in also.items()}
         self.timing[FLASH_BWD["name"]] = self.time_flash_bwd(
@@ -4629,9 +4709,24 @@ def registry_depth(arch) -> int:
     return registry.get(arch).num_layers
 
 
-def serve_steps(shape) -> int:
-    """The decode steps of a serving run on a (data, model) ``shape``."""
-    return MESH_SERVE_STEPS if shape[0] == 1 else MESH_SERVE_FSDP_STEPS
+def serve_steps(shape, cut=None) -> int:
+    """The decode steps of a serving run on a (data, model) ``shape``:
+    its run's ``cut`` ({shape: steps}) where it names the shape, else
+    MESH_SERVE_STEPS, or MESH_SERVE_FSDP_STEPS where data is split."""
+    return (cut or {}).get(shape, MESH_SERVE_STEPS if shape[0] == 1 else
+                           MESH_SERVE_FSDP_STEPS)
+
+
+def cut_config(arch, layers):
+    """``arch`` at full width with ``layers`` of its layers (an
+    encoder-decoder's encoder cut to as many), and the dry run's
+    ``extra`` of that cut."""
+    from repro_torch.configs import registry
+    cfg = registry.get(arch)
+    extra = {"num_layers": layers}
+    if cfg.is_encoder_decoder:
+        extra["num_encoder_layers"] = layers
+    return cfg.replace(**extra), extra
 
 
 def serve_params(cfg, device):
@@ -4656,15 +4751,23 @@ def serve_len(arch) -> int:
     return CUT.get(arch, (None, PROMPT))[1]
 
 
-def serve_prompt(cfg, device):
-    """The serving runs' prompt: MESH_SERVE_BATCH x `serve_len` tokens,
-    seed 2."""
+def serve_batch(cfg, device):
+    """The serving runs' prefill batch, seed 2: MESH_SERVE_BATCH x
+    `serve_len` tokens; for the vlm family as many bf16 embeddings
+    (``inputs_embeds``); for an encoder-decoder a target prefix of as
+    many tokens and as many bf16 source frames (``src_embeds``)."""
     import torch
-    return torch.randint(0, cfg.vocab_size, (MESH_SERVE_BATCH,
-                                             serve_len(cfg.name)),
-                         dtype=torch.int32, device=device,
-                         generator=torch.Generator(device=device)
-                         .manual_seed(2))
+    g = torch.Generator(device=device).manual_seed(2)
+    shape = (MESH_SERVE_BATCH, serve_len(cfg.name))
+    toks = torch.randint(0, cfg.vocab_size, shape, dtype=torch.int32,
+                         device=device, generator=g)
+    if not cfg.embed_input:
+        return {"tokens": toks}
+    emb = torch.randn(shape + (cfg.d_model,), generator=g,
+                      device=device).to(torch.bfloat16)
+    if cfg.is_encoder_decoder:
+        return {"src_embeds": emb, "tgt_tokens": toks}
+    return {"inputs_embeds": emb}
 
 
 def mesh_serve(arch, layers, shape, shared, logits, tokens, ssm=None,
@@ -4673,7 +4776,7 @@ def mesh_serve(arch, layers, shape, shared, logits, tokens, ssm=None,
     full width cut to ``layers`` on this rank of the (data, model)
     ``shape`` mesh (`rank_mesh_of`) under the reference's serving
     shardings (``launch.sharding.serve_placement``): `serve_params` cut to
-    this rank's shards, a prefill of its rows of `serve_prompt`,
+    this rank's shards, a prefill of its rows of `serve_batch`,
     ``kv_cache.to_decode_layout``, and a decode step for each of one
     rank's ``tokens`` (teacher-forced), with every kernel's launches
     counted from 0 just before the prefill and read after the last step,
@@ -4692,7 +4795,7 @@ def mesh_serve(arch, layers, shape, shared, logits, tokens, ssm=None,
     t0 = time.monotonic()
     import torch
     import torch.distributed as dist
-    from repro_torch.configs import InputShape, registry
+    from repro_torch.configs import InputShape
     from repro_torch.launch import dryrun
     from repro_torch.launch import sharding as SH
     from repro_torch.launch.mesh import Mesh
@@ -4702,7 +4805,7 @@ def mesh_serve(arch, layers, shape, shared, logits, tokens, ssm=None,
     from repro_torch.models.registry import param_structs
     from repro_torch.parallel import collectives as C
     from repro_torch.parallel import placement as P
-    cfg = registry.get(arch).replace(num_layers=layers)
+    cfg, extra = cut_config(arch, layers)
     mesh = rank_mesh_of(shape, shared)
     dev = mesh.device
     tp = SH.serve_placement(mesh, param_structs(cfg), kvc.init_cache(
@@ -4734,14 +4837,14 @@ def mesh_serve(arch, layers, shape, shared, logits, tokens, ssm=None,
         torch.cuda.synchronize(dev)
         return out, time.perf_counter() - t1, mesh.stats.summary()
 
-    prompt = rows(serve_prompt(cfg, dev))
+    batch = {k: rows(v) for k, v in serve_batch(cfg, dev).items()}
     counters = Smoke.counters()
     for mod in counters.values():
         mod.launches = 0
     t1 = time.monotonic()
     with log.run() if log else contextlib.nullcontext():
         (out, cache), prefill_s, prefill_c = timed(
-            lambda: model.prefill(params, {"tokens": prompt}, tp=tp))
+            lambda: model.prefill(params, batch, tp=tp))
         cache, reshard_s, reshard_c = timed(
             lambda: kvc.to_decode_layout(cache, tp))
         prefill_g = dict(tp.gathers)
@@ -4784,8 +4887,8 @@ def mesh_serve(arch, layers, shape, shared, logits, tokens, ssm=None,
         flips += int((sure & ~same).sum())
         compared += int(sure.sum())
     cell = dryrun.build_cell(arch, InputShape(
-        "decode", serve_len(arch), MESH_SERVE_BATCH, "decode"), extra={
-            "num_layers": layers}, mesh=Mesh(mesh.axis_names, mesh.sizes))
+        "decode", serve_len(arch), MESH_SERVE_BATCH, "decode"), extra=extra,
+        mesh=Mesh(mesh.axis_names, mesh.sizes))
     local = []
     if cfg.family == "moe":
         e0, e1 = tp.split(cfg.num_experts)
@@ -4795,7 +4898,9 @@ def mesh_serve(arch, layers, shape, shared, logits, tokens, ssm=None,
         h0, h1 = tp.split(cfg.num_heads)
         local.append(f"q heads [{h0}, {h1}) of {cfg.num_heads}; decode "
                      f"cache k {tuple(cache['k'].shape)} (hd slice "
-                     f"{cache['k'].shape[-1]} of {cfg.head_dim})")
+                     f"{cache['k'].shape[-1]} of {cfg.head_dim})" + (
+                         f", cross_k {tuple(cache['cross_k'].shape)}"
+                         if "cross_k" in cache else ""))
     if "ssm" in cache:
         c0, c1 = tp.split(cfg.d_inner)
         local.append(f"d_inner channels [{c0}, {c1}) of {cfg.d_inner}; "
@@ -5006,8 +5111,10 @@ def main() -> int:
     phases.append(("train", smoke.phase_train))
     served = "; ".join(
         f"{arch} {layers} of {registry_depth(arch)} layers on "
-        f"{', '.join(map(str, shapes))}" for arch, layers, shapes in
-        MESH_SERVE_RUNS)
+        f"{', '.join(map(str, shapes))}" + "".join(
+            f" (cut to {n} decode steps on {shape})"
+            for cut in cuts for shape, n in cut.items())
+        for arch, layers, shapes, *cuts in MESH_SERVE_RUNS)
     phases.append((f"train (mesh; one spawn a count of ranks; the one-rank "
                    f"references' files written beside the phase, off its "
                    f"path), "

@@ -254,10 +254,12 @@ def placement(mesh, structs) -> Sharded:
 
 def serve_placement(mesh, structs, cache) -> Sharded:
     """`placement` of a params tree for the serving steps, with the specs
-    of a decode cache (``cache``: its whole leaves, meta tensors will do)
+    of a decode cache (``cache``: its whole leaves, meta tensors will do;
+    an encoder-decoder's cross_k and cross_v at the source's own length)
     in both layouts, at ``cache/prefill/{name}`` and
-    ``cache/decode/{name}`` (`cache_spec`), and of the last-token logits
-    (B, 1, V) at ``logits`` (`logits_spec`)."""
+    ``cache/decode/{name}`` (`cache_spec`, guarded where ``model`` does
+    not divide W or Ss), and of the last-token logits (B, 1, V) at
+    ``logits`` (`logits_spec`)."""
     tp = placement(mesh, structs)
     for kind in ("prefill", "decode"):
         for name, spec in cache_shardings(cache, mesh, kind).items():

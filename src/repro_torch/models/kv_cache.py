@@ -10,10 +10,11 @@ On a mesh (``tp``: a serving placement,
 ``repro_torch.launch.sharding.serve_placement``) each rank holds its
 shard of every leaf in one of the reference's two layouts: "prefill",
 k and v (L, B / data, W / model, K, hd), and "decode", (L, B / data, W,
-K, hd / model); ``pos`` and ``slot_pos`` split over the data axes alike
-(`init_cache_on_mesh`). A prefill writes its layers' K/V into the
-prefill layout (`write_prefill_on_mesh`) and `to_decode_layout` moves
-the cache to the decode layout once a request.
+K, hd / model), an encoder-decoder's cross_k and cross_v alike with the
+source's Ss in place of W; ``pos`` and ``slot_pos`` split over the data
+axes alike (`init_cache_on_mesh`). A prefill writes its layers' K/V into
+the prefill layout (`write_prefill_on_mesh`) and `to_decode_layout`
+moves the cache to the decode layout once a request.
 """
 from __future__ import annotations
 
@@ -66,9 +67,11 @@ def init_cross_cache(cfg, batch, src_len, dtype=torch.bfloat16,
             "cross_v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def init_cache(cfg, batch, seq_len, dtype=torch.bfloat16, device="cpu"):
+def init_cache(cfg, batch, seq_len, dtype=torch.bfloat16, device="cpu",
+               src_len=None):
     """Full decode cache for one model instance; an encoder-decoder's
-    cross K/V are ``seq_len`` wide, as the reference's."""
+    cross K/V are ``src_len`` wide, by default ``seq_len`` as the
+    reference's."""
     if cfg.family not in ATTN_FAMILIES + SSM_FAMILIES:
         raise NotImplementedError(f"{cfg.family} caches are not ported")
     cache = {"pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
@@ -81,8 +84,8 @@ def init_cache(cfg, batch, seq_len, dtype=torch.bfloat16, device="cpu"):
     if cfg.family in SSM_FAMILIES:
         cache.update(init_ssm_cache(cfg, batch, device=device))
     if cfg.is_encoder_decoder:
-        cache.update(init_cross_cache(cfg, batch, seq_len, dtype=dtype,
-                                      device=device))
+        cache.update(init_cross_cache(cfg, batch, src_len or seq_len,
+                                      dtype=dtype, device=device))
     return cache
 
 
@@ -122,11 +125,14 @@ def init_cache_on_mesh(cfg, tp, kind: str, dtype=torch.bfloat16,
     """This rank's shards, in the ``kind`` layout, of the cache whose
     whole shapes the serving placement ``tp`` holds (``cache/{kind}/*``):
     zeros, and ``slot_pos`` -1. B is ``pos``'s; W is ``k``'s where the
-    cache has attention (the ssm family's cache has no W)."""
+    cache has attention (the ssm family's cache has no W), an
+    encoder-decoder's source length ``cross_k``'s."""
     B = tp.shapes[f"cache/{kind}/pos"][0]
     k = tp.shapes.get(f"cache/{kind}/k")
     W = k[2] if k else 1                # no leaf of the ssm family's has W
-    whole = init_cache(cfg, B, W, dtype=dtype, device="meta")
+    cross = tp.shapes.get(f"cache/{kind}/cross_k")
+    whole = init_cache(cfg, B, W, dtype=dtype, device="meta",
+                       src_len=cross[2] if cross else None)
     out = {}
     for name, leaf in whole.items():
         spec = tp.specs[f"cache/{kind}/{name}"]
@@ -137,19 +143,21 @@ def init_cache_on_mesh(cfg, tp, kind: str, dtype=torch.bfloat16,
     return out
 
 
-def write_prefill_on_mesh(cache_k, k, tp, counts):
+def write_prefill_on_mesh(cache_k, k, tp, counts, name="k"):
     """Write one layer's prefill K into this rank's shard ``cache_k``
     (B, W / model, K, hd; or (B, W, K, hd) where ``model`` does not
-    divide W) of the prefill layout, IN PLACE. ``k`` (B, S, Ko, hd) holds
-    the kv heads this rank is the first to hold, ``counts`` every
-    ``model`` rank's Ko: each rank lays its heads into the ring of W
-    slots (`write_prefill_entries`) and sends slots [j W / model,
-    (j + 1) W / model) to rank j (every slot where W is not split), which
-    concatenates the heads in rank order: one ``all_to_all``."""
-    W = tp.shapes["cache/prefill/k"][2]
+    divide W) of the prefill layout's leaf ``name``, IN PLACE. ``k``
+    (B, S, Ko, hd) holds the kv heads this rank is the first to hold,
+    ``counts`` every ``model`` rank's Ko: each rank lays its heads into
+    the ring of W slots (`write_prefill_entries`) and sends slots
+    [j W / model, (j + 1) W / model) to rank j (every slot where W is
+    not split), which concatenates the heads in rank order: one
+    ``all_to_all``. The cross K/V (``name`` "cross_k", "cross_v") fill
+    their Ss slots in order: no ring wraps."""
+    W = tp.shapes[f"cache/prefill/{name}"][2]
     ring = k.new_zeros((k.shape[0], W) + tuple(k.shape[2:]))
     write_prefill_entries(ring, k)
-    split = 1 if tp.specs["cache/prefill/k"][2] == "model" else None
+    split = 1 if tp.specs[f"cache/prefill/{name}"][2] == "model" else None
     cache_k.copy_(C.all_to_all(ring, tp.mesh, "model", split, 2,
                                recv=counts))
     return cache_k
@@ -157,15 +165,16 @@ def write_prefill_on_mesh(cache_k, k, tp, counts):
 
 def to_decode_layout(cache, tp):
     """A prefill-layout cache (this rank's shards) in the decode layout:
-    k and v, where the cache has them, from W over ``model`` to head_dim
-    over ``model``, one ``all_to_all`` a leaf (the reference's
-    per-request reshard), or a local cut where ``model`` does not divide
-    W. ``pos``, ``slot_pos``, ``conv`` and ``ssm`` have one spec in both
+    k and v (and an encoder-decoder's cross_k and cross_v), where the
+    cache has them, from W (Ss) over ``model`` to head_dim over
+    ``model``, one ``all_to_all`` a leaf (the reference's per-request
+    reshard), or a local cut where ``model`` does not divide W (Ss).
+    ``pos``, ``slot_pos``, ``conv`` and ``ssm`` have one spec in both
     layouts and pass through. Returns a new dict; the prefill leaves can
     be freed."""
     out = dict(cache)
     mesh = tp.mesh
-    for name in [n for n in ("k", "v") if n in cache]:
+    for name in [n for n in ("k", "v", "cross_k", "cross_v") if n in cache]:
         if tp.specs[f"cache/decode/{name}"][4] != "model":
             raise NotImplementedError(
                 f"the decode cache's head_dim {cache[name].shape[4]} does "

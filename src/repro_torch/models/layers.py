@@ -30,6 +30,12 @@ from repro_torch.kernels.flash_attention import mha, mha_ref
 from repro_torch.parallel import collectives as C
 
 NEG_INF = -1e30
+#: the stacked leaves a decoder-only model's tensor-parallel layers fetch
+#: their weights from (`Sharded.weight` paths); an encoder-decoder's live
+#: under ``enc_layers/`` and ``dec_layers/``, its cross-attention's at
+#: ``XATTN``
+ATTN, MLP = "layers/attn", "layers/mlp"
+XATTN = "dec_layers/xattn"
 
 
 # ---------------------------------------------------------------- init utils
@@ -257,19 +263,21 @@ def _project_qkv(p, cfg, x):
 
 
 def attention_layer(p, cfg, x, *, use_rope=True, causal=True, plain=False,
-                    tp=None):
+                    tp=None, path=ATTN):
     """Self-attention over a full sequence (prefill, encoder), positions
     from 0, a window from ``cfg.sliding_window``; ``causal=False`` is
     bidirectional (the encoder's), ``use_rope=False`` leaves q and k
     unrotated (the enc-dec archs add sinusoid positions to x instead).
     With ``tp`` (a `repro_torch.parallel.placement.Sharded` on a mesh of
     more than one rank) the layer runs on this rank's heads
-    (`_attention_on_mesh`).
+    (`_attention_on_mesh`), its weights fetched from the stacked leaves
+    under ``path`` (``"enc_layers/attn"``, ``"dec_layers/attn"``).
 
     Returns (out, (k, v)) so callers can build a KV cache.
     """
     if tp is not None:
-        return _attention_on_mesh(p, cfg, x, tp, use_rope, causal, plain)
+        return _attention_on_mesh(p, cfg, x, tp, use_rope, causal, plain,
+                                  path)
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x)
     if use_rope:
@@ -323,7 +331,14 @@ def mesh_heads(tp, cfg) -> list[MeshHeads]:
     return out
 
 
-def _project_on_mesh(p, cfg, x, tp, hs: MeshHeads):
+def _head_cols(p, cfg, tp, path, name, lo, hi):
+    """Heads [lo, hi) of the attention weight or bias ``name`` (its last
+    dim H * hd or K * hd) of the stacked leaf under ``path``."""
+    leaf, hd = p[name], cfg.head_dim
+    return tp.weight(leaf, f"{path}/{name}", leaf.dim() - 1, lo * hd, hi * hd)
+
+
+def _project_on_mesh(p, cfg, x, tp, hs: MeshHeads, path=ATTN):
     """q (B, S, h1 - h0, hd), k and v (B, S, k1 - k0, hd) of this rank's
     heads: column-parallel q/k/v (and QKV bias) on x entering the split
     (`Sharded.copy`), q/k norms replicated; no RoPE."""
@@ -331,9 +346,7 @@ def _project_on_mesh(p, cfg, x, tp, hs: MeshHeads):
     hd = cfg.head_dim
 
     def cols(name, lo, hi):
-        leaf = p[name]
-        return tp.weight(leaf, f"layers/attn/{name}", leaf.dim() - 1,
-                         lo * hd, hi * hd)
+        return _head_cols(p, cfg, tp, path, name, lo, hi)
 
     xp = tp.copy(x)
     q, k, v = xp @ cols("wq", hs.h0, hs.h1), xp @ cols("wk", hs.k0, hs.k1), \
@@ -351,16 +364,16 @@ def _project_on_mesh(p, cfg, x, tp, hs: MeshHeads):
     return q, k, v
 
 
-def _out_on_mesh(p, cfg, out, tp, hs: MeshHeads):
+def _out_on_mesh(p, cfg, out, tp, hs: MeshHeads, path=ATTN):
     """Row-parallel ``wo`` on this rank's heads' outputs (B, S, h1 - h0,
     hd), summed over ``model`` (`Sharded.reduce`)."""
     B, S = out.shape[:2]
     hd = cfg.head_dim
-    wo = tp.weight(p["wo"], "layers/attn/wo", 0, hs.h0 * hd, hs.h1 * hd)
+    wo = tp.weight(p["wo"], f"{path}/wo", 0, hs.h0 * hd, hs.h1 * hd)
     return tp.reduce(out.reshape(B, S, (hs.h1 - hs.h0) * hd) @ wo)
 
 
-def _attention_on_mesh(p, cfg, x, tp, use_rope, causal, plain):
+def _attention_on_mesh(p, cfg, x, tp, use_rope, causal, plain, path=ATTN):
     """`attention_layer` on this rank's q heads [h0, h1) of H (its
     ``model`` share) and the kv heads [k0, k1) they read
     (`_project_on_mesh`), the attention kernel on the local heads,
@@ -370,7 +383,7 @@ def _attention_on_mesh(p, cfg, x, tp, use_rope, causal, plain):
     B, S, _ = x.shape
     G = cfg.num_heads // cfg.num_kv_heads
     hs = mesh_heads(tp, cfg)[tp.mesh.coords["model"]]
-    q, k, v = _project_on_mesh(p, cfg, x, tp, hs)
+    q, k, v = _project_on_mesh(p, cfg, x, tp, hs, path)
     if use_rope:
         positions = torch.arange(S, device=x.device)[None, :]
         q = apply_rope(q, positions, cfg.rope_theta)
@@ -378,7 +391,7 @@ def _attention_on_mesh(p, cfg, x, tp, use_rope, causal, plain):
     kq, vq = _kv_for_heads(k, v, hs.h0, hs.h1, G, hs.k0)
     attend = mha_ref if plain else mha
     out = attend(q, kq, vq, causal=causal, window=cfg.sliding_window)
-    return _out_on_mesh(p, cfg, out, tp, hs), (k, v)
+    return _out_on_mesh(p, cfg, out, tp, hs, path), (k, v)
 
 
 def _write_slot(cfg, k_cache, v_cache, k, v, pos, tp=None):
@@ -402,7 +415,7 @@ def _write_slot(cfg, k_cache, v_cache, k, v, pos, tp=None):
 
 
 def attention_decode_layer(p, cfg, x, k_cache, v_cache, slot_pos, pos, *,
-                           use_rope=True, plain=False, tp=None):
+                           use_rope=True, plain=False, tp=None, path=ATTN):
     """One-token self-attention against a ring cache.
 
     x: (B, 1, D); pos: (B,) absolute position of this token. ``slot_pos``
@@ -415,11 +428,12 @@ def attention_decode_layer(p, cfg, x, k_cache, v_cache, slot_pos, pos, *,
     ``slot_pos`` (stamped per row by the stack) disagree in both packages
     alike. With ``tp`` (a serving placement) the caches are this rank's
     shards of the decode layout, head_dim over ``model``
-    (`_attention_decode_on_mesh`).
+    (`_attention_decode_on_mesh`; ``path`` as `attention_layer`'s).
     """
     if tp is not None:
         return _attention_decode_on_mesh(p, cfg, x, k_cache, v_cache,
-                                         slot_pos, pos, tp, use_rope, plain)
+                                         slot_pos, pos, tp, use_rope, plain,
+                                         path)
     B = x.shape[0]
     q, k, v = _project_qkv(p, cfg, x)
     if use_rope:
@@ -433,48 +447,58 @@ def attention_decode_layer(p, cfg, x, k_cache, v_cache, slot_pos, pos, *,
 
 
 def _attention_decode_on_mesh(p, cfg, x, k_cache, v_cache, slot_pos, pos,
-                              tp, use_rope, plain):
+                              tp, use_rope, plain, path=ATTN):
     """`attention_decode_layer` on a mesh whose caches (B, W, K, hd /
     model) hold a head_dim slice of every head (the reference's decode
     layout): q, k and v of this rank's heads (`_project_on_mesh`), RoPE
-    on whole heads, then one ``all_to_all`` over ``model`` each to the
-    slice of every head (k and v from the rank that is first to hold
-    each kv head); the slot written in place; the partial scores
-    (`decode_scores_hd`) summed over ``model`` in f32 (counted as
-    "score_all_reduce"), the softmax and values (`decode_values_hd`); an
-    ``all_to_all`` back to this rank's heads and row-parallel ``wo``. At
-    ``model`` 1 the one-device kernel (`decode_mha`) runs on the whole
-    heads. The serving steps' `lm.check_mesh` has made sure that
-    ``model`` splits head_dim."""
-    hd = cfg.head_dim
+    on whole heads, then one ``all_to_all`` over ``model`` each of k and
+    v to the slice of every head (from the rank that is first to hold
+    each kv head); the slot written in place; the attention on the
+    slices (`_attend_hd_on_mesh`) and row-parallel ``wo``. The serving
+    steps' `lm.check_mesh` has made sure that ``model`` splits
+    head_dim."""
     heads = mesh_heads(tp, cfg)
     hs = heads[tp.mesh.coords["model"]]
-    M = tp.mesh.shape["model"]
-    q, k, v = _project_on_mesh(p, cfg, x, tp, hs)
+    q, k, v = _project_on_mesh(p, cfg, x, tp, hs, path)
     if use_rope:
         q = apply_rope(q, pos[:, None], cfg.rope_theta)
         k = apply_rope(k, pos[:, None], cfg.rope_theta)
     own = slice(hs.o0 - hs.k0, hs.o1 - hs.k0)
     counts = [r.o1 - r.o0 for r in heads]
-    q = C.all_to_all(q[:, 0], tp.mesh, "model", 2, 1,
-                     recv=[r.h1 - r.h0 for r in heads])      # (B, H, hd/M)
     k = C.all_to_all(k[:, 0, own], tp.mesh, "model", 2, 1, recv=counts)
     v = C.all_to_all(v[:, 0, own], tp.mesh, "model", 2, 1, recv=counts)
     _write_slot(cfg, k_cache, v_cache, k[:, None], v[:, None], pos, tp)
-    if M == 1:
+    out = _attend_hd_on_mesh(q[:, 0], k_cache, v_cache, slot_pos, pos,
+                             cfg.sliding_window, tp, heads, plain)
+    return _out_on_mesh(p, cfg, out[:, None], tp, hs, path), (k_cache,
+                                                               v_cache)
+
+
+def _attend_hd_on_mesh(q, k_cache, v_cache, slot_pos, pos, window, tp,
+                       heads, plain):
+    """The output (B, h1 - h0, hd) of this rank's heads for their q
+    (B, h1 - h0, hd) against caches that hold a head_dim slice of every
+    head (B, W, K, hd / model): one ``all_to_all`` over ``model`` sends q
+    to the slice of every head, the partial scores (`decode_scores_hd`)
+    are summed over ``model`` in f32 (counted as "score_all_reduce"), the
+    softmax and values (`decode_values_hd`) run on the sums and an
+    ``all_to_all`` sends the result back to the rank's heads. At
+    ``model`` 1 the one-device kernel (`decode_mha`) runs on the whole
+    heads."""
+    hd = q.shape[-1]
+    counts = [r.h1 - r.h0 for r in heads]
+    q = C.all_to_all(q, tp.mesh, "model", 2, 1, recv=counts)  # (B, H, hd/M)
+    if tp.mesh.shape["model"] == 1:
         attend = decode_mha_ref if plain else decode_mha
-        out = attend(q[:, None], k_cache, v_cache, slot_pos, pos,
-                     window=cfg.sliding_window)[:, 0]
-    else:
-        scores, values = ((decode_scores_hd_ref, decode_values_hd_ref)
-                          if plain else (decode_scores_hd, decode_values_hd))
-        s = C.all_reduce(scores(q, k_cache), tp.mesh, "model",
-                         kind="score_all_reduce")
-        out = values(s, v_cache, slot_pos, pos, head_dim=hd,
-                     window=cfg.sliding_window)               # (B, H, hd/M)
-        out = C.all_to_all(out, tp.mesh, "model", 1, 2,
-                           send=[r.h1 - r.h0 for r in heads])
-    return _out_on_mesh(p, cfg, out[:, None], tp, hs), (k_cache, v_cache)
+        return attend(q[:, None], k_cache, v_cache, slot_pos, pos,
+                      window=window)[:, 0]
+    scores, values = ((decode_scores_hd_ref, decode_values_hd_ref)
+                      if plain else (decode_scores_hd, decode_values_hd))
+    s = C.all_reduce(scores(q, k_cache), tp.mesh, "model",
+                     kind="score_all_reduce")
+    out = values(s, v_cache, slot_pos, pos, head_dim=hd,
+                 window=window)                               # (B, H, hd/M)
+    return C.all_to_all(out, tp.mesh, "model", 1, 2, send=counts)
 
 
 def _cross_query(p, cfg, x):
@@ -483,27 +507,62 @@ def _cross_query(p, cfg, x):
     return (x @ p["wq"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
 
 
-def cross_attention_layer(p, cfg, x, k, v, *, plain=False):
+def cross_attention_layer(p, cfg, x, k, v, *, plain=False, tp=None):
     """Cross-attention of x (B, St, D) against the encoder's K/V
     (B, Ss, K, hd), unmasked: the prefill kernel, bidirectional, with
-    Sq = St and Sk = Ss."""
+    Sq = St and Sk = Ss. With ``tp`` (on a mesh) k and v are this rank's
+    kv heads [k0, k1) (`mesh_heads`), q comes from its ``wq`` columns
+    under ``XATTN`` and the row-parallel ``wo`` is summed over
+    ``model``."""
     B, S, _ = x.shape
     attend = mha_ref if plain else mha
-    out = attend(_cross_query(p, cfg, x), k, v, causal=False, window=0)
-    return out.reshape(B, S, cfg.num_heads * cfg.head_dim) @ p["wo"]
+    if tp is None:
+        out = attend(_cross_query(p, cfg, x), k, v, causal=False, window=0)
+        return out.reshape(B, S, cfg.num_heads * cfg.head_dim) @ p["wo"]
+    hs = mesh_heads(tp, cfg)[tp.mesh.coords["model"]]
+    q = (tp.copy(x) @ _head_cols(p, cfg, tp, XATTN, "wq", hs.h0, hs.h1)
+         ).reshape(B, S, hs.h1 - hs.h0, cfg.head_dim)
+    G = cfg.num_heads // cfg.num_kv_heads
+    kq, vq = _kv_for_heads(k, v, hs.h0, hs.h1, G, hs.k0)
+    out = attend(q, kq, vq, causal=False, window=0)
+    return _out_on_mesh(p, cfg, out, tp, hs, XATTN)
+
+
+def cross_kv_on_mesh(p, cfg, enc_out, tp):
+    """This rank's kv heads [k0, k1) (`mesh_heads`) of the cross K/V
+    (B, Ss, k1 - k0, hd): the encoder's output (whole on every rank of
+    ``model``) on the rank's ``wk`` and ``wv`` columns under ``XATTN``."""
+    B, Ss, _ = enc_out.shape
+    hs = mesh_heads(tp, cfg)[tp.mesh.coords["model"]]
+    xp = tp.copy(enc_out)
+    return tuple((xp @ _head_cols(p, cfg, tp, XATTN, name, hs.k0, hs.k1)
+                  ).reshape(B, Ss, hs.k1 - hs.k0, cfg.head_dim)
+                 for name in ("wk", "wv"))
 
 
 def cross_attention_decode_layer(p, cfg, x, k, v, every_slot, last, *,
-                                 plain=False):
+                                 plain=False, tp=None):
     """One token's cross-attention (x: (B, 1, D)) against the encoder's
     K/V (B, Ss, K, hd) through the decode kernel: ``every_slot`` is
     (B, Ss) int32 ``arange(Ss)`` and ``last`` (B,) int32 ``Ss - 1``, so
     every slot is valid and the kernel computes the reference's unmasked
-    attention."""
+    attention. With ``tp`` (a serving placement) k and v are this rank's
+    shards of the decode layout, a head_dim slice of every head: q of
+    the rank's heads from its ``wq`` columns under ``XATTN`` attends on
+    the slices (`_attend_hd_on_mesh`) and row-parallel ``wo`` follows;
+    nothing is written into k and v."""
     B = x.shape[0]
-    attend = decode_mha_ref if plain else decode_mha
-    out = attend(_cross_query(p, cfg, x), k, v, every_slot, last, window=0)
-    return out.reshape(B, 1, cfg.num_heads * cfg.head_dim) @ p["wo"]
+    if tp is None:
+        attend = decode_mha_ref if plain else decode_mha
+        out = attend(_cross_query(p, cfg, x), k, v, every_slot, last,
+                     window=0)
+        return out.reshape(B, 1, cfg.num_heads * cfg.head_dim) @ p["wo"]
+    heads = mesh_heads(tp, cfg)
+    hs = heads[tp.mesh.coords["model"]]
+    q = tp.copy(x[:, 0]) @ _head_cols(p, cfg, tp, XATTN, "wq", hs.h0, hs.h1)
+    out = _attend_hd_on_mesh(q.reshape(B, hs.h1 - hs.h0, cfg.head_dim), k,
+                             v, every_slot, last, 0, tp, heads, plain)
+    return _out_on_mesh(p, cfg, out[:, None], tp, hs, XATTN)
 
 
 # ----------------------------------------------------------------------- MLP
@@ -516,15 +575,16 @@ def init_mlp(generator, d_model, d_ff, dtype, device=None):
     }
 
 
-def mlp_layer(p, x, tp=None):
+def mlp_layer(p, x, tp=None, path=MLP):
     """SwiGLU. With ``tp`` (`attention_layer`'s) on this rank's
     ``model`` share of the d_ff columns: column-parallel gate and up,
-    row-parallel down summed over ``model``."""
+    row-parallel down summed over ``model``, the weights fetched from
+    the stacked leaves under ``path``."""
     if tp is None:
         return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
-    f0, f1 = tp.split(tp.shape("layers/mlp/w_down", p["w_down"].dim())[0])
+    f0, f1 = tp.split(tp.shape(f"{path}/w_down", p["w_down"].dim())[0])
     xp = tp.copy(x)
-    gate = tp.weight(p["w_gate"], "layers/mlp/w_gate", 1, f0, f1)
-    up = tp.weight(p["w_up"], "layers/mlp/w_up", 1, f0, f1)
-    down = tp.weight(p["w_down"], "layers/mlp/w_down", 0, f0, f1)
+    gate = tp.weight(p["w_gate"], f"{path}/w_gate", 1, f0, f1)
+    up = tp.weight(p["w_up"], f"{path}/w_up", 1, f0, f1)
+    down = tp.weight(p["w_down"], f"{path}/w_down", 0, f0, f1)
     return tp.reduce((F.silu(xp @ gate) * (xp @ up)) @ down)

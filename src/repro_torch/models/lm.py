@@ -16,15 +16,17 @@ dict that shares them (the reference returns a new cache).
 prefill layers dispatch by ``cfg.moe_impl`` and its decode layers always
 run the dropless `moe_dense`, as the reference's do.
 
-Serving on a mesh (the dense, moe, ssm and hybrid families;
-`check_mesh` refuses vlm and enc-dec): `prefill` and `decode_step` take
+Serving on a mesh (every family; an encoder-decoder's steps are
+`repro_torch.models.encdec`'s): `prefill` and `decode_step` take
 a serving placement ``tp`` (``launch.sharding.serve_placement``) and run
 on this rank's shards under the reference's serving shardings: params
-and batch as in training (the experts over ``model``, or the
+and batch (tokens, or the vlm family's ``inputs_embeds``) as in
+training (the experts over ``model``, or the
 fallback's layout), the prefill cache W over ``model``, the decode
 cache head_dim over ``model`` (`kv_cache.to_decode_layout` moves one to
 the other), the conv and ssm states d_inner over ``model`` in both, the
-logits vocab over ``model``. A batch the data axes do not divide (B 1
+logits vocab over ``model`` (whole where ``model`` does not divide it,
+as internvl2-2b's odd vocab). A batch the data axes do not divide (B 1
 of ``long_500k``) is replicated over them, and the moe family then
 routes this rank's rows as the whole batch (`moe.moe_sorted`).
 
@@ -338,11 +340,17 @@ def _lm_head(cfg, params, tp=None, whole=False):
 
 
 def embed_tokens(cfg, params, tokens, tp=None):
-    """The tokens' rows of the embedding; with ``tp`` vocab-parallel:
-    this rank looks up the tokens in its rows [v0, v1), zero elsewhere,
-    and the sum over ``model`` is the embedding."""
+    """The tokens' rows of the embedding; with ``tp`` vocab-parallel
+    where the embedding's vocab is split over ``model``: this rank looks
+    up the tokens in its rows [v0, v1), zero elsewhere, and the sum over
+    ``model`` is the embedding. Where the guard leaves the vocab whole
+    (``model`` does not divide it) every rank looks the tokens up in its
+    own copy, and nothing is sent."""
     if tp is None:
         return params["embed"][tokens]
+    if tp.specs["embed"][0] != "model":
+        return tp.weight(params["embed"], "embed", 0, 0,
+                         cfg.vocab_size)[tokens]
     v0, v1 = tp.split(cfg.vocab_size)
     rows = tp.weight(params["embed"], "embed", 0, v0, v1)
     local = tokens.long() - v0
@@ -411,29 +419,21 @@ def chunked_ce_loss(cfg, params, hidden, targets, chunk=LOSS_CHUNK, tp=None):
     return tot / cnt.clamp_min(1.0)
 
 
-#: the families whose serving steps run on a mesh
-SERVE_MESH_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-#: the ROADMAP item (Queue 1) that ports each other family's serving
-#: steps on a mesh
-SERVE_MESH_ITEMS = {"vlm": "11d", "enc-dec": "11d"}
+#: the families whose serving steps on a mesh are still to be ported, by
+#: the ROADMAP item (Queue 1) that ports each: none since item 11d
+SERVE_MESH_ITEMS: dict[str, str] = {}
 
 
 def check_mesh(cfg, tp, serve: bool = False) -> None:
     """Exit for a config the reference does not train on a mesh of more
     than one rank: an enc-dec or vlm config, which its driver refuses.
-    With ``serve`` (a prefill or decode step) raise for a family whose
-    sharded serving steps are not ported yet (`SERVE_MESH_ITEMS`), and
-    for a head_dim or d_inner that ``model`` does not divide (the decode
-    cache's rules leave it whole): nothing runs half-sharded."""
+    With ``serve`` (a prefill or decode step, which every family runs on
+    a mesh) raise instead for a head_dim or d_inner that ``model`` does
+    not divide (the decode cache's rules leave it whole): nothing runs
+    half-sharded."""
     if tp is None:
         return
     if serve:
-        fam = "enc-dec" if cfg.is_encoder_decoder else cfg.family
-        if fam not in SERVE_MESH_FAMILIES or cfg.embed_input:
-            raise NotImplementedError(
-                f"{cfg.name}: the {fam} family's serving steps on a mesh are "
-                f"not ported (ROADMAP Queue 1 item "
-                f"{SERVE_MESH_ITEMS.get(fam, '11d')})")
         _check_serve_split(cfg, tp)
         return
     if cfg.is_encoder_decoder or cfg.embed_input:
@@ -443,10 +443,12 @@ def check_mesh(cfg, tp, serve: bool = False) -> None:
 
 def _check_serve_split(cfg, tp) -> None:
     """Raise where ``model`` (more than one rank) does not split the
-    decode cache's head_dim (k: (L, B, W, K, hd)) or d_inner (ssm:
-    (L, B, di, N)), naming the shapes: before any work of the step."""
+    decode cache's head_dim (k and an encoder-decoder's cross_k:
+    (L, B, W, K, hd)) or d_inner (ssm: (L, B, di, N)), naming the leaf
+    and its shape: before any work of the step."""
     M = tp.mesh.shape["model"]
-    for name, dim, what in (("k", 4, "head_dim"), ("ssm", 2, "d_inner")):
+    for name, dim, what in (("k", 4, "head_dim"), ("cross_k", 4, "head_dim"),
+                            ("ssm", 2, "d_inner")):
         path = f"cache/decode/{name}"
         if M > 1 and path in tp.specs and tp.specs[path][dim] != "model":
             raise NotImplementedError(
@@ -497,9 +499,9 @@ def prefill(cfg, params, batch, cache_len=None, plain=False, tp=None):
     reference, so the first decode step overwrites slot 0 (position 0).
 
     ``tp`` (a serving placement, ``launch.sharding.serve_placement``, of
-    this cache's whole shape; the dense, moe, ssm and hybrid families,
-    `check_mesh`): ``params`` are this rank's shards and ``batch`` its
-    rows (split over the data axes where they divide B, else every row);
+    this cache's whole shape; every family): ``params`` are this rank's
+    shards and ``batch`` its rows, ``tokens`` or ``inputs_embeds`` (split
+    over the data axes where they divide B, else every row);
     the moe layers dispatch by ``moe_impl`` ("local": each data rank's
     rows in a capacity of their own); the cache is this rank's shard of
     the prefill layout (W over ``model``, the conv and ssm states

@@ -45,8 +45,9 @@ class Model:
 
     def prefill(self, params, batch, cache_len=None, plain=False, tp=None):
         """The family's prefill; ``tp`` (a serving placement) runs it on
-        a mesh, the dense, ssm and hybrid families only
-        (`lm.check_mesh`)."""
+        a mesh, for every family: dense, vlm, moe, ssm, hybrid and
+        enc-dec (`lm.check_mesh` raises only where ``model`` does not
+        split the decode cache's head_dim or d_inner)."""
         lm.check_mesh(self.cfg, tp, serve=True)
         on_mesh = {} if tp is None else {"tp": tp}
         return self._mod.prefill(self.cfg, params, batch,

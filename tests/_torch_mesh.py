@@ -28,6 +28,7 @@ Everything runs in f32 (the smoke configs with ``dtype`` and
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import pickle
 import subprocess
@@ -541,14 +542,34 @@ SERVE_STEPS = 3
 SERVE_SEED = 9
 
 
-def serve_inputs(cfg, batch=B) -> dict:
-    """The prompt (batch, S) and the decode steps' tokens (steps, batch,
-    1)."""
+def serve_inputs(cfg, batch=B, lengths=(S, S)) -> dict:
+    """The prefill batch and the decode steps' tokens (steps, batch, 1,
+    under ``"decode"``), drawn from the seed: a prompt of (batch, S)
+    tokens; for the vlm family (batch, S, D) f32 ``inputs_embeds``; for
+    an encoder-decoder ``src_embeds`` (batch, Ss, D) and ``tgt_tokens``
+    (batch, St), ``lengths`` (St, Ss)."""
     rng = np.random.default_rng(SERVE_SEED)
-    return {"tokens": rng.integers(0, cfg.vocab_size, (batch, S),
-                                   dtype=np.int32),
-            "decode": rng.integers(0, cfg.vocab_size,
-                                   (SERVE_STEPS, batch, 1), dtype=np.int32)}
+    St, Ss = lengths
+    if cfg.is_encoder_decoder:
+        out = {"src_embeds": rng.standard_normal(
+                   (batch, Ss, cfg.d_model)).astype(np.float32),
+               "tgt_tokens": rng.integers(0, cfg.vocab_size, (batch, St),
+                                          dtype=np.int32)}
+    elif cfg.embed_input:
+        out = {"inputs_embeds": rng.standard_normal(
+            (batch, St, cfg.d_model)).astype(np.float32)}
+    else:
+        out = {"tokens": rng.integers(0, cfg.vocab_size, (batch, St),
+                                      dtype=np.int32)}
+    out["decode"] = rng.integers(0, cfg.vocab_size, (SERVE_STEPS, batch, 1),
+                                 dtype=np.int32)
+    return out
+
+
+def prefill_batch(inputs: dict) -> dict:
+    """The prefill's batch of `serve_inputs`: every leaf but the decode
+    steps' tokens."""
+    return {k: v for k, v in inputs.items() if k != "decode"}
 
 
 def _with_biases(cfg, params: dict) -> dict:
@@ -584,14 +605,14 @@ def _reference_serve_main(cases, out) -> None:
                               else v.dtype) for k, v in cache.items()}
 
     result = {}
-    for case, arch, overrides, meshes, rows in cases:
+    for case, arch, overrides, meshes, rows, lengths in cases:
         cfg = _f32(registry.get_smoke(arch)).replace(**(overrides or {}))
         model = get_model(cfg)
         flat = _with_biases(cfg, _flat(jax.tree.map(
             np.asarray, model.init_params(jax.random.PRNGKey(SEED)))))
         params = jax.tree.map(jnp.asarray, _unflat(flat))
-        inputs = serve_inputs(cfg, rows)
-        batch = {"tokens": jnp.asarray(inputs["tokens"])}
+        inputs = serve_inputs(cfg, rows, lengths)
+        batch = {k: jnp.asarray(v) for k, v in prefill_batch(inputs).items()}
         _, cache1 = jax.jit(model.prefill)(params, batch)
         rec = {"params": flat, "inputs": inputs,
                "prefill_cache": host(cache1),
@@ -643,7 +664,8 @@ def _reference_serve_main(cases, out) -> None:
 
 def reference_serves(cases, tmp: Path) -> dict:
     """The reference's sharded prefill and decode steps for each of
-    ``cases`` ((key, arch, overrides, meshes, batch)), all in one subprocess
+    ``cases`` ((key, arch, overrides, meshes, batch, (St, Ss))), all in one
+    subprocess
     with 4 host devices: {key: record}, with each mesh's logits, caches
     and shard shapes, and the one-device prefill's cache that the decode
     steps start from."""
@@ -662,11 +684,12 @@ def reference_serves(cases, tmp: Path) -> dict:
         return pickle.load(f)
 
 
-def port_serve_rank(arch, overrides, ref, meshes, batch=B):
+def port_serve_rank(arch, overrides, ref, meshes, batch=B, lengths=(S, S)):
     """On each mesh of ``meshes`` (all of this world's size) the port's
     sharded prefill and ``SERVE_STEPS`` decode steps of ``arch`` (smoke,
-    f32, with ``overrides``, a batch of ``batch``) from the reference's
-    params and inputs (``ref``, a `reference_serves` record): each as
+    f32, with ``overrides``, a batch of ``batch``, the prefill's
+    ``lengths`` (St, Ss)) from the reference's params and inputs
+    (``ref``, a `reference_serves` record): each as
     (this rank's result, its shard of the reference's) pairs of numpy
     arrays, the results' shard shapes, the decode steps' collectives by
     kind and the model-axis gathers of the prefill and of the decode
@@ -691,7 +714,8 @@ def port_serve_rank(arch, overrides, ref, meshes, batch=B):
     for shape in meshes:
         mesh = rank_mesh(("data", "model"), shape, backend="gloo")
         tp = SH.serve_placement(mesh, param_structs(cfg), kvc.init_cache(
-            cfg, batch, S, dtype=torch.float32, device="meta"))
+            cfg, batch, lengths[0], dtype=torch.float32, device="meta",
+            src_len=lengths[1]))
         local = P.params_to_mesh(params, tp)
         want = ref["meshes"][shape]
 
@@ -712,8 +736,8 @@ def port_serve_rank(arch, overrides, ref, meshes, batch=B):
                                                mesh).numpy())
 
         mesh.stats.reset()
-        logits, cache = model.prefill(local, {"tokens": rows(
-            inputs["tokens"])}, tp=tp)
+        logits, cache = model.prefill(local, {
+            k: rows(v) for k, v in prefill_batch(inputs).items()}, tp=tp)
         rec = {"prefill_collectives": mesh.stats.summary(),
                "prefill_gathers": dict(tp.gathers),
                "prefill": {"logits": logits_pair(
@@ -764,22 +788,29 @@ def serve_batch(case: tuple) -> int:
     return case[3] if len(case) > 3 else B
 
 
+def serve_lengths(case: tuple) -> tuple[int, int]:
+    """A case's prefill lengths (St, Ss): its fifth entry where it has
+    one, else (S, S); Ss is an encoder-decoder's source."""
+    return tuple(case[4]) if len(case) > 4 else (S, S)
+
+
 def serve_cases(cases: dict, tmp: Path) -> dict:
     """The reference's serving steps for each of ``cases`` ({key: (arch,
-    overrides, meshes[, batch])}, batch B where it is left out; one
-    subprocess for all) and the port's on the ranks of each world size
-    among them (one spawn a world size): {key: (ref, {shape: [rank
-    results]})}."""
+    overrides, meshes[, batch[, (St, Ss)]])}, batch B and lengths (S, S)
+    where they are left out; one subprocess for all) and the port's on
+    the ranks of each world size among them (one spawn a world size):
+    {key: (ref, {shape: [rank results]})}."""
     from repro_torch.launch.ranks import spawn
 
     refs = reference_serves([(key, case[0], case[1], tuple(case[2]),
-                              serve_batch(case))
+                              serve_batch(case), serve_lengths(case))
                              for key, case in cases.items()], tmp)
     port = {key: {} for key in cases}
     for world in sorted({m[0] * m[1] for case in cases.values()
                          for m in case[2]}):
         jobs = [(key, {"arch": case[0], "overrides": case[1],
                        "ref": refs[key], "batch": serve_batch(case),
+                       "lengths": serve_lengths(case),
                        "meshes": [m for m in case[2]
                                   if m[0] * m[1] == world]})
                 for key, case in cases.items()
@@ -852,13 +883,30 @@ def serve_rows(case: tuple, shape) -> int:
     return batch // shape[0] if batch % shape[0] == 0 else batch
 
 
-class MoeServeCases:
-    """The moe family's serving steps on a mesh: each (key, shape) of the
-    module's ``CASES`` ({key: (arch, overrides, meshes[, batch])}; the
+def embed_sums(cfg, shape) -> int:
+    """The sums over ``model`` a token embedding takes on a (data, model)
+    ``shape``: one where the embedding's vocab is split over ``model``,
+    none where the guard leaves it whole (each rank looks its tokens up
+    in its own copy)."""
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.mesh import Mesh
+
+    spec = SH.param_spec("embed", (cfg.vocab_size, cfg.d_model),
+                         Mesh(("data", "model"), shape))
+    return int(spec[0] == "model")
+
+
+class ServeCases:
+    """Serving steps on a mesh: each (key, shape) of the module's
+    ``CASES`` ({key: (arch, overrides, meshes[, batch[, (St, Ss)]])}; the
     module's ``serves`` fixture, their `serve_cases`), the port's sharded
     prefill and decode steps against the reference's jitted steps under
     the dry run's shardings, at the f32 tolerance of
-    tests/test_torch_model.py."""
+    tests/test_torch_model.py: logits, every cache leaf's shards (an
+    encoder-decoder's cross_k and cross_v in both layouts) and shard
+    shapes, `kv_cache.to_decode_layout` against the decode placement,
+    and the bytes against the dry run's. A module adds its family's
+    ``test_collectives_by_kind``."""
 
     CASES: dict
     ATOL = RTOL = 1e-4
@@ -880,8 +928,6 @@ class MoeServeCases:
 
     def test_prefill_cache_matches_reference(self, serves, key, shape):
         for r, rank in enumerate(serves[key][1][shape]):
-            assert set(rank["prefill"]["cache"]) == {"k", "v", "slot_pos",
-                                                     "pos"}
             for name, pair in rank["prefill"]["cache"].items():
                 self._close(pair, (key, shape, r, name))
 
@@ -911,6 +957,55 @@ class MoeServeCases:
     def test_to_decode_layout_equals_the_decode_placement(self, serves, key,
                                                           shape):
         assert all(rank["layout_equal"] for rank in serves[key][1][shape])
+
+    def test_bytes_match_dry_run(self, serves, key, shape):
+        """Each rank's params and decode cache: the dry run's per-device
+        argument bytes of the decode step at this mesh (its cache, which
+        both packages' dry runs hold in bf16, counted at the model's f32
+        under the dry run's specs). Where an encoder-decoder's source is
+        not as long as its target, the dry run's one length gives its
+        cross leaves the target's: the cache is then counted from the
+        reference's own decode shards (shape times the same itemsize)."""
+        import torch
+
+        from repro_torch.configs import InputShape
+        from repro_torch.launch import dryrun
+        from repro_torch.launch import sharding as SH
+        from repro_torch.launch.mesh import Mesh
+
+        cfg = self.cfg(key)
+        case = self.CASES[key]
+        St, Ss = serve_lengths(case)
+        extra = {f.name: getattr(cfg, f.name)
+                 for f in dataclasses.fields(cfg)}
+        cell = dryrun.build_cell(case[0], InputShape(
+            "decode", St, serve_batch(case), "decode"), extra=extra,
+            mesh=Mesh(("data", "model"), shape))
+        want = cell.argument_bytes()
+        cache = {k: v.to(torch.float32) if v.is_floating_point() else v
+                 for k, v in cell.args["cache"].items()}
+        if Ss == St:
+            want["cache"] = SH.tree_bytes(cache, cell.arg_specs["cache"],
+                                          cell.mesh)
+        else:
+            shards = serves[key][0]["meshes"][shape]["decode_shapes"]
+            want["cache"] = sum(math.prod(shards[k]) * v.element_size()
+                                for k, v in cache.items())
+        for rank in serves[key][1][shape]:
+            assert rank["bytes"] == {"params": want["params"],
+                                     "cache": want["cache"]}
+
+
+class MoeServeCases(ServeCases):
+    """`ServeCases` for the moe family: its cache holds attention's
+    leaves alone, and a prefill gathers the data ranks' per-expert counts
+    where `moe_sorted` ranks a batch that the data axes split."""
+
+    def test_prefill_cache_matches_reference(self, serves, key, shape):
+        for rank in serves[key][1][shape]:
+            assert set(rank["prefill"]["cache"]) == {"k", "v", "slot_pos",
+                                                     "pos"}
+        super().test_prefill_cache_matches_reference(serves, key, shape)
 
     def test_collectives_by_kind(self, serves, key, shape):
         """A prefill sends each layer's k and v by one ``all_to_all``
@@ -948,30 +1043,3 @@ class MoeServeCases:
                 assert c["calls"]["all_reduce"] == 2 * L + 1
                 assert c["bytes_by"]["all_reduce"] == (
                     (2 * L + 1) * rows * D * 4)
-
-    def test_bytes_match_dry_run(self, serves, key, shape):
-        """Each rank's params and decode cache: the dry run's per-device
-        argument bytes of the decode step at this mesh (its k and v,
-        which both packages' dry runs hold in bf16, counted at the
-        model's f32 under the dry run's specs)."""
-        import torch
-
-        from repro_torch.configs import InputShape
-        from repro_torch.launch import dryrun
-        from repro_torch.launch import sharding as SH
-        from repro_torch.launch.mesh import Mesh
-
-        cfg = self.cfg(key)
-        extra = {f.name: getattr(cfg, f.name)
-                 for f in dataclasses.fields(cfg)}
-        cell = dryrun.build_cell(self.CASES[key][0], InputShape(
-            "decode", S, serve_batch(self.CASES[key]), "decode"),
-            extra=extra, mesh=Mesh(("data", "model"), shape))
-        want = cell.argument_bytes()
-        want["cache"] = SH.tree_bytes(
-            {k: v.to(torch.float32) if v.is_floating_point() else v
-             for k, v in cell.args["cache"].items()},
-            cell.arg_specs["cache"], cell.mesh)
-        for rank in serves[key][1][shape]:
-            assert rank["bytes"] == {"params": want["params"],
-                                     "cache": want["cache"]}

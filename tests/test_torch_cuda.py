@@ -1157,6 +1157,15 @@ def test_ssm_families_refuse_to_train_on_the_card(card, arch):
     (1, 48, 8, 4096, 8, 4096, 524289),  # mixtral's long_500k rank
     (2, 12, 2, 1000, 64, 300, 1500),   # G 6, a window short of the ring
     (2, 12, 2, 1000, 8, 300, 1500),    # the same at slice 8
+    # seamless's G 1 (hd 64): its decode_32k rank (model 16) with every
+    # slot valid (slot_pos arange(W), pos W - 1), as the cross decode
+    # calls it, and after the self ring's wrap; its (1, 4) rank alike
+    (8, 16, 16, 32768, 4, 0, 32768),
+    (8, 16, 16, 2048, 4, 0, 2049),
+    (2, 16, 16, 2048, 16, 0, 2048),
+    (2, 16, 16, 2048, 16, 0, 2049),
+    (8, 16, 8, 2048, 8, 0, 2049),      # internvl2's G 2, hd 128 over 16
+    (2, 16, 8, 2048, 64, 0, 2049),     # its (1, 2) rank, over model 2
 ])
 def test_decode_pair_matches_plain(card, dtype, B, H, K, W, hs, window,
                                    fill):
@@ -1202,7 +1211,8 @@ def test_decode_pair_over_slices_equals_flash_decode_plain(card, dtype, n):
 
 
 @pytest.mark.parametrize("H, K, hs, hd, window", [
-    (32, 8, 16, 128, 0), (25, 5, 4, 64, 2048)])
+    (32, 8, 16, 128, 0), (25, 5, 4, 64, 2048),
+    (16, 16, 4, 64, 0), (16, 8, 8, 128, 0)])      # G 1 and G 2
 def test_decode_pair_runs_bit_for_bit(card, H, K, hs, hd, window):
     gen = torch.Generator(device=card).manual_seed(13)
     q = _randn(gen, (2, H, hs), torch.bfloat16)

@@ -7,7 +7,9 @@ head), yi-34b (H 7 over K 1, hd 16: uneven heads, one kv head for every
 rank) and qwen2-72b (QKV biases, drawn nonzero) smoke in f32; the decode
 steps start from the reference's one-device prefill cache placed by the
 decode rules, and the first of them evicts position 0. One reference
-subprocess for every case, one spawn a world size."""
+subprocess for every case, one spawn a world size. The vlm and enc-dec
+families have files of their own (test_torch_mesh_serve_vlm.py,
+test_torch_mesh_serve_encdec.py)."""
 import dataclasses
 
 import numpy as np
@@ -133,32 +135,6 @@ class TestServeOnMesh:
         for rank in serves[key][1][shape]:
             assert rank["bytes"] == {"params": want["params"],
                                      "cache": want["cache"]}
-
-
-@pytest.mark.parametrize("arch", ["internvl2-2b", "seamless-m4t-large-v2"])
-def test_other_families_refuse_serving_on_a_mesh(arch):
-    """A serving step on a mesh refuses the vlm and enc-dec families,
-    naming the ROADMAP item that ports them (11d), before any work."""
-    import torch
-
-    from repro_torch.configs import registry
-    from repro_torch.launch import sharding as SH
-    from repro_torch.launch.mesh import rank_mesh
-    from repro_torch.models import get_model
-    from repro_torch.models import kv_cache as kvc
-    from repro_torch.models.registry import param_structs
-
-    cfg = registry.get_smoke(arch)
-    model = get_model(cfg, device="cpu")
-    mesh = rank_mesh(("data", "model"), (1, 1), backend="gloo")
-    tp = SH.serve_placement(mesh, param_structs(cfg), kvc.init_cache(
-        cfg, 1, 8, device="meta"))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
-        model.prefill(None, {"tokens": torch.zeros((1, 8), dtype=torch.int32)},
-                      tp=tp)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
-        model.decode_step(None, {}, torch.zeros((1, 1), dtype=torch.int32),
-                          tp=tp)
 
 
 def test_a_prompt_that_model_does_not_divide():
